@@ -1,0 +1,489 @@
+"""Smoke run of the PyTorch/H100 port (geotrax_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, one ``[smoke] <phase> ok <seconds>s ...`` line each; a failing phase
+ends the run with a non-zero exit and no result line:
+
+  0 device     the card's name and power limit (exit 1 without a card)
+  1 build      nvcc builds csrc/fast_score.cu for sm_90a (-Xptxas -v shown)
+  2 kernel     the FAST kernel equals its plain PyTorch version exactly on a
+               seeded (33,1080,1920) batch at thresholds 20 and 7 and on an
+               odd (2,37,53) batch; CUDA-event times of the kernel and the
+               plain version at the main path's (32,1080,1920)
+  3 main       the default extract configuration: YOLOv8s at imgsz 1920
+               (random weights from a seeded generator, class biases set so
+               that about VEHICLES_PER_4K_FRAME boxes pass ``conf``) on two
+               32-frame chunks of 3840x2160 synthetic frames seen by a
+               moving camera, through the fused chunk step and the row
+               emitter into the two text files, read back and checked; the
+               FAST launch counter must rise by 3, and every frame's
+               homography must be the camera's
+  4 steady     three more chunks of the same video through the same
+               extractor: ms per chunk (median, min, max), checked as above
+  5 breakdown  one more chunk under torch.profiler, checked as above: host
+               and device time per stage and the largest device items
+               (device times read 0 where the profiler sees none)
+  6 reference  the same port on a small oracle clip with a moving camera,
+               on the card and on the CPU (plain versions): equal track
+               ids, close geometry
+Then a JSON line describing each kernel, the card's nvidia-smi line, and as
+the last line {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import tempfile
+import time
+import numpy as np
+import torch
+
+from geotrax_tpu_torch import cfg as port_cfg
+from geotrax_tpu_torch.io.synthetic import SyntheticVideoReader
+from geotrax_tpu_torch.models import yolov8
+from geotrax_tpu_torch.models.detector import Detector, OracleDetector
+from geotrax_tpu_torch.ops import fast
+from geotrax_tpu_torch.ops.resize import resize_u8_linear
+from geotrax_tpu_torch.pipeline import extract as port_extract
+from geotrax_tpu_torch.pipeline.device_pipeline import FusedExtractor
+
+# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and float32
+# rate outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+# FAST per pixel: 2 threshold adds, then per ring sample 2 compares, a
+# subtract, an abs and an add.
+FAST_FLOPS_PER_PIXEL = 2 + 16 * 5
+
+FAST_SOURCE = "geotrax_tpu_torch/csrc/fast_score.cu"
+FAST_REPLACES = "geotrax_tpu/ops/pallas_fast.py:36"
+
+# Vehicles per 4K frame: the geo-trax detector's training set (Songdo
+# Vision, upstream README) holds ~679k labelled vehicles in >19,000 aerial
+# 4K images, about 36 per image. The random detector is calibrated to that
+# many boxes per frame, scaled by frame area at other sizes.
+VEHICLES_PER_4K_FRAME = 36
+# Camera drift per frame (px right, px down, degrees, zoom factor): a
+# hovering drone's slow drift, so that stabilization and GMC are not the
+# identity.
+CAMERA = (1.0, -0.5, 0.01, 1.0001)
+STEADY_CHUNKS = 3
+
+
+def log(msg: str) -> None:
+    print(f"[smoke] {msg}", flush=True)
+
+
+def textured_batch(b: int, h: int, w: int, seed: int) -> np.ndarray:
+    """Seeded aerial-like float32 gray frames (noise, blocks, lines)."""
+    rng = np.random.default_rng(seed)
+    img = rng.integers(40, 90, (b, h, w)).astype(np.float32)
+    n_blocks = max(4, h * w // 800)
+    ys = rng.integers(0, max(h - 16, 1), (b, n_blocks))
+    xs = rng.integers(0, max(w - 16, 1), (b, n_blocks))
+    hw = rng.integers(2, 16, (b, n_blocks, 2))
+    val = rng.integers(120, 255, (b, n_blocks))
+    for i in range(b):
+        for y, x, (bh, bw), v in zip(ys[i], xs[i], hw[i], val[i]):
+            img[i, y:y + bh, x:x + bw] = v
+        for y in rng.integers(0, h, 4):
+            img[i, y:y + 2, :] = 200
+    return img
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def fast_bound_ms(shape) -> tuple:
+    """Least time of one FAST score map over ``shape`` on an H100: each
+    input read once and each output written once, against the float32
+    operations; returns (ms, "bytes" | "operations")."""
+    pixels = int(np.prod(shape))
+    bytes_ms = 2 * 4 * pixels / HBM_BYTES_PER_S * 1e3
+    ops_ms = FAST_FLOPS_PER_PIXEL * pixels / FP32_FLOP_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+# --------------------------------------------------------------------------
+# phases
+# --------------------------------------------------------------------------
+
+def phase_device() -> dict:
+    if not torch.cuda.is_available():
+        raise SystemExit("[smoke] device FAILED: torch.cuda.is_available() is False")
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    return {"name": name, "count": torch.cuda.device_count(),
+            "smi": smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "not read"}
+
+
+def phase_build() -> str:
+    _, build_log = fast.build(verbose=True)
+    return build_log
+
+
+def phase_kernel(device: str = "cuda", check_shape=(33, 1080, 1920), odd_shape=(2, 37, 53),
+                 time_shape=(32, 1080, 1920), reps: int = 20) -> dict:
+    """FAST kernel == plain version (exactly) and the two times. On the CPU
+    (a rehearsal) the wrapper itself runs the plain version, so the
+    comparison is trivial and nothing is timed."""
+    dev = torch.device(device)
+    max_err = 0.0
+    for shape, seed in ((check_shape, 1), (odd_shape, 2)):
+        gray = torch.from_numpy(textured_batch(*shape, seed)).to(dev)
+        for thr in (20.0, 7.0):
+            out = fast.fast_score_map(gray, thr)
+            plain = fast.fast_score_map_torch(gray, thr)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            err = float((out - plain).abs().max())
+            corners = int((plain > 0).sum())
+            if err != 0.0 or not torch.equal(out, plain) or corners == 0:
+                raise AssertionError(f"FAST kernel != plain at {shape} t={thr}: max err {err}, "
+                                     f"{corners} corners")
+            max_err = max(max_err, err)
+        del gray, out, plain
+    bound, bound_by = fast_bound_ms(time_shape)
+    res = {"max_abs_err": max_err, "bound_ms": bound, "bound_by": bound_by,
+           "ms": None, "plain_ms": None}
+    if dev.type == "cuda":
+        gray = torch.from_numpy(textured_batch(*time_shape, 3)).to(dev)
+        res["ms"] = cuda_ms(lambda: fast.fast_score_map(gray, 20.0), reps)
+        res["plain_ms"] = cuda_ms(lambda: fast.fast_score_map_torch(gray, 20.0), max(reps // 4, 2))
+    return res
+
+
+def calibrate_class_bias(detector: Detector, frame_u8: np.ndarray, boxes: int) -> int:
+    """Shift the class-score biases of a randomly initialized detector so that
+    about ``boxes`` anchors of ``frame_u8`` score at or above the confidence
+    threshold; returns the number of detections NMS then keeps on that frame.
+
+    A random YOLOv8 scores every anchor at about 0.5 (its class logits
+    spread by ~0.01), so all of them pass ``conf`` and the 1000 kept boxes
+    mask the whole frame out of the stabilizer."""
+    h, w = frame_u8.shape[:2]
+    new_h, new_w, _, top, left, out_h, out_w = detector.resize_geometry(h, w)
+    x = torch.as_tensor(frame_u8[None]).to(detector.device)
+    imgs = yolov8.letterbox_pad(resize_u8_linear(x, new_h, new_w), out_h, out_w, top, left)
+    with torch.no_grad():
+        _, probs = yolov8.forward(detector.model, imgs, detector.spec)
+        logits = torch.logit(probs.amax(dim=-1).double()).flatten()
+        kth = float(torch.topk(logits, boxes).values[-1])
+        shift = math.log(detector.conf / (1.0 - detector.conf)) - kth + 1e-6
+        head = detector.model.layers[str(detector.spec.head_index)]
+        for branch in head.cv3:
+            branch[2].bias += shift
+    return int(detector.batch_trace(h, w)(x)["valid"].sum())
+
+
+def vehicles_per_frame(width: int, height: int) -> int:
+    return max(1, round(VEHICLES_PER_4K_FRAME * width * height / (3840 * 2160)))
+
+
+def smoke_reader(width: int, height: int, seed: int, horizon: int, start: int = 0,
+                 stop=None) -> SyntheticVideoReader:
+    """Frames ``start..stop-1`` of one ``horizon``-frame video seen by the
+    drifting camera (the same video whatever the slice)."""
+    return SyntheticVideoReader(width=width, height=height, n_frames=horizon, seed=seed,
+                                camera=CAMERA, start=start, stop=stop)
+
+
+def build_extractor(device: str, width: int, height: int, variant: str, imgsz: int, seed: int,
+                    chunk: int, first_frame: np.ndarray):
+    config = port_cfg.load_config()
+    config["ultralytics"]["imgsz"] = imgsz
+    spec = yolov8.ModelSpec(variant=variant, nc=4)
+    model = yolov8.init_params(torch.Generator().manual_seed(seed), spec, device=device)
+    detector = Detector(model, config["ultralytics"], device=device)
+    n_det = calibrate_class_bias(detector, first_frame, vehicles_per_frame(width, height))
+    tracker_cfg, state, step = port_extract.make_extract_tracker(config, device=device)
+    fx = FusedExtractor(detector, config["stabilo"], step, state, height, width,
+                        use_gmc=tracker_cfg.use_gmc, chunk=chunk, rng_seed=seed, device=device)
+    return config, fx, n_det
+
+
+def camera_error(h: np.ndarray, frame_ids, reader: SyntheticVideoReader) -> float:
+    """Largest distance [px] between where each frame's homography and the
+    camera's true one map the frame's corners and centre."""
+    w, hh = reader.info.width, reader.info.height
+    pts = np.array([[0, 0, 1], [w, 0, 1], [0, hh, 1], [w, hh, 1], [w / 2, hh / 2, 1]], float)
+
+    def mapped(m):
+        q = pts @ m.T
+        return q[:, :2] / q[:, 2:]
+
+    return max(float(np.abs(mapped(hf) - mapped(reader.camera_h(i))).max())
+               for hf, i in zip(h, frame_ids))
+
+
+def check_homographies(h: np.ndarray, frame_ids, reader: SyntheticVideoReader,
+                       tol_px: float) -> float:
+    """Every homography finite and within ``tol_px`` of the camera's at the
+    frame's corners and centre; returns the largest deviation."""
+    if not np.isfinite(h).all():
+        raise AssertionError("homographies are not finite")
+    err = camera_error(h, frame_ids, reader)
+    if err > tol_px:
+        raise AssertionError(f"stabilization is {err:.3f} px off the camera's homography "
+                             f"(limit {tol_px} px)")
+    return err
+
+
+def check_outputs(stats: dict, n_frames: int, reader: SyntheticVideoReader,
+                  tol_px: float) -> dict:
+    """Read back the two files and hold them to the extract contract: h[0]
+    (the reference frame) is the identity, every frame stabilizes (>= 4
+    matches) to the camera's true homography within ``tol_px`` at the
+    frame's corners, the tracks file has 12 finite columns."""
+    h = stats["h"]
+    if h.shape != (n_frames, 3, 3):
+        raise AssertionError(f"homographies: shape {h.shape}")
+    if not np.array_equal(h[0], np.eye(3, dtype=h.dtype)):
+        raise AssertionError(f"h[0] (the reference frame) is not the identity: {h[0]}")
+    failed = int((stats["matches"][1:] < 4).sum())
+    if failed:
+        raise AssertionError(f"stabilization failed on {failed} frames")
+    cam_err = check_homographies(h, range(n_frames), reader, tol_px)
+    tracks = np.loadtxt(stats["tracks_file"], delimiter=",", ndmin=2)
+    transf = np.loadtxt(stats["transforms_file"], delimiter=",", ndmin=2)
+    if tracks.shape[1] != 12 or len(tracks) == 0 or not np.isfinite(tracks).all():
+        raise AssertionError(f"tracks file: shape {tracks.shape}")
+    if transf.shape != (n_frames - 1, 10) or not np.isfinite(transf).all():
+        raise AssertionError(f"transforms file: shape {transf.shape}")
+    if not np.array_equal(transf[:, 0], np.arange(1, n_frames)):
+        raise AssertionError("transforms file: frame numbers are not 1..n-1")
+    frames = np.unique(tracks[:, 0])
+    if frames.min() < 0 or frames.max() >= n_frames or (tracks[:, 1] < 1).any():
+        raise AssertionError("tracks file: frame or id out of range")
+    return {"rows": int(len(tracks)), "tracks": int(len(np.unique(tracks[:, 1]))),
+            "frames_with_tracks": int(len(frames)), "camera_err_px": cam_err,
+            "min_matches": int(stats["matches"][1:].min()),
+            "min_inliers": int(stats["inliers"][1:].min())}
+
+
+def phase_main(device: str = "cuda", width: int = 3840, height: int = 2160, n_frames: int = 64,
+               chunk: int = 32, variant: str = "s", imgsz: int = 1920, seed: int = 0,
+               horizon=None, tol_px: float = 2.0) -> dict:
+    """The port's default extract path, driven through its entry points,
+    over the first ``n_frames`` of a ``horizon``-frame video."""
+    t0 = time.perf_counter()
+    horizon = horizon or n_frames
+    reader = smoke_reader(width, height, seed, horizon, stop=n_frames)
+    config, fx, n_det = build_extractor(device, width, height, variant, imgsz, seed, chunk,
+                                        next(iter(reader))[1])
+    setup_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        stats = port_extract.extract(reader, fx, tmp, "V_smoke", config=config, chunk=chunk)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        checks = check_outputs(stats, n_frames, reader, tol_px)
+    return {"setup_s": setup_s, "stats": stats, "checks": checks, "fx": fx,
+            "detections_frame0": n_det, "horizon": horizon}
+
+
+def phase_steady(fx, width: int, height: int, seed: int, horizon: int, start: int,
+                 chunk: int = 32, n_chunks: int = STEADY_CHUNKS, tol_px: float = 2.0) -> dict:
+    """``n_chunks`` more chunks of the same video through the same
+    extractor (tracker state and reference frame carried on), with the
+    tracks and transforms rows checked; ms per chunk as the row emitter
+    measures it (chunk step plus the copy of its outputs to the host)."""
+    reader = smoke_reader(width, height, seed, horizon, start, start + n_chunks * chunk)
+    tracks, transforms, stats = port_extract.track_video_fused(reader, fx, chunk=chunk)
+    if stats["chunks"] != n_chunks or stats["frames"] != n_chunks * chunk:
+        raise AssertionError(f"steady run: {stats['chunks']} chunks, {stats['frames']} frames")
+    if tracks.shape[1] != 12 or not np.isfinite(tracks).all() or len(transforms) != stats["frames"]:
+        raise AssertionError(f"steady run: tracks {tracks.shape}, transforms {transforms.shape}")
+    cam_err = check_homographies(stats["h"], range(start, start + stats["frames"]), reader, tol_px)
+    ms = np.asarray(stats["chunk_s"]) * 1e3
+    return {"chunk_ms": ms.tolist(), "median_ms": float(np.median(ms)), "min_ms": float(ms.min()),
+            "max_ms": float(ms.max()), "camera_err_px": cam_err, "rows": int(len(tracks))}
+
+
+def phase_reference(device: str = "cuda", n_frames: int = 16, chunk: int = 8) -> dict:
+    """The port on ``device`` against the port on the CPU (plain versions),
+    on a small oracle clip with a moving camera: same track ids, geometry
+    within 0.05 px."""
+    results = []
+    for dev in (device, "cpu"):
+        reader = SyntheticVideoReader(width=320, height=240, n_frames=n_frames,
+                                      camera=(0.5, -0.3, 0.2, 1.002))
+        det = OracleDetector(lambda i, r=reader: [list(b) + [0.9, i % 2] for b in r.boxes_at(i)],
+                             device=dev)
+        config = port_cfg.load_config()
+        tracker_cfg, state, step = port_extract.make_extract_tracker(config, device=dev)
+        fx = FusedExtractor(det, config["stabilo"], step, state, 240, 320,
+                            use_gmc=tracker_cfg.use_gmc, chunk=chunk, device=dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            stats = port_extract.extract(reader, fx, tmp, "V_ref", config=config, chunk=chunk)
+            results.append((np.loadtxt(stats["tracks_file"], delimiter=","),
+                            np.loadtxt(stats["transforms_file"], delimiter=",")))
+    (t_dev, h_dev), (t_cpu, h_cpu) = results
+    if t_dev.shape != t_cpu.shape or not np.array_equal(t_dev[:, [0, 1, 10, 11]], t_cpu[:, [0, 1, 10, 11]]):
+        raise AssertionError(f"track rows differ: {t_dev.shape} vs {t_cpu.shape}")
+    box_err = float(np.abs(t_dev[:, 2:10] - t_cpu[:, 2:10]).max())
+    h_err = float(np.abs(h_dev - h_cpu).max())
+    if box_err > 0.05 or h_err > 0.05:
+        raise AssertionError(f"geometry differs: boxes {box_err} px, H {h_err}")
+    return {"rows": int(len(t_dev)), "box_err": box_err, "h_err": h_err}
+
+
+def breakdown(fx, width: int, height: int, seed: int, horizon: int, start: int,
+              chunk: int = 32, top: int = 12, tol_px: float = 2.0) -> dict:
+    """Host and device time by stage (the chunk step's ``fx.*`` ranges) and
+    by kernel over one more chunk of the same video, under torch.profiler;
+    the chunk's homographies are checked as in the other phases."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    reader = smoke_reader(width, height, seed, horizon, start, start + chunk)
+    frames = np.stack([frame for _, frame in reader])
+    fids = np.arange(start, start + chunk) + 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fx.process_chunk(frames, fids, chunk)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    check_homographies(out.h.cpu().numpy(), range(start, start + chunk), reader, tol_px)
+    events = prof.key_averages()
+
+    def device_us(e, attr):
+        return getattr(e, attr, getattr(e, attr.replace("device", "cuda"), 0.0)) or 0.0
+
+    # a range shows twice: its host row (host time, device time of the
+    # kernels it launched) and its device-timeline row (span on the card)
+    span = {e.key: device_us(e, "self_device_time_total") / 1e3 for e in events
+            if e.key.startswith("fx.") and e.device_type == DeviceType.CUDA}
+    stages = [(e.key, e.cpu_time_total / 1e3, device_us(e, "device_time_total") / 1e3,
+               span.get(e.key, 0.0))
+              for e in events if e.key.startswith("fx.") and e.device_type == DeviceType.CPU]
+    kernels = sorted(((device_us(e, "self_device_time_total"), e.key, e.count) for e in events
+                      if e.device_type == DeviceType.CUDA and not e.key.startswith("fx.")),
+                     reverse=True)
+    return {"wall_ms": wall_ms,
+            "device_busy_ms": sum(k[0] for k in kernels) / 1e3,
+            "stages": stages,
+            "top": [(k, us / 1e3, n) for us, k, n in kernels[:top]]}
+
+
+# --------------------------------------------------------------------------
+# main
+# --------------------------------------------------------------------------
+
+def main() -> int:
+    t_all = time.perf_counter()
+    width, height, chunk, seed = 3840, 2160, 32, 0
+    n_main = 2 * chunk
+    horizon = n_main + (STEADY_CHUNKS + 1) * chunk  # main, steady, breakdown
+    try:
+        t = time.perf_counter()
+        dev = phase_device()
+        log(f"device ok {time.perf_counter() - t:.1f}s {dev['name']} x{dev['count']} | {dev['smi']}")
+
+        t = time.perf_counter()
+        build_log = phase_build()
+        log(f"build ok {time.perf_counter() - t:.1f}s nvcc -Xptxas -v:")
+        for line in build_log.strip().splitlines():
+            print(f"    {line}", flush=True)
+
+        t = time.perf_counter()
+        kern = phase_kernel("cuda")
+        log(f"kernel ok {time.perf_counter() - t:.1f}s exact on (33,1080,1920) and (2,37,53) "
+            f"at t=20,7; (32,1080,1920): kernel_ms={kern['ms']:.4f} plain_ms={kern['plain_ms']:.3f} "
+            f"bound_ms={kern['bound_ms']:.4f} ({kern['bound_by']}) [{dev['smi']}]")
+
+        t = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        fast.fast_score_map.launches = 0
+        main_run = phase_main("cuda", width, height, n_main, chunk, seed=seed, horizon=horizon)
+        launches = fast.fast_score_map.launches
+        stats, checks = main_run["stats"], main_run["checks"]
+        expected = stats["chunks"] + 1  # one per chunk + the reference frame
+        if launches != expected:
+            raise AssertionError(f"FAST kernel launched {launches} times on the main path, "
+                                 f"expected {expected}")
+        chunk_ms = [round(s * 1e3, 1) for s in stats["chunk_s"]]
+        log(f"main ok {time.perf_counter() - t:.1f}s YOLOv8s imgsz 1920, 2x{chunk} frames "
+            f"{width}x{height}: setup {main_run['setup_s']:.1f}s, ms/chunk {chunk_ms}, "
+            f"whole run {stats['fps']:.2f} frames/s, {main_run['detections_frame0']} detections "
+            f"on frame 0 (target {VEHICLES_PER_4K_FRAME}), {checks['rows']} rows "
+            f"({checks['rows'] / n_main:.1f}/frame) / {checks['tracks']} tracks, "
+            f"matches >= {checks['min_matches']}, inliers >= {checks['min_inliers']}, "
+            f"camera error {checks['camera_err_px']:.3f} px, fast launches {launches}, peak mem "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{dev['smi']}]")
+
+        t = time.perf_counter()
+        fast.fast_score_map.launches = 0
+        steady = phase_steady(main_run["fx"], width, height, seed, horizon, n_main, chunk)
+        if fast.fast_score_map.launches != STEADY_CHUNKS:
+            raise AssertionError(f"FAST kernel launched {fast.fast_score_map.launches} times "
+                                 f"over {STEADY_CHUNKS} steady chunks")
+        log(f"steady ok {time.perf_counter() - t:.1f}s {STEADY_CHUNKS} more {chunk}-frame chunks: "
+            f"ms/chunk {[round(m, 1) for m in steady['chunk_ms']]}, median "
+            f"{steady['median_ms']:.1f} ms = {chunk / steady['median_ms'] * 1e3:.2f} frames/s "
+            f"(min {steady['min_ms']:.1f}, max {steady['max_ms']:.1f}), camera error "
+            f"{steady['camera_err_px']:.3f} px, {steady['rows']} rows [{dev['smi']}]")
+
+        t = time.perf_counter()
+        brk = breakdown(main_run["fx"], width, height, seed, horizon,
+                        n_main + STEADY_CHUNKS * chunk, chunk)
+        log(f"breakdown ok {time.perf_counter() - t:.1f}s one more {chunk}-frame chunk under the "
+            f"profiler: wall {brk['wall_ms']:.1f} ms, device busy {brk['device_busy_ms']:.1f} ms "
+            f"[{dev['smi']}]")
+        for name, cpu_ms, dev_ms, span_ms in brk["stages"]:
+            print(f"    stage {name:18s} host {cpu_ms:9.1f} ms  kernels {dev_ms:9.1f} ms  "
+                  f"device span {span_ms:9.1f} ms", flush=True)
+        for name, ms, count in brk["top"]:
+            print(f"    kernel {ms:9.3f} ms  x{count:<6d} {name[:90]}", flush=True)
+
+        t = time.perf_counter()
+        ref = phase_reference("cuda")
+        log(f"reference ok {time.perf_counter() - t:.1f}s cuda vs cpu on 320x240 oracle clip: "
+            f"{ref['rows']} rows, ids equal, box err {ref['box_err']:.2e} px, H err {ref['h_err']:.2e}")
+
+    except Exception as exc:  # noqa: BLE001 — every phase failure ends the run
+        import traceback
+
+        traceback.print_exc()
+        log(f"FAILED after {time.perf_counter() - t_all:.1f}s: {type(exc).__name__}: {exc}")
+        return 1
+
+    log(f"all phases ok {time.perf_counter() - t_all:.1f}s")
+    kernels = {"kernels": [{
+        "name": "fast_score",
+        "route": "cuda",
+        "source": FAST_SOURCE,
+        "replaces": FAST_REPLACES,
+        "launches": launches,
+        "max_abs_err": kern["max_abs_err"],
+        "ms": kern["ms"],
+        "plain_ms": kern["plain_ms"],
+        "bound_ms": kern["bound_ms"],
+        "bound_by": kern["bound_by"],
+        "library_ms": None,
+    }]}
+    print(json.dumps(kernels), flush=True)
+    print(dev["smi"], flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
+                                             "count": dev["count"]}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,91 @@
+"""Linear assignment for tracker association: a forward auction.
+
+Counterpart of ``geotrax_tpu/ops/assignment.py``'s ``auction_assignment`` and
+``masked_assignment``: a single-phase Jacobi forward auction from zero
+prices over a cost matrix padded with a private dummy column per row, so
+rows never compete for dummies and gated tracking matrices converge in a
+few vectorized rounds.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# Auction rounds between two host reads of "every row assigned?": the JAX
+# reference tests it on the device every round (lax.while_loop); here each
+# test is a device->host sync. A round after convergence changes nothing
+# (no row bids), and max_iters is a multiple of this, so the result is the
+# reference's.
+AUCTION_ROUNDS_PER_CHECK = 8
+
+
+def auction_assignment(cost: torch.Tensor, eps: float = 2e-4, max_iters: int = 512) -> torch.Tensor:
+    """Min-cost assignment of (N,M) cost rows to distinct columns, N <= M.
+
+    Jacobi forward auction (every unassigned row bids at once) from zero
+    prices; optimal within N*eps. Returns (N,) int64 column per row; rows
+    still unassigned at the iteration cap return -1."""
+    n, m = cost.shape
+    dev = cost.device
+    benefit = -cost
+    cols = torch.arange(m, device=dev)
+    neg_inf = float("-inf")
+    prices = torch.zeros((m,), dtype=cost.dtype, device=dev)
+    owner = torch.full((m,), -1, dtype=torch.int64, device=dev)
+    assigned = torch.full((n,), -1, dtype=torch.int64, device=dev)
+
+    it = 0
+    while it < max_iters:
+        for _ in range(min(AUCTION_ROUNDS_PER_CHECK, max_iters - it)):
+            unassigned = assigned < 0
+            values = benefit - prices[None, :]
+            best_col = torch.argmax(values, dim=1)
+            best_val = values.gather(1, best_col[:, None])[:, 0]
+            second_val = values.scatter(1, best_col[:, None], neg_inf).amax(dim=1)
+            second_val = torch.where(torch.isfinite(second_val), second_val, best_val - 1.0)
+            bid = torch.where(unassigned, best_val - second_val + eps, neg_inf)
+
+            bid_matrix = torch.where(best_col[:, None] == cols[None, :], bid[:, None], neg_inf)
+            win_bid = bid_matrix.amax(dim=0)
+            win_row = torch.argmax(bid_matrix, dim=0)
+            col_has_bid = torch.isfinite(win_bid)
+
+            # rows outbid this round lose their column (slot n is a sink)
+            displaced = torch.where(col_has_bid & (owner >= 0), owner, n)
+            lost = torch.zeros((n + 1,), dtype=torch.bool, device=dev).index_fill_(0, displaced, True)
+            assigned = torch.where(lost[:n], -1, assigned)
+
+            owner = torch.where(col_has_bid, win_row, owner)
+            prices = prices + torch.where(col_has_bid, win_bid, 0.0)
+            winner_rows = torch.where(col_has_bid, win_row, n)
+            sink = torch.cat([assigned, assigned.new_full((1,), -1)])
+            assigned = sink.index_copy_(0, winner_rows, cols)[:n]
+            it += 1
+        if not bool((assigned < 0).any()):
+            break
+    return assigned
+
+
+def masked_assignment(cost: torch.Tensor, row_valid: torch.Tensor, col_valid: torch.Tensor,
+                      threshold: float, eps: float = 2e-4, max_iters: int = 512):
+    """Gated rectangular assignment (the tracker-association primitive).
+
+    cost: (N,M); invalid rows/columns and pairs with cost > ``threshold`` may
+    not match. Returns (row_to_col (N,), matched (N,)); unmatched rows get -1.
+    Each row gets a private dummy column at ``threshold + delta``, every other
+    dummy is at the gated level ``threshold + 2*delta``, so an unmatched row
+    takes its own dummy without contention."""
+    n, m = cost.shape
+    dev = cost.device
+    delta = 0.05 * max(float(threshold), 1.0)
+    gated_cost = threshold + 2.0 * delta
+    gated = torch.where(
+        row_valid[:, None] & col_valid[None, :] & (cost <= threshold), cost, gated_cost
+    )
+    eye = torch.eye(n, dtype=torch.bool, device=dev)
+    dummies = torch.where(eye, threshold + delta, gated_cost).to(gated.dtype)
+    padded = torch.cat([gated, dummies], dim=1)
+    col = auction_assignment(padded, eps=eps, max_iters=max_iters)
+    pair_cost = padded[torch.arange(n, device=dev), torch.clamp(col, 0, m + n - 1)]
+    matched = (col >= 0) & (col < m) & row_valid & (pair_cost <= threshold)
+    return torch.where(matched, col, -1), matched

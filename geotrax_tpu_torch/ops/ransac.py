@@ -1,0 +1,134 @@
+"""Massively-parallel robust homography estimation (RANSAC / MAGSAC-style).
+
+Counterpart of ``geotrax_tpu/ops/ransac.py:ransac_fit``: thousands of
+minimal-sample hypotheses are fitted and scored at once (closed-form 4-point
+fits + one reprojection-error matrix), the best by a soft (sigma-marginalized
+flavor) score is polished by IRLS on its soft inliers. Takes one frame's
+correspondences or a batch (leading axis).
+
+Sampling draws from an explicit ``torch.Generator``. It cannot reproduce the
+JAX reference's ``fold_in(key, frame_id)`` stream, so ``ransac_fit`` also
+takes the hypothesis indices (``sample_idx``) directly: tests inject the
+indices JAX drew, and the chunk step passes the indices of its own sampler.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from geotrax_tpu_torch.ops.homography import (
+    fit_affine,
+    fit_homography_minimal,
+    fit_homography_normal,
+    normalize_h,
+    reprojection_error,
+)
+
+
+class RansacResult(NamedTuple):
+    h_matrix: torch.Tensor     # (..., 3, 3)
+    inliers: torch.Tensor      # (..., N) bool
+    num_inliers: torch.Tensor  # (...,) int
+    score: torch.Tensor        # (...,) soft inlier score
+
+
+def sample_weights(valid: torch.Tensor) -> torch.Tensor:
+    """(..., N) bool -> sampling weights summing to 1: uniform over the valid
+    correspondences, or over all when none is valid (keeps the fit NaN-free;
+    callers gate on the match count)."""
+    weights = valid.to(torch.float32)
+    total = weights.sum(dim=-1, keepdim=True)
+    weights = torch.where(total > 0, weights, torch.ones_like(weights))
+    return weights / torch.clamp_min(weights.sum(dim=-1, keepdim=True), 1.0)
+
+
+def indices_from_uniform(u: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Inverse-CDF draw WITH replacement: (..., H, S) uniforms in [0, 1) and
+    (..., N) weights -> (..., H, S) indices (the reference's searchsorted)."""
+    n = weights.shape[-1]
+    cum = torch.cumsum(weights, dim=-1)
+    lead = cum.shape[:-1]
+    scaled = (u * cum[..., -1:, None]).reshape(lead + (-1,))
+    idx = torch.searchsorted(cum.contiguous(), scaled.contiguous())
+    return torch.clamp(idx, 0, n - 1).reshape(u.shape)
+
+
+def sample_indices(generators, num_hypotheses: int, sample_size: int,
+                   weights: torch.Tensor) -> torch.Tensor:
+    """(B, H, S) random correspondence indices for (B, N) weights, frame
+    ``b`` drawing from ``generators[b]``. The uniforms come from each
+    generator on its own device and move to the weights' device in one copy,
+    so CPU generators give the same draw on every device."""
+    u = torch.stack([torch.rand((num_hypotheses, sample_size), generator=g, device=g.device,
+                                dtype=torch.float32) for g in generators])
+    return indices_from_uniform(u.to(weights.device), weights)
+
+
+def _gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(B, N, 2) gathered at (B, H, S) -> (B, H, S, 2)."""
+    b, h, s = idx.shape
+    flat = idx.reshape(b, h * s, 1).expand(b, h * s, 2)
+    return torch.gather(points, 1, flat).reshape(b, h, s, 2)
+
+
+def ransac_fit(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,
+               threshold: float, generator: torch.Generator | None = None,
+               num_hypotheses: int = 2048, transformation: str = "projective",
+               refine_iters: int = 3, sample_idx: torch.Tensor | None = None) -> RansacResult:
+    """Robust fit of dst ≈ H @ src over (..., N, 2) correspondences with a
+    (..., N) mask. ``threshold`` is the inlier reprojection error [px], used
+    as the soft score's scale. Hypothesis indices come from ``sample_idx``
+    ((..., H, S)) when given, else from ``generator``."""
+    single = src.dim() == 2
+    if single:
+        src, dst, valid = src[None], dst[None], valid[None]
+        if sample_idx is not None:
+            sample_idx = sample_idx[None]
+    b, n = valid.shape
+    sample_size = 4 if transformation == "projective" else 3
+    hyp_fit = fit_homography_minimal if transformation == "projective" else fit_affine
+    fit_fn = fit_homography_normal if transformation == "projective" else fit_affine
+
+    if sample_idx is None:
+        if generator is None:
+            raise ValueError("ransac_fit needs a generator or sample_idx")
+        sample_idx = sample_indices([generator] * b, num_hypotheses, sample_size,
+                                    sample_weights(valid))
+    hyps = hyp_fit(_gather_points(src, sample_idx), _gather_points(dst, sample_idx))  # (B,H,3,3)
+
+    # Score every hypothesis against every correspondence; degenerate
+    # minimal samples give NaN/Inf errors, scored as infinite error.
+    inf = float("inf")
+    errors = reprojection_error(hyps, src[:, None], dst[:, None])  # (B,H,N)
+    errors = torch.where(torch.isfinite(errors), errors, inf)
+    errors = torch.where(valid[:, None, :], errors, inf)
+    soft = torch.clamp_min(1.0 - (errors / threshold) ** 2, 0.0)
+    scores = soft.sum(dim=-1)
+    best = torch.argmax(scores, dim=-1)
+    h_best = hyps[torch.arange(b, device=hyps.device), best]
+
+    def score_of(hm):
+        e = torch.where(valid, reprojection_error(hm, src, dst), inf)
+        e = torch.where(torch.isfinite(e), e, inf)
+        return torch.clamp_min(1.0 - (e / threshold) ** 2, 0.0).sum(dim=-1)
+
+    # Local optimization: IRLS refit on soft inliers of the incumbent model.
+    h = h_best
+    for _ in range(refine_iters):
+        err = reprojection_error(h, src, dst)
+        err = torch.where(torch.isfinite(err), err, inf)
+        w = torch.where(valid, torch.clamp_min(1.0 - (err / threshold) ** 2, 0.0), 0.0)
+        h_new = fit_fn(src, dst, weights=w)
+        better = score_of(h_new) >= score_of(h)
+        h = torch.where(better[:, None, None], h_new, h)
+    h_final = normalize_h(h)
+
+    err_final = reprojection_error(h_final, src, dst)
+    inliers = valid & (err_final < threshold)
+    soft_final = torch.where(valid, torch.clamp_min(1.0 - (err_final / threshold) ** 2, 0.0), 0.0)
+    result = RansacResult(h_final, inliers, inliers.sum(dim=-1), soft_final.sum(dim=-1))
+    if single:
+        return RansacResult(*(t[0] for t in result))
+    return result

@@ -1,0 +1,295 @@
+"""Fused extraction chunk step: the whole per-chunk computation on the card.
+
+Counterpart of ``geotrax_tpu/pipeline/device_pipeline.py:FusedExtractor``
+with stabilization on (the default ``extract`` configuration):
+
+    cv2-exact 0.5x resize -> YOLOv8 forward -> NMS     (batched over the chunk)
+    -> FAST (CUDA kernel) / grid descriptors / L2      (batched over the chunk,
+       match / RANSAC against the reference frame       masked by this chunk's
+                                                        own detections)
+    -> GMC homographies                                (consecutive-frame motion)
+    -> tracker over the chunk's frames                 (sequential, on the card)
+    -> stabilized-box corner transform                 (batched)
+
+The host uploads the raw uint8 frames once per chunk; tracker state, the
+reference-frame features and the previous frame's homography stay on the
+card between chunks. RANSAC draws come from a generator seeded by
+(rng_seed, frame id), so results do not depend on where the chunk
+boundaries fall. ReID, CLAHE and stabilization off (detect + track only, or
+the standalone-GMC branch) wait for later slices (ROADMAP A13).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from geotrax_tpu_torch._device import resolve_device
+from geotrax_tpu_torch.ops import features
+from geotrax_tpu_torch.ops.homography import adjugate3, normalize_h
+from geotrax_tpu_torch.ops.ransac import ransac_fit, sample_indices, sample_weights
+from geotrax_tpu_torch.ops.resize import resize_u8_linear
+from geotrax_tpu_torch.ops.sift import match_l2
+from geotrax_tpu_torch.stabilize.config import StabilizerConfig
+from geotrax_tpu_torch.track.base import FrameOutput
+
+
+class RefFeatures(NamedTuple):
+    xy: torch.Tensor     # (K, 2)
+    desc: torch.Tensor   # (K, T)
+    valid: torch.Tensor  # (K,)
+
+
+class ChunkOutput(NamedTuple):
+    """Per-frame results for one chunk, stacked on the leading chunk axis."""
+    track_id: torch.Tensor   # (C, K)
+    box_xywh: torch.Tensor   # (C, K, 4)
+    box_stab: torch.Tensor   # (C, K, 4) boxes in reference-frame coords
+    score: torch.Tensor      # (C, K)
+    cls: torch.Tensor        # (C, K)
+    valid: torch.Tensor      # (C, K)
+    h: torch.Tensor          # (C, 3, 3) cur->ref stabilization homographies
+    gmc: torch.Tensor        # (C, 3, 3) prev->cur camera-motion homographies
+    inliers: torch.Tensor    # (C,)
+    matches: torch.Tensor    # (C,)
+
+
+def _transform_boxes_h(h: torch.Tensor, boxes_xywh: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) x (..., K, 4) cxcywh -> corner transform + axis-aligned
+    refit (the convention of Stabilizer.transform_cur_boxes)."""
+    cx, cy, w, hh = boxes_xywh.unbind(-1)
+    corners = torch.stack([
+        torch.stack([cx - w / 2, cy - hh / 2], -1),
+        torch.stack([cx + w / 2, cy - hh / 2], -1),
+        torch.stack([cx + w / 2, cy + hh / 2], -1),
+        torch.stack([cx - w / 2, cy + hh / 2], -1),
+    ], dim=-2)  # (..., K, 4, 2)
+    lead = corners.shape[:-3]
+    corners = corners.reshape(lead + (-1, 2))
+    ones = torch.ones(corners.shape[:-1] + (1,), dtype=corners.dtype, device=corners.device)
+    mapped = torch.matmul(torch.cat([corners, ones], -1), h.transpose(-1, -2))
+    pts = (mapped[..., :2] / (mapped[..., 2:3] + 1e-12)).reshape(lead + (-1, 4, 2))
+    mins, maxs = pts.amin(dim=-2), pts.amax(dim=-2)
+    return torch.cat([(mins + maxs) / 2, maxs - mins], dim=-1)
+
+
+
+def gmc_from_h(h_cur: torch.Tensor, h_prev: torch.Tensor) -> torch.Tensor:
+    """prev->cur camera motion from consecutive stabilization H's:
+    gmc = H_cur^-1 @ H_prev via the scale-free adjugate."""
+    return normalize_h(adjugate3(h_cur) @ h_prev)
+
+
+def frame_seed(rng_seed: int, fid: int) -> int:
+    """Seed of frame ``fid``'s RANSAC generator (frame ids < 2**32)."""
+    return (int(rng_seed) << 32) + int(fid)
+
+
+class FusedExtractor:
+    """Per-video fused extraction over fixed-size frame chunks.
+
+        fx = FusedExtractor(detector, stabilo_cfg, tracker_step, tracker_state,
+                            src_h, src_w, use_gmc=..., chunk=32)
+        for frames, fids, n_valid in chunks:        # frames (C,H,W,3) uint8
+            out = fx.process_chunk(frames, fids, n_valid)
+
+    ``sampler(fids, weights, num_hypotheses, sample_size) -> (C,H,S)`` draws
+    the RANSAC hypothesis indices; the default seeds a CPU generator per
+    frame from ``frame_seed(rng_seed, fid)``, so every device draws the same
+    indices. Tests pass a sampler that reproduces the JAX reference's draw.
+    """
+
+    def __init__(self, detector, stabilo_cfg: dict, tracker_step,
+                 tracker_state, src_h: int, src_w: int, use_gmc: bool,
+                 chunk: int = 16, rng_seed: int = 0, with_reid: bool = False,
+                 device="cuda", sampler: Optional[Callable] = None):
+        self.device = resolve_device(device)
+        if with_reid:
+            raise NotImplementedError(
+                "ReID (embed_boxes and the pallas_patches kernel) is not ported yet "
+                "(ROADMAP A13, B2)"
+            )
+        if stabilo_cfg is None:
+            raise NotImplementedError(
+                "stabilization off (detect + track only, standalone GMC) is not ported "
+                "yet (ROADMAP A13)"
+            )
+        self.detector = detector
+        self.chunk = chunk
+        self.src_h, self.src_w = src_h, src_w
+        self.tracker_step = tracker_step
+        self.state = tracker_state
+        self.use_gmc = use_gmc
+        self._detect = detector.batch_trace(src_h, src_w)
+        self._detect_resized = None
+        self._resize_geom = None
+        proto = StabilizerConfig(**stabilo_cfg)
+        if proto.n_levels != 1:
+            raise ValueError("FusedExtractor supports the single-level (orb-class) path")
+        if proto.clahe:
+            raise NotImplementedError("CLAHE is not ported yet (ROADMAP A13)")
+        self.proto = proto
+        # Shared-resize fast path: when the stabilizer's downsample ratio
+        # equals the letterbox scale (the default 4K @ imgsz 1920 config:
+        # both 0.5), ONE cv2-exact resize of the raw frame feeds both the
+        # detector letterbox and the stabilization gray.
+        if hasattr(detector, "batch_trace_resized"):
+            new_h, new_w, r = detector.resize_geometry(src_h, src_w)[:3]
+            if (
+                abs(r - proto.downsample_ratio) < 1e-12
+                and new_h == round(src_h * proto.downsample_ratio)
+                and new_w == round(src_w * proto.downsample_ratio)
+            ):
+                self._detect_resized = detector.batch_trace_resized(src_h, src_w)
+                self._resize_geom = (new_h, new_w)
+
+        self._seed0 = rng_seed
+        self._seed = rng_seed
+        self._sampler = sampler if sampler is not None else self._draw_indices
+        self._state0 = tracker_state
+        self._h_prev = torch.eye(3, device=self.device)
+        self._ref: Optional[RefFeatures] = None
+
+    # ------------------------------------------------------------ stages
+    def _draw_indices(self, fids, weights, num_hypotheses: int, sample_size: int):
+        generators = [torch.Generator().manual_seed(frame_seed(self._seed, f)) for f in fids]
+        return sample_indices(generators, num_hypotheses, sample_size, weights)
+
+    def _gray(self, frames_u8):
+        return features.downsample(features.rgb_to_gray(frames_u8), self.proto.downsample_ratio)
+
+    def _feats(self, gray, det_boxes, det_valid, n_features):
+        mask = None
+        if self.proto.mask_use:
+            boxes = torch.where(det_valid[..., None], det_boxes, 0.0) * self.proto.downsample_ratio
+            mask = features.boxes_mask(gray.shape[-2:], boxes, self.proto.mask_margin_ratio)
+        kps = features.fast_detect(gray, n_features, mask=mask, oriented=False)
+        desc = features.describe_grid(gray, kps)
+        return kps.xy, desc, kps.valid
+
+    def _fit(self, xy, valid_kp, desc, ref: RefFeatures, fids, *, n_hyps,
+             transformation, threshold, filter_ratio):
+        matches = match_l2(desc, valid_kp, ref.desc, ref.valid, ratio=filter_ratio)
+        sample_size = 4 if transformation == "projective" else 3
+        idx = self._sampler(fids, sample_weights(matches.valid), n_hyps, sample_size)
+        res = ransac_fit(xy, ref.xy[matches.idx_b], matches.valid, threshold=threshold,
+                         num_hypotheses=n_hyps, transformation=transformation,
+                         sample_idx=idx)
+        return res.h_matrix, res.num_inliers, matches.valid.sum(dim=-1)
+
+    def _unscale(self, h_ds):
+        """Undo feature-space downsampling: H_full = S^-1 H_ds S."""
+        s = self.proto.downsample_ratio
+        scale = torch.as_tensor(np.diag([s, s, 1.0]), dtype=torch.float32, device=h_ds.device)
+        inv_scale = torch.as_tensor(np.diag([1.0 / s, 1.0 / s, 1.0]), dtype=torch.float32,
+                                    device=h_ds.device)
+        return inv_scale @ h_ds @ scale
+
+    def _run_tracker(self, det, gmc, fids, n_valid: int) -> FrameOutput:
+        """The tracker over the chunk's frames in order (frames past
+        ``n_valid`` are padding: state unchanged, no valid output)."""
+        state = self.state
+        outs = []
+        for t in range(len(fids)):
+            if t < n_valid:
+                state, out = self.tracker_step(
+                    state, det["boxes_xywh"][t], det["scores"][t], det["classes"][t],
+                    det["valid"][t], fids[t], gmc[t] if self.use_gmc else None,
+                )
+            else:
+                k = state.track_id.shape[0]
+                dev = state.track_id.device
+                out = FrameOutput(
+                    track_id=state.track_id,
+                    box_xywh=torch.zeros((k, 4), device=dev),
+                    score=torch.zeros((k,), device=dev),
+                    cls=state.cls,
+                    valid=torch.zeros((k,), dtype=torch.bool, device=dev),
+                )
+            outs.append(out)
+        self.state = state
+        return FrameOutput(*(torch.stack(field) for field in zip(*outs)))
+
+    def _chunk_impl(self, frames_u8, fids, n_valid: int, first: bool):
+        c = frames_u8.shape[0]
+        dev = frames_u8.device
+        fids_t = torch.as_tensor(fids, device=dev)
+        resized = None
+        with record_function("fx.detect"):
+            if self._detect_resized is not None:
+                nh, nw = self._resize_geom
+                resized = resize_u8_linear(frames_u8, nh, nw)
+                det = self._detect_resized(resized, fids_t)
+            else:
+                det = self._detect(frames_u8, fids_t)
+        det_boxes, det_valid = det["boxes_xywh"], det["valid"]
+        eye = torch.eye(3, device=dev)
+
+        with record_function("fx.features"):
+            grays = features.rgb_to_gray(resized) if resized is not None else self._gray(frames_u8)
+            xy, desc, val = self._feats(grays, det_boxes, det_valid, self.proto.max_features)
+            if first:
+                # the reference frame is this chunk's frame 0, with the
+                # larger reference feature budget
+                rxy, rdesc, rval = self._feats(grays[:1], det_boxes[:1], det_valid[:1],
+                                               self.proto.ref_features)
+                self._ref = RefFeatures(rxy[0], rdesc[0], rval[0])
+        transformation = "projective" if self.proto.transformation_type == "projective" else "affine"
+        with record_function("fx.match_ransac"):
+            h_ds, inl, nm = self._fit(
+                xy, val, desc, self._ref, fids,
+                n_hyps=self.proto.num_hypotheses, transformation=transformation,
+                threshold=self.proto.ransac_threshold, filter_ratio=self.proto.filter_ratio,
+            )
+        h_full = self._unscale(h_ds)
+        denom = h_full[:, 2, 2]
+        ok = (nm >= 4) & torch.isfinite(h_full).all(dim=2).all(dim=1) & (denom.abs() > 1e-12)
+        h = torch.where(
+            ok[:, None, None],
+            h_full / torch.where(ok, denom, 1.0)[:, None, None],
+            eye[None],
+        )
+        inliers = torch.where(ok, inl, 0).to(torch.int32)
+        n_matches = nm.to(torch.int32)
+        if first:
+            # frame 0 IS the reference frame -> exact identity
+            h[0] = eye
+        if self.use_gmc:
+            # gmc_t = H_t^-1 . H_{t-1}  (adjugate = scale-free inverse)
+            h_prev_seq = torch.cat([self._h_prev[None], h[:-1]], dim=0)
+            gmc = gmc_from_h(h, h_prev_seq)
+        else:
+            gmc = eye.expand(c, 3, 3).clone()
+
+        with record_function("fx.tracker"):
+            outs = self._run_tracker(det, gmc, fids, n_valid)
+
+        box_stab = _transform_boxes_h(h, outs.box_xywh)
+        self._h_prev = h[-1]
+        return ChunkOutput(
+            track_id=outs.track_id, box_xywh=outs.box_xywh, box_stab=box_stab,
+            score=outs.score, cls=outs.cls, valid=outs.valid,
+            h=h, gmc=gmc, inliers=inliers, matches=n_matches,
+        )
+
+    # ------------------------------------------------------------ host API
+    def reset(self, rng_seed: Optional[int] = None) -> None:
+        """Restart per-video state (tracker slots, reference features,
+        h_prev, RNG seed)."""
+        self.state = self._state0
+        self._h_prev = torch.eye(3, device=self.device)
+        self._ref = None
+        self._seed = self._seed0 if rng_seed is None else rng_seed
+
+    def process_chunk(self, frames_u8, fids, n_valid: int) -> ChunkOutput:
+        """frames (C,H,W,3) uint8 (numpy or tensor), fids (C,) internal frame
+        ids (1-based), n_valid <= C real frames. Returns tensors on the
+        extractor's device."""
+        frames = torch.as_tensor(frames_u8).to(self.device)
+        fids = [int(f) for f in np.asarray(fids).reshape(-1)]
+        first = self._ref is None
+        with torch.no_grad():
+            return self._chunk_impl(frames, fids, int(n_valid), first)

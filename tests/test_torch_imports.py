@@ -1,0 +1,88 @@
+"""The port stands alone: nothing of JAX, of the JAX package, or of the
+packages the card's machine lacks (yaml, cv2, pandas, tqdm, flax, optax) is
+imported by geotrax_tpu_torch or chip_smoke.py, at import time or on the
+smoke's path. A subprocess refuses those imports, imports every module, and
+rehearses the smoke's phases on the CPU at a tiny size; an AST walk checks
+the sources."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "geotrax_tpu_torch"
+REFUSED = ("jax", "jaxlib", "flax", "optax", "yaml", "cv2", "pandas", "tqdm", "geotrax_tpu")
+
+GUARD = r'''
+import importlib, importlib.abc, pkgutil, sys
+REFUSED = %r
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in REFUSED:
+            raise ImportError(f"refused import of {name}")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import geotrax_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(geotrax_tpu_torch.__path__, "geotrax_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+
+kern = chip_smoke.phase_kernel("cpu", check_shape=(2, 40, 60), odd_shape=(2, 37, 53),
+                               time_shape=(32, 1080, 1920))
+assert kern["max_abs_err"] == 0.0 and kern["bound_by"] == "bytes", kern
+assert abs(kern["bound_ms"] - 2 * 4 * 32 * 1080 * 1920 / 3.35e12 * 1e3) < 1e-9
+# at this size the random detector's one box masks about half of the frame,
+# so few features remain and the camera check gets a wide limit
+run = chip_smoke.phase_main("cpu", width=512, height=288, n_frames=6, chunk=4, variant="n",
+                            imgsz=256, horizon=14, tol_px=10.0)
+assert run["checks"]["rows"] > 0, run["checks"]
+assert run["stats"]["chunks"] == 2 and run["fx"]._resize_geom == (144, 256)
+steady = chip_smoke.phase_steady(run["fx"], 512, 288, 0, 14, 6, chunk=4, n_chunks=2, tol_px=10.0)
+assert len(steady["chunk_ms"]) == 2 and steady["camera_err_px"] < 10.0, steady
+ref = chip_smoke.phase_reference("cpu", n_frames=6, chunk=4)
+assert ref["box_err"] == 0.0 and ref["h_err"] == 0.0, ref
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
+assert not leaked, leaked
+print("GUARD-OK", len(names))
+''' % (REFUSED,)
+
+
+def test_port_and_smoke_import_nothing_refused():
+    proc = subprocess.run([sys.executable, "-c", GUARD], cwd=ROOT, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert "GUARD-OK" in proc.stdout
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_sources_import_no_jax_and_no_reference_package():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = [(f.relative_to(ROOT), m) for f in files for m in _imports(f)
+           if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "geotrax_tpu")]
+    assert not bad, bad
+
+
+def test_smoke_refuses_to_run_without_a_card():
+    """No result line without CUDA: the smoke exits non-zero (checked where
+    there is no card; on a machine with one the check is moot)."""
+    import torch
+
+    if torch.cuda.is_available():
+        return
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout

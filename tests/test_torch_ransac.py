@@ -1,0 +1,108 @@
+"""Homography fits and RANSAC of the port against the JAX package. RANSAC
+gets the hypothesis indices JAX drew (``_sample_indices(fold_in(key, fid),
+...)``), since a torch generator cannot reproduce JAX's stream; with them the
+homography agrees within 1e-4 relative and the inlier masks are equal."""
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from geotrax_tpu.ops import homography as jh
+from geotrax_tpu.ops import ransac as jr
+from geotrax_tpu_torch.ops import homography as th
+from geotrax_tpu_torch.ops import ransac as tr
+
+H_RTOL = 1e-4
+
+
+def correspondences(seed, n=200, outliers=0.3, noise=0.3):
+    rng = np.random.default_rng(seed)
+    h = np.eye(3)
+    ang = rng.uniform(-0.05, 0.05)
+    h[:2, :2] = np.array([[np.cos(ang), -np.sin(ang)], [np.sin(ang), np.cos(ang)]]) * 1.01
+    h[:2, 2] = rng.uniform(-8, 8, 2)
+    h[2, :2] = rng.uniform(-2e-5, 2e-5, 2)
+    src = rng.uniform(0, 400, (n, 2))
+    p = np.c_[src, np.ones(n)] @ h.T
+    dst = p[:, :2] / p[:, 2:] + rng.normal(0, noise, (n, 2))
+    bad = rng.random(n) < outliers
+    dst[bad] = rng.uniform(0, 400, (bad.sum(), 2))
+    valid = rng.random(n) > 0.1
+    return src.astype(np.float32), dst.astype(np.float32), valid, h
+
+
+def h_close(ours, ref):
+    ours, ref = np.asarray(ours, np.float64), np.asarray(ref, np.float64)
+    np.testing.assert_allclose(ours, ref, rtol=H_RTOL, atol=H_RTOL * np.abs(ref).max())
+
+
+def test_fits_match_jax():
+    src, dst, _, _ = correspondences(0, n=40, outliers=0.0)
+    s, d = torch.from_numpy(src), torch.from_numpy(dst)
+    w = np.random.default_rng(1).uniform(0, 1, 40).astype(np.float32)
+    h_close(th.fit_homography(s, d).numpy(), jh.fit_homography(jnp.asarray(src), jnp.asarray(dst)))
+    h_close(th.fit_homography_normal(s, d, torch.from_numpy(w)).numpy(),
+            jh.fit_homography_normal(jnp.asarray(src), jnp.asarray(dst), jnp.asarray(w)))
+    h_close(th.fit_affine(s, d, torch.from_numpy(w)).numpy(),
+            jh.fit_affine(jnp.asarray(src), jnp.asarray(dst), jnp.asarray(w)))
+    h_close(th.fit_homography_minimal(s[:4], d[:4]).numpy(),
+            jh.fit_homography_minimal(jnp.asarray(src[:4]), jnp.asarray(dst[:4])))
+    hm = np.array(jh.fit_homography(jnp.asarray(src), jnp.asarray(dst)))
+    np.testing.assert_allclose(
+        th.reprojection_error(torch.from_numpy(hm), s, d).numpy(),
+        np.asarray(jh.reprojection_error(jnp.asarray(hm), jnp.asarray(src), jnp.asarray(dst))),
+        rtol=1e-5, atol=1e-5,
+    )
+    np.testing.assert_array_equal(th.adjugate3(torch.from_numpy(hm)).numpy(),
+                                  np.asarray(jh.adjugate3(jnp.asarray(hm))))
+
+
+@pytest.mark.parametrize("transformation,seed", [("projective", 2), ("projective", 3), ("affine", 4)])
+def test_ransac_with_injected_indices(transformation, seed):
+    src, dst, valid, _ = correspondences(seed)
+    n_hyps = 256
+    sample_size = 4 if transformation == "projective" else 3
+    key = jax.random.fold_in(jax.random.PRNGKey(0), seed)
+    weights = jnp.asarray(valid, jnp.float32)
+    weights = weights / weights.sum()
+    idx = np.array(jr._sample_indices(key, n_hyps, sample_size, len(src), weights))
+    ref = jr.ransac_fit(jnp.asarray(src), jnp.asarray(dst), jnp.asarray(valid), 2.0, key,
+                        num_hypotheses=n_hyps, transformation=transformation)
+    ours = tr.ransac_fit(torch.from_numpy(src), torch.from_numpy(dst), torch.from_numpy(valid), 2.0,
+                         num_hypotheses=n_hyps, transformation=transformation,
+                         sample_idx=torch.from_numpy(idx).long())
+    h_close(ours.h_matrix.numpy(), ref.h_matrix)
+    np.testing.assert_array_equal(ours.inliers.numpy(), np.asarray(ref.inliers))
+    assert int(ours.num_inliers) == int(ref.num_inliers) > 50
+    # the port's weights and inverse-CDF draw reproduce JAX's indices from
+    # the same uniforms
+    u = np.array(jax.random.uniform(key, (n_hyps, sample_size)))
+    np.testing.assert_array_equal(
+        tr.indices_from_uniform(torch.from_numpy(u), tr.sample_weights(torch.from_numpy(valid))).numpy(),
+        idx,
+    )
+
+
+def test_ransac_batched_and_generator():
+    data = [correspondences(s) for s in (5, 6)]
+    src = torch.from_numpy(np.stack([d[0] for d in data]))
+    dst = torch.from_numpy(np.stack([d[1] for d in data]))
+    valid = torch.from_numpy(np.stack([d[2] for d in data]))
+    gen = torch.Generator().manual_seed(0)
+    idx = tr.sample_indices([gen, gen], 256, 4, tr.sample_weights(valid))
+    batch = tr.ransac_fit(src, dst, valid, 2.0, num_hypotheses=256, sample_idx=idx)
+    for i, (_, _, _, h_true) in enumerate(data):
+        one = tr.ransac_fit(src[i], dst[i], valid[i], 2.0, num_hypotheses=256, sample_idx=idx[i])
+        np.testing.assert_allclose(batch.h_matrix[i].numpy(), one.h_matrix.numpy(), rtol=1e-5, atol=1e-6)
+        corners = np.array([[20, 20, 1], [380, 380, 1.0]])
+        a = corners @ batch.h_matrix[i].numpy().astype(np.float64).T
+        b = corners @ h_true.T
+        assert np.abs(a[:, :2] / a[:, 2:] - b[:, :2] / b[:, 2:]).max() < 1.0
+    again = tr.ransac_fit(src[0], dst[0], valid[0], 2.0, generator=torch.Generator().manual_seed(9),
+                          num_hypotheses=256)
+    twice = tr.ransac_fit(src[0], dst[0], valid[0], 2.0, generator=torch.Generator().manual_seed(9),
+                          num_hypotheses=256)
+    torch.testing.assert_close(again.h_matrix, twice.h_matrix, rtol=0, atol=0)
