@@ -6,11 +6,16 @@ Phases, one ``[smoke] <phase> ok <seconds>s ...`` line each; a failing phase
 ends the run with a non-zero exit and no result line:
 
   0 device     the card's name and power limit (exit 1 without a card)
-  1 build      nvcc builds csrc/fast_score.cu for sm_90a (-Xptxas -v shown)
+  1 build      nvcc builds csrc/fast_score.cu and csrc/patch_gather.cu for
+               sm_90a, both at once (-Xptxas -v shown)
   2 kernel     the FAST kernel equals its plain PyTorch version exactly on a
                seeded (33,1080,1920) batch at thresholds 20 and 7 and on an
-               odd (2,37,53) batch; CUDA-event times of the kernel and the
-               plain version at the main path's (32,1080,1920)
+               odd (2,37,53) batch; the patch gather equals its plain
+               version exactly on the ReID path's (96,1080,1920) planes with
+               1000 corners each (out of range, at every edge, inside) and
+               on an odd (2,37,53) x 130 case; CUDA-event times of each
+               kernel, its plain version and, for the gather, one PyTorch
+               call computing it (an advanced index on an unfold view)
   3 main       the default extract configuration: YOLOv8s at imgsz 1920
                (random weights from a seeded generator, class biases set so
                that about VEHICLES_PER_4K_FRAME boxes pass ``conf``) on two
@@ -24,9 +29,20 @@ ends the run with a non-zero exit and no result line:
   5 breakdown  one more chunk under torch.profiler, checked as above: host
                and device time per stage and the largest device items
                (device times read 0 where the profiler sees none)
-  6 reference  the same port on a small oracle clip with a moving camera,
-               on the card and on the CPU (plain versions): equal track
-               ids, close geometry
+  6 reid       the same configuration with tracker.botsort.with_reid: true,
+               through the extract entry point on the main phase's frames
+               (kept in host memory): rows and homographies checked as in
+               the main phase, the patch launch counter must rise by one per
+               chunk, the embeddings of valid detections have unit norm and,
+               on the first chunk, equal those of the plain gather on the
+               card; one more chunk timed beside the steady median, and the
+               three kept chunks through fresh extractors without and with
+               ReID in turns; then one chunk with a learned head (seeded
+               init_head, saved to .npz, loaded through resolve_head)
+  7 reference  the same port on a small oracle clip with a moving camera,
+               on the card and on the CPU (plain versions), for botsort,
+               botsort with ReID, deepocsort with ReID, tracktrack with
+               ReID, ocsort and fasttrack: equal track ids, close geometry
 Then a JSON line describing each kernel, the card's nvidia-smi line, and as
 the last line {"ok": true, "device": {...}}.
 """
@@ -35,10 +51,14 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
 import numpy as np
 import torch
 
@@ -46,10 +66,11 @@ from geotrax_tpu_torch import cfg as port_cfg
 from geotrax_tpu_torch.io.synthetic import SyntheticVideoReader
 from geotrax_tpu_torch.models import yolov8
 from geotrax_tpu_torch.models.detector import Detector, OracleDetector
-from geotrax_tpu_torch.ops import fast
+from geotrax_tpu_torch.ops import fast, patches
 from geotrax_tpu_torch.ops.resize import resize_u8_linear
 from geotrax_tpu_torch.pipeline import extract as port_extract
-from geotrax_tpu_torch.pipeline.device_pipeline import FusedExtractor
+from geotrax_tpu_torch.pipeline.device_pipeline import FusedExtractor, embed_boxes
+from geotrax_tpu_torch.track import reid
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth and float32
 # rate outside the tensor cores.
@@ -61,6 +82,12 @@ FAST_FLOPS_PER_PIXEL = 2 + 16 * 5
 
 FAST_SOURCE = "geotrax_tpu_torch/csrc/fast_score.cu"
 FAST_REPLACES = "geotrax_tpu/ops/pallas_fast.py:36"
+PATCH_SOURCE = "geotrax_tpu_torch/csrc/patch_gather.cu"
+PATCH_REPLACES = "geotrax_tpu/ops/pallas_patches.py:40"
+# The ReID path's gather per 32-frame 4K chunk: 3 channel planes of each
+# frame at half resolution, max_det = 1000 corners each.
+PATCH_SHAPE = (96, 1080, 1920)
+PATCH_CORNERS = 1000
 
 # Vehicles per 4K frame: the geo-trax detector's training set (Songdo
 # Vision, upstream README) holds ~679k labelled vehicles in >19,000 aerial
@@ -134,9 +161,12 @@ def phase_device() -> dict:
             "smi": smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "not read"}
 
 
-def phase_build() -> str:
-    _, build_log = fast.build(verbose=True)
-    return build_log
+def phase_build() -> dict:
+    """Both kernels, each by its own nvcc, started together; their logs."""
+    modules = {"fast_score": fast, "patch_gather": patches}
+    with ThreadPoolExecutor(len(modules)) as pool:
+        futures = {name: pool.submit(mod.build, verbose=True) for name, mod in modules.items()}
+        return {name: fut.result()[1] for name, fut in futures.items()}
 
 
 def phase_kernel(device: str = "cuda", check_shape=(33, 1080, 1920), odd_shape=(2, 37, 53),
@@ -167,6 +197,80 @@ def phase_kernel(device: str = "cuda", check_shape=(33, 1080, 1920), odd_shape=(
         gray = torch.from_numpy(textured_batch(*time_shape, 3)).to(dev)
         res["ms"] = cuda_ms(lambda: fast.fast_score_map(gray, 20.0), reps)
         res["plain_ms"] = cuda_ms(lambda: fast.fast_score_map_torch(gray, 20.0), max(reps // 4, 2))
+    return res
+
+
+def seeded_planes(shape, seed: int, device) -> torch.Tensor:
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.rand(shape, generator=gen, device=device) * 255.0
+
+
+def seeded_corners(b: int, h: int, w: int, k: int, seed: int, device) -> tuple:
+    """(B,K) int32 corners: out of range on every side, exactly at every
+    edge (the first 8 of each plane), and inside."""
+    rng = np.random.default_rng(seed)
+    x0 = rng.integers(-48, w + 48, (b, k)).astype(np.int32)
+    y0 = rng.integers(-48, h + 48, (b, k)).astype(np.int32)
+    x0[:, :8] = [0, w - 32, -1, w - 31, 0, w - 32, -(2 ** 20), 2 ** 20]
+    y0[:, :8] = [0, h - 32, h - 31, -1, h - 32, 0, 2 ** 20, -(2 ** 20)]
+    return torch.from_numpy(x0).to(device), torch.from_numpy(y0).to(device)
+
+
+def unfold_gather(planes: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor) -> torch.Tensor:
+    """The same function as one PyTorch call: an advanced index on an
+    unfold view (corners clamped first). A yardstick; the port never runs it."""
+    h, w = planes.shape[-2:]
+    b = torch.arange(planes.shape[0], device=planes.device)[:, None]
+    return planes.unfold(1, 32, 1).unfold(2, 32, 1)[
+        b, torch.clamp(y0.long(), 0, h - 32), torch.clamp(x0.long(), 0, w - 32)]
+
+
+def patch_bound_ms(planes: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor) -> tuple:
+    """Least time of one gather on an H100: the patches written once, the
+    distinct plane pixels they cover read once and the corners read once,
+    over the memory rate (it does no arithmetic); returns (ms, "bytes",
+    bytes moved)."""
+    b, h, w = planes.shape
+    k = x0.shape[1]
+    xs = torch.clamp(x0.long(), 0, w - 32)
+    ys = torch.clamp(y0.long(), 0, h - 32)
+    covered = 0
+    for i in range(b):  # 2-D difference array of the patches' rectangles
+        d = torch.zeros((h + 1, w + 1), dtype=torch.int32, device=planes.device)
+        ones = torch.ones(k, dtype=torch.int32, device=planes.device)
+        for dy, dx, sign in ((0, 0, 1), (0, 32, -1), (32, 0, -1), (32, 32, 1)):
+            d.index_put_((ys[i] + dy, xs[i] + dx), ones * sign, accumulate=True)
+        covered += int((d.cumsum(0, dtype=torch.int32).cumsum(1, dtype=torch.int32)[:h, :w] > 0).sum())
+    moved = 4 * (b * k * 32 * 32 + covered + 2 * b * k)
+    return moved / HBM_BYTES_PER_S * 1e3, "bytes", moved
+
+
+def phase_patches(device: str = "cuda", check_shape=PATCH_SHAPE, k: int = PATCH_CORNERS,
+                  odd_shape=(2, 37, 53), odd_k: int = 130, reps: int = 20) -> dict:
+    """Patch gather == plain version (exactly) at the ReID path's shape and
+    on an odd case with more than one 128-corner group; the kernel's, the
+    plain version's and the unfold-gather's times and the bound at the
+    ReID path's shape. On the CPU (a rehearsal) nothing is timed."""
+    dev = torch.device(device)
+    res = {"max_abs_err": 0.0, "ms": None, "plain_ms": None, "library_ms": None}
+    for shape, kk, seed in ((odd_shape, odd_k, 5), (check_shape, k, 4)):
+        planes = seeded_planes(shape, seed, dev)
+        x0, y0 = seeded_corners(shape[0], shape[1], shape[2], kk, seed, dev)
+        out = patches.patches32(planes, x0, y0)
+        plain = patches.patches32_torch(planes, x0, y0)
+        lib = unfold_gather(planes, x0, y0)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        err = float((out - plain).abs().max())
+        if err != 0.0 or not torch.equal(out, plain) or not torch.equal(lib, plain):
+            raise AssertionError(f"patch gather != plain at {shape} x {kk}: max err {err}")
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        del out, plain, lib
+    res["bound_ms"], res["bound_by"], res["bytes"] = patch_bound_ms(planes, x0, y0)
+    if dev.type == "cuda":
+        res["ms"] = cuda_ms(lambda: patches.patches32(planes, x0, y0), reps)
+        res["plain_ms"] = cuda_ms(lambda: patches.patches32_torch(planes, x0, y0), max(reps // 4, 2))
+        res["library_ms"] = cuda_ms(lambda: unfold_gather(planes, x0, y0), max(reps // 4, 2))
     return res
 
 
@@ -205,18 +309,48 @@ def smoke_reader(width: int, height: int, seed: int, horizon: int, start: int = 
                                 camera=CAMERA, start=start, stop=stop)
 
 
-def build_extractor(device: str, width: int, height: int, variant: str, imgsz: int, seed: int,
-                    chunk: int, first_frame: np.ndarray):
+def make_frames(reader: SyntheticVideoReader) -> list:
+    """All (index, frame) pairs of ``reader``, made on the host's cores
+    before anything is timed (a 4K frame takes about half a second alone)."""
+    indices = range(reader.start, reader.stop)
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        return list(zip(indices, pool.map(reader.frame, indices)))
+
+
+class FrameList:
+    """A frame source over (index, frame) pairs already in memory."""
+
+    def __init__(self, info, frames):
+        self.info, self.frames = info, frames
+
+    def __iter__(self):
+        return iter(self.frames)
+
+
+def smoke_config(imgsz: int, tracker_overrides=None) -> dict:
     config = port_cfg.load_config()
     config["ultralytics"]["imgsz"] = imgsz
+    config["tracker"]["botsort"].update(tracker_overrides or {})
+    return config
+
+
+def build_extractor(device: str, width: int, height: int, variant: str, imgsz: int, seed: int,
+                    chunk: int, first_frame: np.ndarray):
+    config = smoke_config(imgsz)
     spec = yolov8.ModelSpec(variant=variant, nc=4)
     model = yolov8.init_params(torch.Generator().manual_seed(seed), spec, device=device)
     detector = Detector(model, config["ultralytics"], device=device)
     n_det = calibrate_class_bias(detector, first_frame, vehicles_per_frame(width, height))
-    tracker_cfg, state, step = port_extract.make_extract_tracker(config, device=device)
-    fx = FusedExtractor(detector, config["stabilo"], step, state, height, width,
-                        use_gmc=tracker_cfg.use_gmc, chunk=chunk, rng_seed=seed, device=device)
-    return config, fx, n_det
+    return config, build_fused(config, detector, height, width, chunk, seed, device), n_det
+
+
+def build_fused(config: dict, detector, height: int, width: int, chunk: int, seed: int,
+                device: str) -> FusedExtractor:
+    """The extract stage's tracker and chunk step for ``config``."""
+    tracker_cfg, state, step, reid_params = port_extract.make_extract_tracker(config, device=device)
+    return port_extract.make_fused_extractor(config, detector, tracker_cfg, state, step, height,
+                                             width, reid_params, chunk=chunk, rng_seed=seed,
+                                             device=device)
 
 
 def camera_error(h: np.ndarray, frame_ids, reader: SyntheticVideoReader) -> float:
@@ -282,20 +416,24 @@ def phase_main(device: str = "cuda", width: int = 3840, height: int = 2160, n_fr
                chunk: int = 32, variant: str = "s", imgsz: int = 1920, seed: int = 0,
                horizon=None, tol_px: float = 2.0) -> dict:
     """The port's default extract path, driven through its entry points,
-    over the first ``n_frames`` of a ``horizon``-frame video."""
+    over the first ``n_frames`` of a ``horizon``-frame video (the frames are
+    made first and kept for the ReID phase; ``setup_s`` includes them)."""
     t0 = time.perf_counter()
     horizon = horizon or n_frames
     reader = smoke_reader(width, height, seed, horizon, stop=n_frames)
+    frames = make_frames(reader)
     config, fx, n_det = build_extractor(device, width, height, variant, imgsz, seed, chunk,
-                                        next(iter(reader))[1])
+                                        frames[0][1])
     setup_s = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp:
-        stats = port_extract.extract(reader, fx, tmp, "V_smoke", config=config, chunk=chunk)
+        stats = port_extract.extract(FrameList(reader.info, frames), fx, tmp, "V_smoke",
+                                     config=config, chunk=chunk)
         if device == "cuda":
             torch.cuda.synchronize()
         checks = check_outputs(stats, n_frames, reader, tol_px)
     return {"setup_s": setup_s, "stats": stats, "checks": checks, "fx": fx,
-            "detections_frame0": n_det, "horizon": horizon}
+            "detections_frame0": n_det, "horizon": horizon, "frames": frames,
+            "reader": reader}
 
 
 def phase_steady(fx, width: int, height: int, seed: int, horizon: int, start: int,
@@ -303,9 +441,12 @@ def phase_steady(fx, width: int, height: int, seed: int, horizon: int, start: in
     """``n_chunks`` more chunks of the same video through the same
     extractor (tracker state and reference frame carried on), with the
     tracks and transforms rows checked; ms per chunk as the row emitter
-    measures it (chunk step plus the copy of its outputs to the host)."""
+    measures it (chunk step plus the copy of its outputs to the host). The
+    first chunk's frames are kept for the ReID phase."""
     reader = smoke_reader(width, height, seed, horizon, start, start + n_chunks * chunk)
-    tracks, transforms, stats = port_extract.track_video_fused(reader, fx, chunk=chunk)
+    frames = make_frames(reader)
+    tracks, transforms, stats = port_extract.track_video_fused(FrameList(reader.info, frames), fx,
+                                                               chunk=chunk)
     if stats["chunks"] != n_chunks or stats["frames"] != n_chunks * chunk:
         raise AssertionError(f"steady run: {stats['chunks']} chunks, {stats['frames']} frames")
     if tracks.shape[1] != 12 or not np.isfinite(tracks).all() or len(transforms) != stats["frames"]:
@@ -313,35 +454,202 @@ def phase_steady(fx, width: int, height: int, seed: int, horizon: int, start: in
     cam_err = check_homographies(stats["h"], range(start, start + stats["frames"]), reader, tol_px)
     ms = np.asarray(stats["chunk_s"]) * 1e3
     return {"chunk_ms": ms.tolist(), "median_ms": float(np.median(ms)), "min_ms": float(ms.min()),
-            "max_ms": float(ms.max()), "camera_err_px": cam_err, "rows": int(len(tracks))}
+            "max_ms": float(ms.max()), "camera_err_px": cam_err, "rows": int(len(tracks)),
+            "frames": frames[:chunk]}
 
 
-def phase_reference(device: str = "cuda", n_frames: int = 16, chunk: int = 8) -> dict:
+REFERENCE_TRACKERS = (
+    ("botsort", {}),
+    ("botsort", {"with_reid": True}),
+    ("deepocsort", {"with_reid": True}),
+    ("tracktrack", {"with_reid": True}),
+    ("ocsort", {}),
+    ("fasttrack", {}),
+)
+
+
+def phase_reference(device: str = "cuda", n_frames: int = 16, chunk: int = 8,
+                    trackers=REFERENCE_TRACKERS) -> dict:
     """The port on ``device`` against the port on the CPU (plain versions),
-    on a small oracle clip with a moving camera: same track ids, geometry
-    within 0.05 px."""
-    results = []
-    for dev in (device, "cpu"):
-        reader = SyntheticVideoReader(width=320, height=240, n_frames=n_frames,
-                                      camera=(0.5, -0.3, 0.2, 1.002))
-        det = OracleDetector(lambda i, r=reader: [list(b) + [0.9, i % 2] for b in r.boxes_at(i)],
-                             device=dev)
-        config = port_cfg.load_config()
-        tracker_cfg, state, step = port_extract.make_extract_tracker(config, device=dev)
-        fx = FusedExtractor(det, config["stabilo"], step, state, 240, 320,
-                            use_gmc=tracker_cfg.use_gmc, chunk=chunk, device=dev)
-        with tempfile.TemporaryDirectory() as tmp:
-            stats = port_extract.extract(reader, fx, tmp, "V_ref", config=config, chunk=chunk)
-            results.append((np.loadtxt(stats["tracks_file"], delimiter=","),
-                            np.loadtxt(stats["transforms_file"], delimiter=",")))
-    (t_dev, h_dev), (t_cpu, h_cpu) = results
-    if t_dev.shape != t_cpu.shape or not np.array_equal(t_dev[:, [0, 1, 10, 11]], t_cpu[:, [0, 1, 10, 11]]):
-        raise AssertionError(f"track rows differ: {t_dev.shape} vs {t_cpu.shape}")
-    box_err = float(np.abs(t_dev[:, 2:10] - t_cpu[:, 2:10]).max())
-    h_err = float(np.abs(h_dev - h_cpu).max())
-    if box_err > 0.05 or h_err > 0.05:
-        raise AssertionError(f"geometry differs: boxes {box_err} px, H {h_err}")
-    return {"rows": int(len(t_dev)), "box_err": box_err, "h_err": h_err}
+    on a small oracle clip with a moving camera, for each tracker of
+    ``trackers`` ((name, overrides of its default block)): same track ids,
+    geometry within 0.05 px."""
+    results = {}
+    for name, overrides in trackers:
+        runs = []
+        for dev in (device, "cpu"):
+            reader = SyntheticVideoReader(width=320, height=240, n_frames=n_frames,
+                                          camera=(0.5, -0.3, 0.2, 1.002))
+            det = OracleDetector(lambda i, r=reader: [list(b) + [0.9, i % 2] for b in r.boxes_at(i)],
+                                 device=dev)
+            config = port_cfg.load_config()
+            config["tracker"]["active"] = name
+            config["tracker"][name].update(overrides)
+            tracker_cfg, state, step, head = port_extract.make_extract_tracker(config, device=dev)
+            fx = port_extract.make_fused_extractor(config, det, tracker_cfg, state, step, 240, 320,
+                                                   head, chunk=chunk, device=dev)
+            with tempfile.TemporaryDirectory() as tmp:
+                stats = port_extract.extract(reader, fx, tmp, "V_ref", config=config, chunk=chunk)
+                runs.append((np.loadtxt(stats["tracks_file"], delimiter=",", ndmin=2),
+                             np.loadtxt(stats["transforms_file"], delimiter=",", ndmin=2)))
+        (t_dev, h_dev), (t_cpu, h_cpu) = runs
+        label = name + ("+reid" if overrides.get("with_reid") else "")
+        if len(t_dev) == 0 or t_dev.shape != t_cpu.shape or not np.array_equal(
+                t_dev[:, [0, 1, 10, 11]], t_cpu[:, [0, 1, 10, 11]]):
+            raise AssertionError(f"{label}: track rows differ: {t_dev.shape} vs {t_cpu.shape}")
+        box_err = float(np.abs(t_dev[:, 2:10] - t_cpu[:, 2:10]).max())
+        h_err = float(np.abs(h_dev - h_cpu).max())
+        if box_err > 0.05 or h_err > 0.05:
+            raise AssertionError(f"{label}: geometry differs: boxes {box_err} px, H {h_err}")
+        results[label] = {"rows": int(len(t_dev)), "tracks": int(len(np.unique(t_dev[:, 1]))),
+                          "box_err": box_err, "h_err": h_err}
+    return results
+
+
+def embedding_checks(fx, seen, frames, gather_check: bool = True) -> dict:
+    """The embeddings the tracker was given over one chunk (``seen``: the
+    (boxes, valid, det_emb) of each step): unit norm for the valid
+    detections and, with ``gather_check``, equal within 1e-5 to the same
+    embedding computed with the plain gather on the same device."""
+    boxes = torch.stack([b for b, _, _ in seen])
+    valid = torch.stack([v for _, v, _ in seen])
+    emb = torch.stack([e for _, _, e in seen])
+    if emb.shape[:2] != boxes.shape[:2] or not bool(torch.isfinite(emb).all()) or not bool(valid.any()):
+        raise AssertionError(f"embeddings: shape {tuple(emb.shape)}, {int(valid.sum())} valid")
+    norm_err = float((torch.linalg.vector_norm(emb[valid], dim=-1) - 1.0).abs().max())
+    if norm_err > 1e-5:
+        raise AssertionError(f"embeddings of valid detections are {norm_err} off unit norm")
+    res = {"valid": int(valid.sum()), "norm_err": norm_err, "emb": emb}
+    if gather_check:
+        frames_t = torch.as_tensor(np.stack([f for _, f in frames])).to(emb.device)
+        half = (frames_t.shape[1] // 2, frames_t.shape[2] // 2)
+        pooled = resize_u8_linear(frames_t, *half) if fx._resize_geom == half else None
+        gathered = {}
+
+        def plain_gather(planes, x0, y0):  # the plain version, keeping its inputs
+            gathered.update(planes=planes, x0=x0, y0=y0)
+            return patches.patches32_torch(planes, x0, y0)
+
+        plain = embed_boxes(frames_t, boxes, pooled=pooled, head_params=fx.reid_params,
+                            gather=plain_gather)
+        res["plain_err"] = float((emb - plain).abs().max())
+        if res["plain_err"] > 1e-5:
+            raise AssertionError(f"embeddings differ from the plain gather's by {res['plain_err']}")
+        if emb.device.type == "cuda":
+            # the chunk's own embedding and gather, timed alone (after the
+            # launch counts were read)
+            res["embed_ms"] = cuda_ms(lambda: embed_boxes(frames_t, boxes, pooled=pooled,
+                                                          head_params=fx.reid_params), 5)
+            g = gathered
+            res["gather_ms"] = cuda_ms(lambda: patches.patches32(g["planes"], g["x0"], g["y0"]), 10)
+            res["gather_bound_ms"], _, res["gather_bytes"] = patch_bound_ms(g["planes"], g["x0"],
+                                                                            g["y0"])
+    return res
+
+
+def reid_extractor(config: dict, detector, height: int, width: int, chunk: int, seed: int,
+                   device: str) -> tuple:
+    """The extract stage's tracker and extractor for ``config``, with the
+    tracker step wrapped to record what each step is given."""
+    tracker_cfg, state, step, head = port_extract.make_extract_tracker(config, device=device)
+    if not tracker_cfg.with_reid:
+        raise AssertionError("the tracker was built without ReID")
+    seen = []
+
+    def recording_step(st, boxes, scores, cls, valid, fid, gmc_h=None, det_emb=None):
+        seen.append((boxes, valid, det_emb))
+        return step(st, boxes, scores, cls, valid, fid, gmc_h, det_emb)
+
+    fx = port_extract.make_fused_extractor(config, detector, tracker_cfg, state, recording_step,
+                                           height, width, head, chunk=chunk, rng_seed=seed,
+                                           device=device)
+    return fx, head, seen
+
+
+def chunks_in_turns(extractors: dict, frames, info, chunk: int) -> dict:
+    """ms per chunk of each extractor (name -> fresh FusedExtractor) over
+    the same held chunks, taken in turns (AB, BA, AB, ...), as the row
+    emitter measures a chunk."""
+    names = list(extractors)
+    ms = {name: [] for name in names}
+    for i in range(len(frames) // chunk):
+        part = FrameList(info, frames[i * chunk:(i + 1) * chunk])
+        for name in (names if i % 2 == 0 else names[::-1]):
+            _, _, stats = port_extract.track_video_fused(part, extractors[name], chunk=chunk)
+            ms[name].append(stats["chunk_s"][0] * 1e3)
+    return ms
+
+
+def phase_reid(detector, frames, timed_frames, reader, device: str = "cuda", imgsz: int = 1920,
+               chunk: int = 32, seed: int = 0, tol_px: float = 2.0) -> dict:
+    """The default extract configuration with tracker.botsort.with_reid:
+    true, on frames already made (``frames`` from the video's start,
+    ``timed_frames`` right after them) with the main phase's detector."""
+    info = reader.info
+    height, width = info.height, info.width
+    n = len(frames)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    config = smoke_config(imgsz, {"with_reid": True})
+    fx, head, seen = reid_extractor(config, detector, height, width, chunk, seed, device)
+    if head is not None:
+        raise AssertionError("model: auto loaded a learned head")
+    with tempfile.TemporaryDirectory() as tmp:
+        fast.fast_score_map.launches = 0
+        patches.patches32.launches = 0
+        stats = port_extract.extract(FrameList(info, frames), fx, tmp, "V_reid", config=config,
+                                     chunk=chunk)
+        sync()
+        launches = {"fast_score": fast.fast_score_map.launches,
+                    "patch_gather": patches.patches32.launches}
+        checks = check_outputs(stats, n, reader, tol_px)
+    # on the CPU (a rehearsal) the wrappers run the plain versions: no launch
+    on_card = device == "cuda"
+    if launches != {"fast_score": (stats["chunks"] + 1) * on_card,
+                    "patch_gather": stats["chunks"] * on_card}:
+        raise AssertionError(f"kernel launches on the ReID path: {launches} over "
+                             f"{stats['chunks']} chunks")
+    emb = embedding_checks(fx, seen[:chunk], frames[:chunk])
+    projection = emb.pop("emb")
+
+    # one more chunk of the same video, timed
+    tracks, _, tstats = port_extract.track_video_fused(FrameList(info, timed_frames), fx,
+                                                       chunk=chunk)
+    if tstats["chunks"] != 1 or tracks.shape[1] != 12 or not np.isfinite(tracks).all():
+        raise AssertionError(f"timed ReID chunk: {tstats['chunks']} chunks, tracks {tracks.shape}")
+    timed_err = check_homographies(tstats["h"], [i for i, _ in timed_frames], reader, tol_px)
+
+    # the same held chunks without and with ReID, in turns, on fresh extractors
+    turns = chunks_in_turns(
+        {"plain": build_fused(smoke_config(imgsz), detector, height, width, chunk, seed, device),
+         "reid": reid_extractor(config, detector, height, width, chunk, seed, device)[0]},
+        frames + timed_frames, info, chunk)
+
+    # a learned head, made from a seed, saved and loaded as a user's would be
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "reid_head.npz"
+        reid.save_head(path, reid.init_head(torch.Generator().manual_seed(seed)))
+        config_h = smoke_config(imgsz, {"with_reid": True, "model": str(path)})
+        fx_h, head, seen_h = reid_extractor(config_h, detector, height, width, chunk, seed, device)
+        if head is None:
+            raise AssertionError(f"resolve_head did not load {path}")
+        patches.patches32.launches = 0
+        stats_h = port_extract.extract(FrameList(info, frames[:chunk]), fx_h, tmp, "V_head",
+                                       config=config_h, chunk=chunk)
+        sync()
+        head_launches = patches.patches32.launches
+        checks_h = check_outputs(stats_h, chunk, reader, tol_px)
+    if head_launches != on_card:
+        raise AssertionError(f"patch gather launched {head_launches} times for one head chunk")
+    emb_h = embedding_checks(fx_h, seen_h[:chunk], frames[:chunk])
+    head_vs_projection = float((emb_h.pop("emb") - projection).abs().max())
+    if head_vs_projection < 0.1:
+        raise AssertionError("the learned head's embeddings equal the projection's")
+    return {"stats": stats, "checks": checks, "launches": launches, "emb": emb,
+            "timed_ms": tstats["chunk_s"][0] * 1e3, "timed_camera_err_px": timed_err,
+            "timed_rows": int(len(tracks)), "turns": turns,
+            "turn_diff_ms": float(np.median(np.subtract(turns["reid"], turns["plain"]))),
+            "head_checks": checks_h, "head_emb": emb_h,
+            "head_ms": stats_h["chunk_s"][0] * 1e3, "head_vs_projection": head_vs_projection}
 
 
 def breakdown(fx, width: int, height: int, seed: int, horizon: int, start: int,
@@ -352,7 +660,7 @@ def breakdown(fx, width: int, height: int, seed: int, horizon: int, start: int,
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
     reader = smoke_reader(width, height, seed, horizon, start, start + chunk)
-    frames = np.stack([frame for _, frame in reader])
+    frames = np.stack([frame for _, frame in make_frames(reader)])
     fids = np.arange(start, start + chunk) + 1
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -386,6 +694,13 @@ def breakdown(fx, width: int, height: int, seed: int, horizon: int, start: int,
 # main
 # --------------------------------------------------------------------------
 
+def kernel_entry(name: str, source: str, replaces: str, launches: int, res: dict) -> dict:
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+            "library_ms": res.get("library_ms")}
+
+
 def main() -> int:
     t_all = time.perf_counter()
     width, height, chunk, seed = 3840, 2160, 32, 0
@@ -397,27 +712,38 @@ def main() -> int:
         log(f"device ok {time.perf_counter() - t:.1f}s {dev['name']} x{dev['count']} | {dev['smi']}")
 
         t = time.perf_counter()
-        build_log = phase_build()
-        log(f"build ok {time.perf_counter() - t:.1f}s nvcc -Xptxas -v:")
-        for line in build_log.strip().splitlines():
-            print(f"    {line}", flush=True)
+        build_logs = phase_build()
+        log(f"build ok {time.perf_counter() - t:.1f}s (both at once) nvcc -Xptxas -v:")
+        for name, build_log in build_logs.items():
+            for line in build_log.strip().splitlines():
+                print(f"    {name}: {line}", flush=True)
 
         t = time.perf_counter()
         kern = phase_kernel("cuda")
-        log(f"kernel ok {time.perf_counter() - t:.1f}s exact on (33,1080,1920) and (2,37,53) "
-            f"at t=20,7; (32,1080,1920): kernel_ms={kern['ms']:.4f} plain_ms={kern['plain_ms']:.3f} "
-            f"bound_ms={kern['bound_ms']:.4f} ({kern['bound_by']}) [{dev['smi']}]")
+        log(f"kernel ok {time.perf_counter() - t:.1f}s fast_score exact on (33,1080,1920) and "
+            f"(2,37,53) at t=20,7; (32,1080,1920): kernel_ms={kern['ms']:.4f} "
+            f"plain_ms={kern['plain_ms']:.3f} bound_ms={kern['bound_ms']:.4f} ({kern['bound_by']}) "
+            f"[{dev['smi']}]")
+        t = time.perf_counter()
+        pg = phase_patches("cuda")
+        log(f"kernel ok {time.perf_counter() - t:.1f}s patch_gather exact on {PATCH_SHAPE} x "
+            f"{PATCH_CORNERS} and (2,37,53) x 130 (unfold-gather equal too); {PATCH_SHAPE} x "
+            f"{PATCH_CORNERS}: kernel_ms={pg['ms']:.4f} plain_ms={pg['plain_ms']:.3f} "
+            f"unfold_gather_ms={pg['library_ms']:.3f} bound_ms={pg['bound_ms']:.4f} "
+            f"({pg['bound_by']}, {pg['bytes'] / 1e6:.1f} MB) [{dev['smi']}]")
 
         t = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
         fast.fast_score_map.launches = 0
+        patches.patches32.launches = 0
         main_run = phase_main("cuda", width, height, n_main, chunk, seed=seed, horizon=horizon)
         launches = fast.fast_score_map.launches
         stats, checks = main_run["stats"], main_run["checks"]
         expected = stats["chunks"] + 1  # one per chunk + the reference frame
-        if launches != expected:
+        if launches != expected or patches.patches32.launches != 0:
             raise AssertionError(f"FAST kernel launched {launches} times on the main path, "
-                                 f"expected {expected}")
+                                 f"expected {expected}; patch gather "
+                                 f"{patches.patches32.launches} times, expected 0")
         chunk_ms = [round(s * 1e3, 1) for s in stats["chunk_s"]]
         log(f"main ok {time.perf_counter() - t:.1f}s YOLOv8s imgsz 1920, 2x{chunk} frames "
             f"{width}x{height}: setup {main_run['setup_s']:.1f}s, ms/chunk {chunk_ms}, "
@@ -453,9 +779,37 @@ def main() -> int:
             print(f"    kernel {ms:9.3f} ms  x{count:<6d} {name[:90]}", flush=True)
 
         t = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        rd = phase_reid(main_run["fx"].detector, main_run["frames"], steady["frames"],
+                        main_run["reader"], "cuda", chunk=chunk, seed=seed)
+        rchecks, remb = rd["checks"], rd["emb"]
+        log(f"reid ok {time.perf_counter() - t:.1f}s botsort with_reid, YOLOv8s imgsz 1920, "
+            f"2x{chunk} frames {width}x{height}: ms/chunk "
+            f"{[round(s * 1e3, 1) for s in rd['stats']['chunk_s']]}, {rchecks['rows']} rows / "
+            f"{rchecks['tracks']} tracks, camera error {rchecks['camera_err_px']:.3f} px, launches "
+            f"{rd['launches']}, {remb['valid']} valid embeddings: norm err {remb['norm_err']:.2e}, "
+            f"vs plain gather {remb['plain_err']:.2e}; on the first chunk's own inputs "
+            f"embed_boxes {remb['embed_ms']:.3f} ms, patch gather {remb['gather_ms']:.4f} ms "
+            f"(bound {remb['gather_bound_ms']:.4f} ms, {remb['gather_bytes'] / 1e6:.1f} MB); "
+            f"one more chunk {rd['timed_ms']:.1f} ms with "
+            f"ReID against the steady median {steady['median_ms']:.1f} ms without (camera error "
+            f"{rd['timed_camera_err_px']:.3f} px); the same {len(rd['turns']['reid'])} held chunks "
+            f"in turns on fresh extractors: without ReID "
+            f"{[round(m, 1) for m in rd['turns']['plain']]} ms, with "
+            f"{[round(m, 1) for m in rd['turns']['reid']]} ms, median difference "
+            f"{rd['turn_diff_ms']:.1f} ms; learned head chunk {rd['head_ms']:.1f} ms "
+            f"(first, embed_boxes {rd['head_emb']['embed_ms']:.3f} ms), "
+            f"{rd['head_checks']['rows']} rows, norm err {rd['head_emb']['norm_err']:.2e}, vs "
+            f"plain gather {rd['head_emb']['plain_err']:.2e}, max |head - projection| "
+            f"{rd['head_vs_projection']:.3f}; peak mem "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{dev['smi']}]")
+
+        t = time.perf_counter()
         ref = phase_reference("cuda")
-        log(f"reference ok {time.perf_counter() - t:.1f}s cuda vs cpu on 320x240 oracle clip: "
-            f"{ref['rows']} rows, ids equal, box err {ref['box_err']:.2e} px, H err {ref['h_err']:.2e}")
+        log(f"reference ok {time.perf_counter() - t:.1f}s cuda vs cpu on 320x240 oracle clip, ids "
+            f"equal: " + "; ".join(f"{k} {v['rows']} rows/{v['tracks']} tracks box err "
+                                    f"{v['box_err']:.2e} px H err {v['h_err']:.2e}"
+                                    for k, v in ref.items()))
 
     except Exception as exc:  # noqa: BLE001 — every phase failure ends the run
         import traceback
@@ -465,19 +819,11 @@ def main() -> int:
         return 1
 
     log(f"all phases ok {time.perf_counter() - t_all:.1f}s")
-    kernels = {"kernels": [{
-        "name": "fast_score",
-        "route": "cuda",
-        "source": FAST_SOURCE,
-        "replaces": FAST_REPLACES,
-        "launches": launches,
-        "max_abs_err": kern["max_abs_err"],
-        "ms": kern["ms"],
-        "plain_ms": kern["plain_ms"],
-        "bound_ms": kern["bound_ms"],
-        "bound_by": kern["bound_by"],
-        "library_ms": None,
-    }]}
+    kernels = {"kernels": [
+        kernel_entry("fast_score", FAST_SOURCE, FAST_REPLACES, launches, kern),
+        kernel_entry("patch_gather", PATCH_SOURCE, PATCH_REPLACES,
+                     rd["launches"]["patch_gather"], pg),
+    ]}
     print(json.dumps(kernels), flush=True)
     print(dev["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],

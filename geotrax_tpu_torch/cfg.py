@@ -99,6 +99,74 @@ DEFAULT = {
             "match_thresh": 0.8,
             "fuse_score": True,
         },
+        "ocsort": {
+            "tracker_type": "ocsort",
+            "track_high_thresh": 0.25,
+            "track_low_thresh": 0.1,
+            "new_track_thresh": 0.25,
+            "track_buffer": 30,
+            "match_thresh": 0.8,
+            "fuse_score": True,
+            "delta_t": 3,        # temporal window [frames] for velocity-direction estimation
+            "inertia": 0.2,      # weight of the velocity-consistency cost
+            "use_byte": False,   # enable a ByteTrack-style low-confidence second pass
+        },
+        "deepocsort": {
+            "tracker_type": "deepocsort",
+            "track_high_thresh": 0.3,
+            "track_low_thresh": 0.1,
+            "new_track_thresh": 0.3,
+            "track_buffer": 30,
+            "match_thresh": 0.8,
+            "fuse_score": True,
+            "delta_t": 3,
+            "inertia": 0.2,
+            "use_byte": False,
+            "gmc_method": "none",
+            "with_reid": False,
+            "model": "auto",
+            "proximity_thresh": 0.5,
+            "appearance_thresh": 0.9,
+            "alpha_fixed_emb": 0.95,   # base EMA factor for track-embedding updates
+        },
+        "fasttrack": {
+            "tracker_type": "fasttrack",
+            "track_high_thresh": 0.25,
+            "track_low_thresh": 0.1,
+            "new_track_thresh": 0.25,
+            "track_buffer": 30,
+            "match_thresh": 0.8,
+            "fuse_score": True,
+            "reset_velocity_offset_occ": 5,   # KF velocity rollback depth at occlusion onset
+            "reset_pos_offset_occ": 3,        # KF position rollback depth at occlusion onset
+            "enlarge_bbox_occ": 1.1,          # one-shot bbox scale while occluded
+            "dampen_motion_occ": 0.5,         # velocity dampening while occluded
+            "active_occ_to_lost_thresh": 10,  # occluded frames before a track goes lost
+            "occ_cover_thresh": 0.7,          # covered-area fraction that declares occlusion
+            "occ_reappear_window": 40,        # frames a recently occluded lost track stays findable
+            "init_iou_suppress": 0.7,         # suppress new-track init above this IoU with an active track
+        },
+        "tracktrack": {
+            "tracker_type": "tracktrack",
+            "track_high_thresh": 0.6,
+            "track_low_thresh": 0.25,
+            "new_track_thresh": 0.7,
+            "track_buffer": 30,
+            "match_thresh": 0.7,
+            "lost_match_thr": 0.0,   # relaxed rebind gate for still-lost tracks (0 disables)
+            "iou_weight": 0.5,       # HMIoU term weight in the multi-cue cost
+            "reid_weight": 0.5,
+            "conf_weight": 0.1,
+            "angle_weight": 0.05,
+            "penalty_p": 0.2,        # cost penalty for low-confidence detections
+            "penalty_q": 0.4,        # cost penalty for deleted/recovered detections
+            "reduce_step": 0.05,     # per-iteration threshold reduction (iterative assignment)
+            "tai_thr": 0.55,         # track-aware-initialisation NMS IoU threshold
+            "min_track_len": 3,
+            "gmc_method": "sparseOptFlow",
+            "with_reid": False,
+            "model": "auto",
+        },
     },
 }
 

@@ -120,17 +120,22 @@ class SyntheticVideoReader:
             out.append((cx, cy, b["wh"][0], b["wh"][1]))
         return out
 
+    def frame(self, idx: int) -> np.ndarray:
+        """Frame ``idx`` of the video (each frame depends on its index only,
+        so frames can be made in any order, or in parallel)."""
+        frame = self._background(idx)
+        for b, (cx, cy, w, h) in zip(self.boxes, self.boxes_at(idx)):
+            x0, y0 = int(cx - w / 2), int(cy - h / 2)
+            x1, y1 = int(cx + w / 2), int(cy + h / 2)
+            x0c, y0c = max(x0, 0), max(y0, 0)
+            x1c, y1c = min(x1, self.info.width), min(y1, self.info.height)
+            if x1c > x0c and y1c > y0c:
+                frame[y0c:y1c, x0c:x1c] = b["color"]
+        return frame
+
     def __iter__(self):
         for idx in range(self.start, self.stop):
-            frame = self._background(idx)
-            for b, (cx, cy, w, h) in zip(self.boxes, self.boxes_at(idx)):
-                x0, y0 = int(cx - w / 2), int(cy - h / 2)
-                x1, y1 = int(cx + w / 2), int(cy + h / 2)
-                x0c, y0c = max(x0, 0), max(y0, 0)
-                x1c, y1c = min(x1, self.info.width), min(y1, self.info.height)
-                if x1c > x0c and y1c > y0c:
-                    frame[y0c:y1c, x0c:x1c] = b["color"]
-            yield idx, frame
+            yield idx, self.frame(idx)
 
     def close(self):
         pass

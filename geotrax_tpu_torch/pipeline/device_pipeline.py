@@ -8,6 +8,8 @@ with stabilization on (the default ``extract`` configuration):
        match / RANSAC against the reference frame       masked by this chunk's
                                                         own detections)
     -> GMC homographies                                (consecutive-frame motion)
+    -> ReID embeddings (with_reid: patch gather        (batched; CUDA kernel)
+       kernel, projection or learned head)
     -> tracker over the chunk's frames                 (sequential, on the card)
     -> stabilized-box corner transform                 (batched)
 
@@ -15,12 +17,13 @@ The host uploads the raw uint8 frames once per chunk; tracker state, the
 reference-frame features and the previous frame's homography stay on the
 card between chunks. RANSAC draws come from a generator seeded by
 (rng_seed, frame id), so results do not depend on where the chunk
-boundaries fall. ReID, CLAHE and stabilization off (detect + track only, or
-the standalone-GMC branch) wait for later slices (ROADMAP A13).
+boundaries fall. CLAHE and stabilization off (detect + track only, or the
+standalone-GMC branch) wait for a later slice (ROADMAP A13).
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -30,11 +33,68 @@ from torch.profiler import record_function
 from geotrax_tpu_torch._device import resolve_device
 from geotrax_tpu_torch.ops import features
 from geotrax_tpu_torch.ops.homography import adjugate3, normalize_h
+from geotrax_tpu_torch.ops.patches import PATCH, patches32
 from geotrax_tpu_torch.ops.ransac import ransac_fit, sample_indices, sample_weights
 from geotrax_tpu_torch.ops.resize import resize_u8_linear
 from geotrax_tpu_torch.ops.sift import match_l2
 from geotrax_tpu_torch.stabilize.config import StabilizerConfig
-from geotrax_tpu_torch.track.base import FrameOutput
+from geotrax_tpu_torch.track import reid
+from geotrax_tpu_torch.track.base import EMB_DIM, FrameOutput
+
+
+@lru_cache(maxsize=2)
+def _emb_projection(din: int, dout: int) -> np.ndarray:
+    """Fixed orthonormal-ish projection for the appearance embedding: the
+    reference's seeded numpy QR (``default_rng(11)``), as the port's copy."""
+    rng = np.random.default_rng(11)
+    m = rng.normal(0.0, 1.0, (din, dout))
+    q, _ = np.linalg.qr(m)
+    return q.astype(np.float32)
+
+
+@lru_cache(maxsize=4)
+def _projection_on(din: int, dout: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_emb_projection(din, dout)).to(device)
+
+
+def embed_boxes(frames_u8: torch.Tensor, boxes_xywh: torch.Tensor, emb_dim: int = EMB_DIM,
+                pooled: Optional[torch.Tensor] = None, head_params: Optional[dict] = None,
+                gather: Callable = patches32) -> torch.Tensor:
+    """(C,H,W,3) uint8 + (C,M,4) full-res cxcywh -> (C,M,emb_dim) L2-normed
+    appearance embeddings: a 32x32 RGB patch at each box centre on the
+    0.5x-pooled image, 4x4-averaged per channel and projected through a
+    fixed orthonormal matrix, or fed to the learned head ``head_params``
+    (track/reid.py). ``pooled`` is an existing (C,H/2,W/2,3) half-resolution
+    image (the shared resize) used instead of 2x2-pooling the frames.
+
+    The patches of every channel of every frame come from one ``gather``
+    call on the (3*C, H/2, W/2) channel planes: the CUDA kernel on the card
+    (``ops/patches.py``); ``gather`` is replaceable only so that a check can
+    run the plain version on the same inputs."""
+    c, h, w = frames_u8.shape[:3]
+    h2, w2 = h // 2, w // 2
+    if pooled is None:
+        # trim to even dims first, as the reference does for odd H/W
+        f = frames_u8[:, :h2 * 2, :w2 * 2].to(torch.float32)
+        pooled = 0.25 * (f[:, 0::2, 0::2] + f[:, 0::2, 1::2] + f[:, 1::2, 0::2] + f[:, 1::2, 1::2])
+    else:
+        pooled = pooled.to(torch.float32)
+    half = PATCH // 2
+    # the int32 cast truncates toward zero, as the reference's astype does
+    x0 = torch.clamp((boxes_xywh[..., 0] * 0.5).to(torch.int32) - half, 0, w2 - PATCH)
+    y0 = torch.clamp((boxes_xywh[..., 1] * 0.5).to(torch.int32) - half, 0, h2 - PATCH)
+    m = x0.shape[1]
+    planes = pooled.permute(0, 3, 1, 2).reshape(c * 3, h2, w2).contiguous()
+    corners_x = x0[:, None, :].expand(c, 3, m).reshape(c * 3, m)
+    corners_y = y0[:, None, :].expand(c, 3, m).reshape(c * 3, m)
+    patches = gather(planes, corners_x, corners_y).reshape(c, 3, m, PATCH, PATCH)
+    if head_params is not None:
+        nchw = patches.permute(0, 2, 1, 3, 4).reshape(c * m, 3, PATCH, PATCH)
+        return reid._embed_nchw(head_params, nchw).reshape(c, m, -1)
+    pooled8 = patches.reshape(c, 3, m, 8, 4, 8, 4).mean(dim=(4, 6))      # (C,3,M,8,8)
+    flat = pooled8.permute(0, 2, 1, 3, 4).reshape(c, m, 3 * 64)          # (C,M,192)
+    emb = flat @ _projection_on(flat.shape[-1], emb_dim, flat.device)
+    return emb / torch.clamp_min(torch.linalg.vector_norm(emb, dim=-1, keepdim=True), 1e-12)
 
 
 class RefFeatures(NamedTuple):
@@ -105,13 +165,9 @@ class FusedExtractor:
     def __init__(self, detector, stabilo_cfg: dict, tracker_step,
                  tracker_state, src_h: int, src_w: int, use_gmc: bool,
                  chunk: int = 16, rng_seed: int = 0, with_reid: bool = False,
-                 device="cuda", sampler: Optional[Callable] = None):
+                 reid_params: Optional[dict] = None, device="cuda",
+                 sampler: Optional[Callable] = None):
         self.device = resolve_device(device)
-        if with_reid:
-            raise NotImplementedError(
-                "ReID (embed_boxes and the pallas_patches kernel) is not ported yet "
-                "(ROADMAP A13, B2)"
-            )
         if stabilo_cfg is None:
             raise NotImplementedError(
                 "stabilization off (detect + track only, standalone GMC) is not ported "
@@ -123,6 +179,10 @@ class FusedExtractor:
         self.tracker_step = tracker_step
         self.state = tracker_state
         self.use_gmc = use_gmc
+        self.with_reid = with_reid
+        # learned ReID head (track/reid.py); None embeds by projection
+        self.reid_params = None if reid_params is None else {
+            k: v.to(self.device) for k, v in reid_params.items()}
         self._detect = detector.batch_trace(src_h, src_w)
         self._detect_resized = None
         self._resize_geom = None
@@ -188,7 +248,7 @@ class FusedExtractor:
                                     device=h_ds.device)
         return inv_scale @ h_ds @ scale
 
-    def _run_tracker(self, det, gmc, fids, n_valid: int) -> FrameOutput:
+    def _run_tracker(self, det, gmc, fids, n_valid: int, det_emb=None) -> FrameOutput:
         """The tracker over the chunk's frames in order (frames past
         ``n_valid`` are padding: state unchanged, no valid output)."""
         state = self.state
@@ -198,6 +258,7 @@ class FusedExtractor:
                 state, out = self.tracker_step(
                     state, det["boxes_xywh"][t], det["scores"][t], det["classes"][t],
                     det["valid"][t], fids[t], gmc[t] if self.use_gmc else None,
+                    det_emb[t] if det_emb is not None else None,
                 )
             else:
                 k = state.track_id.shape[0]
@@ -226,6 +287,15 @@ class FusedExtractor:
             else:
                 det = self._detect(frames_u8, fids_t)
         det_boxes, det_valid = det["boxes_xywh"], det["valid"]
+        det_emb = None
+        if self.with_reid:
+            with record_function("fx.reid"):
+                half_geom = (frames_u8.shape[1] // 2, frames_u8.shape[2] // 2)
+                det_emb = embed_boxes(
+                    frames_u8, det_boxes,
+                    pooled=resized if self._resize_geom == half_geom else None,
+                    head_params=self.reid_params,
+                )
         eye = torch.eye(3, device=dev)
 
         with record_function("fx.features"):
@@ -265,7 +335,7 @@ class FusedExtractor:
             gmc = eye.expand(c, 3, 3).clone()
 
         with record_function("fx.tracker"):
-            outs = self._run_tracker(det, gmc, fids, n_valid)
+            outs = self._run_tracker(det, gmc, fids, n_valid, det_emb)
 
         box_stab = _transform_boxes_h(h, outs.box_xywh)
         self._h_prev = h[-1]

@@ -10,9 +10,14 @@ Counterpart of ``geotrax_tpu/pipeline/_extract_impl.py``'s
   <out>/<stem><stab_postfix>.txt     frame + row-major 3x3 cur->ref
                                      homography — ``%.16g``
 
-The YAML metadata file, the track post-processing, the CLI and video
-decoding wait for later slices of the port (ROADMAP A10), and so does
-extraction with stabilization off (ROADMAP A13).
+``make_extract_tracker`` and ``make_fused_extractor`` build the tracker
+(with the learned ReID head that ``tracker.<active>.model`` names) and the
+chunk step as ``_extract_impl.py:make_extract_tracker`` (:105-126) and
+``make_fused_extractor`` (:131-145) do.
+
+The YAML metadata file, the track post-processing, the CLI, video decoding
+and the sequential per-frame path wait for later slices of the port
+(ROADMAP A10), and so does extraction with stabilization off (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -25,7 +30,9 @@ import numpy as np
 import torch
 
 from geotrax_tpu_torch.cfg import DEFAULT, select_tracker
+from geotrax_tpu_torch.pipeline.device_pipeline import FusedExtractor
 from geotrax_tpu_torch.track import make_tracker
+from geotrax_tpu_torch.track.reid import resolve_head
 
 # One chunk per fused dispatch (the JAX package's _extract_impl.FUSED_CHUNK).
 FUSED_CHUNK = 32
@@ -33,13 +40,34 @@ FUSED_CHUNK = 32
 _LOG = logging.getLogger("geotrax")
 
 
-def make_extract_tracker(config: dict, device="cuda"):
+def make_extract_tracker(config: dict, device="cuda", logger=_LOG):
     """Tracker construction as the extract stage performs it:
-    (tracker_cfg, tracker_state, tracker_step) with max_tracks =
-    max(256, min(max_det, 1024))."""
+    (tracker_cfg, tracker_state, tracker_step, reid_params) with max_tracks =
+    max(256, min(max_det, 1024)). With ReID on, ``reid_params`` is the
+    learned head that ``tracker.<active>.model`` names (track/reid.py), or
+    None to embed by projection (``model: auto``, or a missing or malformed
+    file, with a warning)."""
     name, params = select_tracker(config["tracker"])
     max_det = int(config["ultralytics"].get("max_det", 1000) or 1000)
-    return make_tracker(name, params, max_tracks=max(256, min(max_det, 1024)), device=device)
+    tracker_cfg, state, step = make_tracker(name, params, max_tracks=max(256, min(max_det, 1024)),
+                                            device=device)
+    reid_params = resolve_head(params, logger) if tracker_cfg.with_reid else None
+    return tracker_cfg, state, step, reid_params
+
+
+def make_fused_extractor(config: dict, detector, tracker_cfg, tracker_state, tracker_step,
+                         src_h: int, src_w: int, reid_params=None, chunk: int = FUSED_CHUNK,
+                         rng_seed: int = 0, device="cuda") -> FusedExtractor:
+    """The FusedExtractor as the extract stage builds it: the ``stabilo``
+    section, the tracker's GMC and ReID flags and the learned head."""
+    extraction = config.get("extraction", DEFAULT["extraction"])
+    if not extraction.get("stabilize", True):
+        raise NotImplementedError("extraction with stabilize: false is not ported yet (ROADMAP A13)")
+    return FusedExtractor(
+        detector, config.get("stabilo", DEFAULT["stabilo"]), tracker_step, tracker_state,
+        src_h, src_w, use_gmc=tracker_cfg.use_gmc, chunk=chunk, rng_seed=rng_seed,
+        with_reid=tracker_cfg.with_reid, reid_params=reid_params, device=device,
+    )
 
 
 def track_video_fused(reader, fx, cut_left: int = 0, chunk: int = FUSED_CHUNK) -> tuple:

@@ -49,7 +49,7 @@ class TrackerConfig(NamedTuple):
     kf_fmt: str = "xyah"          # 'xyah' (bytetrack lineage) | 'xywh' (botsort)
     use_gmc: bool = False         # apply camera-motion homography to predictions
     max_tracks: int = 256
-    # ReID appearance modeling (BoT-SORT)
+    # ReID appearance modeling (BoT-SORT, Deep OC-SORT, TrackTrack)
     with_reid: bool = False
     proximity_thresh: float = 0.5
     appearance_thresh: float = 0.8
@@ -343,6 +343,18 @@ def byte_associate(state: TrackerState, cfg: TrackerConfig, det_boxes, det_score
     return state._replace(status=torch.where(expired, EMPTY, state.status))
 
 
+def frame_output(state: TrackerState, cfg: TrackerConfig, frame_id: int) -> FrameOutput:
+    """Every slot's output; valid where the track is tracked and matched in
+    this frame."""
+    return FrameOutput(
+        track_id=state.track_id,
+        box_xywh=_track_boxes(state, cfg),
+        score=state.score,
+        cls=state.cls,
+        valid=(state.status == TRACKED) & (state.last_frame == frame_id),
+    )
+
+
 def byte_step(state: TrackerState, det_boxes, det_scores, det_cls, det_valid,
               frame_id: int, cfg: TrackerConfig, gmc_h=None, det_emb=None):
     """One tracker frame: predict -> associate -> emit active tracks.
@@ -351,21 +363,13 @@ def byte_step(state: TrackerState, det_boxes, det_scores, det_cls, det_valid,
     state = predict_stage(state, cfg, gmc_h)
     state = byte_associate(state, cfg, det_boxes, det_scores, det_cls, det_valid,
                            frame_id, det_emb)
-    active = (state.status == TRACKED) & (state.last_frame == frame_id)
-    out = FrameOutput(
-        track_id=state.track_id,
-        box_xywh=_track_boxes(state, cfg),
-        score=state.score,
-        cls=state.cls,
-        valid=active,
-    )
-    return state, out
+    return state, frame_output(state, cfg, frame_id)
 
 
 def make_tracker(name: str, params: dict, max_tracks: int = 256, device="cuda"):
     """Build (cfg, init_state, step_fn) for a named tracker from its config
     block (cfg tracker.<name>). Step signature:
-        state, out = step(state, boxes, scores, cls, valid, frame_id, gmc_h)
+        state, out = step(state, boxes, scores, cls, valid, frame_id, gmc_h, det_emb)
     """
     name = name.lower()
     common = dict(
@@ -382,19 +386,28 @@ def make_tracker(name: str, params: dict, max_tracks: int = 256, device="cuda"):
         proximity_thresh=float(params.get("proximity_thresh", 0.5)),
         appearance_thresh=float(params.get("appearance_thresh", 0.8)),
     )
+    step = byte_step
     if name == "bytetrack":
         cfg = TrackerConfig(kf_fmt="xyah", use_gmc=False, **common)
     elif name == "botsort":
         use_gmc = params.get("gmc_method", "sparseOptFlow") not in (None, "none", "None")
         cfg = TrackerConfig(kf_fmt="xywh", use_gmc=use_gmc, **common, **reid)
-    elif name in ("ocsort", "deepocsort", "fasttrack", "tracktrack"):
-        raise NotImplementedError(
-            f"tracker '{name}' is not ported yet (ROADMAP A13: other trackers and ReID)"
-        )
+    elif name in ("ocsort", "deepocsort"):
+        from geotrax_tpu_torch.track.ocsort import make_ocsort_step
+
+        cfg, step = make_ocsort_step(params, common, deep=(name == "deepocsort"))
+    elif name == "fasttrack":
+        from geotrax_tpu_torch.track.fasttrack import make_fasttrack_step
+
+        cfg, step = make_fasttrack_step(params, common)
+    elif name == "tracktrack":
+        from geotrax_tpu_torch.track.tracktrack import make_tracktrack_step
+
+        cfg, step = make_tracktrack_step(params, common)
     else:
         raise ValueError(f"Unknown tracker '{name}'")
 
     def step_fn(state, boxes, scores, cls, valid, frame_id, gmc_h=None, det_emb=None):
-        return byte_step(state, boxes, scores, cls, valid, frame_id, cfg, gmc_h, det_emb)
+        return step(state, boxes, scores, cls, valid, frame_id, cfg, gmc_h, det_emb)
 
     return cfg, init_state(cfg, device), step_fn

@@ -10,8 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+from geotrax_tpu_torch import _cuda
 from geotrax_tpu_torch.ops import fast
 from geotrax_tpu_torch.ops import features
+from geotrax_tpu_torch.ops import patches
+from geotrax_tpu_torch.pipeline.device_pipeline import embed_boxes
 
 
 def _need_card():
@@ -68,3 +71,79 @@ def test_fast_detect_on_card_equals_cpu():
     gpu = features.fast_detect(gray.cuda(), 300, mask=mask.cuda())
     for a, b in zip(cpu, gpu):
         torch.testing.assert_close(b.cpu(), a, rtol=0, atol=0)
+
+
+def seeded_corners(b, h, w, k, seed):
+    """Corners out of range, at every edge and inside (int32, on the card)."""
+    rng = np.random.default_rng(seed)
+    x0 = rng.integers(-48, w + 48, (b, k)).astype(np.int32)
+    y0 = rng.integers(-48, h + 48, (b, k)).astype(np.int32)
+    n = min(k, 6)
+    x0[:, :n] = [0, w - 32, -1, w - 31, 2 ** 20, -(2 ** 20)][:n]
+    y0[:, :n] = [h - 32, 0, h - 31, -1, -(2 ** 20), 2 ** 20][:n]
+    return torch.from_numpy(x0).cuda(), torch.from_numpy(y0).cuda()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,k", [((96, 1080, 1920), 1000), ((2, 37, 53), 130), ((1, 32, 32), 3)])
+def test_patch_gather_equals_plain_on_card(shape, k):
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(k)
+    planes = torch.rand(shape, generator=gen, device="cuda") * 255.0
+    x0, y0 = seeded_corners(shape[0], shape[1], shape[2], k, seed=k)
+    before = patches.patches32.launches
+    out = patches.patches32(planes, x0, y0)
+    torch.cuda.synchronize()
+    assert patches.patches32.launches == before + 1
+    torch.testing.assert_close(out, patches.patches32_torch(planes, x0, y0), rtol=0, atol=0)
+    # one (H,W) plane with (K,) int64 corners, some beyond int32, takes the same kernel
+    far = torch.tensor([2 ** 40, -(2 ** 40)], device="cuda")
+    x_far, y_far = x0[-1].long(), y0[-1].long()
+    x_far[:2], y_far[:2] = far, far.flip(0)
+    wide = patches.patches32(planes[-1].contiguous(), x_far, y_far)
+    torch.testing.assert_close(wide, patches.patches32_torch(planes[-1], x_far, y_far), rtol=0,
+                               atol=0)
+    one = patches.patches32(planes[-1].contiguous(), x0[-1].long(), y0[-1].long())
+    torch.testing.assert_close(one, out[-1], rtol=0, atol=0)
+    assert patches.patches32.launches == before + 3
+
+
+@pytest.mark.gpu
+def test_patch_wrapper_rejects_what_the_kernel_does_not_take():
+    _need_card()
+    planes = torch.zeros((2, 40, 64), device="cuda")
+    x0 = torch.zeros((2, 5), dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError):
+        patches.patches32(planes.double(), x0, x0)
+    with pytest.raises(ValueError):
+        patches.patches32(planes.transpose(1, 2), x0, x0)
+    with pytest.raises(ValueError):
+        patches.patches32(planes[:, :31], x0, x0)
+    with pytest.raises(ValueError):
+        patches.patches32(planes, x0.cpu(), x0.cpu())
+
+
+@pytest.mark.gpu
+def test_failing_build_raises(tmp_path, monkeypatch):
+    _need_card()
+    (tmp_path / "patch_gather.cu").write_text("this is not CUDA C++\n")
+    monkeypatch.setattr(_cuda, "CSRC", tmp_path)
+    monkeypatch.setattr(_cuda, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc failed for patch_gather.cu"):
+        _cuda.build("patch_gather")
+
+
+@pytest.mark.gpu
+def test_embed_boxes_on_card_equals_cpu():
+    _need_card()
+    rng = np.random.default_rng(2)
+    frames = rng.integers(0, 256, (3, 120, 160, 3)).astype(np.uint8)
+    boxes = np.column_stack([rng.uniform(-20, 180, 30), rng.uniform(-20, 140, 30),
+                             rng.uniform(8, 40, 30), rng.uniform(8, 40, 30)])
+    boxes = boxes.reshape(3, 10, 4).astype(np.float32)
+    cpu = embed_boxes(torch.from_numpy(frames), torch.from_numpy(boxes))
+    before = patches.patches32.launches
+    card = embed_boxes(torch.from_numpy(frames).cuda(), torch.from_numpy(boxes).cuda())
+    torch.cuda.synchronize()
+    assert patches.patches32.launches == before + 1  # one launch for all frames and channels
+    torch.testing.assert_close(card.cpu(), cpu, rtol=0, atol=1e-5)

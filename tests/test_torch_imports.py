@@ -2,8 +2,9 @@
 packages the card's machine lacks (yaml, cv2, pandas, tqdm, flax, optax) is
 imported by geotrax_tpu_torch or chip_smoke.py, at import time or on the
 smoke's path. A subprocess refuses those imports, imports every module, and
-rehearses the smoke's phases on the CPU at a tiny size; an AST walk checks
-the sources."""
+rehearses the smoke's phases (the ReID phase and the reference phase's six
+trackers among them) on the CPU at a tiny size; an AST walk checks the
+sources."""
 
 import ast
 import subprocess
@@ -35,6 +36,10 @@ kern = chip_smoke.phase_kernel("cpu", check_shape=(2, 40, 60), odd_shape=(2, 37,
                                time_shape=(32, 1080, 1920))
 assert kern["max_abs_err"] == 0.0 and kern["bound_by"] == "bytes", kern
 assert abs(kern["bound_ms"] - 2 * 4 * 32 * 1080 * 1920 / 3.35e12 * 1e3) < 1e-9
+pg = chip_smoke.phase_patches("cpu", check_shape=(6, 40, 70), k=20)
+assert pg["max_abs_err"] == 0.0 and pg["bound_by"] == "bytes" and pg["ms"] is None, pg
+# every patch written once; the corner patches overlap, so fewer pixels are read
+assert 4 * 6 * 20 * (1024 + 2) < pg["bytes"] < 4 * 6 * 20 * (2 * 1024 + 2), pg
 # at this size the random detector's one box masks about half of the frame,
 # so few features remain and the camera check gets a wide limit
 run = chip_smoke.phase_main("cpu", width=512, height=288, n_frames=6, chunk=4, variant="n",
@@ -43,8 +48,19 @@ assert run["checks"]["rows"] > 0, run["checks"]
 assert run["stats"]["chunks"] == 2 and run["fx"]._resize_geom == (144, 256)
 steady = chip_smoke.phase_steady(run["fx"], 512, 288, 0, 14, 6, chunk=4, n_chunks=2, tol_px=10.0)
 assert len(steady["chunk_ms"]) == 2 and steady["camera_err_px"] < 10.0, steady
+assert len(run["frames"]) == 6 and [i for i, _ in steady["frames"]] == [6, 7, 8, 9]
+rd = chip_smoke.phase_reid(run["fx"].detector, run["frames"], steady["frames"], run["reader"],
+                           "cpu", imgsz=256, chunk=4, tol_px=10.0)
+assert rd["stats"]["chunks"] == 2 and rd["checks"]["rows"] > 0, rd["checks"]
+assert rd["launches"] == {"fast_score": 0, "patch_gather": 0}, rd["launches"]
+assert rd["emb"]["valid"] > 0 and rd["emb"]["plain_err"] == 0.0, rd["emb"]
+assert rd["head_emb"]["plain_err"] == 0.0 and rd["head_vs_projection"] > 0.1, rd
+assert rd["timed_camera_err_px"] < 10.0 and rd["head_checks"]["rows"] > 0, rd
+assert len(rd["turns"]["plain"]) == len(rd["turns"]["reid"]) == 2, rd["turns"]
 ref = chip_smoke.phase_reference("cpu", n_frames=6, chunk=4)
-assert ref["box_err"] == 0.0 and ref["h_err"] == 0.0, ref
+assert list(ref) == ["botsort", "botsort+reid", "deepocsort+reid", "tracktrack+reid", "ocsort",
+                     "fasttrack"], ref
+assert all(r["box_err"] == 0.0 and r["h_err"] == 0.0 and r["rows"] > 0 for r in ref.values()), ref
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
 assert not leaked, leaked
 print("GUARD-OK", len(names))
@@ -86,3 +102,27 @@ def test_smoke_refuses_to_run_without_a_card():
                           text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_smoke_patch_bound_reads_each_covered_pixel_once():
+    """The gather's bound counts every patch written and every plane pixel
+    that some patch covers, once, whatever the overlap."""
+    import numpy as np
+    import torch
+
+    import chip_smoke
+
+    planes = torch.zeros((2, 64, 80))
+    x0 = torch.tensor([[0, 0, 10, -5], [48, 70, 48, 30]], dtype=torch.int32)
+    y0 = torch.tensor([[0, 0, 5, -9], [32, 40, 0, 16]], dtype=torch.int32)
+    covered = 0
+    for b in range(2):
+        mask = np.zeros((64, 80), bool)
+        for x, y in zip(x0[b].tolist(), y0[b].tolist()):
+            x, y = min(max(x, 0), 80 - 32), min(max(y, 0), 64 - 32)
+            mask[y:y + 32, x:x + 32] = True
+        covered += int(mask.sum())
+    ms, bound_by, moved = chip_smoke.patch_bound_ms(planes, x0, y0)
+    assert bound_by == "bytes"
+    assert moved == 4 * (8 * 1024 + covered + 2 * 8)
+    assert ms == moved / chip_smoke.HBM_BYTES_PER_S * 1e3

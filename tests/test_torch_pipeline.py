@@ -106,9 +106,13 @@ def fit_homography_normal_eigh64(src, dst, weights=None):
     return jh.normalize_h(h)
 
 
-def run_jax(reader, eigh64=False):
+def botsort_params(reid=False):
+    return {**tcfg.DEFAULT["tracker"]["botsort"], "with_reid": reid}
+
+
+def run_jax(reader, eigh64=False, reid=False):
     det = JaxOracle(boxes_fn(reader))
-    tracker = tcfg.DEFAULT["tracker"]["botsort"]
+    tracker = botsort_params(reid)
     tcfg_j, tstate, tstep = jax_make_tracker("botsort", tracker, max_tracks=TRACKS)
     config = {"main": {"class_names": {}}, "stabilo": dict(tcfg.DEFAULT["stabilo"])}
     mp = pytest.MonkeyPatch()
@@ -128,12 +132,13 @@ def run_jax(reader, eigh64=False):
     return tracks, transforms
 
 
-def run_port(reader, out_dir):
+def run_port(reader, out_dir, reid=False):
     det = OracleDetector(boxes_fn(reader), device="cpu")
-    _, tstate, tstep = make_tracker("botsort", tcfg.DEFAULT["tracker"]["botsort"], max_tracks=TRACKS,
-                                    device="cpu")
+    tracker_cfg, tstate, tstep = make_tracker("botsort", botsort_params(reid), max_tracks=TRACKS,
+                                              device="cpu")
     fx = FusedExtractor(det, tcfg.DEFAULT["stabilo"], tstep, tstate, 240, 320, use_gmc=True,
-                        chunk=CHUNK, device="cpu", sampler=jax_sampler)
+                        chunk=CHUNK, device="cpu", sampler=jax_sampler,
+                        with_reid=tracker_cfg.with_reid)
     return textract.extract(reader, fx, out_dir, "V_torch", chunk=CHUNK)
 
 
@@ -163,6 +168,16 @@ def jax_rows_moving():
 @pytest.fixture(scope="module")
 def torch_run_moving(tmp_path_factory):
     return run_port(moving_reader(), tmp_path_factory.mktemp("torch_extract_moving"))
+
+
+@pytest.fixture(scope="module")
+def jax_rows_reid():
+    return run_jax(moving_reader(), eigh64=True, reid=True)
+
+
+@pytest.fixture(scope="module")
+def torch_run_reid(tmp_path_factory):
+    return run_port(moving_reader(), tmp_path_factory.mktemp("torch_extract_reid"), reid=True)
 
 
 def assert_rows_match(t_tracks, t_transf, j_tracks, j_transf, lin_tol=LIN_TOL):
@@ -197,6 +212,16 @@ def test_rows_match_jax(jax_rows, torch_run):
 
 def test_rows_match_jax_moving_camera(jax_rows_moving, torch_run_moving):
     assert_rows_match(*read_rows(torch_run_moving), *jax_rows_moving)
+
+
+def test_rows_match_jax_with_reid(jax_rows_reid, torch_run_reid, torch_run_moving):
+    """BoT-SORT with ReID through the whole chunk step (the appearance
+    embedding of every detection, the tracker's appearance cost and EMA)
+    on the moving-camera clip, against the reference's FusedExtractor with
+    with_reid; the homographies are those of the run without ReID."""
+    rows, transf = read_rows(torch_run_reid)
+    assert_rows_match(rows, transf, *jax_rows_reid)
+    np.testing.assert_array_equal(transf, read_rows(torch_run_moving)[1])
 
 
 def test_moving_camera_homographies_are_the_cameras(jax_rows_moving, torch_run_moving):
