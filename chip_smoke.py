@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/H100 port (geotrax_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase; the last line is the result
+    python3 chip_smoke.py --kernels-only   # phases 0-2 only, no result line
 
 Phases, one ``[smoke] <phase> ok <seconds>s ...`` line each; a failing phase
 ends the run with a non-zero exit and no result line:
@@ -9,21 +10,27 @@ ends the run with a non-zero exit and no result line:
   1 build      nvcc builds csrc/fast_score.cu and csrc/patch_gather.cu for
                sm_90a, both at once (-Xptxas -v shown)
   2 kernel     the FAST kernel equals its plain PyTorch version exactly on a
-               seeded (33,1080,1920) batch at thresholds 20 and 7 and on an
-               odd (2,37,53) batch; the patch gather equals its plain
-               version exactly on the ReID path's (96,1080,1920) planes with
-               1000 corners each (out of range, at every edge, inside) and
-               on an odd (2,37,53) x 130 case; CUDA-event times of each
-               kernel, its plain version and, for the gather, one PyTorch
-               call computing it (an advanced index on an unfold view)
+               seeded (33,1080,1920) batch, an odd (2,37,53) batch, a
+               3-pixel checkerboard and a constant image, at thresholds 20
+               and 7; the patch gather equals its plain version exactly on
+               the ReID path's (96,1080,1920) planes with 1000 corners each
+               (out of range, at every edge, inside) and on an odd
+               (2,37,53) x 130 case; CUDA-event times of each kernel, its
+               plain version and, for the gather, one PyTorch call
+               computing it (an advanced index on an unfold view); for FAST
+               also the achieved GB/s, the share of the bound and the share
+               of pixels that take its full test
   3 main       the default extract configuration: YOLOv8s at imgsz 1920
                (random weights from a seeded generator, class biases set so
                that about VEHICLES_PER_4K_FRAME boxes pass ``conf``) on two
                32-frame chunks of 3840x2160 synthetic frames seen by a
-               moving camera, through the fused chunk step and the row
-               emitter into the two text files, read back and checked; the
-               FAST launch counter must rise by 3, and every frame's
-               homography must be the camera's
+               moving camera, through the fused chunk step and the extract
+               entry point into its files (the post-processed 14-column
+               tracks file, the transforms file, the metadata file with the
+               reference's top-level keys), read back and checked; the FAST
+               launch counter must rise by 3, and every frame's homography
+               must be the camera's; then the FAST kernel exact and timed on
+               the first chunk's own gray
   4 steady     three more chunks of the same video through the same
                extractor: ms per chunk (median, min, max), checked as above
   5 breakdown  one more chunk under torch.profiler, checked as above: host
@@ -31,7 +38,7 @@ ends the run with a non-zero exit and no result line:
                (device times read 0 where the profiler sees none)
   6 reid       the same configuration with tracker.botsort.with_reid: true,
                through the extract entry point on the main phase's frames
-               (kept in host memory): rows and homographies checked as in
+               (kept in host memory): files and homographies checked as in
                the main phase, the patch launch counter must rise by one per
                chunk, the embeddings of valid detections have unit norm and,
                on the first chunk, equal those of the plain gather on the
@@ -44,7 +51,9 @@ ends the run with a non-zero exit and no result line:
                botsort with ReID, deepocsort with ReID, tracktrack with
                ReID, ocsort and fasttrack: equal track ids, close geometry
 Then a JSON line describing each kernel, the card's nvidia-smi line, and as
-the last line {"ok": true, "device": {...}}.
+the last line {"ok": true, "device": {...}}. ``--kernels-only`` serves to
+time the kernels of two checkouts in one call: copy this script into the
+other checkout and run it there too.
 """
 
 from __future__ import annotations
@@ -66,7 +75,7 @@ from geotrax_tpu_torch import cfg as port_cfg
 from geotrax_tpu_torch.io.synthetic import SyntheticVideoReader
 from geotrax_tpu_torch.models import yolov8
 from geotrax_tpu_torch.models.detector import Detector, OracleDetector
-from geotrax_tpu_torch.ops import fast, patches
+from geotrax_tpu_torch.ops import fast, features, patches
 from geotrax_tpu_torch.ops.resize import resize_u8_linear
 from geotrax_tpu_torch.pipeline import extract as port_extract
 from geotrax_tpu_torch.pipeline.device_pipeline import FusedExtractor, embed_boxes
@@ -169,15 +178,56 @@ def phase_build() -> dict:
         return {name: fut.result()[1] for name, fut in futures.items()}
 
 
+def checkerboard(b: int, h: int, w: int, cell: int = 3) -> np.ndarray:
+    """3-pixel cells: 4 of every 9 pixels are corners and nearly every pixel
+    passes the kernel's cardinal test (its densest case)."""
+    y, x = np.mgrid[:h, :w]
+    board = ((x // cell + y // cell) % 2 * 255.0).astype(np.float32)
+    return np.ascontiguousarray(np.broadcast_to(board, (b, h, w)))
+
+
+def cardinal_pass_share(gray: torch.Tensor, thr: float) -> float:
+    """Share of pixels that pass the FAST kernel's exact early test (two
+    cyclically adjacent samples of ring positions 0, 4, 8, 12 all brighter
+    than c + t, or all darker than c - t); the rest skip the full test."""
+    p = torch.nn.functional.pad(gray, (3, 3, 3, 3))
+    h, w = gray.shape[-2:]
+    s0, s4, s8, s12 = (p[..., 3 + dy:3 + dy + h, 3 + dx:3 + dx + w]
+                       for dx, dy in ((0, -3), (3, 0), (0, 3), (-3, 0)))
+    hi, lo = gray + thr, gray - thr
+    bright = ((s0 > hi) | (s8 > hi)) & ((s4 > hi) | (s12 > hi))
+    dark = ((s0 < lo) | (s8 < lo)) & ((s4 < lo) | (s12 < lo))
+    return float((bright | dark).float().mean())
+
+
+def time_fast(gray: torch.Tensor, reps: int, thr: float = 20.0) -> dict:
+    """The kernel's and the plain version's CUDA-event times on ``gray``,
+    its bound, achieved rate and share of the bound, and the share of
+    pixels that take the kernel's full test."""
+    bound, bound_by = fast_bound_ms(tuple(gray.shape))
+    ms = cuda_ms(lambda: fast.fast_score_map(gray, thr), reps)
+    return {"ms": ms, "plain_ms": cuda_ms(lambda: fast.fast_score_map_torch(gray, thr),
+                                          max(reps // 4, 2)),
+            "bound_ms": bound, "bound_by": bound_by,
+            "gb_per_s": 2 * 4 * gray.numel() / ms / 1e6, "share": bound / ms,
+            "full_test_share": cardinal_pass_share(gray, thr)}
+
+
 def phase_kernel(device: str = "cuda", check_shape=(33, 1080, 1920), odd_shape=(2, 37, 53),
                  time_shape=(32, 1080, 1920), reps: int = 20) -> dict:
-    """FAST kernel == plain version (exactly) and the two times. On the CPU
-    (a rehearsal) the wrapper itself runs the plain version, so the
-    comparison is trivial and nothing is timed."""
+    """FAST kernel == plain version (exactly) on seeded textured frames, an
+    odd shape, a checkerboard and a constant image, and the times on seeded
+    frames at the main path's shape. On the CPU (a rehearsal) the wrapper
+    itself runs the plain version, so the comparison is trivial and nothing
+    is timed."""
     dev = torch.device(device)
     max_err = 0.0
-    for shape, seed in ((check_shape, 1), (odd_shape, 2)):
-        gray = torch.from_numpy(textured_batch(*shape, seed)).to(dev)
+    inputs = (("textured", lambda: textured_batch(*check_shape, 1)),
+              ("odd", lambda: textured_batch(*odd_shape, 2)),
+              ("checkerboard", lambda: checkerboard(2, *check_shape[1:])),
+              ("constant", lambda: np.full((2,) + tuple(check_shape[1:]), 77.0, np.float32)))
+    for name, make in inputs:
+        gray = torch.from_numpy(make()).to(dev)
         for thr in (20.0, 7.0):
             out = fast.fast_score_map(gray, thr)
             plain = fast.fast_score_map_torch(gray, thr)
@@ -185,9 +235,13 @@ def phase_kernel(device: str = "cuda", check_shape=(33, 1080, 1920), odd_shape=(
                 torch.cuda.synchronize()
             err = float((out - plain).abs().max())
             corners = int((plain > 0).sum())
-            if err != 0.0 or not torch.equal(out, plain) or corners == 0:
-                raise AssertionError(f"FAST kernel != plain at {shape} t={thr}: max err {err}, "
-                                     f"{corners} corners")
+            # a constant image has corners only where the ring reaches the
+            # zero padding, within 3 px of its edge
+            inner = int((plain[..., 3:-3, 3:-3] > 0).sum())
+            if err != 0.0 or not torch.equal(out, plain) or corners == 0 or (
+                    name == "constant" and inner != 0):
+                raise AssertionError(f"FAST kernel != plain on {name} {tuple(gray.shape)} t={thr}: "
+                                     f"max err {err}, {corners} corners")
             max_err = max(max_err, err)
         del gray, out, plain
     bound, bound_by = fast_bound_ms(time_shape)
@@ -195,9 +249,22 @@ def phase_kernel(device: str = "cuda", check_shape=(33, 1080, 1920), odd_shape=(
            "ms": None, "plain_ms": None}
     if dev.type == "cuda":
         gray = torch.from_numpy(textured_batch(*time_shape, 3)).to(dev)
-        res["ms"] = cuda_ms(lambda: fast.fast_score_map(gray, 20.0), reps)
-        res["plain_ms"] = cuda_ms(lambda: fast.fast_score_map_torch(gray, 20.0), max(reps // 4, 2))
+        res.update(time_fast(gray, reps))
     return res
+
+
+def phase_kernel_on_path(frames, device: str = "cuda", reps: int = 20) -> dict:
+    """The FAST kernel on the main path's own gray (the first chunk's
+    frames, resized and converted as the chunk step does): exact against
+    the plain version, and timed as on the seeded frames."""
+    frames_t = torch.as_tensor(np.stack([f for _, f in frames])).to(device)
+    h, w = frames_t.shape[1] // 2, frames_t.shape[2] // 2
+    gray = features.rgb_to_gray(resize_u8_linear(frames_t, h, w)).contiguous()
+    del frames_t
+    out = fast.fast_score_map(gray, 20.0)
+    if not torch.equal(out, fast.fast_score_map_torch(gray, 20.0)):
+        raise AssertionError("FAST kernel != plain on the main path's gray")
+    return time_fast(gray, reps) if device == "cuda" else {}
 
 
 def seeded_planes(shape, seed: int, device) -> torch.Tensor:
@@ -380,12 +447,20 @@ def check_homographies(h: np.ndarray, frame_ids, reader: SyntheticVideoReader,
     return err
 
 
+# The top-level keys of the reference's run metadata (save_results), in order.
+METADATA_KEYS = ["geotrax_tpu_version", "video", "runtime", "config", "args"]
+
+
 def check_outputs(stats: dict, n_frames: int, reader: SyntheticVideoReader,
                   tol_px: float) -> dict:
-    """Read back the two files and hold them to the extract contract: h[0]
-    (the reference frame) is the identity, every frame stabilizes (>= 4
-    matches) to the camera's true homography within ``tol_px`` at the
-    frame's corners, the tracks file has 12 finite columns."""
+    """Read back the files and hold them to the extract contract: h[0] (the
+    reference frame) is the identity, every frame stabilizes (>= 4 matches)
+    to the camera's true homography within ``tol_px`` at the frame's
+    corners, the tracks file is the post-processed table of 14 columns (12
+    finite ones, then each track's length and width, NaN where no row of
+    the track qualified), tracks of fewer than ``min_track_length`` rows
+    removed, and the metadata file, where one was asked for, has the
+    reference's top-level keys."""
     h = stats["h"]
     if h.shape != (n_frames, 3, 3):
         raise AssertionError(f"homographies: shape {h.shape}")
@@ -397,8 +472,14 @@ def check_outputs(stats: dict, n_frames: int, reader: SyntheticVideoReader,
     cam_err = check_homographies(h, range(n_frames), reader, tol_px)
     tracks = np.loadtxt(stats["tracks_file"], delimiter=",", ndmin=2)
     transf = np.loadtxt(stats["transforms_file"], delimiter=",", ndmin=2)
-    if tracks.shape[1] != 12 or len(tracks) == 0 or not np.isfinite(tracks).all():
+    if tracks.shape[1] != 14 or len(tracks) == 0 or not np.isfinite(tracks[:, :12]).all():
         raise AssertionError(f"tracks file: shape {tracks.shape}")
+    dims = tracks[:, 12:]
+    if not ((np.isfinite(dims) & (dims > 0)) | np.isnan(dims)).all():
+        raise AssertionError("tracks file: dimension columns neither positive nor NaN")
+    ids, first, counts = np.unique(tracks[:, 1], return_index=True, return_counts=True)
+    if counts.min() < port_cfg.DEFAULT["extraction"]["min_track_length"]:
+        raise AssertionError(f"tracks file: a track of {counts.min()} rows was kept")
     if transf.shape != (n_frames - 1, 10) or not np.isfinite(transf).all():
         raise AssertionError(f"transforms file: shape {transf.shape}")
     if not np.array_equal(transf[:, 0], np.arange(1, n_frames)):
@@ -406,10 +487,18 @@ def check_outputs(stats: dict, n_frames: int, reader: SyntheticVideoReader,
     frames = np.unique(tracks[:, 0])
     if frames.min() < 0 or frames.max() >= n_frames or (tracks[:, 1] < 1).any():
         raise AssertionError("tracks file: frame or id out of range")
-    return {"rows": int(len(tracks)), "tracks": int(len(np.unique(tracks[:, 1]))),
-            "frames_with_tracks": int(len(frames)), "camera_err_px": cam_err,
-            "min_matches": int(stats["matches"][1:].min()),
-            "min_inliers": int(stats["inliers"][1:].min())}
+    res = {"rows": int(len(tracks)), "rows_raw": int(stats["n_rows_raw"]), "tracks": int(len(ids)),
+           "frames_with_tracks": int(len(frames)), "camera_err_px": cam_err,
+           "min_matches": int(stats["matches"][1:].min()),
+           "min_inliers": int(stats["inliers"][1:].min()),
+           "tracks_with_dims": int(np.isfinite(dims[first, 0]).sum())}
+    if "metadata_file" in stats:
+        keys = [line.split(":")[0] for line in Path(stats["metadata_file"]).read_text().splitlines()
+                if line and not line[0].isspace() and not line.startswith("-")]
+        if keys != METADATA_KEYS:
+            raise AssertionError(f"metadata file: top-level keys {keys}, expected {METADATA_KEYS}")
+        res["metadata_keys"] = keys
+    return res
 
 
 def phase_main(device: str = "cuda", width: int = 3840, height: int = 2160, n_frames: int = 64,
@@ -426,11 +515,15 @@ def phase_main(device: str = "cuda", width: int = 3840, height: int = 2160, n_fr
                                         frames[0][1])
     setup_s = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp:
-        stats = port_extract.extract(FrameList(reader.info, frames), fx, tmp, "V_smoke",
-                                     config=config, chunk=chunk)
+        source = Path(tmp) / "V_smoke.mp4"  # the metadata goes beside it; never read
+        stats = port_extract.extract(FrameList(reader.info, frames), fx, Path(tmp) / "results",
+                                     source.stem, config=config, chunk=chunk, source=source,
+                                     args={"source": source, "cfg": "default"})
         if device == "cuda":
             torch.cuda.synchronize()
         checks = check_outputs(stats, n_frames, reader, tol_px)
+        if "metadata_keys" not in checks:
+            raise AssertionError("the extract wrote no metadata file")
     return {"setup_s": setup_s, "stats": stats, "checks": checks, "fx": fx,
             "detections_frame0": n_det, "horizon": horizon, "frames": frames,
             "reader": reader}
@@ -473,7 +566,7 @@ def phase_reference(device: str = "cuda", n_frames: int = 16, chunk: int = 8,
     """The port on ``device`` against the port on the CPU (plain versions),
     on a small oracle clip with a moving camera, for each tracker of
     ``trackers`` ((name, overrides of its default block)): same track ids,
-    geometry within 0.05 px."""
+    geometry (boxes and dimensions) within 0.05 px."""
     results = {}
     for name, overrides in trackers:
         runs = []
@@ -497,7 +590,9 @@ def phase_reference(device: str = "cuda", n_frames: int = 16, chunk: int = 8,
         if len(t_dev) == 0 or t_dev.shape != t_cpu.shape or not np.array_equal(
                 t_dev[:, [0, 1, 10, 11]], t_cpu[:, [0, 1, 10, 11]]):
             raise AssertionError(f"{label}: track rows differ: {t_dev.shape} vs {t_cpu.shape}")
-        box_err = float(np.abs(t_dev[:, 2:10] - t_cpu[:, 2:10]).max())
+        if not np.array_equal(np.isnan(t_dev), np.isnan(t_cpu)):
+            raise AssertionError(f"{label}: dimensions are NaN in other rows")
+        box_err = float(np.nanmax(np.abs(t_dev[:, 2:14] - t_cpu[:, 2:14])))
         h_err = float(np.abs(h_dev - h_cpu).max())
         if box_err > 0.05 or h_err > 0.05:
             raise AssertionError(f"{label}: geometry differs: boxes {box_err} px, H {h_err}")
@@ -694,6 +789,13 @@ def breakdown(fx, width: int, height: int, seed: int, horizon: int, start: int,
 # main
 # --------------------------------------------------------------------------
 
+def fast_line(res: dict) -> str:
+    return (f"kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.3f} "
+            f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}), {res['gb_per_s']:.0f} GB/s, "
+            f"{100 * res['share']:.1f}% of the bound, {100 * res['full_test_share']:.1f}% of "
+            f"pixels take the full test")
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: int, res: dict) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": res["max_abs_err"], "ms": res["ms"],
@@ -701,7 +803,8 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int, res: dict
             "library_ms": res.get("library_ms")}
 
 
-def main() -> int:
+def main(argv) -> int:
+    kernels_only = "--kernels-only" in argv
     t_all = time.perf_counter()
     width, height, chunk, seed = 3840, 2160, 32, 0
     n_main = 2 * chunk
@@ -720,10 +823,9 @@ def main() -> int:
 
         t = time.perf_counter()
         kern = phase_kernel("cuda")
-        log(f"kernel ok {time.perf_counter() - t:.1f}s fast_score exact on (33,1080,1920) and "
-            f"(2,37,53) at t=20,7; (32,1080,1920): kernel_ms={kern['ms']:.4f} "
-            f"plain_ms={kern['plain_ms']:.3f} bound_ms={kern['bound_ms']:.4f} ({kern['bound_by']}) "
-            f"[{dev['smi']}]")
+        log(f"kernel ok {time.perf_counter() - t:.1f}s fast_score exact on textured (33,1080,1920), "
+            f"(2,37,53), a checkerboard and a constant image at t=20,7; seeded (32,1080,1920): "
+            f"{fast_line(kern)} [{dev['smi']}]")
         t = time.perf_counter()
         pg = phase_patches("cuda")
         log(f"kernel ok {time.perf_counter() - t:.1f}s patch_gather exact on {PATCH_SHAPE} x "
@@ -731,6 +833,9 @@ def main() -> int:
             f"{PATCH_CORNERS}: kernel_ms={pg['ms']:.4f} plain_ms={pg['plain_ms']:.3f} "
             f"unfold_gather_ms={pg['library_ms']:.3f} bound_ms={pg['bound_ms']:.4f} "
             f"({pg['bound_by']}, {pg['bytes'] / 1e6:.1f} MB) [{dev['smi']}]")
+        if kernels_only:
+            log(f"kernels-only ok {time.perf_counter() - t_all:.1f}s")
+            return 0
 
         t = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
@@ -748,11 +853,20 @@ def main() -> int:
         log(f"main ok {time.perf_counter() - t:.1f}s YOLOv8s imgsz 1920, 2x{chunk} frames "
             f"{width}x{height}: setup {main_run['setup_s']:.1f}s, ms/chunk {chunk_ms}, "
             f"whole run {stats['fps']:.2f} frames/s, {main_run['detections_frame0']} detections "
-            f"on frame 0 (target {VEHICLES_PER_4K_FRAME}), {checks['rows']} rows "
-            f"({checks['rows'] / n_main:.1f}/frame) / {checks['tracks']} tracks, "
+            f"on frame 0 (target {VEHICLES_PER_4K_FRAME}), {checks['rows_raw']} rows, "
+            f"post-processed to {checks['rows']} rows of 14 columns "
+            f"({checks['rows'] / n_main:.1f}/frame) / {checks['tracks']} tracks "
+            f"({checks['tracks_with_dims']} with dimensions), metadata keys "
+            f"{checks['metadata_keys']}, "
             f"matches >= {checks['min_matches']}, inliers >= {checks['min_inliers']}, "
             f"camera error {checks['camera_err_px']:.3f} px, fast launches {launches}, peak mem "
             f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{dev['smi']}]")
+
+        t = time.perf_counter()
+        kpath = phase_kernel_on_path(main_run["frames"][:chunk])
+        log(f"kernel ok {time.perf_counter() - t:.1f}s fast_score exact on the main path's own "
+            f"gray (the first chunk's, ({chunk},{height // 2},{width // 2})): {fast_line(kpath)} "
+            f"[{dev['smi']}]")
 
         t = time.perf_counter()
         fast.fast_score_map.launches = 0
@@ -832,4 +946,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

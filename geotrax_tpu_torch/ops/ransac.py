@@ -6,18 +6,23 @@ fits + one reprojection-error matrix), the best by a soft (sigma-marginalized
 flavor) score is polished by IRLS on its soft inliers. Takes one frame's
 correspondences or a batch (leading axis).
 
-Sampling draws from an explicit ``torch.Generator``. It cannot reproduce the
-JAX reference's ``fold_in(key, frame_id)`` stream, so ``ransac_fit`` also
-takes the hypothesis indices (``sample_idx``) directly: tests inject the
-indices JAX drew, and the chunk step passes the indices of its own sampler.
+Sampling draws what the reference draws: ``key`` is a JAX-format threefry
+key (``ops/prng.py``, e.g. ``fold_in(PRNGKey(seed), frame_id)``), its
+uniforms are made on the host and turned into indices by the reference's
+inverse CDF, with the weights' prefix sum taken in the order XLA takes it
+(``cumsum_xla``), so the indices equal the reference's bit for bit.
+``ransac_fit`` also takes the hypothesis indices (``sample_idx``) directly.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
+from geotrax_tpu_torch.ops import prng
 from geotrax_tpu_torch.ops.homography import (
     fit_affine,
     fit_homography_minimal,
@@ -44,26 +49,59 @@ def sample_weights(valid: torch.Tensor) -> torch.Tensor:
     return weights / torch.clamp_min(weights.sum(dim=-1, keepdim=True), 1.0)
 
 
+# XLA's CPU backend rewrites a cumulative sum into blocks of this many
+# elements (see cumsum_xla).
+_SCAN_BLOCK = 16
+
+
+def _prefix_sequential(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum along the last axis, added strictly left to
+    right from 0 (one elementwise add per column, exact on any device)."""
+    acc = x[..., 0] + 0.0
+    cols = [acc]
+    for j in range(1, x.shape[-1]):
+        acc = acc + x[..., j]
+        cols.append(acc)
+    return torch.stack(cols, dim=-1)
+
+
+def cumsum_xla(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive float32 prefix sum along the last axis in the order in which
+    the reference's ``jnp.cumsum`` adds on the CPU: XLA pads the axis with
+    zeros to whole blocks of 16 and sums each block left to right, takes
+    the prefix sums of the blocks' totals the same way (recursively, down
+    to one block), and adds to each block the total of the blocks before
+    it. Sums taken in another order (``torch.cumsum``, on either device)
+    differ in the last bits, enough to move an inverse-CDF boundary."""
+    n = x.shape[-1]
+    if n <= _SCAN_BLOCK:
+        return _prefix_sequential(x)
+    m = -(-n // _SCAN_BLOCK)
+    lead = x.shape[:-1]
+    blocks = _prefix_sequential(F.pad(x, (0, m * _SCAN_BLOCK - n)).reshape(lead + (m, _SCAN_BLOCK)))
+    before = F.pad(cumsum_xla(blocks[..., -1])[..., :-1], (1, 0))
+    return (blocks + before[..., None]).reshape(lead + (m * _SCAN_BLOCK,))[..., :n]
+
+
 def indices_from_uniform(u: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Inverse-CDF draw WITH replacement: (..., H, S) uniforms in [0, 1) and
     (..., N) weights -> (..., H, S) indices (the reference's searchsorted)."""
     n = weights.shape[-1]
-    cum = torch.cumsum(weights, dim=-1)
+    cum = cumsum_xla(weights)
     lead = cum.shape[:-1]
     scaled = (u * cum[..., -1:, None]).reshape(lead + (-1,))
     idx = torch.searchsorted(cum.contiguous(), scaled.contiguous())
     return torch.clamp(idx, 0, n - 1).reshape(u.shape)
 
 
-def sample_indices(generators, num_hypotheses: int, sample_size: int,
+def sample_indices(keys, num_hypotheses: int, sample_size: int,
                    weights: torch.Tensor) -> torch.Tensor:
     """(B, H, S) random correspondence indices for (B, N) weights, frame
-    ``b`` drawing from ``generators[b]``. The uniforms come from each
-    generator on its own device and move to the weights' device in one copy,
-    so CPU generators give the same draw on every device."""
-    u = torch.stack([torch.rand((num_hypotheses, sample_size), generator=g, device=g.device,
-                                dtype=torch.float32) for g in generators])
-    return indices_from_uniform(u.to(weights.device), weights)
+    ``b`` drawing ``uniform(keys[b], (H, S))`` (``ops/prng.py``) as the
+    reference's ``_sample_indices`` does. The uniforms are made on the host
+    and move to the weights' device in one copy."""
+    u = prng.uniform(np.asarray(keys, np.uint32), (num_hypotheses, sample_size))
+    return indices_from_uniform(torch.from_numpy(u).to(weights.device), weights)
 
 
 def _gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -74,13 +112,15 @@ def _gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def ransac_fit(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,
-               threshold: float, generator: torch.Generator | None = None,
+               threshold: float, key=None,
                num_hypotheses: int = 2048, transformation: str = "projective",
                refine_iters: int = 3, sample_idx: torch.Tensor | None = None) -> RansacResult:
     """Robust fit of dst ≈ H @ src over (..., N, 2) correspondences with a
     (..., N) mask. ``threshold`` is the inlier reprojection error [px], used
     as the soft score's scale. Hypothesis indices come from ``sample_idx``
-    ((..., H, S)) when given, else from ``generator``."""
+    ((..., H, S)) when given, else they are drawn from ``key``: a (2,)
+    threefry key (``ops/prng.py``) for one frame or for every frame of the
+    batch, or one (B, 2) key per frame."""
     single = src.dim() == 2
     if single:
         src, dst, valid = src[None], dst[None], valid[None]
@@ -92,10 +132,10 @@ def ransac_fit(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,
     fit_fn = fit_homography_normal if transformation == "projective" else fit_affine
 
     if sample_idx is None:
-        if generator is None:
-            raise ValueError("ransac_fit needs a generator or sample_idx")
-        sample_idx = sample_indices([generator] * b, num_hypotheses, sample_size,
-                                    sample_weights(valid))
+        if key is None:
+            raise ValueError("ransac_fit needs a key or sample_idx")
+        keys = np.broadcast_to(np.asarray(key, np.uint32), (b, 2))
+        sample_idx = sample_indices(keys, num_hypotheses, sample_size, sample_weights(valid))
     hyps = hyp_fit(_gather_points(src, sample_idx), _gather_points(dst, sample_idx))  # (B,H,3,3)
 
     # Score every hypothesis against every correspondence; degenerate

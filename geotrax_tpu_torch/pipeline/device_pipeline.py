@@ -15,8 +15,9 @@ with stabilization on (the default ``extract`` configuration):
 
 The host uploads the raw uint8 frames once per chunk; tracker state, the
 reference-frame features and the previous frame's homography stay on the
-card between chunks. RANSAC draws come from a generator seeded by
-(rng_seed, frame id), so results do not depend on where the chunk
+card between chunks. RANSAC draws are the reference's: uniforms from
+``fold_in(PRNGKey(rng_seed), frame id)`` (JAX's threefry, ``ops/prng.py``),
+so they equal the reference's and do not depend on where the chunk
 boundaries fall. CLAHE and stabilization off (detect + track only, or the
 standalone-GMC branch) wait for a later slice (ROADMAP A13).
 """
@@ -31,7 +32,7 @@ import torch
 from torch.profiler import record_function
 
 from geotrax_tpu_torch._device import resolve_device
-from geotrax_tpu_torch.ops import features
+from geotrax_tpu_torch.ops import features, prng
 from geotrax_tpu_torch.ops.homography import adjugate3, normalize_h
 from geotrax_tpu_torch.ops.patches import PATCH, patches32
 from geotrax_tpu_torch.ops.ransac import ransac_fit, sample_indices, sample_weights
@@ -143,11 +144,6 @@ def gmc_from_h(h_cur: torch.Tensor, h_prev: torch.Tensor) -> torch.Tensor:
     return normalize_h(adjugate3(h_cur) @ h_prev)
 
 
-def frame_seed(rng_seed: int, fid: int) -> int:
-    """Seed of frame ``fid``'s RANSAC generator (frame ids < 2**32)."""
-    return (int(rng_seed) << 32) + int(fid)
-
-
 class FusedExtractor:
     """Per-video fused extraction over fixed-size frame chunks.
 
@@ -157,9 +153,9 @@ class FusedExtractor:
             out = fx.process_chunk(frames, fids, n_valid)
 
     ``sampler(fids, weights, num_hypotheses, sample_size) -> (C,H,S)`` draws
-    the RANSAC hypothesis indices; the default seeds a CPU generator per
-    frame from ``frame_seed(rng_seed, fid)``, so every device draws the same
-    indices. Tests pass a sampler that reproduces the JAX reference's draw.
+    the RANSAC hypothesis indices; the default draws the reference's:
+    frame ``fid`` from ``fold_in(PRNGKey(rng_seed), fid)``, made on the host,
+    so every device draws the same indices.
     """
 
     def __init__(self, detector, stabilo_cfg: dict, tracker_step,
@@ -207,7 +203,7 @@ class FusedExtractor:
                 self._resize_geom = (new_h, new_w)
 
         self._seed0 = rng_seed
-        self._seed = rng_seed
+        self._key = prng.PRNGKey(rng_seed)
         self._sampler = sampler if sampler is not None else self._draw_indices
         self._state0 = tracker_state
         self._h_prev = torch.eye(3, device=self.device)
@@ -215,8 +211,8 @@ class FusedExtractor:
 
     # ------------------------------------------------------------ stages
     def _draw_indices(self, fids, weights, num_hypotheses: int, sample_size: int):
-        generators = [torch.Generator().manual_seed(frame_seed(self._seed, f)) for f in fids]
-        return sample_indices(generators, num_hypotheses, sample_size, weights)
+        keys = prng.fold_in(self._key, np.asarray(fids, np.int64))
+        return sample_indices(keys, num_hypotheses, sample_size, weights)
 
     def _gray(self, frames_u8):
         return features.downsample(features.rgb_to_gray(frames_u8), self.proto.downsample_ratio)
@@ -348,11 +344,11 @@ class FusedExtractor:
     # ------------------------------------------------------------ host API
     def reset(self, rng_seed: Optional[int] = None) -> None:
         """Restart per-video state (tracker slots, reference features,
-        h_prev, RNG seed)."""
+        h_prev, RNG base key)."""
         self.state = self._state0
         self._h_prev = torch.eye(3, device=self.device)
         self._ref = None
-        self._seed = self._seed0 if rng_seed is None else rng_seed
+        self._key = prng.PRNGKey(self._seed0 if rng_seed is None else rng_seed)
 
     def process_chunk(self, frames_u8, fids, n_valid: int) -> ChunkOutput:
         """frames (C,H,W,3) uint8 (numpy or tensor), fids (C,) internal frame

@@ -49,6 +49,54 @@ def test_kernel_equals_plain_on_card(shape, threshold):
     torch.testing.assert_close(one, out[0], rtol=0, atol=0)
 
 
+def checkerboard(b, h, w, cell=3):
+    """Cells of 3 px: 4 of every 9 pixels are corners, the densest
+    checkerboard, and nearly every pixel passes the kernel's cardinal test."""
+    y, x = np.mgrid[:h, :w]
+    return np.broadcast_to(((x // cell + y // cell) % 2 * 255.0).astype(np.float32), (b, h, w))
+
+
+EDGE_INPUTS = {
+    "checkerboard": lambda: checkerboard(2, 130, 260),
+    "constant": lambda: np.full((2, 70, 132), 77.0, np.float32),
+    "5x5": lambda: textured_gray(2, 5, 5, seed=1),
+    "1x7": lambda: textured_gray(3, 1, 7, seed=2),
+    "7x1": lambda: textured_gray(3, 7, 1, seed=3),
+    "w%4=1": lambda: textured_gray(2, 45, 129, seed=4),
+    "w%4=2": lambda: textured_gray(2, 45, 130, seed=5),
+    "w%4=3": lambda: textured_gray(2, 45, 131, seed=6),
+    "b=1": lambda: textured_gray(1, 1080, 1920, seed=7),
+    "b=33": lambda: textured_gray(33, 96, 260, seed=8),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(EDGE_INPUTS))
+@pytest.mark.parametrize("threshold", [20.0, 7.0])
+def test_kernel_exact_on_edge_inputs(name, threshold):
+    """Every tiling edge of the kernel (images smaller than a tile, widths
+    that are not a multiple of 4 and so take the 4-byte path, one image and
+    more than 32) and the extremes of its early rejection (a checkerboard,
+    a constant image) against the plain version, bit for bit."""
+    _need_card()
+    g = torch.from_numpy(np.ascontiguousarray(EDGE_INPUTS[name]())).cuda()
+    out = fast.fast_score_map(g, threshold)
+    plain = fast.fast_score_map_torch(g, threshold)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, plain, rtol=0, atol=0)
+    corners = int((plain > 0).sum())
+    assert corners > 0
+    if name == "constant":  # corners only where the ring reaches the zero padding
+        assert int((plain[..., 3:-3, 3:-3] > 0).sum()) == 0
+    if name == "checkerboard":
+        assert corners > g.numel() // 3
+    # the same images from a pointer that is not 16-byte aligned (4-byte path)
+    flat = torch.zeros(g.numel() + 1, device="cuda")
+    flat[1:] = g.flatten()
+    shifted = flat[1:].view(g.shape)
+    torch.testing.assert_close(fast.fast_score_map(shifted, threshold), plain, rtol=0, atol=0)
+
+
 @pytest.mark.gpu
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     _need_card()

@@ -2,9 +2,11 @@
 packages the card's machine lacks (yaml, cv2, pandas, tqdm, flax, optax) is
 imported by geotrax_tpu_torch or chip_smoke.py, at import time or on the
 smoke's path. A subprocess refuses those imports, imports every module, and
-rehearses the smoke's phases (the ReID phase and the reference phase's six
-trackers among them) on the CPU at a tiny size; an AST walk checks the
-sources."""
+rehearses the smoke's phases on the CPU at a tiny size: one subprocess the
+kernel, main, steady and ReID phases, another the reference phase's six
+trackers (two, each with one intra-op thread, so that each stays well
+inside its time limit when the suite runs on every core); an AST walk
+checks the sources."""
 
 import ast
 import subprocess
@@ -15,7 +17,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "geotrax_tpu_torch"
 REFUSED = ("jax", "jaxlib", "flax", "optax", "yaml", "cv2", "pandas", "tqdm", "geotrax_tpu")
 
-GUARD = r'''
+PRELUDE = r'''
 import importlib, importlib.abc, pkgutil, sys
 REFUSED = %r
 
@@ -26,12 +28,24 @@ class Refuse(importlib.abc.MetaPathFinder):
         return None
 
 sys.meta_path.insert(0, Refuse())
+import torch
+# one intra-op thread: the rehearsal's tensors are tiny, and the suite runs its
+# workers on every core, where a pool per process makes every one wait
+torch.set_num_threads(1)
 import geotrax_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(geotrax_tpu_torch.__path__, "geotrax_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+''' % (REFUSED,)
 
+EPILOGUE = r'''
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
+assert not leaked, leaked
+print("GUARD-OK", len(names))
+'''
+
+GUARD = PRELUDE + r'''
 kern = chip_smoke.phase_kernel("cpu", check_shape=(2, 40, 60), odd_shape=(2, 37, 53),
                                time_shape=(32, 1080, 1920))
 assert kern["max_abs_err"] == 0.0 and kern["bound_by"] == "bytes", kern
@@ -45,6 +59,8 @@ assert 4 * 6 * 20 * (1024 + 2) < pg["bytes"] < 4 * 6 * 20 * (2 * 1024 + 2), pg
 run = chip_smoke.phase_main("cpu", width=512, height=288, n_frames=6, chunk=4, variant="n",
                             imgsz=256, horizon=14, tol_px=10.0)
 assert run["checks"]["rows"] > 0, run["checks"]
+assert run["checks"]["metadata_keys"] == chip_smoke.METADATA_KEYS, run["checks"]
+assert chip_smoke.phase_kernel_on_path(run["frames"][:4], device="cpu") == {}
 assert run["stats"]["chunks"] == 2 and run["fx"]._resize_geom == (144, 256)
 steady = chip_smoke.phase_steady(run["fx"], 512, 288, 0, 14, 6, chunk=4, n_chunks=2, tol_px=10.0)
 assert len(steady["chunk_ms"]) == 2 and steady["camera_err_px"] < 10.0, steady
@@ -57,18 +73,25 @@ assert rd["emb"]["valid"] > 0 and rd["emb"]["plain_err"] == 0.0, rd["emb"]
 assert rd["head_emb"]["plain_err"] == 0.0 and rd["head_vs_projection"] > 0.1, rd
 assert rd["timed_camera_err_px"] < 10.0 and rd["head_checks"]["rows"] > 0, rd
 assert len(rd["turns"]["plain"]) == len(rd["turns"]["reid"]) == 2, rd["turns"]
+''' + EPILOGUE
+
+REFERENCE_GUARD = PRELUDE + r'''
 ref = chip_smoke.phase_reference("cpu", n_frames=6, chunk=4)
 assert list(ref) == ["botsort", "botsort+reid", "deepocsort+reid", "tracktrack+reid", "ocsort",
                      "fasttrack"], ref
 assert all(r["box_err"] == 0.0 and r["h_err"] == 0.0 and r["rows"] > 0 for r in ref.values()), ref
-leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
-assert not leaked, leaked
-print("GUARD-OK", len(names))
-''' % (REFUSED,)
+''' + EPILOGUE
 
 
 def test_port_and_smoke_import_nothing_refused():
     proc = subprocess.run([sys.executable, "-c", GUARD], cwd=ROOT, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert "GUARD-OK" in proc.stdout
+
+
+def test_smoke_reference_phase_imports_nothing_refused():
+    proc = subprocess.run([sys.executable, "-c", REFERENCE_GUARD], cwd=ROOT, capture_output=True,
                           text=True, timeout=600)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     assert "GUARD-OK" in proc.stdout

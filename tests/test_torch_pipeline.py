@@ -2,11 +2,15 @@
 
 The same SyntheticVideoReader clip (320x240, 20 frames) and oracle
 detections go through both FusedExtractors (chunk 8, default stabilo and
-botsort configuration, GMC on) and both row emitters. The port's RANSAC is
-handed the indices that the JAX package draws from fold_in(key, frame id).
-Frame numbers, track ids, classes and scores must be equal; boxes and
-stabilized boxes agree within BOX_ATOL px; homographies within LIN_TOL in
-their linear and perspective entries and TRANS_TOL px in translation.
+botsort configuration, GMC on) and both row emitters (the rows before
+post-processing; tests/test_torch_extract_file.py compares the files that
+``extract`` writes). The port's RANSAC is handed the indices that the JAX
+package draws from fold_in(key, frame id) (``jax_sampler``), except in
+``test_rows_match_jax_moving_camera_default_draw``, where the port draws
+them itself, as it does by default. Frame numbers, track ids, classes and
+scores must be equal; boxes and stabilized boxes agree within BOX_ATOL px;
+homographies within LIN_TOL in their linear and perspective entries and
+TRANS_TOL px in translation.
 
 Two clips:
 
@@ -132,14 +136,20 @@ def run_jax(reader, eigh64=False, reid=False):
     return tracks, transforms
 
 
-def run_port(reader, out_dir, reid=False):
+def run_port(reader, out_dir, reid=False, sampler=jax_sampler):
+    """The port's rows and transforms, written by its row emitter; the
+    stats of the run with the two file paths."""
     det = OracleDetector(boxes_fn(reader), device="cpu")
     tracker_cfg, tstate, tstep = make_tracker("botsort", botsort_params(reid), max_tracks=TRACKS,
                                               device="cpu")
     fx = FusedExtractor(det, tcfg.DEFAULT["stabilo"], tstep, tstate, 240, 320, use_gmc=True,
-                        chunk=CHUNK, device="cpu", sampler=jax_sampler,
+                        chunk=CHUNK, device="cpu", sampler=sampler,
                         with_reid=tracker_cfg.with_reid)
-    return textract.extract(reader, fx, out_dir, "V_torch", chunk=CHUNK)
+    tracks, transforms, stats = textract.track_video_fused(reader, fx, chunk=CHUNK)
+    tracks_file, transforms_file = textract.save_results(tracks, transforms, out_dir, "V_torch")
+    stats.update(tracks_file=tracks_file, transforms_file=transforms_file,
+                 n_transforms=len(transforms))
+    return stats
 
 
 def moving_reader():
@@ -168,6 +178,12 @@ def jax_rows_moving():
 @pytest.fixture(scope="module")
 def torch_run_moving(tmp_path_factory):
     return run_port(moving_reader(), tmp_path_factory.mktemp("torch_extract_moving"))
+
+
+@pytest.fixture(scope="module")
+def torch_run_moving_default_draw(tmp_path_factory):
+    return run_port(moving_reader(), tmp_path_factory.mktemp("torch_extract_default_draw"),
+                    sampler=None)
 
 
 @pytest.fixture(scope="module")
@@ -212,6 +228,19 @@ def test_rows_match_jax(jax_rows, torch_run):
 
 def test_rows_match_jax_moving_camera(jax_rows_moving, torch_run_moving):
     assert_rows_match(*read_rows(torch_run_moving), *jax_rows_moving)
+
+
+def test_rows_match_jax_moving_camera_default_draw(jax_rows_moving, torch_run_moving_default_draw,
+                                                   torch_run_moving):
+    """The same parity with the port's own RANSAC draw (its default
+    sampler, JAX's threefry keyed by frame id) in place of ``jax_sampler``:
+    it draws the reference's indices, so the files equal those of the run
+    with the injected draw."""
+    rows, transf = read_rows(torch_run_moving_default_draw)
+    assert_rows_match(rows, transf, *jax_rows_moving)
+    injected = read_rows(torch_run_moving)
+    np.testing.assert_array_equal(rows, injected[0])
+    np.testing.assert_array_equal(transf, injected[1])
 
 
 def test_rows_match_jax_with_reid(jax_rows_reid, torch_run_reid, torch_run_moving):

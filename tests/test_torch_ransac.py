@@ -1,7 +1,8 @@
 """Homography fits and RANSAC of the port against the JAX package. RANSAC
 gets the hypothesis indices JAX drew (``_sample_indices(fold_in(key, fid),
-...)``), since a torch generator cannot reproduce JAX's stream; with them the
-homography agrees within 1e-4 relative and the inlier masks are equal."""
+...)``); with them the homography agrees within 1e-4 relative and the
+inlier masks are equal. The port's own draw from a key is held to JAX's in
+tests/test_torch_prng.py."""
 
 import numpy as np
 import pytest
@@ -13,6 +14,7 @@ import torch
 from geotrax_tpu.ops import homography as jh
 from geotrax_tpu.ops import ransac as jr
 from geotrax_tpu_torch.ops import homography as th
+from geotrax_tpu_torch.ops import prng
 from geotrax_tpu_torch.ops import ransac as tr
 
 H_RTOL = 1e-4
@@ -91,8 +93,8 @@ def test_ransac_batched_and_generator():
     src = torch.from_numpy(np.stack([d[0] for d in data]))
     dst = torch.from_numpy(np.stack([d[1] for d in data]))
     valid = torch.from_numpy(np.stack([d[2] for d in data]))
-    gen = torch.Generator().manual_seed(0)
-    idx = tr.sample_indices([gen, gen], 256, 4, tr.sample_weights(valid))
+    keys = prng.fold_in(prng.PRNGKey(0), [5, 6])
+    idx = tr.sample_indices(keys, 256, 4, tr.sample_weights(valid))
     batch = tr.ransac_fit(src, dst, valid, 2.0, num_hypotheses=256, sample_idx=idx)
     for i, (_, _, _, h_true) in enumerate(data):
         one = tr.ransac_fit(src[i], dst[i], valid[i], 2.0, num_hypotheses=256, sample_idx=idx[i])
@@ -101,8 +103,11 @@ def test_ransac_batched_and_generator():
         a = corners @ batch.h_matrix[i].numpy().astype(np.float64).T
         b = corners @ h_true.T
         assert np.abs(a[:, :2] / a[:, 2:] - b[:, :2] / b[:, 2:]).max() < 1.0
-    again = tr.ransac_fit(src[0], dst[0], valid[0], 2.0, generator=torch.Generator().manual_seed(9),
+    # drawing from the keys gives what the drawn indices give
+    drawn = tr.ransac_fit(src, dst, valid, 2.0, key=keys, num_hypotheses=256)
+    torch.testing.assert_close(drawn.h_matrix, batch.h_matrix, rtol=0, atol=0)
+    again = tr.ransac_fit(src[0], dst[0], valid[0], 2.0, key=prng.fold_in(prng.PRNGKey(0), 9),
                           num_hypotheses=256)
-    twice = tr.ransac_fit(src[0], dst[0], valid[0], 2.0, generator=torch.Generator().manual_seed(9),
+    twice = tr.ransac_fit(src[0], dst[0], valid[0], 2.0, key=prng.fold_in(prng.PRNGKey(0), 9),
                           num_hypotheses=256)
     torch.testing.assert_close(again.h_matrix, twice.h_matrix, rtol=0, atol=0)
