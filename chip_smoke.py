@@ -46,7 +46,25 @@ ends the run with a non-zero exit and no result line:
                three kept chunks through fresh extractors without and with
                ReID in turns; then one chunk with a learned head (seeded
                init_head, saved to .npz, loaded through resolve_head)
-  7 reference  the same port on a small oracle clip with a moving camera,
+  7 cli        ``extract`` as users run it: the calibrated detector saved as
+               .npz and .pt and loaded back (equal detections on frame 0),
+               run_extraction with -m ckpt.npz -c default on the main
+               phase's frames, files checked as in the main phase, FAST
+               launches counted; a ``decode:`` line with the decode probe's
+               outcome: with FFmpeg's headers and libraries the port's
+               decoder is built and ``python -m geotrax_tpu_torch extract``
+               decodes a .y4m clip of the frames in a subprocess, without
+               them run_extraction reads the frames in memory (open_reader
+               replaced, the reference's own test patch point); then the
+               double-buffered driver and the serial loop in turns on the
+               same 96 frames, rows equal
+  8 options    a fresh detector and extractor per option on the main phase's
+               first two chunks: the stable preset (CLAHE), tiles=2, half,
+               stabilization off with botsort (standalone GMC, checked
+               against the camera's motion) and with bytetrack (no FAST
+               launch); ms of both chunks, FAST launches, homographies
+               against the camera
+  9 reference  the same port on a small oracle clip with a moving camera,
                on the card and on the CPU (plain versions), for botsort,
                botsort with ReID, deepocsort with ReID, tracktrack with
                ReID, ocsort and fasttrack: equal track ids, close geometry
@@ -384,6 +402,23 @@ def make_frames(reader: SyntheticVideoReader) -> list:
         return list(zip(indices, pool.map(reader.frame, indices)))
 
 
+def write_y4m(path, frames, width: int, height: int, fps: int = 25) -> None:
+    """(index, RGB frame) pairs -> a raw YUV 4:4:4 ``.y4m`` clip (BT.601,
+    studio range), written in plain numpy."""
+    with open(path, "wb") as fh:
+        fh.write(f"YUV4MPEG2 W{width} H{height} F{fps}:1 Ip A1:1 C444\n".encode())
+        for _, frame in frames:
+            rgb = frame.astype(np.float32)
+            r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+            y = 16.0 + (65.481 * r + 128.553 * g + 24.966 * b) / 255.0
+            cb = 128.0 + (-37.797 * r - 74.203 * g + 112.0 * b) / 255.0
+            cr = 128.0 + (112.0 * r - 93.786 * g - 18.214 * b) / 255.0
+            fh.write(b"FRAME\n")
+            fh.write(np.clip(np.rint(y), 0, 255).astype(np.uint8).tobytes())
+            for c in (cb, cr):
+                fh.write(np.clip(np.rint(c), 0, 255).astype(np.uint8).tobytes())
+
+
 class FrameList:
     """A frame source over (index, frame) pairs already in memory."""
 
@@ -451,27 +486,41 @@ def check_homographies(h: np.ndarray, frame_ids, reader: SyntheticVideoReader,
 METADATA_KEYS = ["geotrax_tpu_version", "video", "runtime", "config", "args"]
 
 
-def check_outputs(stats: dict, n_frames: int, reader: SyntheticVideoReader,
-                  tol_px: float) -> dict:
-    """Read back the files and hold them to the extract contract: h[0] (the
-    reference frame) is the identity, every frame stabilizes (>= 4 matches)
-    to the camera's true homography within ``tol_px`` at the frame's
-    corners, the tracks file is the post-processed table of 14 columns (12
-    finite ones, then each track's length and width, NaN where no row of
-    the track qualified), tracks of fewer than ``min_track_length`` rows
-    removed, and the metadata file, where one was asked for, has the
-    reference's top-level keys."""
-    h = stats["h"]
-    if h.shape != (n_frames, 3, 3):
-        raise AssertionError(f"homographies: shape {h.shape}")
-    if not np.array_equal(h[0], np.eye(3, dtype=h.dtype)):
-        raise AssertionError(f"h[0] (the reference frame) is not the identity: {h[0]}")
-    failed = int((stats["matches"][1:] < 4).sum())
-    if failed:
-        raise AssertionError(f"stabilization failed on {failed} frames")
-    cam_err = check_homographies(h, range(n_frames), reader, tol_px)
-    tracks = np.loadtxt(stats["tracks_file"], delimiter=",", ndmin=2)
-    transf = np.loadtxt(stats["transforms_file"], delimiter=",", ndmin=2)
+def check_files(tracks_file, transforms_file, metadata_file, n_frames: int,
+                reader: SyntheticVideoReader, tol_px: float, may_lack_tracks: bool = False) -> dict:
+    """Hold the files of one extract run to the contract: the tracks file is
+    the post-processed table of 14 columns (12 finite ones, then each
+    track's length and width, NaN where no row of the track qualified),
+    tracks of fewer than ``min_track_length`` rows removed; the transforms
+    file has frames 1..n-1, each homography within ``tol_px`` of the
+    camera's true one at the frame's corners; the metadata file, where one
+    was asked for, has the reference's top-level keys. With
+    ``may_lack_tracks`` a run that kept no track (and so wrote no tracks
+    file) passes the other checks alone."""
+    transf = np.loadtxt(transforms_file, delimiter=",", ndmin=2)
+    if may_lack_tracks and not Path(tracks_file).exists():
+        tracks = np.empty((0, 14))
+        res = {"rows": 0}
+    else:
+        tracks = np.loadtxt(tracks_file, delimiter=",", ndmin=2)
+        res = check_tracks(tracks, n_frames)
+    if transf.shape != (n_frames - 1, 10) or not np.isfinite(transf).all():
+        raise AssertionError(f"transforms file: shape {transf.shape}")
+    if not np.array_equal(transf[:, 0], np.arange(1, n_frames)):
+        raise AssertionError("transforms file: frame numbers are not 1..n-1")
+    res["camera_err_px"] = check_homographies(transf[:, 1:].reshape(-1, 3, 3),
+                                              range(1, n_frames), reader, tol_px)
+    if metadata_file is not None:
+        keys = [line.split(":")[0] for line in Path(metadata_file).read_text().splitlines()
+                if line and not line[0].isspace() and not line.startswith("-")]
+        if keys != METADATA_KEYS:
+            raise AssertionError(f"metadata file: top-level keys {keys}, expected {METADATA_KEYS}")
+        res["metadata_keys"] = keys
+    return res
+
+
+def check_tracks(tracks: np.ndarray, n_frames: int) -> dict:
+    """The post-processed tracks table of a stabilized run."""
     if tracks.shape[1] != 14 or len(tracks) == 0 or not np.isfinite(tracks[:, :12]).all():
         raise AssertionError(f"tracks file: shape {tracks.shape}")
     dims = tracks[:, 12:]
@@ -480,24 +529,30 @@ def check_outputs(stats: dict, n_frames: int, reader: SyntheticVideoReader,
     ids, first, counts = np.unique(tracks[:, 1], return_index=True, return_counts=True)
     if counts.min() < port_cfg.DEFAULT["extraction"]["min_track_length"]:
         raise AssertionError(f"tracks file: a track of {counts.min()} rows was kept")
-    if transf.shape != (n_frames - 1, 10) or not np.isfinite(transf).all():
-        raise AssertionError(f"transforms file: shape {transf.shape}")
-    if not np.array_equal(transf[:, 0], np.arange(1, n_frames)):
-        raise AssertionError("transforms file: frame numbers are not 1..n-1")
     frames = np.unique(tracks[:, 0])
     if frames.min() < 0 or frames.max() >= n_frames or (tracks[:, 1] < 1).any():
         raise AssertionError("tracks file: frame or id out of range")
-    res = {"rows": int(len(tracks)), "rows_raw": int(stats["n_rows_raw"]), "tracks": int(len(ids)),
-           "frames_with_tracks": int(len(frames)), "camera_err_px": cam_err,
-           "min_matches": int(stats["matches"][1:].min()),
-           "min_inliers": int(stats["inliers"][1:].min()),
-           "tracks_with_dims": int(np.isfinite(dims[first, 0]).sum())}
-    if "metadata_file" in stats:
-        keys = [line.split(":")[0] for line in Path(stats["metadata_file"]).read_text().splitlines()
-                if line and not line[0].isspace() and not line.startswith("-")]
-        if keys != METADATA_KEYS:
-            raise AssertionError(f"metadata file: top-level keys {keys}, expected {METADATA_KEYS}")
-        res["metadata_keys"] = keys
+    return {"rows": int(len(tracks)), "tracks": int(len(ids)), "frames_with_tracks": int(len(frames)),
+            "tracks_with_dims": int(np.isfinite(dims[first, 0]).sum())}
+
+
+def check_outputs(stats: dict, n_frames: int, reader: SyntheticVideoReader,
+                  tol_px: float) -> dict:
+    """The run's stats and files: h[0] (the reference frame) is the
+    identity, every frame stabilizes (>= 4 matches), and the files hold to
+    ``check_files``."""
+    h = stats["h"]
+    if h.shape != (n_frames, 3, 3):
+        raise AssertionError(f"homographies: shape {h.shape}")
+    if not np.array_equal(h[0], np.eye(3, dtype=h.dtype)):
+        raise AssertionError(f"h[0] (the reference frame) is not the identity: {h[0]}")
+    failed = int((stats["matches"][1:] < 4).sum())
+    if failed:
+        raise AssertionError(f"stabilization failed on {failed} frames")
+    res = check_files(stats["tracks_file"], stats["transforms_file"], stats.get("metadata_file"),
+                      n_frames, reader, tol_px)
+    res.update(rows_raw=int(stats["n_rows_raw"]), min_matches=int(stats["matches"][1:].min()),
+               min_inliers=int(stats["inliers"][1:].min()))
     return res
 
 
@@ -747,6 +802,224 @@ def phase_reid(detector, frames, timed_frames, reader, device: str = "cuda", img
             "head_ms": stats_h["chunk_s"][0] * 1e3, "head_vs_projection": head_vs_projection}
 
 
+def same_detections(a: dict, b: dict) -> float:
+    """Equal valid slots and classes; returns the largest difference of the
+    valid boxes and scores."""
+    if not (torch.equal(a["valid"], b["valid"]) and torch.equal(a["classes"], b["classes"])):
+        raise AssertionError("the detections differ in their valid slots or classes")
+    v = a["valid"]
+    if not bool(v.any()):
+        return 0.0
+    return max(float((a["boxes_xywh"][v] - b["boxes_xywh"][v]).abs().max()),
+               float((a["scores"][v] - b["scores"][v]).abs().max()))
+
+
+def cli_args(source, cfg: str, model, device: str, **extra):
+    """The arguments ``python -m geotrax_tpu_torch extract`` parses."""
+    return port_extract.parse_cli_args(
+        [str(source), "-m", str(model), "-c", cfg, "--device", device, *extra.get("argv", [])])
+
+
+def driver_turns(config: dict, detector, frames, info, chunk: int, device: str,
+                 rounds: int) -> dict:
+    """ms per chunk (wall time of the whole run over the chunks) of the
+    double-buffered driver and of the serial loop on the same frames, taken
+    in turns (pipelined, serial, serial, pipelined, ...), each on its own
+    extractor reset between runs; their rows must be equal bit for bit."""
+    fxs = {mode: build_fused(config, detector, info.height, info.width, chunk, 0, device)
+           for mode in ("pipelined", "serial")}
+    ms = {mode: [] for mode in fxs}
+    rows = {}
+    for r in range(rounds):
+        for mode in (("pipelined", "serial") if r % 2 == 0 else ("serial", "pipelined")):
+            fxs[mode].reset()
+            tracks, transforms, stats = port_extract.track_video_fused(
+                FrameList(info, frames), fxs[mode], chunk=chunk, pipelined=mode == "pipelined")
+            ms[mode].append(stats["wall_s"] * 1e3 / stats["chunks"])
+            rows.setdefault(mode, (tracks, transforms))
+    (pt, ph), (st, sh) = rows["pipelined"], rows["serial"]
+    if not (np.array_equal(pt, st) and np.array_equal(ph, sh)):
+        raise AssertionError("the double-buffered driver's rows differ from the serial loop's")
+    return {"ms": ms, "rows": int(len(pt))}
+
+
+def phase_cli(detector, frames, reader, device: str = "cuda", chunk: int = 32,
+              tol_px: float = 2.0, turn_frames=None, turn_rounds: int = 2) -> dict:
+    """``extract`` as a user runs it: the main phase's calibrated detector
+    saved as ``.npz`` and ``.pt`` and loaded back (equal detections on frame
+    0), then ``run_extraction`` with ``-m <ckpt.npz> -c default`` on the
+    main phase's frames. With FFmpeg's headers and libraries (the decode
+    probe), the port's decoder is built, the frames are written as a
+    ``.y4m`` clip and ``python -m geotrax_tpu_torch extract`` decodes it in
+    a subprocess; without them ``open_reader`` is replaced by the frames in
+    memory, as the reference's tests replace it. Then the double-buffered
+    driver and the serial loop in turns."""
+    from geotrax_tpu_torch.io import native
+    from geotrax_tpu_torch.models import convert
+
+    info = reader.info
+    n = len(frames)
+    res = {"probe": native.probe()}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        names = {0: "car", 1: "bus", 2: "truck", 3: "motorcycle"}
+        convert.save_npz(tmp / "ckpt.npz", detector.model, class_names=names)
+        convert.save_pt(tmp / "ckpt.pt", detector.model, class_names=names)
+        frame0 = torch.as_tensor(frames[0][1][None]).to(detector.device)
+        dets = {suffix: Detector(tmp / f"ckpt.{suffix}", smoke_config(detector.imgsz)["ultralytics"],
+                                 device=device).batch_trace(info.height, info.width)(frame0)
+                for suffix in ("npz", "pt")}
+        in_memory = detector.batch_trace(info.height, info.width)(frame0)
+        res["npz_vs_memory"] = same_detections(dets["npz"], in_memory)
+        res["pt_vs_npz"] = same_detections(dets["pt"], dets["npz"])
+        res["detections"] = int(dets["npz"]["valid"].sum())
+        if res["npz_vs_memory"] != 0.0 or res["pt_vs_npz"] > 1e-3:
+            raise AssertionError(f"checkpoint detections differ: {res}")
+
+        cfg = "default"
+        if detector.imgsz != port_cfg.DEFAULT["ultralytics"]["imgsz"]:  # a rehearsal's size
+            cfg = str(tmp / "default_copy.yaml")
+            text = (port_cfg.CFG_DIR / "default.yaml").read_text()
+            Path(cfg).write_text(text.replace("  imgsz: 1920\n", f"  imgsz: {detector.imgsz}\n"))
+        source = tmp / "V_cli.mp4"
+        args = cli_args(source, cfg, tmp / "ckpt.npz", device)
+        replaced = port_extract.open_reader
+        port_extract.open_reader = lambda src, start, stop, config: FrameList(info, frames)
+        fast.fast_score_map.launches = 0
+        try:
+            t0 = time.perf_counter()
+            stats = port_extract.run_extraction(args, port_extract._LOG)
+            res["run_s"] = time.perf_counter() - t0
+        finally:
+            port_extract.open_reader = replaced
+        res["launches"] = fast.fast_score_map.launches
+        if res["launches"] != (stats["chunks"] + 1) * (device == "cuda"):
+            raise AssertionError(f"FAST launched {res['launches']} times in run_extraction")
+        res["stats"], res["checks"] = stats, check_outputs(stats, n, reader, tol_px)
+
+        if res["probe"]["ok"]:
+            clip = tmp / "V_clip.y4m"
+            write_y4m(clip, frames, info.width, info.height)
+            from geotrax_tpu_torch.io.video import VideoReader
+
+            t0 = time.perf_counter()
+            decoded = sum(1 for _ in VideoReader(clip, backend="native"))
+            res["decode_fps"] = decoded / (time.perf_counter() - t0)
+            cmd = [sys.executable, "-m", "geotrax_tpu_torch", "extract", str(clip), "-m",
+                   str(tmp / "ckpt.npz"), "-c", cfg, "--device", device, "-lp", str(tmp)]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent, capture_output=True,
+                                  text=True, timeout=600)
+            res["subprocess_s"] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"extract subprocess failed (exit {proc.returncode}):\n"
+                                     f"{proc.stderr[-3000:]}")
+            # decoding moves pixels by a grey level, which moves a random
+            # detector's few boxes at a rehearsal's size: no track may last
+            res["subprocess_checks"] = check_files(
+                tmp / "results" / "V_clip.txt", tmp / "results" / "V_clip_vid_transf.txt",
+                clip.with_suffix(".yaml"), decoded, reader, tol_px,
+                may_lack_tracks=detector.imgsz != port_cfg.DEFAULT["ultralytics"]["imgsz"])
+    res["turns"] = driver_turns(smoke_config(detector.imgsz), detector,
+                                turn_frames or frames, info, chunk, device, turn_rounds)
+    return res
+
+
+OPTIONS = (
+    ("stable", "stable"),
+    ("tiles=2", {"ultralytics": {"tiles": 2}}),
+    ("half", {"ultralytics": {"half": True}}),
+    ("stabilize off, botsort", {"extraction": {"stabilize": False}}),
+    ("stabilize off, bytetrack", {"extraction": {"stabilize": False},
+                                  "tracker": {"active": "bytetrack"}}),
+)
+
+
+def option_config(imgsz: int, option) -> dict:
+    """The default configuration with one option: a preset's name or
+    overrides of some sections' keys."""
+    if isinstance(option, str):
+        config = port_cfg.load_config(port_cfg.CFG_DIR / f"{option}.yaml")
+    else:
+        config = port_cfg.load_config()
+        for section, values in option.items():
+            config[section].update(values)
+    config["ultralytics"]["imgsz"] = imgsz
+    return config
+
+
+def gmc_error(gmc: np.ndarray, frame_ids, reader: SyntheticVideoReader) -> float:
+    """Largest distance [px] between where each frame's GMC (previous frame
+    -> this frame) and the camera's true motion map the frame's corners and
+    centre; the first frame of the video has no previous frame."""
+    w, hh = reader.info.width, reader.info.height
+    pts = np.array([[0, 0, 1], [w, 0, 1], [0, hh, 1], [w, hh, 1], [w / 2, hh / 2, 1]], float)
+    err = 0.0
+    for g, i in zip(gmc, frame_ids):
+        if i == 0:
+            continue
+        true = np.linalg.inv(reader.camera_h(i)) @ reader.camera_h(i - 1)
+        a, b = pts @ g.T, pts @ true.T
+        err = max(err, float(np.abs(a[:, :2] / a[:, 2:] - b[:, :2] / b[:, 2:]).max()))
+    return err
+
+
+def phase_options(detector, frames, reader, device: str = "cuda", imgsz: int = 1920,
+                  chunk: int = 32, tol_px: float = 2.0) -> dict:
+    """Each option of the extract config through a fresh detector and
+    extractor (the extract stage's constructors) on the main phase's first
+    two chunks: ms of each chunk step (the upload of the stacked frames from
+    pageable memory included) with the copy of its outputs, FAST
+    launches, and the homographies against the camera (stabilized), the
+    standalone GMC against the camera's frame-to-frame motion (stabilize
+    off, botsort), or identity and no FAST launch (bytetrack)."""
+    from geotrax_tpu_torch.models import convert
+
+    info = reader.info
+    results = {}
+    tmp = tempfile.TemporaryDirectory()
+    model_path = Path(tmp.name) / "ckpt.npz"
+    convert.save_npz(model_path, detector.model)
+    for name, option in OPTIONS:
+        config = option_config(imgsz, option)
+        det = Detector(model_path, config["ultralytics"], device=device)
+        fx = build_fused(config, det, info.height, info.width, chunk, 0, device)
+        fast.fast_score_map.launches = 0
+        ms, hs, gmcs = [], [], []
+        for k in range(2):
+            part = frames[k * chunk:(k + 1) * chunk]
+            fids = np.asarray([i for i, _ in part]) + 1
+            stacked = np.stack([f for _, f in part])
+            t0 = time.perf_counter()
+            out = fx.process_chunk(stacked, fids, len(part))
+            hs.append(out.h.cpu().numpy())
+            gmcs.append(out.gmc.cpu().numpy())
+            ms.append((time.perf_counter() - t0) * 1e3)
+        ids = [i for i, _ in frames[:2 * chunk]]
+        h, gmc = np.concatenate(hs), np.concatenate(gmcs)
+        stab, use_gmc = fx.stab_on, fx.use_gmc
+        res = {"ms": ms, "launches": fast.fast_score_map.launches}
+        expected = (3 if stab else 2 if use_gmc else 0) * (device == "cuda")
+        if res["launches"] != expected:
+            raise AssertionError(f"{name}: FAST launched {res['launches']} times, "
+                                 f"expected {expected}")
+        if stab:
+            res["camera_err_px"] = check_homographies(h, ids, reader, tol_px)
+        else:
+            if not np.array_equal(h, np.broadcast_to(np.eye(3), h.shape)):
+                raise AssertionError(f"{name}: homographies with stabilization off")
+            if use_gmc:
+                res["gmc_err_px"] = gmc_error(gmc, ids, reader)
+                if res["gmc_err_px"] > tol_px:
+                    raise AssertionError(f"{name}: GMC {res['gmc_err_px']:.3f} px off the camera")
+            elif not np.array_equal(gmc, np.broadcast_to(np.eye(3), gmc.shape)):
+                raise AssertionError(f"{name}: GMC without a GMC tracker")
+        results[name] = res
+        del fx, det
+    tmp.cleanup()
+    return results
+
+
 def breakdown(fx, width: int, height: int, seed: int, horizon: int, start: int,
               chunk: int = 32, top: int = 12, tol_px: float = 2.0) -> dict:
     """Host and device time by stage (the chunk step's ``fx.*`` ranges) and
@@ -917,6 +1190,38 @@ def main(argv) -> int:
             f"plain gather {rd['head_emb']['plain_err']:.2e}, max |head - projection| "
             f"{rd['head_vs_projection']:.3f}; peak mem "
             f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{dev['smi']}]")
+
+        t = time.perf_counter()
+        cli = phase_cli(main_run["fx"].detector, main_run["frames"], main_run["reader"], "cuda",
+                        chunk=chunk, turn_frames=main_run["frames"] + steady["frames"])
+        print("decode: " + (f"native decoder built; {cli['decode_fps']:.1f} frames/s decoding "
+                            f"the {n_main}-frame {width}x{height} .y4m alone" if cli["probe"]["ok"]
+                            else f"unavailable ({cli['probe']['found']}); run_extraction read "
+                                 f"the frames in memory (open_reader replaced)"), flush=True)
+        cst, turns = cli["checks"], cli["turns"]["ms"]
+        log(f"cli ok {time.perf_counter() - t:.1f}s checkpoint .npz and .pt loaded, frame 0 "
+            f"detections equal ({cli['detections']}; .pt vs .npz max diff {cli['pt_vs_npz']:.2e}); "
+            f"run_extraction -m ckpt.npz -c default on {n_main} frames {width}x{height}: "
+            f"{cli['run_s']:.1f}s, ms/chunk {[round(x * 1e3, 1) for x in cli['stats']['chunk_s']]}, "
+            f"{cst['rows']} rows, camera error {cst['camera_err_px']:.3f} px, fast launches "
+            f"{cli['launches']}"
+            + (f"; subprocess extract of the .y4m {cli['subprocess_s']:.1f}s, "
+               f"{cli['subprocess_checks']['rows']} rows" if cli["probe"]["ok"] else "")
+            + f"; ms/chunk over {len(main_run['frames']) + len(steady['frames'])} frames in turns: "
+              f"double-buffered {[round(x, 1) for x in turns['pipelined']]}, serial "
+              f"{[round(x, 1) for x in turns['serial']]} (rows equal) [{dev['smi']}]")
+
+        t = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        opts = phase_options(main_run["fx"].detector, main_run["frames"], main_run["reader"],
+                             "cuda", chunk=chunk)
+        log(f"options ok {time.perf_counter() - t:.1f}s fresh extractor per option, 2x{chunk} "
+            f"frames {width}x{height}: " + "; ".join(
+                f"{k}: ms {[round(m, 1) for m in v['ms']]}, fast launches {v['launches']}"
+                + (f", camera error {v['camera_err_px']:.3f} px" if "camera_err_px" in v else "")
+                + (f", GMC error {v['gmc_err_px']:.3f} px" if "gmc_err_px" in v else "")
+                for k, v in opts.items())
+            + f"; peak mem {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{dev['smi']}]")
 
         t = time.perf_counter()
         ref = phase_reference("cuda")

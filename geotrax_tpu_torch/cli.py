@@ -1,0 +1,78 @@
+"""`python -m geotrax_tpu_torch`: the port's umbrella CLI.
+
+The counterpart of ``geotrax_tpu/cli.py``: the reference's seven commands
+and ``-V/--version``, each stage module imported only when its command
+runs and given its own argv. ``extract`` runs on the card unless
+``--device cpu`` is given (the counterpart of the reference's
+``JAX_PLATFORMS``); the other six commands are not ported yet and exit
+with the ROADMAP item that will bring them.
+"""
+
+from __future__ import annotations
+
+import importlib
+import sys
+
+from geotrax_tpu_torch import __version__
+
+# command -> (module path, or the ROADMAP item that ports it; one-line help)
+COMMANDS = {
+    "batch": ("A17", "Run the full pipeline over a video or a directory tree"),
+    "extract": ("geotrax_tpu_torch.pipeline.extract",
+                "Detect, track and stabilize vehicle trajectories (pixel coords)"),
+    "georeference": ("A12", "Map extracted tracks to WGS84 + local CRS with kinematics"),
+    "aggregate": ("A17", "Merge per-video georeferenced CSVs across drones/sessions"),
+    "visualize": ("A17", "Render annotated videos (5 modes incl. oriented boxes)"),
+    "plot": ("A17", "Generate trajectory / kinematics / class-distribution plots"),
+    "config": ("A17", "Show or copy the bundled configuration presets"),
+}
+
+PROG = "python -m geotrax_tpu_torch"
+
+
+def build_usage() -> str:
+    lines = [
+        f"usage: {PROG} <command> [options]",
+        "",
+        "Georeferenced trajectory extraction from BEV drone video on an NVIDIA GPU.",
+        "",
+        "commands:",
+    ]
+    width = max(len(name) for name in COMMANDS)
+    for name, (target, help_text) in COMMANDS.items():
+        note = "" if "." in target else f"  [not ported yet: ROADMAP {target}]"
+        lines.append(f"  {name:<{width}}  {help_text}{note}")
+    lines += [
+        "",
+        f"Run '{PROG} <command> --help' for command-specific options.",
+        "  -V, --version   show version and exit",
+    ]
+    return "\n".join(lines)
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] in ("-h", "--help"):
+        print(build_usage())
+        return 0
+    if argv[0] in ("-V", "--version"):
+        print(f"geotrax_tpu_torch {__version__}")
+        return 0
+
+    command = argv[0]
+    if command not in COMMANDS:
+        print(f"{PROG}: unknown command '{command}'\n", file=sys.stderr)
+        print(build_usage(), file=sys.stderr)
+        return 2
+    target, _ = COMMANDS[command]
+    if "." not in target:
+        print(f"{PROG}: '{command}' is not ported to PyTorch yet (ROADMAP {target}); "
+              f"run it with the JAX package ('geotrax {command}').", file=sys.stderr)
+        return 2
+    module = importlib.import_module(target)
+    result = module.main(argv[1:])
+    return int(result) if result is not None else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,151 @@
+"""The port's native video decoder: ``decode.cpp`` built with ``g++`` at
+first use and bound with ``ctypes``.
+
+The library goes under ``build/native/`` at the root of the checkout (a
+git-ignored directory), with a hash of the source and flags in its name,
+so an edited source is rebuilt and an unchanged one reused. The FFmpeg
+headers and libraries (libavformat, libavcodec, libavutil, libswscale) are
+found with ``pkg-config``, else under ``/usr/include/<multiarch triplet>``;
+``probe()`` says which, or why there are none, without building.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import sysconfig
+from pathlib import Path
+from typing import Iterator
+
+import numpy as np
+
+SOURCE = Path(__file__).resolve().parent / "decode.cpp"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "native"
+CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
+PACKAGES = ("libavformat", "libavcodec", "libavutil", "libswscale")
+LIBS = ("-lavformat", "-lavcodec", "-lavutil", "-lswscale")
+BUILD_TIMEOUT_S = 300
+
+_lib = None
+
+
+def _multiarch_include() -> Path | None:
+    triplet = sysconfig.get_config_var("MULTIARCH")
+    if triplet:
+        inc = Path("/usr/include") / triplet
+        if (inc / "libavcodec" / "avcodec.h").is_file():
+            return inc
+    if Path("/usr/include/libavcodec/avcodec.h").is_file():
+        return Path("/usr/include")
+    return None
+
+
+def probe() -> dict:
+    """Where the compiler and the FFmpeg development files are:
+    {"ok": bool, "cxx": path or None, "flags": [...], "found": text}."""
+    cxx = shutil.which(os.environ.get("CXX", "g++")) or shutil.which("c++")
+    res = {"ok": False, "cxx": cxx, "flags": [], "found": ""}
+    if shutil.which("pkg-config"):
+        proc = subprocess.run(["pkg-config", "--cflags", "--libs", *PACKAGES],
+                              capture_output=True, text=True, timeout=30)
+        if proc.returncode == 0:
+            res.update(flags=proc.stdout.split(), found="pkg-config " + " ".join(PACKAGES))
+    if not res["found"]:
+        inc = _multiarch_include()
+        if inc is not None:
+            res.update(flags=[f"-I{inc}", *LIBS], found=f"headers under {inc}")
+    if not res["found"]:
+        res["found"] = "no libavcodec headers (pkg-config and /usr/include)"
+    elif cxx is None:
+        res["found"] += ", but no C++ compiler"
+    res["ok"] = bool(res["flags"]) and cxx is not None
+    return res
+
+
+def library_path(flags) -> Path:
+    digest = hashlib.sha1(SOURCE.read_bytes() + " ".join((*CXX_FLAGS, *flags)).encode())
+    return BUILD_DIR / f"libgeotrax_decode-{digest.hexdigest()[:12]}.so"
+
+
+def build() -> Path:
+    """Compile ``decode.cpp`` unless its library exists; return its path.
+    Raises ``RuntimeError`` when the toolchain or FFmpeg is missing."""
+    found = probe()
+    if not found["ok"]:
+        raise RuntimeError(f"cannot build the native decoder: {found['found']}")
+    out = library_path(found["flags"])
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [found["cxx"], *CXX_FLAGS, "-o", str(tmp), str(SOURCE), *found["flags"]]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=BUILD_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed for decode.cpp (exit {proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    """The decoder library, built if needed; raises ``RuntimeError`` or
+    ``OSError`` when it cannot be built or loaded."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = ctypes.CDLL(str(build()))
+    lib.gtx_open.restype = ctypes.c_void_p
+    lib.gtx_open.argtypes = [ctypes.c_char_p]
+    for name in ("gtx_width", "gtx_height"):
+        getattr(lib, name).restype = ctypes.c_int
+        getattr(lib, name).argtypes = [ctypes.c_void_p]
+    lib.gtx_fps.restype = ctypes.c_double
+    lib.gtx_fps.argtypes = [ctypes.c_void_p]
+    lib.gtx_frame_count.restype = ctypes.c_long
+    lib.gtx_frame_count.argtypes = [ctypes.c_void_p]
+    lib.gtx_read_frame.restype = ctypes.c_int
+    lib.gtx_read_frame.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.gtx_close.restype = None
+    lib.gtx_close.argtypes = [ctypes.c_void_p]
+    _lib = lib
+    return lib
+
+
+def native_probe(path: str):
+    """(width, height, fps, frame_count) of a video, or None when the
+    decoder cannot open it."""
+    lib = load_library()
+    handle = lib.gtx_open(str(path).encode())
+    if not handle:
+        return None
+    try:
+        return (lib.gtx_width(handle), lib.gtx_height(handle), lib.gtx_fps(handle),
+                int(lib.gtx_frame_count(handle)))
+    finally:
+        lib.gtx_close(handle)
+
+
+def native_frames(path: str) -> Iterator[tuple[int, np.ndarray]]:
+    """Yield (index, RGB frame) sequentially from the native decoder."""
+    lib = load_library()
+    handle = lib.gtx_open(str(path).encode())
+    if not handle:
+        raise OSError(f"native decoder failed to open {path}")
+    try:
+        h, w = lib.gtx_height(handle), lib.gtx_width(handle)
+        idx = 0
+        while True:
+            frame = np.empty((h, w, 3), dtype=np.uint8)
+            rc = lib.gtx_read_frame(handle, frame.ctypes.data_as(ctypes.c_void_p))
+            if rc < 0:
+                # C ABI: 1 = clean EOF, <0 = error; an error is not an EOF
+                raise OSError(f"native decoder error {rc} at frame {idx} of {path}")
+            if rc != 0:
+                break
+            yield idx, frame
+            idx += 1
+    finally:
+        lib.gtx_close(handle)

@@ -7,17 +7,9 @@ frames, so the pipeline runs without a codec or a video file.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-
 import numpy as np
 
-
-@dataclass
-class VideoInfo:
-    width: int
-    height: int
-    fps: float
-    frame_count: int
+from geotrax_tpu_torch.io.video import VideoInfo
 
 
 class SyntheticVideoReader:

@@ -1,0 +1,189 @@
+"""Video decoding with a prefetch thread.
+
+The port's copy of the sequential part of ``geotrax_tpu/io/video.py``:
+
+- 'native': the port's libavformat/libavcodec decoder (``io/native``),
+  built with g++ at first use; deterministic frame indexing, RGB output.
+- 'cv2': OpenCV, imported only inside this backend's functions (the card's
+  machine has no cv2).
+
+Frames are numpy uint8 HxWx3 in RGB order. ``VideoReader`` decodes in a
+background thread that keeps a few frames ahead of the consumer. The
+GOP-parallel reader waits for ROADMAP A15 and the writer for A17.
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import threading
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Iterator, Optional
+
+import numpy as np
+
+
+@dataclass
+class VideoInfo:
+    width: int
+    height: int
+    fps: float
+    frame_count: int
+
+
+def native_available() -> bool:
+    """Whether the native decoder builds (or is built) and loads here."""
+    from geotrax_tpu_torch.io import native
+
+    try:
+        native.load_library()
+    except (OSError, RuntimeError):
+        return False
+    return True
+
+
+def get_backend(requested: Optional[str] = None) -> str:
+    requested = requested or os.environ.get("GEOTRAX_VIDEO_BACKEND")
+    if requested in ("native", "cv2"):
+        return requested
+    return "native" if native_available() else "cv2"
+
+
+def probe_video(path: Path | str, backend: Optional[str] = None) -> VideoInfo:
+    path = str(path)
+    if get_backend(backend) == "native":
+        from geotrax_tpu_torch.io.native import native_probe
+
+        info = native_probe(path)
+        if info is not None:
+            return VideoInfo(*info)
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    try:
+        if not cap.isOpened():
+            raise FileNotFoundError(f"Cannot open video: {path}")
+        return VideoInfo(
+            width=int(cap.get(cv2.CAP_PROP_FRAME_WIDTH)),
+            height=int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT)),
+            fps=float(cap.get(cv2.CAP_PROP_FPS)),
+            frame_count=int(cap.get(cv2.CAP_PROP_FRAME_COUNT)),
+        )
+    finally:
+        cap.release()
+
+
+def _cv2_frames(path: str):
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    try:
+        idx = 0
+        while True:
+            ok, bgr = cap.read()
+            if not ok:
+                break
+            yield idx, np.ascontiguousarray(bgr[..., ::-1])
+            idx += 1
+    finally:
+        cap.release()
+
+
+class VideoReader:
+    """Sequential frame reader with deterministic indexing and prefetch.
+
+    Iterates (frame_index, frame_rgb) from ``start`` (inclusive) to ``stop``
+    (exclusive; None = end of stream). Skipped head frames are decoded and
+    discarded rather than seeked, so frame indices are exact regardless of
+    keyframe placement.
+    """
+
+    def __init__(self, path: Path | str, start: int = 0, stop: Optional[int] = None,
+                 prefetch: int = 4, backend: Optional[str] = None):
+        self.path = str(path)
+        self.start = int(start)
+        self.stop = stop
+        self.backend = get_backend(backend)
+        self.info = probe_video(self.path, self.backend)
+        self._queue: queue.Queue = queue.Queue(maxsize=max(1, int(prefetch)))
+        self._stop_event = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._started = False
+        self._finished = False
+        self._error: Optional[BaseException] = None
+
+    # -- producer -----------------------------------------------------------
+    def _put(self, item) -> bool:
+        """Blocking put that honors the stop event (a plain put() could block
+        forever once close() stops consuming with the queue full)."""
+        while not self._stop_event.is_set():
+            try:
+                self._queue.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _produce(self):
+        try:
+            if self.backend == "native":
+                from geotrax_tpu_torch.io.native import native_frames
+
+                frame_iter = native_frames(self.path)
+            else:
+                frame_iter = _cv2_frames(self.path)
+            for idx, frame in frame_iter:
+                if self._stop_event.is_set():
+                    break
+                if idx < self.start:
+                    continue
+                if self.stop is not None and idx >= self.stop:
+                    break
+                if not self._put((idx, frame)):
+                    break
+        except BaseException as exc:  # noqa: BLE001 — re-raised in the consumer
+            self._error = exc
+        finally:
+            # the sentinel blocks until delivered or the reader is closing
+            if not self._put(None):
+                try:
+                    self._queue.put_nowait(None)
+                except queue.Full:
+                    pass
+
+    # -- consumer -----------------------------------------------------------
+    def __iter__(self) -> Iterator[tuple[int, np.ndarray]]:
+        if self._finished:
+            if self._error is not None:
+                raise self._error
+            return
+        if not self._started:
+            self._thread = threading.Thread(target=self._produce, daemon=True)
+            self._thread.start()
+            self._started = True
+        while True:
+            item = self._queue.get()
+            if item is None:
+                break
+            yield item
+        self._finished = True
+        if self._error is not None:
+            raise self._error
+
+    def close(self):
+        self._stop_event.set()
+        if self._thread is not None:
+            try:
+                while True:
+                    self._queue.get_nowait()
+            except queue.Empty:
+                pass
+            self._thread.join(timeout=2.0)
+        self._finished = True
+
+
+def make_reader(path: Path | str, start: int = 0, stop: Optional[int] = None, prefetch: int = 4,
+                backend: Optional[str] = None) -> VideoReader:
+    """The sequential reader (the GOP-parallel one is ROADMAP A15)."""
+    return VideoReader(path, start=start, stop=stop, prefetch=prefetch, backend=backend)

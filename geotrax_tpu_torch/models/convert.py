@@ -1,0 +1,284 @@
+"""Detector checkpoints: ultralytics ``.pt`` state dicts and ``.npz``
+parameter files, loaded into the port's ``YOLOv8``.
+
+The port's copy of the YOLOv8 part of ``geotrax_tpu/models/convert.py``
+(RT-DETR waits for ROADMAP A14):
+
+- ``.pt``: a flat ultralytics ``DetectionModel`` state dict (``model.<i>.``
+  keys, Conv2d + BatchNorm2d per block), as a raw dict, under ``model`` or
+  under ``state_dict`` (the reference's own export), optionally with
+  ``class_names``. Batch norm is folded into each convolution with
+  ultralytics' eps 1e-3; the folded OIHW weights go straight into the
+  port's modules, which keep torch's OIHW layout.
+- ``.npz``: the reference's ``save_npz`` layout: ``param:<path>`` arrays of
+  the JAX parameter tree (HWIO weights, ``layers/<i>/...``, list indices as
+  path parts), ``meta:<key>`` scalars (variant, nc, reg_max, p2) and a
+  pickled ``class_names`` dict. A file written by either package loads in
+  the other.
+
+A real ultralytics checkpoint pickles ultralytics' own classes, which
+``torch.load`` cannot rebuild without that package; such a file loads once
+its ``state_dict`` has been saved as a plain dict of tensors.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from geotrax_tpu_torch.models import yolov8
+
+_BN_EPS = 1e-3  # ultralytics BatchNorm2d(eps=0.001)
+
+
+def _torch_load(model_path: Path):
+    return torch.load(Path(model_path), map_location="cpu", weights_only=False)
+
+
+def read_class_names(model_path: Path) -> Optional[dict]:
+    """{class_id: name} stored in a checkpoint file, or None."""
+    model_path = Path(model_path)
+    if not model_path.is_file():
+        return None
+    if model_path.suffix == ".npz":
+        with np.load(model_path, allow_pickle=True) as data:
+            if "class_names" in data:
+                raw = data["class_names"].item()
+                return {int(k): str(v) for k, v in raw.items()}
+        return None
+    if model_path.suffix == ".pt":
+        ckpt = _torch_load(model_path)
+        if isinstance(ckpt, dict) and isinstance(ckpt.get("class_names"), dict):
+            return {int(k): str(v) for k, v in ckpt["class_names"].items()}
+        model = ckpt.get("model", ckpt) if isinstance(ckpt, dict) else ckpt
+        names = getattr(model, "names", None)
+        if isinstance(names, dict):
+            return {int(k): str(v) for k, v in names.items()}
+        if isinstance(names, (list, tuple)):
+            return {i: str(v) for i, v in enumerate(names)}
+    return None
+
+
+def torch_state_dict(model_path: Path) -> dict:
+    """Flat {name: float32-or-int numpy array} state dict of a ``.pt``."""
+    ckpt = _torch_load(model_path)
+    if isinstance(ckpt, dict) and "state_dict" in ckpt:
+        ckpt = ckpt["state_dict"]
+    model = ckpt.get("model", ckpt) if isinstance(ckpt, dict) else ckpt
+    if hasattr(model, "float"):
+        model = model.float()
+    state = model.state_dict() if hasattr(model, "state_dict") else model
+    return {k: v.detach().cpu().numpy() for k, v in state.items()}
+
+
+def _fold_conv_bn(sd: dict, prefix: str) -> tuple:
+    """Conv2d + BatchNorm2d -> (OIHW weight, bias) with BN folded."""
+    w = sd[f"{prefix}.conv.weight"]
+    scale = sd[f"{prefix}.bn.weight"] / np.sqrt(sd[f"{prefix}.bn.running_var"] + _BN_EPS)
+    b = sd[f"{prefix}.bn.bias"] - sd[f"{prefix}.bn.running_mean"] * scale
+    return (w * scale[:, None, None, None]).astype(np.float32), b.astype(np.float32)
+
+
+def _plain_conv(sd: dict, prefix: str) -> tuple:
+    """Conv2d with bias (the detect head's final 1x1) -> (OIHW weight, bias)."""
+    w = sd[f"{prefix}.weight"]
+    b = sd.get(f"{prefix}.bias", np.zeros(w.shape[0], np.float32))
+    return np.asarray(w, np.float32), np.asarray(b, np.float32)
+
+
+def infer_spec(sd: dict) -> yolov8.ModelSpec:
+    """Variant, nc, reg_max and P2-ness of a YOLOv8 state dict."""
+    p2 = "model.28.cv3.0.2.weight" in sd
+    head = 28 if p2 else 22
+    stem_out = sd["model.0.conv.weight"].shape[0]
+    nc = sd[f"model.{head}.cv3.0.2.weight"].shape[0]
+    reg_max = sd[f"model.{head}.cv2.0.2.weight"].shape[0] // 4
+    for variant, (_, w, _) in yolov8.SCALES.items():
+        if int(np.ceil(64 * w / 8) * 8) == stem_out:
+            return yolov8.ModelSpec(variant=variant, nc=int(nc), reg_max=int(reg_max), p2=p2)
+    raise ValueError(f"Cannot infer YOLOv8 variant from stem width {stem_out}")
+
+
+def _set(conv: yolov8.ConvBN, wb: tuple) -> None:
+    w, b = wb
+    if tuple(conv.weight.shape) != w.shape:
+        raise ValueError(f"checkpoint weight {w.shape} for a layer of {tuple(conv.weight.shape)}")
+    conv.weight.copy_(torch.as_tensor(np.array(w, np.float32)))
+    conv.bias.copy_(torch.as_tensor(np.array(b, np.float32)))
+
+
+def convert_ultralytics(sd: dict, spec: Optional[yolov8.ModelSpec] = None) -> tuple:
+    """Flat ultralytics state dict -> (``YOLOv8`` on the CPU, spec); layer
+    indices follow yolov8.yaml (``yolov8.backbone_plan``)."""
+    spec = spec or infer_spec(sd)
+    model = yolov8.YOLOv8(spec)
+    layers = model.layers
+    with torch.no_grad():
+        for i, (kind, _args) in yolov8.backbone_plan(spec).items():
+            prefix, layer = f"model.{i}", layers[str(i)]
+            if kind == "conv":
+                _set(layer, _fold_conv_bn(sd, prefix))
+                continue
+            _set(layer.cv1, _fold_conv_bn(sd, f"{prefix}.cv1"))
+            _set(layer.cv2, _fold_conv_bn(sd, f"{prefix}.cv2"))
+            if kind == "c2f":
+                for j, m in enumerate(layer.m):
+                    _set(m.cv1, _fold_conv_bn(sd, f"{prefix}.m.{j}.cv1"))
+                    _set(m.cv2, _fold_conv_bn(sd, f"{prefix}.m.{j}.cv2"))
+        head = spec.head_index
+        for branch in ("cv2", "cv3"):
+            for k, stack in enumerate(getattr(layers[str(head)], branch)):
+                _set(stack[0], _fold_conv_bn(sd, f"model.{head}.{branch}.{k}.0"))
+                _set(stack[1], _fold_conv_bn(sd, f"model.{head}.{branch}.{k}.1"))
+                _set(stack[2], _plain_conv(sd, f"model.{head}.{branch}.{k}.2"))
+    return model.eval(), spec
+
+
+def load_model(model_path: Path, device="cpu") -> tuple:
+    """A detector checkpoint (.pt or .npz) -> (``YOLOv8`` on ``device``,
+    spec, class names or None)."""
+    model_path = Path(model_path)
+    if model_path.suffix == ".pt":
+        model, spec = convert_ultralytics(torch_state_dict(model_path))
+        names = read_class_names(model_path)
+    elif model_path.suffix == ".npz":
+        tree, meta = load_npz(model_path)
+        spec = yolov8.ModelSpec(
+            variant=str(meta.get("variant", "s")),
+            nc=int(meta.get("nc", 4)),
+            reg_max=int(meta.get("reg_max", 16)),
+            p2=bool(int(meta.get("p2", 0))),
+        )
+        model = yolov8.params_from_jax(_restore_lists(tree), spec, device="cpu")
+        names = meta.get("class_names")
+    else:
+        raise ValueError(f"Unsupported model format: {model_path}")
+    return model.to(device).eval(), spec, names
+
+
+def _restore_lists(node):
+    """{'0': ..., '1': ...} dicts (from the npz flattening) back to lists,
+    where the digit keys form exactly 0..n-1 (the 'layers' dict has gaps
+    and stays a dict)."""
+    if isinstance(node, dict):
+        keys = list(node.keys())
+        if keys and all(k.isdigit() for k in keys) and sorted(int(k) for k in keys) == list(
+                range(len(keys))):
+            return [_restore_lists(node[str(i)]) for i in range(len(keys))]
+        return {k: _restore_lists(v) for k, v in node.items()}
+    return node
+
+
+def _tree(module: nn.Module):
+    """The JAX parameter tree of a module: {'w': HWIO, 'b'} per conv, lists
+    for module lists, dicts of children otherwise."""
+    if isinstance(module, yolov8.ConvBN):
+        return {"b": module.bias.detach().cpu().numpy(),
+                "w": module.weight.detach().cpu().permute(2, 3, 1, 0).contiguous().numpy()}
+    if isinstance(module, nn.ModuleList):
+        return [_tree(m) for m in module]
+    return {name: _tree(child) for name, child in module.named_children()}
+
+
+def _flatten(node, path: str, out: dict) -> None:
+    """``param:<path>`` entries in the order of JAX's tree flattening
+    (dict keys sorted, list items in order)."""
+    if isinstance(node, dict):
+        for key in sorted(node):
+            _flatten(node[key], f"{path}/{key}" if path else key, out)
+    elif isinstance(node, list):
+        for i, item in enumerate(node):
+            _flatten(item, f"{path}/{i}", out)
+    else:
+        out[f"param:{path}"] = np.asarray(node)
+
+
+def save_npz(path: Path, model: yolov8.YOLOv8, class_names: Optional[dict] = None, **meta) -> None:
+    """Save ``model`` as the reference's ``save_npz`` does, with the spec's
+    variant, nc, reg_max and p2 as metadata unless ``meta`` sets them."""
+    flat: dict = {}
+    _flatten({"layers": _tree(model.layers)}, "", flat)
+    if class_names is not None:
+        flat["class_names"] = np.array(class_names, dtype=object)
+    spec = model.spec
+    meta = {"variant": spec.variant, "nc": spec.nc, "reg_max": spec.reg_max,
+            "p2": int(spec.p2), **meta}
+    for key, value in meta.items():
+        flat[f"meta:{key}"] = np.array(value)
+    np.savez(Path(path), **flat)
+
+
+def load_npz(path: Path) -> tuple[dict, dict]:
+    """(nested params, metadata) from a .npz written by ``save_npz``."""
+    params: dict = {}
+    meta: dict = {}
+    with np.load(Path(path), allow_pickle=True) as data:
+        for key in data.files:
+            if key.startswith("param:"):
+                node = params
+                parts = key[len("param:"):].split("/")
+                for part in parts[:-1]:
+                    node = node.setdefault(part, {})
+                node[parts[-1]] = data[key]
+            elif key == "class_names":
+                meta["class_names"] = {int(k): str(v) for k, v in data[key].item().items()}
+            elif key.startswith("meta:"):
+                meta[key[len("meta:"):]] = data[key].item()
+    return params, meta
+
+
+def _unfold(conv: yolov8.ConvBN, prefix: str, out: dict) -> None:
+    """A folded conv -> ultralytics Conv keys in the identity-BN form
+    (mean 0, var 1 - eps, gamma 1, beta = bias), which folds back exactly."""
+    w = conv.weight.detach().cpu().numpy().astype(np.float32)
+    cout = w.shape[0]
+    out[f"{prefix}.conv.weight"] = w
+    out[f"{prefix}.bn.weight"] = np.ones(cout, np.float32)
+    out[f"{prefix}.bn.bias"] = conv.bias.detach().cpu().numpy().astype(np.float32)
+    out[f"{prefix}.bn.running_mean"] = np.zeros(cout, np.float32)
+    out[f"{prefix}.bn.running_var"] = np.full(cout, 1.0 - _BN_EPS, np.float32)
+    out[f"{prefix}.bn.num_batches_tracked"] = np.asarray(0, np.int64)
+
+
+def export_ultralytics_state_dict(model: yolov8.YOLOv8) -> dict:
+    """Inverse of ``convert_ultralytics``: the flat ultralytics-layout
+    {name: numpy array} state dict of ``model`` (identity BN), with the DFL
+    expectation conv's frozen arange weights."""
+    spec = model.spec
+    layers = model.layers
+    out: dict = {}
+    for i, (kind, _args) in yolov8.backbone_plan(spec).items():
+        prefix, layer = f"model.{i}", layers[str(i)]
+        if kind == "conv":
+            _unfold(layer, prefix, out)
+            continue
+        _unfold(layer.cv1, f"{prefix}.cv1", out)
+        _unfold(layer.cv2, f"{prefix}.cv2", out)
+        if kind == "c2f":
+            for j, m in enumerate(layer.m):
+                _unfold(m.cv1, f"{prefix}.m.{j}.cv1", out)
+                _unfold(m.cv2, f"{prefix}.m.{j}.cv2", out)
+    head = spec.head_index
+    for branch in ("cv2", "cv3"):
+        for k, stack in enumerate(getattr(layers[str(head)], branch)):
+            _unfold(stack[0], f"model.{head}.{branch}.{k}.0", out)
+            _unfold(stack[1], f"model.{head}.{branch}.{k}.1", out)
+            out[f"model.{head}.{branch}.{k}.2.weight"] = stack[2].weight.detach().cpu().numpy()
+            out[f"model.{head}.{branch}.{k}.2.bias"] = stack[2].bias.detach().cpu().numpy()
+    out[f"model.{head}.dfl.conv.weight"] = np.arange(
+        spec.reg_max, dtype=np.float32).reshape(1, spec.reg_max, 1, 1)
+    return out
+
+
+def save_pt(path: Path, model: yolov8.YOLOv8, class_names: Optional[dict] = None) -> None:
+    """Save ``model`` as a ``.pt`` that both packages load: its ultralytics
+    state dict as tensors under ``state_dict``, and ``class_names``."""
+    sd = {k: torch.from_numpy(np.asarray(v)) for k, v in export_ultralytics_state_dict(model).items()}
+    ckpt = {"state_dict": sd}
+    if class_names is not None:
+        ckpt["class_names"] = dict(class_names)
+    torch.save(ckpt, Path(path))

@@ -1,12 +1,18 @@
 """Host-facing detector: letterbox -> YOLOv8 forward -> NMS, batched.
 
-Counterpart of ``geotrax_tpu/models/detector.py`` for a model made in memory
-(``yolov8.init_params`` or ``yolov8.params_from_jax``). Loading a ``.pt`` or
-``hf://`` checkpoint, RT-DETR, tiling and half precision wait for later
-slices of the port (ROADMAP A9/A14).
+Counterpart of ``geotrax_tpu/models/detector.py`` for YOLOv8: built from a
+checkpoint (``.pt`` or ``.npz``, ``models/convert.py``) or from a model
+made in memory (``yolov8.init_params``, ``yolov8.params_from_jax``), with
+the reference's config surface: ``imgsz``, ``conf``, ``iou``,
+``max_det``, ``agnostic_nms``, ``classes``, ``half`` (bfloat16 weights and
+activations, float32 post-processing) and ``tiles`` / ``tile_overlap``
+(``parallel/tiling.py``). RT-DETR waits for ROADMAP A14.
 """
 
 from __future__ import annotations
+
+import copy
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -14,29 +20,35 @@ import torch
 from geotrax_tpu_torch._device import resolve_device
 from geotrax_tpu_torch.models import yolov8
 from geotrax_tpu_torch.ops.nms import postprocess_detections
-from geotrax_tpu_torch.ops.resize import resize_u8_linear
 
 
 class Detector:
-    """YOLOv8 + NMS over batches of frames, with the JAX detector's config
-    surface (``imgsz``, ``conf``, ``iou``, ``max_det``, ``agnostic_nms``,
-    ``classes``)."""
+    """YOLOv8 + NMS over batches of frames. ``model`` is a ``YOLOv8`` or the
+    path of a checkpoint, whose class names then replace ``class_names``."""
 
     is_rtdetr = False
 
-    def __init__(self, model: yolov8.YOLOv8, detect_cfg: dict, class_names=None,
-                 device="cuda"):
+    def __init__(self, model, detect_cfg: dict, class_names=None, logger=None, device="cuda"):
         self.device = resolve_device(device)
         self.imgsz = int(detect_cfg.get("imgsz", 1920) or 1920)
         self.conf = float(detect_cfg.get("conf", 0.25) or 0.25)
         self.iou = float(detect_cfg.get("iou", 0.7) or 0.7)
         self.max_det = int(detect_cfg.get("max_det", 1000) or 1000)
         self.agnostic = bool(detect_cfg.get("agnostic_nms", True))
-        if bool(detect_cfg.get("half", False)):
-            raise NotImplementedError("half-precision detection is not ported yet (ROADMAP A9)")
-        if int(detect_cfg.get("tiles", 1) or 1) > 1:
-            raise NotImplementedError("tiled detection is not ported yet (ROADMAP A9)")
+        self.half = bool(detect_cfg.get("half", False))
+        self.tiles = int(detect_cfg.get("tiles", 1) or 1)
+        self.tile_overlap = int(detect_cfg.get("tile_overlap", 128) or 128)
+        if isinstance(model, (str, Path)):
+            if "rtdetr" in str(model).lower():
+                raise NotImplementedError("RT-DETR detection is not ported yet (ROADMAP A14)")
+            from geotrax_tpu_torch.models.convert import load_model
+
+            model, _, class_names = load_model(model)
+        elif self.half:
+            model = copy.deepcopy(model)  # the cast below must not touch the caller's model
         self.model = model.to(self.device).eval()
+        if self.half:
+            self.model = self.model.to(torch.bfloat16)
         self.spec = model.spec
         self.class_names = class_names or {0: "car", 1: "bus", 2: "truck", 3: "motorcycle"}
         classes = detect_cfg.get("classes")
@@ -44,18 +56,32 @@ class Detector:
         if classes is not None:
             ids = np.asarray(classes, int)
             in_range = ids[(ids >= 0) & (ids < self.spec.nc)]
+            if logger and len(in_range) < len(ids):
+                logger.warning(
+                    f"Class filter {sorted(set(ids.tolist()) - set(in_range.tolist()))} "
+                    f"outside model range (nc={self.spec.nc}); ignored."
+                )
             if len(in_range) and len(in_range) < self.spec.nc:
                 mask = np.zeros((self.spec.nc,), bool)
                 mask[in_range] = True
                 self.class_mask = torch.as_tensor(mask, device=self.device)
+        if logger:
+            logger.info(
+                f"Detector: yolov8{self.spec.variant} nc={self.spec.nc} "
+                f"imgsz={self.imgsz} conf={self.conf} iou={self.iou} max_det={self.max_det}"
+            )
 
     def resize_geometry(self, src_h: int, src_w: int):
         """(new_h, new_w, r, top, left, out_h, out_w) of the letterbox resize
-        for a source resolution."""
+        for a source resolution, or None with tiles (no shared resize)."""
+        if self.tiles > 1:
+            return None
         out_h, out_w, r, top, left = yolov8.letterbox_shape(src_h, src_w, self.imgsz)
         return round(src_h * r), round(src_w * r), r, top, left, out_h, out_w
 
     def _detect_letterboxed(self, imgs: torch.Tensor, r: float, top: int, left: int) -> dict:
+        if self.half:
+            imgs = imgs.to(torch.bfloat16)
         with torch.no_grad():
             boxes, probs = yolov8.forward(self.model, imgs, self.spec)
             det = postprocess_detections(
@@ -69,8 +95,11 @@ class Detector:
         """A function of ALREADY-RESIZED (C,new_h,new_w,3) uint8 frames (the
         fused chunk runs the cv2-exact resize itself, so one pass over the 4K
         frame feeds both detection and the stabilization gray) -> dict of
-        (C, max_det, ...) detections in source pixels."""
-        new_h, new_w, r, top, left, out_h, out_w = self.resize_geometry(src_h, src_w)
+        (C, max_det, ...) detections in source pixels; None with tiles."""
+        geom = self.resize_geometry(src_h, src_w)
+        if geom is None:
+            return None
+        new_h, new_w, r, top, left, out_h, out_w = geom
 
         def run(resized_u8, fids=None):
             imgs = yolov8.letterbox_pad(resized_u8, out_h, out_w, top, left)
@@ -79,14 +108,20 @@ class Detector:
         return run
 
     def batch_trace(self, src_h: int, src_w: int):
-        """Like ``batch_trace_resized`` but on full (C,H,W,3) uint8 frames."""
+        """Detection on full (C,H,W,3) uint8 frames: the letterbox (resize
+        and padding) inside, or the tiled detector with ``tiles`` > 1."""
+        if self.tiles > 1:
+            from geotrax_tpu_torch.parallel.tiling import tiled_batch_trace
+
+            return tiled_batch_trace(
+                self.model, self.spec, self.tiles, src_h, src_w, imgsz=self.imgsz,
+                conf=self.conf, iou=self.iou, max_det=self.max_det, overlap=self.tile_overlap,
+                class_mask=self.class_mask, agnostic=self.agnostic, half=self.half,
+            )
         new_h, new_w, r, top, left, out_h, out_w = self.resize_geometry(src_h, src_w)
 
         def run(frames_u8, fids=None):
-            resized = frames_u8
-            if (src_h, src_w) != (new_h, new_w):
-                resized = resize_u8_linear(frames_u8, new_h, new_w)
-            imgs = yolov8.letterbox_pad(resized, out_h, out_w, top, left)
+            imgs = yolov8.letterbox(frames_u8, out_h, out_w, new_h, new_w, top, left)
             return self._detect_letterboxed(imgs, r, top, left)
 
         return run

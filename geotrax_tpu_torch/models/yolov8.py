@@ -12,7 +12,8 @@ images and features at their boundary; inside, activations are NCHW
 (PyTorch's convolution layout) and the block functions take NCHW. Weights
 are OIHW (the JAX tree's HWIO, transposed on load). Convolutions go through
 ``torch.nn.functional.conv2d``, a plain product outside any hand-written
-kernel.
+kernel. A model cast to bfloat16 (``half``) runs bfloat16 activations with
+float32 biases, head outputs and box decoding.
 """
 
 from __future__ import annotations
@@ -163,10 +164,20 @@ class YOLOv8(nn.Module):
 # Blocks (NCHW activations)
 # ---------------------------------------------------------------------------
 
+def conv(p: ConvBN, x: torch.Tensor, weight=None, stride: int = 1, padding: int = 0) -> torch.Tensor:
+    """The convolution plus bias, in float32. A bfloat16 ``x`` (``half``)
+    convolves in bfloat16 and adds the bias in float32, as the reference's
+    bf16 convolutions with float32 results do."""
+    w = p.weight if weight is None else weight
+    if x.dtype == torch.float32:
+        return F.conv2d(x, w, p.bias, stride=stride, padding=padding)
+    return F.conv2d(x, w, None, stride=stride, padding=padding).float() + p.bias.float()[:, None, None]
+
+
 def conv_block(p: ConvBN, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
-    """Conv(k x k, stride) + folded-BN bias + SiLU."""
+    """Conv(k x k, stride) + folded-BN bias + SiLU, in ``x``'s dtype."""
     k = p.weight.shape[-1]
-    return F.silu(F.conv2d(x, p.weight, p.bias, stride=stride, padding=k // 2))
+    return F.silu(conv(p, x, stride=stride, padding=k // 2)).to(x.dtype)
 
 
 def bottleneck(p: Bottleneck, x: torch.Tensor, shortcut: bool) -> torch.Tensor:
@@ -223,7 +234,7 @@ def stem_conv_s2d(p: ConvBN, x: torch.Tensor) -> torch.Tensor:
     ``conv_block(p, x, stride=2)`` (equal up to float32 rounding), the form
     the JAX package runs for layers 0 and 1."""
     xs = F.pad(space_to_depth2(x), (1, 0, 1, 0))
-    return F.silu(F.conv2d(xs, _stem_s2d_weights(p.weight), p.bias))
+    return F.silu(conv(p, xs, weight=_stem_s2d_weights(p.weight))).to(x.dtype)
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
@@ -237,9 +248,9 @@ def detect_head(p: Detect, features, spec: ModelSpec) -> torch.Tensor:
     for k, feat in enumerate(features):
         x = feat.permute(0, 3, 1, 2)
         box = conv_block(p.cv2[k][1], conv_block(p.cv2[k][0], x))
-        box = F.conv2d(box, p.cv2[k][2].weight, p.cv2[k][2].bias)
+        box = conv(p.cv2[k][2], box)
         cls = conv_block(p.cv3[k][1], conv_block(p.cv3[k][0], x))
-        cls = F.conv2d(cls, p.cv3[k][2].weight, p.cv3[k][2].bias)
+        cls = conv(p.cv3[k][2], cls)
         b, _, h, w = box.shape
         outs.append(torch.cat([box, cls], dim=1).permute(0, 2, 3, 1).reshape(b, h * w, -1))
     return torch.cat(outs, dim=1)
@@ -370,8 +381,9 @@ def forward_features(model: YOLOv8, x: torch.Tensor, spec: ModelSpec):
 
 
 def forward(model: YOLOv8, images: torch.Tensor, spec: ModelSpec):
-    """(B,H,W,3) float images (already letterboxed, 0..1) ->
-    (boxes_xywh (B,N,4) in input px, class_probs (B,N,nc))."""
+    """(B,H,W,3) float images (already letterboxed, 0..1; bfloat16 with a
+    bfloat16 model) -> (boxes_xywh (B,N,4) in input px, class_probs (B,N,nc)),
+    float32."""
     feats = forward_features(model, images, spec)
     raw = detect_head(model.layers[str(spec.head_index)], feats, spec)
     feat_shapes = [(f.shape[1], f.shape[2]) for f in feats]

@@ -190,7 +190,10 @@ def fit_affine(src: torch.Tensor, dst: torch.Tensor,
     ata = torch.matmul(aw.transpose(-1, -2), a)
     atb = torch.matmul(aw.transpose(-1, -2), dst)
     eye = torch.eye(3, dtype=src.dtype, device=src.device)
-    sol = torch.linalg.solve(ata + 1e-9 * eye, atb)  # (..., 3, 2)
+    # a degenerate sample gives a singular system: like the reference's
+    # solve, return what the factorization gives (inf/NaN, scored as an
+    # infinite error) instead of raising
+    sol = torch.linalg.solve_ex(ata + 1e-9 * eye, atb, check_errors=False)[0]  # (..., 3, 2)
     h = torch.zeros(src.shape[:-2] + (3, 3), dtype=src.dtype, device=src.device)
     h[..., :2, :] = sol.transpose(-1, -2)
     h[..., 2, 2] = 1.0

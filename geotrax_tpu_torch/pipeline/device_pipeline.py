@@ -1,7 +1,7 @@
 """Fused extraction chunk step: the whole per-chunk computation on the card.
 
-Counterpart of ``geotrax_tpu/pipeline/device_pipeline.py:FusedExtractor``
-with stabilization on (the default ``extract`` configuration):
+Counterpart of ``geotrax_tpu/pipeline/device_pipeline.py:FusedExtractor``.
+With stabilization on (the default ``extract`` configuration):
 
     cv2-exact 0.5x resize -> YOLOv8 forward -> NMS     (batched over the chunk)
     -> FAST (CUDA kernel) / grid descriptors / L2      (batched over the chunk,
@@ -18,8 +18,15 @@ reference-frame features and the previous frame's homography stay on the
 card between chunks. RANSAC draws are the reference's: uniforms from
 ``fold_in(PRNGKey(rng_seed), frame id)`` (JAX's threefry, ``ops/prng.py``),
 so they equal the reference's and do not depend on where the chunk
-boundaries fall. CLAHE and stabilization off (detect + track only, or the
-standalone-GMC branch) wait for a later slice (ROADMAP A13).
+boundaries fall. With ``stabilo.clahe`` the gray is equalized
+(``ops/clahe.py``) and the detector letterboxes the full frame itself.
+
+With stabilization off (``stabilo_cfg=None``) the chunk detects and tracks
+only, after the same hoisted resize; a tracker that wants camera-motion
+compensation gets it from a standalone GMC: ``GMC_FEATURES`` corners per
+frame matched against the previous frame's and an affine fit of
+``GMC_HYPOTHESES`` hypotheses, the previous chunk's last features carried
+into the next chunk's first fit, each frame's draw keyed as above.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from torch.profiler import record_function
 
 from geotrax_tpu_torch._device import resolve_device
 from geotrax_tpu_torch.ops import features, prng
+from geotrax_tpu_torch.ops.clahe import clahe
 from geotrax_tpu_torch.ops.homography import adjugate3, normalize_h
 from geotrax_tpu_torch.ops.patches import PATCH, patches32
 from geotrax_tpu_torch.ops.ransac import ransac_fit, sample_indices, sample_weights
@@ -42,6 +50,8 @@ from geotrax_tpu_torch.stabilize.config import StabilizerConfig
 from geotrax_tpu_torch.track import reid
 from geotrax_tpu_torch.track.base import EMB_DIM, FrameOutput
 
+GMC_FEATURES = 512         # standalone-GMC corner budget per frame
+GMC_HYPOTHESES = 256
 
 @lru_cache(maxsize=2)
 def _emb_projection(din: int, dout: int) -> np.ndarray:
@@ -158,17 +168,12 @@ class FusedExtractor:
     so every device draws the same indices.
     """
 
-    def __init__(self, detector, stabilo_cfg: dict, tracker_step,
+    def __init__(self, detector, stabilo_cfg: Optional[dict], tracker_step,
                  tracker_state, src_h: int, src_w: int, use_gmc: bool,
                  chunk: int = 16, rng_seed: int = 0, with_reid: bool = False,
                  reid_params: Optional[dict] = None, device="cuda",
                  sampler: Optional[Callable] = None):
         self.device = resolve_device(device)
-        if stabilo_cfg is None:
-            raise NotImplementedError(
-                "stabilization off (detect + track only, standalone GMC) is not ported "
-                "yet (ROADMAP A13)"
-            )
         self.detector = detector
         self.chunk = chunk
         self.src_h, self.src_w = src_h, src_w
@@ -182,25 +187,32 @@ class FusedExtractor:
         self._detect = detector.batch_trace(src_h, src_w)
         self._detect_resized = None
         self._resize_geom = None
-        proto = StabilizerConfig(**stabilo_cfg)
-        if proto.n_levels != 1:
-            raise ValueError("FusedExtractor supports the single-level (orb-class) path")
-        if proto.clahe:
-            raise NotImplementedError("CLAHE is not ported yet (ROADMAP A13)")
-        self.proto = proto
-        # Shared-resize fast path: when the stabilizer's downsample ratio
-        # equals the letterbox scale (the default 4K @ imgsz 1920 config:
-        # both 0.5), ONE cv2-exact resize of the raw frame feeds both the
-        # detector letterbox and the stabilization gray.
-        if hasattr(detector, "batch_trace_resized"):
-            new_h, new_w, r = detector.resize_geometry(src_h, src_w)[:3]
-            if (
-                abs(r - proto.downsample_ratio) < 1e-12
-                and new_h == round(src_h * proto.downsample_ratio)
-                and new_w == round(src_w * proto.downsample_ratio)
+        self.stab_on = stabilo_cfg is not None
+        self.proto = None
+        geom = detector.resize_geometry(src_h, src_w) if hasattr(
+            detector, "batch_trace_resized") else None
+        if self.stab_on:
+            proto = StabilizerConfig(**stabilo_cfg)
+            if proto.n_levels != 1:
+                raise ValueError("FusedExtractor supports the single-level (orb-class) path")
+            self.proto = proto
+            # Shared-resize fast path: when the stabilizer's downsample
+            # ratio equals the letterbox scale (the default 4K @ imgsz 1920
+            # config: both 0.5) and no CLAHE intervenes, ONE cv2-exact
+            # resize of the raw frame feeds both the detector letterbox and
+            # the stabilization gray.
+            if geom is not None and not proto.clahe and (
+                abs(geom[2] - proto.downsample_ratio) < 1e-12
+                and geom[0] == round(src_h * proto.downsample_ratio)
+                and geom[1] == round(src_w * proto.downsample_ratio)
             ):
-                self._detect_resized = detector.batch_trace_resized(src_h, src_w)
-                self._resize_geom = (new_h, new_w)
+                self._resize_geom = geom[:2]
+        elif geom is not None:
+            # detect + track only: the hoisted resize gives the same
+            # detections as the letterbox inside the detector
+            self._resize_geom = geom[:2]
+        if self._resize_geom is not None:
+            self._detect_resized = detector.batch_trace_resized(src_h, src_w)
 
         self._seed0 = rng_seed
         self._key = prng.PRNGKey(rng_seed)
@@ -208,20 +220,28 @@ class FusedExtractor:
         self._state0 = tracker_state
         self._h_prev = torch.eye(3, device=self.device)
         self._ref: Optional[RefFeatures] = None
+        self._gmc_carry: Optional[RefFeatures] = None  # standalone GMC: the previous frame's
 
     # ------------------------------------------------------------ stages
     def _draw_indices(self, fids, weights, num_hypotheses: int, sample_size: int):
         keys = prng.fold_in(self._key, np.asarray(fids, np.int64))
         return sample_indices(keys, num_hypotheses, sample_size, weights)
 
+    def _ratio(self) -> float:
+        return self.proto.downsample_ratio if self.proto else 0.5
+
     def _gray(self, frames_u8):
-        return features.downsample(features.rgb_to_gray(frames_u8), self.proto.downsample_ratio)
+        gray = features.downsample(features.rgb_to_gray(frames_u8), self._ratio())
+        if self.proto and self.proto.clahe:
+            gray = clahe(gray)
+        return gray
 
     def _feats(self, gray, det_boxes, det_valid, n_features):
         mask = None
-        if self.proto.mask_use:
-            boxes = torch.where(det_valid[..., None], det_boxes, 0.0) * self.proto.downsample_ratio
-            mask = features.boxes_mask(gray.shape[-2:], boxes, self.proto.mask_margin_ratio)
+        if self.proto is None or self.proto.mask_use:
+            margin = self.proto.mask_margin_ratio if self.proto else 0.15
+            boxes = torch.where(det_valid[..., None], det_boxes, 0.0) * self._ratio()
+            mask = features.boxes_mask(gray.shape[-2:], boxes, margin)
         kps = features.fast_detect(gray, n_features, mask=mask, oriented=False)
         desc = features.describe_grid(gray, kps)
         return kps.xy, desc, kps.valid
@@ -231,14 +251,18 @@ class FusedExtractor:
         matches = match_l2(desc, valid_kp, ref.desc, ref.valid, ratio=filter_ratio)
         sample_size = 4 if transformation == "projective" else 3
         idx = self._sampler(fids, sample_weights(matches.valid), n_hyps, sample_size)
-        res = ransac_fit(xy, ref.xy[matches.idx_b], matches.valid, threshold=threshold,
+        if ref.xy.dim() == 2:  # one reference frame for every frame
+            dst = ref.xy[matches.idx_b]
+        else:  # a reference per frame (standalone GMC: the previous frame)
+            dst = torch.gather(ref.xy, 1, matches.idx_b[..., None].expand(-1, -1, 2))
+        res = ransac_fit(xy, dst, matches.valid, threshold=threshold,
                          num_hypotheses=n_hyps, transformation=transformation,
                          sample_idx=idx)
         return res.h_matrix, res.num_inliers, matches.valid.sum(dim=-1)
 
     def _unscale(self, h_ds):
         """Undo feature-space downsampling: H_full = S^-1 H_ds S."""
-        s = self.proto.downsample_ratio
+        s = self._ratio()
         scale = torch.as_tensor(np.diag([s, s, 1.0]), dtype=torch.float32, device=h_ds.device)
         inv_scale = torch.as_tensor(np.diag([1.0 / s, 1.0 / s, 1.0]), dtype=torch.float32,
                                     device=h_ds.device)
@@ -293,7 +317,34 @@ class FusedExtractor:
                     head_params=self.reid_params,
                 )
         eye = torch.eye(3, device=dev)
+        h = eye.expand(c, 3, 3).clone()
+        inliers = torch.zeros((c,), dtype=torch.int32, device=dev)
+        n_matches = torch.zeros((c,), dtype=torch.int32, device=dev)
+        gmc = eye.expand(c, 3, 3).clone()
+        if self.stab_on:
+            h, inliers, n_matches = self._stabilize(frames_u8, resized, det_boxes, det_valid,
+                                                    fids, first)
+            if self.use_gmc:
+                # gmc_t = H_t^-1 . H_{t-1}  (adjugate = scale-free inverse)
+                gmc = gmc_from_h(h, torch.cat([self._h_prev[None], h[:-1]], dim=0))
+        elif self.use_gmc:
+            gmc = self._standalone_gmc(frames_u8, det_boxes, det_valid, fids)
 
+        with record_function("fx.tracker"):
+            outs = self._run_tracker(det, gmc, fids, n_valid, det_emb)
+
+        box_stab = _transform_boxes_h(h, outs.box_xywh)
+        self._h_prev = h[-1]
+        return ChunkOutput(
+            track_id=outs.track_id, box_xywh=outs.box_xywh, box_stab=box_stab,
+            score=outs.score, cls=outs.cls, valid=outs.valid,
+            h=h, gmc=gmc, inliers=inliers, matches=n_matches,
+        )
+
+    def _stabilize(self, frames_u8, resized, det_boxes, det_valid, fids, first: bool) -> tuple:
+        """(cur->ref homographies, inliers, matches) of the chunk's frames
+        against the reference frame (this chunk's frame 0 when ``first``)."""
+        eye = torch.eye(3, device=frames_u8.device)
         with record_function("fx.features"):
             grays = features.rgb_to_gray(resized) if resized is not None else self._gray(frames_u8)
             xy, desc, val = self._feats(grays, det_boxes, det_valid, self.proto.max_features)
@@ -318,36 +369,41 @@ class FusedExtractor:
             h_full / torch.where(ok, denom, 1.0)[:, None, None],
             eye[None],
         )
-        inliers = torch.where(ok, inl, 0).to(torch.int32)
-        n_matches = nm.to(torch.int32)
         if first:
             # frame 0 IS the reference frame -> exact identity
             h[0] = eye
-        if self.use_gmc:
-            # gmc_t = H_t^-1 . H_{t-1}  (adjugate = scale-free inverse)
-            h_prev_seq = torch.cat([self._h_prev[None], h[:-1]], dim=0)
-            gmc = gmc_from_h(h, h_prev_seq)
-        else:
-            gmc = eye.expand(c, 3, 3).clone()
+        return h, torch.where(ok, inl, 0).to(torch.int32), nm.to(torch.int32)
 
-        with record_function("fx.tracker"):
-            outs = self._run_tracker(det, gmc, fids, n_valid, det_emb)
-
-        box_stab = _transform_boxes_h(h, outs.box_xywh)
-        self._h_prev = h[-1]
-        return ChunkOutput(
-            track_id=outs.track_id, box_xywh=outs.box_xywh, box_stab=box_stab,
-            score=outs.score, cls=outs.cls, valid=outs.valid,
-            h=h, gmc=gmc, inliers=inliers, matches=n_matches,
-        )
+    def _standalone_gmc(self, frames_u8, det_boxes, det_valid, fids) -> torch.Tensor:
+        """prev->cur camera motion with stabilization off: each frame's
+        corners matched against the previous frame's (the carry from the
+        previous chunk for the first frame), one affine fit per frame."""
+        eye = torch.eye(3, device=frames_u8.device)
+        with record_function("fx.features"):
+            xy, desc, val = self._feats(self._gray(frames_u8), det_boxes, det_valid, GMC_FEATURES)
+        prev = self._gmc_carry
+        if prev is None:  # the video's first frame: no features to match
+            prev = RefFeatures(torch.zeros_like(xy[0]), torch.zeros_like(desc[0]),
+                               torch.zeros_like(val[0]))
+        with record_function("fx.match_ransac"):
+            h_ds, _, nm = self._fit(
+                torch.cat([prev.xy[None], xy[:-1]]), torch.cat([prev.valid[None], val[:-1]]),
+                torch.cat([prev.desc[None], desc[:-1]]), RefFeatures(xy, desc, val), fids,
+                n_hyps=GMC_HYPOTHESES, transformation="affine", threshold=2.0, filter_ratio=0.9,
+            )
+        h_full = self._unscale(h_ds)
+        self._gmc_carry = RefFeatures(xy[-1], desc[-1], val[-1])
+        ok = (nm >= 3) & torch.isfinite(h_full).all(dim=2).all(dim=1)
+        return torch.where(ok[:, None, None], h_full, eye[None])
 
     # ------------------------------------------------------------ host API
     def reset(self, rng_seed: Optional[int] = None) -> None:
         """Restart per-video state (tracker slots, reference features,
-        h_prev, RNG base key)."""
+        standalone-GMC carry, h_prev, RNG base key)."""
         self.state = self._state0
         self._h_prev = torch.eye(3, device=self.device)
         self._ref = None
+        self._gmc_carry = None
         self._key = prng.PRNGKey(self._seed0 if rng_seed is None else rng_seed)
 
     def process_chunk(self, frames_u8, fids, n_valid: int) -> ChunkOutput:
@@ -356,6 +412,6 @@ class FusedExtractor:
         extractor's device."""
         frames = torch.as_tensor(frames_u8).to(self.device)
         fids = [int(f) for f in np.asarray(fids).reshape(-1)]
-        first = self._ref is None
+        first = self._ref is None and self.stab_on
         with torch.no_grad():
             return self._chunk_impl(frames, fids, int(n_valid), first)

@@ -1,14 +1,18 @@
-"""Row emission, post-processing and the files of ``geotrax extract``, fed
-by the fused chunk step.
+"""`extract`: detection, tracking and stabilization of one video (pixel
+coordinates), and the files it writes.
 
-Counterpart of ``geotrax_tpu/pipeline/_extract_impl.py``'s
-``_track_video_fused`` (:356-491), the post-processing of ``run_extraction``
-(:514-527) and ``save_results`` (:530-589), with the same columns, formats
-and keys:
+The port's counterpart of ``geotrax_tpu/pipeline/extract.py`` (the CLI:
+``add_processing_args``, ``parse_cli_args``, ``main``) and
+``geotrax_tpu/pipeline/_extract_impl.py`` (``load_detector`` and
+``open_reader``, both patch points; ``track_video`` with its process-level
+cache of detector and extractors; ``run_extraction``; the row emission of
+``_track_video_fused``; the post-processing and ``save_results``), with
+the same columns, formats and keys:
 
-  <out>/<stem><tracks_postfix>.txt   frame, id, box (4), stabilized box (4),
-                                     class (the track's vote), score,
-                                     length, width (+ is_interpolated with
+  <out>/<stem><tracks_postfix>.txt   frame, id, box (4), stabilized box (4,
+                                     with stabilization), class (the
+                                     track's vote), score, length, width
+                                     (+ is_interpolated with
                                      ``interpolate``) — ``%g``, comma
                                      separated; tracks shorter than
                                      ``min_track_length`` removed
@@ -16,19 +20,24 @@ and keys:
                                      homography — ``%.16g``
   <source>.yaml                      the run's metadata next to the source
 
-``make_extract_tracker`` and ``make_fused_extractor`` build the tracker
-(with the learned ReID head that ``tracker.<active>.model`` names) and the
-chunk step as ``_extract_impl.py:make_extract_tracker`` (:105-126) and
-``make_fused_extractor`` (:131-145) do.
-
-The CLI, video decoding, the double-buffered dispatch and the sequential
-per-frame path wait for later slices of the port (ROADMAP A10), and so
-does extraction with stabilization off (ROADMAP A13).
+The chunks go through the fused chunk step (``device_pipeline.py``)
+double-buffered: a host thread copies decoded frames into two reused
+staging buffers (pinned on the card), each chunk is uploaded on a copy
+stream while the previous one computes, and chunk k's rows are emitted
+after chunk k+1 is dispatched. ``pipelined=False`` runs the chunks one
+after another from pageable memory; both give the same rows. The
+sequential per-frame path (SIFT-class stabilizers) waits for ROADMAP A11,
+RT-DETR for A14.
 """
 
 from __future__ import annotations
 
+import argparse
+import json
 import logging
+import queue
+import sys
+import threading
 import time
 from pathlib import Path
 
@@ -40,14 +49,22 @@ from geotrax_tpu_torch.cfg import DEFAULT, select_tracker
 from geotrax_tpu_torch.io import yaml_emit
 from geotrax_tpu_torch.pipeline import postprocess
 from geotrax_tpu_torch.pipeline.device_pipeline import FusedExtractor
+from geotrax_tpu_torch.stabilize.config import StabilizerConfig
 from geotrax_tpu_torch.track import make_tracker
 from geotrax_tpu_torch.track.reid import resolve_head
+from geotrax_tpu_torch.utils.cli_utils import add_common_args
+from geotrax_tpu_torch.utils.file_utils import convert_to_serializable, get_output_dir
 
 # One chunk per fused dispatch (the JAX package's _extract_impl.FUSED_CHUNK).
 FUSED_CHUNK = 32
+MIN_MATCH_WARNING = 4
 
 _LOG = logging.getLogger("geotrax")
 
+
+# --------------------------------------------------------------------------
+# construction
+# --------------------------------------------------------------------------
 
 def make_extract_tracker(config: dict, device="cuda", logger=_LOG):
     """Tracker construction as the extract stage performs it:
@@ -68,48 +85,38 @@ def make_fused_extractor(config: dict, detector, tracker_cfg, tracker_state, tra
                          src_h: int, src_w: int, reid_params=None, chunk: int = FUSED_CHUNK,
                          rng_seed: int = 0, device="cuda") -> FusedExtractor:
     """The FusedExtractor as the extract stage builds it: the ``stabilo``
-    section, the tracker's GMC and ReID flags and the learned head."""
-    extraction = config.get("extraction", DEFAULT["extraction"])
-    if not extraction.get("stabilize", True):
-        raise NotImplementedError("extraction with stabilize: false is not ported yet (ROADMAP A13)")
+    section (None with ``extraction.stabilize: false``), the tracker's GMC
+    and ReID flags and the learned head."""
+    stabilize = config.get("extraction", DEFAULT["extraction"]).get("stabilize", True)
     return FusedExtractor(
-        detector, config.get("stabilo", DEFAULT["stabilo"]), tracker_step, tracker_state,
-        src_h, src_w, use_gmc=tracker_cfg.use_gmc, chunk=chunk, rng_seed=rng_seed,
+        detector, config.get("stabilo", DEFAULT["stabilo"]) if stabilize else None, tracker_step,
+        tracker_state, src_h, src_w, use_gmc=tracker_cfg.use_gmc, chunk=chunk, rng_seed=rng_seed,
         with_reid=tracker_cfg.with_reid, reid_params=reid_params, device=device,
     )
 
 
-def track_video_fused(reader, fx, cut_left: int = 0, chunk: int = FUSED_CHUNK) -> tuple:
-    """Drive ``fx`` (a FusedExtractor) over ``reader``'s (index, frame)
-    pairs, one chunk at a time; returns (tracks rows, transform rows,
-    stats). The tail chunk is padded with its last frame to the chunk size,
-    as the JAX package pads it to its compiled shape. ``avg_detect_ms`` is
-    the time per frame of the chunk steps and the copies of their outputs to
-    the host, as the reference's fused path counts its device time;
-    ``avg_stab_ms`` is 0 (stabilization runs inside the chunk step)."""
-    min_match_warning = 4
-    rows, transforms, hs, matches, inliers = [], [], [], [], []
-    n_frames = 0
-    chunk_s = []
-    t_start = time.perf_counter()
+# --------------------------------------------------------------------------
+# the chunk drivers
+# --------------------------------------------------------------------------
 
-    def run(buf):
-        nonlocal n_frames
-        n = len(buf)
-        idxs = [i for i, _ in buf]
-        frames = np.stack([f for _, f in buf])
-        if n < chunk:
-            frames = np.concatenate([frames, np.repeat(frames[-1:], chunk - n, axis=0)], axis=0)
-            idxs = idxs + [idxs[-1]] * (chunk - n)
-        fids = np.asarray(idxs, np.int64) - cut_left + 1
+class _Rows:
+    """Emits each chunk's rows once its outputs are on the host: 12 columns
+    (frame, id, box, stabilized box, class, score) with stabilization, 8
+    without, and the transforms of the frames after the reference frame."""
+
+    def __init__(self, cut_left: int, stabilize: bool, logger):
+        self.cut_left, self.stabilize, self.logger = cut_left, stabilize, logger
+        self.rows, self.transforms, self.hs, self.matches, self.inliers = [], [], [], [], []
+        self.chunk_s = []
+        self.n_frames = 0
+
+    def drain(self, out, idxs, n: int, dispatch_s: float) -> None:
         t0 = time.perf_counter()
-        out = fx.process_chunk(frames, fids, n)
         out = type(out)(*(t.cpu().numpy() for t in out))
-        chunk_s.append(time.perf_counter() - t0)
-        hs.append(out.h[:n])
-        matches.append(out.matches[:n])
-        inliers.append(out.inliers[:n])
-
+        self.chunk_s.append(dispatch_s + time.perf_counter() - t0)
+        self.hs.append(out.h[:n])
+        self.matches.append(out.matches[:n])
+        self.inliers.append(out.inliers[:n])
         for i in range(n):
             frame_idx = idxs[i]
             valid = out.valid[i]
@@ -117,17 +124,55 @@ def track_video_fused(reader, fx, cut_left: int = 0, chunk: int = FUSED_CHUNK) -
             boxes = out.box_xywh[i][valid]
             scores = out.score[i][valid]
             classes = out.cls[i][valid]
-            if frame_idx > cut_left:
-                if out.matches[i] < min_match_warning:
-                    _LOG.warning(f"Frame {frame_idx}: stabilization failed; identity used.")
-                transforms.append(np.concatenate([[frame_idx], out.h[i].reshape(-1)]))
-            # ref frame: stabilized box = raw box by definition
-            boxes_stab = boxes if frame_idx == cut_left else out.box_stab[i][valid]
-            rows.append(np.column_stack([
-                np.full(len(ids), frame_idx, float), ids.astype(float),
-                boxes, boxes_stab, classes.astype(float), scores,
-            ]))
-            n_frames += 1
+            head = [np.full(len(ids), frame_idx, float), ids.astype(float), boxes]
+            if self.stabilize:
+                if frame_idx > self.cut_left:
+                    if out.matches[i] < MIN_MATCH_WARNING:
+                        self.logger.warning(f"Frame {frame_idx}: stabilization failed; identity used.")
+                    self.transforms.append(np.concatenate([[frame_idx], out.h[i].reshape(-1)]))
+                # ref frame: stabilized box = raw box by definition
+                head.append(boxes if frame_idx == self.cut_left else out.box_stab[i][valid])
+            self.rows.append(np.column_stack(head + [classes.astype(float), scores]))
+            self.n_frames += 1
+
+    def result(self, reader, elapsed: float) -> tuple:
+        n_cols = 12 if self.stabilize else 8
+        stats = {
+            "frames": self.n_frames,
+            "avg_detect_ms": sum(self.chunk_s) * 1e3 / max(self.n_frames, 1),
+            "avg_stab_ms": 0.0,
+            "chunks": len(self.chunk_s),
+            "chunk_s": self.chunk_s,
+            "wall_s": elapsed,
+            "h": np.concatenate(self.hs) if self.hs else np.empty((0, 3, 3)),
+            "matches": np.concatenate(self.matches) if self.matches else np.empty((0,), np.int32),
+            "inliers": np.concatenate(self.inliers) if self.inliers else np.empty((0,), np.int32),
+            "fps": self.n_frames / max(elapsed, 1e-9),
+            "frame_size": (int(reader.info.width), int(reader.info.height)),
+            "video_fps": float(reader.info.fps),
+        }
+        tracks = np.concatenate(self.rows, axis=0) if self.rows else np.empty((0, n_cols))
+        transforms = np.asarray(self.transforms) if self.transforms else np.empty((0, 10))
+        return tracks, transforms, stats
+
+
+def _fids(idxs, cut_left: int) -> np.ndarray:
+    return np.asarray(idxs, np.int64) - cut_left + 1
+
+
+def _drive_serial(reader, fx, chunk: int, cut_left: int, rows: _Rows) -> None:
+    """One chunk after another: stack the frames on the host, run the chunk
+    step (which uploads them from pageable memory), fetch, emit."""
+    def run(buf):
+        n = len(buf)
+        idxs = [i for i, _ in buf]
+        frames = np.stack([f for _, f in buf])
+        if n < chunk:  # pad the tail chunk with its last frame
+            frames = np.concatenate([frames, np.repeat(frames[-1:], chunk - n, axis=0)], axis=0)
+            idxs = idxs + [idxs[-1]] * (chunk - n)
+        t0 = time.perf_counter()
+        out = fx.process_chunk(frames, _fids(idxs, cut_left), n)
+        rows.drain(out, idxs, n, time.perf_counter() - t0)
 
     buf = []
     for item in reader:
@@ -138,28 +183,163 @@ def track_video_fused(reader, fx, cut_left: int = 0, chunk: int = FUSED_CHUNK) -
     if buf:
         run(buf)
 
-    elapsed = max(time.perf_counter() - t_start, 1e-9)
-    stats = {
-        "frames": n_frames,
-        "avg_detect_ms": sum(chunk_s) * 1e3 / max(n_frames, 1),
-        "avg_stab_ms": 0.0,
-        "chunks": len(chunk_s),
-        "chunk_s": chunk_s,
-        "h": np.concatenate(hs) if hs else np.empty((0, 3, 3)),
-        "matches": np.concatenate(matches) if matches else np.empty((0,), np.int32),
-        "inliers": np.concatenate(inliers) if inliers else np.empty((0,), np.int32),
-        "fps": n_frames / elapsed,
-        "frame_size": (int(reader.info.width), int(reader.info.height)),
-        "video_fps": float(reader.info.fps),
-    }
-    tracks = np.concatenate(rows, axis=0) if rows else np.empty((0, 12))
-    transforms_arr = np.asarray(transforms) if transforms else np.empty((0, 10))
-    return tracks, transforms_arr, stats
 
+class Staging:
+    """Two host buffers of one chunk of frames (pinned on the card) and two
+    device buffers, reused across chunks and videos, with the copy stream
+    and the events that order the uploads against the chunk steps."""
+
+    def __init__(self, chunk: int, height: int, width: int, device: torch.device):
+        self.shape = (chunk, height, width, 3)
+        self.cuda = device.type == "cuda"
+        self.host = [torch.empty(self.shape, dtype=torch.uint8, pin_memory=self.cuda)
+                     for _ in range(2)]
+        self.dev = [torch.empty(self.shape, dtype=torch.uint8, device=device) for _ in range(2)]
+        if self.cuda:
+            self.stream = torch.cuda.Stream(device)
+            self.uploaded = [torch.cuda.Event() for _ in range(2)]
+            self.consumed = [torch.cuda.Event() for _ in range(2)]
+
+    def upload(self, slot: int) -> None:
+        """Copy host slot ``slot`` into its device buffer once the chunk
+        step that last read that buffer is done; non-blocking on the card."""
+        if not self.cuda:
+            self.dev[slot].copy_(self.host[slot])
+            return
+        with torch.cuda.stream(self.stream):
+            self.stream.wait_event(self.consumed[slot])
+            self.dev[slot].copy_(self.host[slot], non_blocking=True)
+            self.uploaded[slot].record(self.stream)
+
+    def frames(self, slot: int) -> torch.Tensor:
+        """The device buffer of ``slot``, once the compute stream has waited
+        for its upload."""
+        if self.cuda:
+            torch.cuda.current_stream().wait_event(self.uploaded[slot])
+        return self.dev[slot]
+
+    def done(self, slot: int) -> None:
+        """Mark the end of the chunk step that reads ``slot``'s buffer."""
+        if self.cuda:
+            self.consumed[slot].record()
+
+    def wait_uploaded(self, slot: int) -> None:
+        """Block the calling host thread until ``slot``'s upload is done."""
+        if self.cuda:
+            self.uploaded[slot].synchronize()
+
+
+def _staging(fx, chunk: int, height: int, width: int) -> Staging:
+    """The extractor's staging buffers (made on its first pipelined run)."""
+    st = getattr(fx, "_staging", None)
+    if st is None or st.shape != (chunk, height, width, 3):
+        st = fx._staging = Staging(chunk, height, width, fx.device)
+    return st
+
+
+def _drive_pipelined(reader, fx, chunk: int, cut_left: int, rows: _Rows) -> None:
+    """Dispatch/drain double-buffering: a thread fills the next staging
+    slot from ``reader`` while the card works; each chunk is uploaded on
+    the copy stream before the previous chunk's step runs, and a chunk's
+    rows are emitted after the next chunk is dispatched."""
+    st = _staging(fx, chunk, int(reader.info.height), int(reader.info.width))
+    free: queue.Queue = queue.Queue()
+    filled: queue.Queue = queue.Queue()
+    for slot in range(2):
+        free.put(slot)
+    stop = threading.Event()
+
+    def take(q):
+        while not stop.is_set():
+            try:
+                return q.get(timeout=0.1)
+            except queue.Empty:
+                continue
+        return None
+
+    def produce():
+        try:
+            slot, idxs = None, []
+            for idx, frame in reader:
+                if slot is None:
+                    slot = take(free)
+                    if slot is None:
+                        return
+                    st.wait_uploaded(slot)  # the slot's last upload has left it
+                st.host[slot][len(idxs)].copy_(torch.from_numpy(np.ascontiguousarray(frame)))
+                idxs.append(idx)
+                if len(idxs) == chunk:
+                    filled.put((slot, idxs, chunk))
+                    slot, idxs = None, []
+            if idxs:  # pad the tail chunk with its last frame
+                n = len(idxs)
+                st.host[slot][n:] = st.host[slot][n - 1]
+                filled.put((slot, idxs + [idxs[-1]] * (chunk - n), n))
+            filled.put(None)
+        except BaseException as exc:  # noqa: BLE001 — re-raised by the consumer
+            filled.put(exc)
+
+    def get():
+        item = take(filled)
+        if isinstance(item, BaseException):
+            raise item
+        return item
+
+    def upload(item):
+        if item is not None:
+            st.upload(item[0])
+            free.put(item[0])  # refilled once its upload is done (wait_uploaded)
+
+    thread = threading.Thread(target=produce, daemon=True)
+    thread.start()
+    try:
+        cur = get()
+        upload(cur)
+        pending = None
+        while cur is not None:
+            nxt = get()
+            upload(nxt)  # overlaps the step of ``cur``
+            slot, idxs, n = cur
+            t0 = time.perf_counter()
+            out = fx.process_chunk(st.frames(slot), _fids(idxs, cut_left), n)
+            st.done(slot)
+            dispatch_s = time.perf_counter() - t0
+            if pending is not None:
+                rows.drain(*pending)
+            pending = (out, idxs, n, dispatch_s)
+            cur = nxt
+        if pending is not None:
+            rows.drain(*pending)
+    finally:
+        stop.set()
+        thread.join(timeout=10.0)
+
+
+def track_video_fused(reader, fx, cut_left: int = 0, chunk: int = FUSED_CHUNK,
+                      stabilize: bool = True, pipelined: bool = True, logger=_LOG) -> tuple:
+    """Drive ``fx`` (a FusedExtractor) over ``reader``'s (index, frame)
+    pairs; returns (tracks rows, transform rows, stats). The tail chunk is
+    padded with its last frame to the chunk size, as the JAX package pads
+    it to its compiled shape. ``chunk_s`` is each chunk's step plus the copy
+    of its outputs to the host (``avg_detect_ms`` their mean per frame, as
+    the reference's fused path counts its device time); ``wall_s`` is the
+    whole run; ``avg_stab_ms`` is 0 (stabilization runs inside the step)."""
+    rows = _Rows(cut_left, stabilize, logger)
+    t_start = time.perf_counter()
+    (_drive_pipelined if pipelined else _drive_serial)(reader, fx, chunk, cut_left, rows)
+    tracks, transforms, stats = rows.result(reader, time.perf_counter() - t_start)
+    logger.info(f"Extraction (fused): {stats['frames']} frames, device "
+                f"{stats['avg_detect_ms']:.1f} ms/f, pipeline {stats['fps']:.1f} fps")
+    return tracks, transforms, stats
+
+
+# --------------------------------------------------------------------------
+# files
+# --------------------------------------------------------------------------
 
 def save_results(tracks: np.ndarray, transforms: np.ndarray, out_dir, stem: str,
                  tracks_postfix: str = "", stab_postfix: str = "_vid_transf",
-                 save_stab: bool = True) -> tuple:
+                 save_stab: bool = True, logger=_LOG) -> tuple:
     """Write ``<stem><tracks_postfix>.txt`` (``%g``) and
     ``<stem><stab_postfix>.txt`` (``%.16g``) into ``out_dir``; returns the
     two paths (a file with no rows is not written, as in the reference)."""
@@ -169,28 +349,17 @@ def save_results(tracks: np.ndarray, transforms: np.ndarray, out_dir, stem: str,
     transf_file = out_dir / f"{stem}{stab_postfix}.txt"
     if tracks.size:
         np.savetxt(tracks_file, tracks, fmt="%g", delimiter=",")
+        logger.info(f"Tracking results saved to: '{tracks_file.resolve()}'")
     if transforms.size and save_stab:
         frame_nums = transforms[:, 0].astype(int)
         matrices = transforms[:, 1:].reshape(-1, 3, 3)
         if len(frame_nums) and not np.all(np.diff(frame_nums) == 1):
-            _LOG.warning(f"Missing frame ids found in: '{transf_file}'.")
+            logger.warning(f"Missing frame ids found in: '{transf_file}'.")
         if len(matrices) and not np.all(np.linalg.det(matrices) > 0):
-            _LOG.warning(f"Invalid transforms found in: '{transf_file}'.")
+            logger.warning(f"Invalid transforms found in: '{transf_file}'.")
         np.savetxt(transf_file, transforms, fmt="%.16g", delimiter=",")
+        logger.info(f"Stabilization transforms saved to: '{transf_file.resolve()}'")
     return tracks_file, transf_file
-
-
-def _serializable(obj):
-    """Paths as str and tuples as lists, recursively (the reference's
-    ``convert_to_serializable`` for the types a mapping of arguments
-    holds)."""
-    if isinstance(obj, Path):
-        return str(obj)
-    if isinstance(obj, dict):
-        return {k: _serializable(v) for k, v in obj.items()}
-    if isinstance(obj, (list, tuple)):
-        return [_serializable(v) for v in obj]
-    return obj
 
 
 def run_metadata(config: dict, stats: dict, source, args: dict) -> dict:
@@ -229,51 +398,36 @@ def run_metadata(config: dict, stats: dict, source, args: dict) -> dict:
             "detection": {k: detection.get(k) for k in (
                 "imgsz", "conf", "iou", "max_det", "classes", "agnostic_nms", "tiles")},
         },
-        "args": _serializable(args),
+        "args": convert_to_serializable(args),
     }
 
 
-def extract(reader, fx, out_dir, stem: str, config: dict | None = None,
-            cut_left: int = 0, chunk: int = FUSED_CHUNK, source=None,
-            args: dict | None = None) -> dict:
-    """The fused extract of one frame source into ``out_dir``: the tracks
-    and transforms files named after ``stem``, the tracks post-processed as
-    ``run_extraction`` does (short tracks removed, classes voted, dimensions
-    estimated, gaps up to the active tracker's ``track_buffer`` filled when
-    ``interpolate`` is on), and, when ``source`` (the video's path) is
-    given, ``<source>.yaml`` with the run's metadata. ``config`` supplies
-    the ``extraction``, ``output``, ``tracker``, ``stabilo`` and
-    ``ultralytics`` keys (defaults: the port's ``cfg.DEFAULT``); ``args``
-    holds the run's arguments, written into the metadata, and an
-    ``interpolate`` there (when not None) overrides the configured one, as
-    the CLI's flag does. Returns the run's stats with the file paths."""
-    config = config or DEFAULT
+def write_outputs(tracks, transforms, stats: dict, config: dict, out_dir, stem: str,
+                  source=None, args: dict | None = None, interpolate=None, logger=_LOG) -> dict:
+    """Post-process the rows as ``run_extraction`` does (short tracks
+    removed, classes voted, dimensions estimated, gaps up to the active
+    tracker's ``track_buffer`` filled with ``interpolate``) and write the
+    files; returns ``stats`` with their paths."""
     args = dict(args or {})
     extraction = config.get("extraction", DEFAULT["extraction"])
     output = config.get("output", {})
-    if not extraction.get("stabilize", True):
-        raise NotImplementedError("extraction with stabilize: false is not ported yet (ROADMAP A13)")
-    tracks, transforms, stats = track_video_fused(reader, fx, cut_left=cut_left, chunk=chunk)
     n_raw = len(tracks)
-
-    tracks = postprocess.remove_short_tracks(tracks, int(extraction["min_track_length"]), _LOG)
+    tracks = postprocess.remove_short_tracks(tracks, int(extraction["min_track_length"]), logger)
     tracks = postprocess.vote_track_classes(tracks)
     frame_w, frame_h = stats["frame_size"]
     tracks = postprocess.estimate_vehicle_dimensions(
         tracks, extraction["dimension_estimation"], frame_w, frame_h)
-    interpolate = args.get("interpolate")
     if interpolate is None:
         interpolate = extraction.get("interpolate", False)
     if interpolate:
         tracker = select_tracker(config.get("tracker", DEFAULT["tracker"]))[1]
-        max_gap = int(tracker.get("track_buffer", 30))
-        tracks = postprocess.interpolate_tracks(tracks, max_gap, _LOG)
+        tracks = postprocess.interpolate_tracks(tracks, int(tracker.get("track_buffer", 30)), logger)
 
     tracks_file, transf_file = save_results(
         tracks, transforms, out_dir, stem,
         tracks_postfix=output.get("tracks_postfix", ""),
         stab_postfix=output.get("stab_transform_postfix", "_vid_transf"),
-        save_stab=bool(extraction.get("save_stab", True)),
+        save_stab=bool(extraction.get("save_stab", True)), logger=logger,
     )
     stats.update(tracks_file=tracks_file, transforms_file=transf_file, n_rows_raw=n_raw,
                  n_rows=len(tracks), n_transforms=len(transforms))
@@ -282,8 +436,233 @@ def extract(reader, fx, out_dir, stem: str, config: dict | None = None,
         try:
             meta_file.write_text(yaml_emit.dump(run_metadata(config, stats, source, args)))
             stats["metadata_file"] = meta_file
+            logger.info(f"Run metadata saved to: '{meta_file.resolve()}'")
         except OSError as exc:
-            _LOG.warning(f"Could not write metadata: {exc}")
-    if torch.cuda.is_available() and fx.device.type == "cuda":
+            logger.warning(f"Could not write metadata: {exc}")
+    return stats
+
+
+def extract(reader, fx, out_dir, stem: str, config: dict | None = None,
+            cut_left: int = 0, chunk: int = FUSED_CHUNK, source=None,
+            args: dict | None = None) -> dict:
+    """The fused extract of one frame source into ``out_dir`` (the library
+    form of ``run_extraction`` for a reader and an extractor already made):
+    the tracks and transforms files named after ``stem`` and, when
+    ``source`` (the video's path) is given, ``<source>.yaml``. ``config``
+    supplies the ``extraction``, ``output``, ``tracker``, ``stabilo`` and
+    ``ultralytics`` sections (defaults: the port's ``cfg.DEFAULT``);
+    ``args`` holds the run's arguments, written into the metadata, and an
+    ``interpolate`` there (when not None) overrides the configured one, as
+    the CLI's flag does. Returns the run's stats with the file paths."""
+    config = config or DEFAULT
+    args = dict(args or {})
+    stabilize = bool(config.get("extraction", DEFAULT["extraction"]).get("stabilize", True))
+    tracks, transforms, stats = track_video_fused(reader, fx, cut_left=cut_left, chunk=chunk,
+                                                  stabilize=stabilize)
+    stats = write_outputs(tracks, transforms, stats, config, out_dir, stem, source=source,
+                          args=args, interpolate=args.get("interpolate"))
+    if fx.device.type == "cuda":
         stats["device"] = torch.cuda.get_device_name(fx.device)
     return stats
+
+
+# --------------------------------------------------------------------------
+# run_extraction: the CLI's stage
+# --------------------------------------------------------------------------
+
+def flat_config(config: dict) -> dict:
+    """The sections the chunk step and the files read, from the split
+    configuration of ``load_config_all``: the ``main`` sections, ``stabilo``,
+    ``ultralytics`` and a ``tracker`` section holding the active block."""
+    main = config["main"]
+    flat = {k: v for k, v in main.items()
+            if isinstance(v, dict) and k not in ("class_names", "tracker_params")}
+    flat.update(stabilo=config["stabilo"], ultralytics=config["ultralytics"],
+                tracker={"active": main["tracker_active"],
+                         main["tracker_active"]: main["tracker_params"]})
+    return flat
+
+
+def _device(config: dict) -> str:
+    return getattr(config["main"].get("args"), "device", None) or "cuda"
+
+
+def load_detector(config: dict, logger):
+    """Build the detector from ``ultralytics.model`` (tests patch this, as
+    the reference's tests patch its counterpart)."""
+    from geotrax_tpu_torch.models.detector import Detector
+
+    return Detector(Path(config["ultralytics"]["model"]), config["ultralytics"], logger=logger,
+                    device=_device(config))
+
+
+def open_reader(source: Path, start: int, stop, config: dict):
+    """Video reader factory (tests patch this with a synthetic reader)."""
+    from geotrax_tpu_torch.io.video import make_reader
+
+    return make_reader(source, start=start, stop=stop)
+
+
+# Process-level reuse of the loaded detector and the extractors across
+# extract calls (a batch over many videos of one configuration): keyed on
+# the model file's identity (path, mtime, size), the detection, stabilo and
+# tracker configuration and the device; the extractors per source
+# resolution, reset for each video. Only real Detector instances are kept.
+_EXTRACT_CACHE: dict = {}
+_EXTRACT_CACHE_MAX = 4
+
+
+def _extract_cache_key(config: dict, stabilize_on: bool) -> str:
+    det_cfg = dict(config["ultralytics"])
+    model = str(det_cfg.get("model", ""))
+    try:
+        st = Path(model).stat()
+        mstamp = (st.st_mtime_ns, st.st_size)
+    except OSError:
+        mstamp = None
+    main = config["main"]
+    return json.dumps({
+        "model": model, "mstamp": mstamp, "det": det_cfg,
+        "stab": config.get("stabilo") if stabilize_on else None,
+        "tracker": [main["tracker_active"], main["tracker_params"]],
+        "chunk": FUSED_CHUNK, "device": _device(config),
+    }, sort_keys=True, default=str)
+
+
+def track_video(args, config: dict, logger, pipelined: bool = True) -> tuple:
+    """Decode, detect, track and stabilize ``args.source`` through the fused
+    chunk step; returns (tracks rows, transforms rows, stats)."""
+    from geotrax_tpu_torch.models.detector import Detector
+
+    main = config["main"]
+    stabilize_on = bool(main["extraction"].get("stabilize", True))
+    if stabilize_on and StabilizerConfig(**config.get("stabilo", {})).n_levels != 1:
+        raise NotImplementedError(
+            "multi-level stabilizers (stabilo.detector_name sift/rsift/kaze/akaze) run the "
+            "sequential per-frame extract path, which is not ported yet (ROADMAP A11)")
+    flat = flat_config(config)
+    device = _device(config)
+    cache_key = _extract_cache_key(config, stabilize_on)
+    cached = _EXTRACT_CACHE.get(cache_key)
+    if cached is not None:
+        detector, tracker_parts, fx_by_shape = cached
+    else:
+        detector = load_detector(config, logger)
+        if not hasattr(detector, "batch_trace") or getattr(detector, "is_rtdetr", False):
+            raise NotImplementedError(
+                "this detector runs the sequential per-frame extract path, which is not "
+                "ported yet (ROADMAP A11)")
+        tracker_parts = make_extract_tracker(flat, device=device, logger=logger)
+        fx_by_shape = {}
+        if type(detector) is Detector:
+            while len(_EXTRACT_CACHE) >= _EXTRACT_CACHE_MAX:
+                _EXTRACT_CACHE.pop(next(iter(_EXTRACT_CACHE)))
+            _EXTRACT_CACHE[cache_key] = (detector, tracker_parts, fx_by_shape)
+
+    cut_left = int(args.cut_frame_left or 0)
+    reader = open_reader(args.source, cut_left, args.cut_frame_right, config)
+    src_w, src_h = int(reader.info.width), int(reader.info.height)
+    fx = fx_by_shape.get((src_h, src_w))
+    if fx is not None:
+        fx.reset()  # fresh per-video state, same extractor and staging buffers
+    else:
+        fx = fx_by_shape[(src_h, src_w)] = make_fused_extractor(
+            flat, detector, *tracker_parts[:3], src_h, src_w, tracker_parts[3],
+            chunk=FUSED_CHUNK, device=device)
+    return track_video_fused(reader, fx, cut_left=cut_left, chunk=FUSED_CHUNK,
+                             stabilize=stabilize_on, pipelined=pipelined, logger=logger)
+
+
+def run_extraction(args, logger) -> dict:
+    """``geotrax extract``'s stage for one video: the configuration (preset
+    or file, CLI overrides, the backfill of the frame range, ``interpolate``
+    and the output folder), the fused extraction, optionally under
+    ``torch.profiler`` (``args.profile``: a chrome trace in that directory),
+    post-processing and the three files. Returns the run's stats."""
+    from geotrax_tpu_torch.utils import logging_utils  # noqa: F401 — logger.notice
+    from geotrax_tpu_torch.utils.config_utils import backfill_args_from_config, load_config_all
+
+    config = load_config_all(args, logger, needs_model=True)
+    main = config["main"]
+    backfill_args_from_config(args, {
+        "cut_frame_left": main["processing"]["cut_frame_left"],
+        "cut_frame_right": main["processing"]["cut_frame_right"],
+        "interpolate": main["extraction"]["interpolate"],
+        "output_folder": main["output"]["folder"],
+    })
+    out_cfg = {**main["output"], "folder": args.output_folder}
+
+    profile_dir = getattr(args, "profile", None)
+    if profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+
+        logger.notice(f"Profiling the extraction loop into '{profile_dir}'.")
+        activities = [ProfilerActivity.CPU]
+        if _device(config).startswith("cuda"):
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            tracks, transforms, stats = track_video(args, config, logger)
+        Path(profile_dir).mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(Path(profile_dir) / "extract_trace.json"))
+    else:
+        tracks, transforms, stats = track_video(args, config, logger)
+
+    source = Path(args.source)
+    flat = flat_config(config)
+    flat["output"] = out_cfg
+    return write_outputs(tracks, transforms, stats, flat, get_output_dir(source, out_cfg),
+                         source.stem, source=source, args=vars(args),
+                         interpolate=bool(args.interpolate), logger=logger)
+
+
+# --------------------------------------------------------------------------
+# the CLI
+# --------------------------------------------------------------------------
+
+def add_processing_args(group) -> None:
+    """Detection and frame-range flags of `extract`; all default to None and
+    are backfilled from the config."""
+    group.add_argument("--model", "-m", nargs="+", default=None, metavar="MODEL",
+                       help="Detection model: local path (.pt/.npz) or hf://<org>/<repo>/<file> reference.")
+    group.add_argument("--class-names", "-cn", nargs="+", default=None, metavar="ID=NAME|FILE",
+                       help="Class-id -> name override: .yaml/.json file or inline ID=NAME pairs.")
+    group.add_argument("--conf", "-co", type=float, default=None,
+                       help="Detection confidence threshold (cfg -> ultralytics -> conf).")
+    group.add_argument("--classes", "-cls", nargs="+", type=int, default=None,
+                       help="Class IDs to extract (cfg -> ultralytics -> classes).")
+    group.add_argument("--cut-frame-left", "-cfl", type=int, default=None,
+                       help="Skip the first N frames (cfg -> processing -> cut_frame_left).")
+    group.add_argument("--cut-frame-right", "-cfr", type=int, default=None,
+                       help="Stop after this frame (cfg -> processing -> cut_frame_right).")
+    group.add_argument("--tiles", "-t", type=int, default=None,
+                       help="Detect over N overlapping vertical tiles merged by a global NMS "
+                            "(small-object accuracy at 4K; cfg -> ultralytics -> tiles).")
+    group.add_argument("--interpolate", action=argparse.BooleanOptionalAction, default=None,
+                       help="Fill per-track frame gaps by linear interpolation (adds is_interpolated column).")
+    group.add_argument("--profile", type=str, default=None, metavar="DIR",
+                       help="Write a torch.profiler chrome trace of the extraction loop into DIR.")
+
+
+def parse_cli_args(argv=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(
+        prog="python -m geotrax_tpu_torch extract",
+        description="Vehicle detection, tracking, and stabilization (PyTorch/CUDA)")
+    parser.add_argument("source", type=Path, help="Path to the input video file.")
+    optional = parser.add_argument_group("Optional arguments")
+    add_common_args(optional)
+    processing = parser.add_argument_group("Processing arguments")
+    add_processing_args(processing)
+    return parser.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    from geotrax_tpu_torch.utils.logging_utils import setup_logger
+
+    args = parse_cli_args(argv)
+    logger = setup_logger("geotrax.extract", args.verbose, args.log_path)
+    run_extraction(args, logger)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -195,3 +195,102 @@ def test_embed_boxes_on_card_equals_cpu():
     torch.cuda.synchronize()
     assert patches.patches32.launches == before + 1  # one launch for all frames and channels
     torch.testing.assert_close(card.cpu(), cpu, rtol=0, atol=1e-5)
+
+
+def _sharpened_detector_model(seed=0):
+    """A seeded YOLOv8n whose class scores spread over (0, 1) with boxes
+    about one stride wide (as tests/test_torch_cli.py builds it)."""
+    from geotrax_tpu_torch.models import yolov8
+
+    spec = yolov8.ModelSpec(variant="n", nc=4)
+    model = yolov8.init_params(torch.Generator().manual_seed(seed), spec, device="cpu")
+    head = model.layers[str(spec.head_index)]
+    with torch.no_grad():
+        for k in range(len(spec.strides)):
+            head.cv3[k][2].weight *= 100.0
+            head.cv3[k][2].bias -= 1.9
+            head.cv2[k][2].weight *= 0.05
+            b = torch.zeros(4 * spec.reg_max)
+            b[0::spec.reg_max] = b[1::spec.reg_max] = 20.0
+            head.cv2[k][2].bias.copy_(b)
+    return model
+
+
+@pytest.mark.gpu
+def test_clahe_on_card_equals_cpu():
+    """CLAHE (plain tensor operations) on the card against the CPU, within
+    1e-4 grey levels, at the stable preset's full-resolution 4K gray."""
+    _need_card()
+    from geotrax_tpu_torch.ops.clahe import clahe
+
+    gray = torch.from_numpy(textured_gray(2, 2160, 3840, 11))
+    torch.testing.assert_close(clahe(gray.cuda()).cpu(), clahe(gray), rtol=0, atol=1e-4)
+    odd = torch.from_numpy(textured_gray(3, 97, 131, 12))
+    torch.testing.assert_close(clahe(odd.cuda()).cpu(), clahe(odd), rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("option", [{"tiles": 2, "tile_overlap": 16}, {"half": True}],
+                         ids=["tiles", "half"])
+def test_detector_option_on_card_equals_cpu(option):
+    """Tiles (float32) and half (bfloat16, cuDNN) on the card against the
+    port on the CPU: tiles with equal valid slots and classes, boxes within
+    1e-3 px and scores within 1e-5; half matched by box within 0.05 px
+    (classes equal, scores within 0.02) for every detection scoring more
+    than 0.02 above ``conf`` on either side."""
+    _need_card()
+    from geotrax_tpu_torch.models.detector import Detector
+
+    cfg = {"imgsz": 128, "conf": 0.5, "iou": 0.7, "max_det": 40, **option}
+    model = _sharpened_detector_model()
+    frames = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (2, 96, 160, 3),
+                                                                dtype=np.uint8))
+    cpu = Detector(model, cfg, device="cpu").batch_trace(96, 160)(frames)
+    card = {k: v.cpu() for k, v in Detector(model, cfg, device="cuda").batch_trace(96, 160)(
+        frames.cuda()).items()}
+    assert int(cpu["valid"].sum()) > 6
+    if "tiles" in option:
+        assert torch.equal(card["valid"], cpu["valid"]) and torch.equal(card["classes"], cpu["classes"])
+        torch.testing.assert_close(card["boxes_xywh"], cpu["boxes_xywh"], rtol=0, atol=1e-3)
+        torch.testing.assert_close(card["scores"], cpu["scores"], rtol=0, atol=1e-5)
+        return
+    for f in range(2):
+        for a, b in ((card, cpu), (cpu, card)):
+            va, vb = a["valid"][f], b["valid"][f]
+            clear = a["scores"][f][va] > cfg["conf"] + 0.02
+            dist = (a["boxes_xywh"][f][va][clear][:, None] - b["boxes_xywh"][f][vb][None]).abs()
+            dist = dist.amax(-1)
+            match = dist.argmin(1)
+            assert len(set(match.tolist())) == len(match) and float(dist.amin(1).max()) <= 0.05
+            assert torch.equal(a["classes"][f][va][clear], b["classes"][f][vb][match])
+            torch.testing.assert_close(a["scores"][f][va][clear], b["scores"][f][vb][match],
+                                       rtol=0, atol=0.02)
+
+
+@pytest.mark.gpu
+def test_pinned_driver_rows_equal_the_serial_loops_on_card():
+    """The double-buffered driver (pinned staging, copy stream, events) and
+    the serial loop give the same rows bit for bit on the card, over three
+    chunks with a padded tail, on the oracle clip with a moving camera."""
+    _need_card()
+    from geotrax_tpu_torch import cfg as tcfg
+    from geotrax_tpu_torch.io.synthetic import SyntheticVideoReader
+    from geotrax_tpu_torch.models.detector import OracleDetector
+    from geotrax_tpu_torch.pipeline import extract as textract
+
+    def reader():
+        return SyntheticVideoReader(width=320, height=240, n_frames=21, camera=(0.5, -0.3, 0.2, 1.002))
+
+    boxes = reader()
+    runs = []
+    for pipelined in (True, False, True):
+        det = OracleDetector(lambda i: [list(b) + [0.9, i % 2] for b in boxes.boxes_at(i)],
+                             device="cuda")
+        tracker_cfg, state, step, head = textract.make_extract_tracker(tcfg.DEFAULT, device="cuda")
+        fx = textract.make_fused_extractor(tcfg.DEFAULT, det, tracker_cfg, state, step, 240, 320,
+                                           head, chunk=8, device="cuda")
+        runs.append(textract.track_video_fused(reader(), fx, chunk=8, pipelined=pipelined))
+    assert runs[0][2]["chunks"] == 3 and len(runs[0][0]) > 20
+    for tracks, transforms, _ in runs[1:]:
+        np.testing.assert_array_equal(tracks, runs[0][0])
+        np.testing.assert_array_equal(transforms, runs[0][1])

@@ -4,9 +4,11 @@ imported by geotrax_tpu_torch or chip_smoke.py, at import time or on the
 smoke's path. A subprocess refuses those imports, imports every module, and
 rehearses the smoke's phases on the CPU at a tiny size: one subprocess the
 kernel, main, steady and ReID phases, another the reference phase's six
-trackers (two, each with one intra-op thread, so that each stays well
-inside its time limit when the suite runs on every core); an AST walk
-checks the sources."""
+trackers and the cli phase (its decode branch included, since this machine
+has FFmpeg's headers) (two, each with one intra-op thread, so that each
+stays well inside its time limit when the suite runs on every core;
+tests/test_torch_imports_options.py rehearses the options phase in a third,
+on another worker); an AST walk checks the sources."""
 
 import ast
 import subprocess
@@ -80,6 +82,15 @@ ref = chip_smoke.phase_reference("cpu", n_frames=6, chunk=4)
 assert list(ref) == ["botsort", "botsort+reid", "deepocsort+reid", "tracktrack+reid", "ocsort",
                      "fasttrack"], ref
 assert all(r["box_err"] == 0.0 and r["h_err"] == 0.0 and r["rows"] > 0 for r in ref.values()), ref
+# the cli phase on the first guard's frames and detector (the same seed and calibration)
+reader = chip_smoke.smoke_reader(512, 288, 0, 14, stop=6)
+frames = chip_smoke.make_frames(reader)
+_, fx, _ = chip_smoke.build_extractor("cpu", 512, 288, "n", 256, 0, 4, frames[0][1])
+cli = chip_smoke.phase_cli(fx.detector, frames, reader, "cpu", chunk=4, tol_px=10.0, turn_rounds=1)
+assert cli["npz_vs_memory"] == 0.0 and cli["pt_vs_npz"] <= 1e-3 and cli["launches"] == 0, cli
+assert cli["checks"]["rows"] > 0 and cli["checks"]["metadata_keys"] == chip_smoke.METADATA_KEYS
+assert cli["probe"]["ok"] and cli["subprocess_checks"]["camera_err_px"] < 10.0, cli
+assert len(cli["turns"]["ms"]["pipelined"]) == len(cli["turns"]["ms"]["serial"]) == 1, cli
 ''' + EPILOGUE
 
 
@@ -149,3 +160,23 @@ def test_smoke_patch_bound_reads_each_covered_pixel_once():
     assert bound_by == "bytes"
     assert moved == 4 * (8 * 1024 + covered + 2 * 8)
     assert ms == moved / chip_smoke.HBM_BYTES_PER_S * 1e3
+
+
+def test_cv2_only_inside_the_cv2_backend_and_no_yaml():
+    """``yaml`` is imported nowhere in the port or the smoke; ``cv2`` only
+    inside the functions of the cv2 decode backend (io/video.py)."""
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    found = []
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        functions = [n for n in ast.walk(tree) if isinstance(n, (ast.FunctionDef,
+                                                                  ast.AsyncFunctionDef))]
+        inside = {id(m) for f in functions for m in ast.walk(f)}
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                     [node.module] if isinstance(node, ast.ImportFrom) and node.module else [])
+            for name in names:
+                if name.split(".")[0] in ("yaml", "cv2"):
+                    found.append((str(path.relative_to(ROOT)), name, id(node) in inside))
+    assert found and all(f == "geotrax_tpu_torch/io/video.py" and n == "cv2" and inside
+                         for f, n, inside in found), found

@@ -31,6 +31,7 @@ Two clips:
   camera's true homographies."""
 
 import logging
+import tempfile
 
 import numpy as np
 import pytest
@@ -306,14 +307,36 @@ def test_gmc_and_box_transform_match_jax_on_moving_homographies():
 
 
 def test_stabilization_off_is_not_ported():
-    reader = SyntheticVideoReader(width=64, height=48, n_frames=2)
+    """Stabilization off is ported now (the name is kept from when it was
+    not): detect + track only, bytetrack on the oracle clip, the 8-column
+    rows equal the reference's, and ``extract`` writes the 10-column tracks
+    file and no transforms file."""
+    reader = SyntheticVideoReader(width=64, height=48, n_frames=6)
     det = OracleDetector(boxes_fn(reader), device="cpu")
     _, tstate, tstep = make_tracker("bytetrack", tcfg.DEFAULT["tracker"]["bytetrack"],
                                     max_tracks=TRACKS, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        FusedExtractor(det, None, tstep, tstate, 48, 64, use_gmc=False, device="cpu")
-    fx = FusedExtractor(det, tcfg.DEFAULT["stabilo"], tstep, tstate, 48, 64, use_gmc=False,
-                        device="cpu")
-    config = {"extraction": {"stabilize": False}}
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        textract.extract(reader, fx, "unused", "V", config=config)
+    fx = FusedExtractor(det, None, tstep, tstate, 48, 64, use_gmc=False, chunk=4, device="cpu")
+    tracks, transforms, _ = textract.track_video_fused(reader, fx, chunk=4, stabilize=False)
+    tcfg_j, jstate, jstep = jax_make_tracker("bytetrack", tcfg.DEFAULT["tracker"]["bytetrack"],
+                                             max_tracks=TRACKS)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(_extract_impl, "FUSED_CHUNK", 4)
+    try:
+        j_tracks, j_transforms, _ = _extract_impl._track_video_fused(
+            None, {"main": {"class_names": {}}}, logging.getLogger("test-torch-pipeline"),
+            JaxReader(width=64, height=48, n_frames=6), JaxOracle(boxes_fn(reader)), tcfg_j,
+            jstate, jstep, False, 0)
+    finally:
+        mp.undo()
+    assert tracks.shape == j_tracks.shape and tracks.shape[1] == 8 and len(tracks) > 0
+    assert transforms.shape == j_transforms.shape == (0, 10)
+    np.testing.assert_array_equal(tracks[:, [0, 1, 6, 7]], j_tracks[:, [0, 1, 6, 7]])
+    np.testing.assert_allclose(tracks[:, 2:6], j_tracks[:, 2:6], rtol=1e-5, atol=BOX_ATOL)
+
+    fx.reset()
+    config = {**tcfg.DEFAULT, "extraction": {**tcfg.DEFAULT["extraction"], "stabilize": False,
+                                              "min_track_length": 1}}
+    with tempfile.TemporaryDirectory() as tmp:
+        stats = textract.extract(reader, fx, tmp, "V", config=config, chunk=4)
+        assert np.loadtxt(stats["tracks_file"], delimiter=",", ndmin=2).shape[1] == 10
+        assert not stats["transforms_file"].exists()

@@ -1,0 +1,98 @@
+"""Video decoding (geotrax_tpu_torch/io/video.py and its own native decoder,
+geotrax_tpu_torch/io/native/decode.cpp, built here with g++ at first use)
+against the reference's geotrax_tpu/io/video.py on clips the test encodes
+with cv2 (as tests/test_io_video.py does): every frame byte-equal and the
+same indices, whole and windowed with start/stop, through the native
+backend and through the cv2 backend; equal ``probe_video``; a reader
+closed early stops its thread; a missing file raises. One clip is 90 px
+wide, a width whose RGB rows are not a multiple of 64 bytes: the port
+decodes it through padded rows (the reference's decoder overruns its
+buffer there, ROADMAP C5)."""
+
+import numpy as np
+import pytest
+
+from geotrax_tpu.io import video as jvideo
+from geotrax_tpu_torch.io import native
+from geotrax_tpu_torch.io import video as tvideo
+
+
+@pytest.fixture(scope="module")
+def clips(tmp_path_factory):
+    cv2 = pytest.importorskip("cv2")
+    tmp = tmp_path_factory.mktemp("video")
+    out = {}
+    rng = np.random.default_rng(0)
+    for name, (w, h, n) in {"small": (64, 48, 12), "odd": (90, 62, 9)}.items():
+        path = tmp / f"{name}.mp4"
+        writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 30, (w, h))
+        for i in range(n):
+            frame = rng.integers(0, 255, (h, w, 3), np.uint8)
+            frame[8:16, 8:24] = ((i * 17) % 255, 0, 255)
+            writer.write(frame)
+        writer.release()
+        out[name] = path
+    return out
+
+
+def frames(reader):
+    return [(i, f.copy()) for i, f in reader]
+
+
+def assert_same_frames(got, want):
+    assert [i for i, _ in got] == [i for i, _ in want] and got
+    for (_, a), (_, b) in zip(got, want):
+        assert a.dtype == np.uint8 and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+
+
+def test_the_port_builds_its_own_decoder():
+    probe = native.probe()
+    assert probe["ok"], probe
+    path = native.build()
+    assert path.parent.name == "native" and path.parent.parent.name == "build"
+    assert native.SOURCE.name == "decode.cpp" and native.SOURCE.parent.parent.name == "io"
+    assert tvideo.get_backend() == "native"
+
+
+@pytest.mark.parametrize("window", [(0, None), (3, 7), (5, None), (0, 1)])
+@pytest.mark.parametrize("clip", ["small", "odd"])
+def test_native_reader_equals_the_references(clips, clip, window):
+    start, stop = window
+    # The reference's native decoder writes past its buffer on rows that are
+    # not a multiple of 64 bytes (90 px: 270 bytes), so on that clip the
+    # port is held to the reference's cv2 reader, which decodes the same
+    # pictures.
+    ref_backend = "native" if clip == "small" else "cv2"
+    want = frames(jvideo.VideoReader(clips[clip], start=start, stop=stop, backend=ref_backend))
+    got = frames(tvideo.make_reader(clips[clip], start=start, stop=stop))
+    assert_same_frames(got, want)
+    assert tvideo.VideoReader(clips[clip]).backend == "native"
+
+
+@pytest.mark.parametrize("clip", ["small", "odd"])
+def test_cv2_reader_equals_the_references(clips, clip):
+    want = frames(jvideo.VideoReader(clips[clip], start=2, stop=8, backend="cv2"))
+    got = frames(tvideo.VideoReader(clips[clip], start=2, stop=8, backend="cv2"))
+    assert_same_frames(got, want)
+    # the two backends of the port decode the same pictures
+    assert_same_frames(frames(tvideo.VideoReader(clips[clip], backend="cv2")),
+                       frames(tvideo.VideoReader(clips[clip], backend="native")))
+
+
+@pytest.mark.parametrize("backend", ["native", "cv2"])
+def test_probe_equals_the_references(clips, backend):
+    for path in clips.values():
+        assert tvideo.probe_video(path, backend) == tvideo.VideoInfo(
+            **vars(jvideo.probe_video(path, backend)))
+
+
+def test_early_close_and_missing_file(clips, tmp_path):
+    reader = tvideo.VideoReader(clips["small"], prefetch=1)
+    it = iter(reader)
+    assert next(it)[0] == 0
+    reader.close()
+    assert not reader._thread.is_alive()
+    assert list(reader) == []
+    with pytest.raises((FileNotFoundError, OSError)):
+        tvideo.VideoReader(tmp_path / "missing.mp4")
