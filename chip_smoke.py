@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py                  # every phase; the last line is the result
     python3 chip_smoke.py --kernels-only   # phases 0-2 only, no result line
+    python3 chip_smoke.py --georef-only    # phases 0, 1 and 9 only, no result line
 
 Phases, one ``[smoke] <phase> ok <seconds>s ...`` line each; a failing phase
 ends the run with a non-zero exit and no result line:
@@ -64,19 +65,37 @@ ends the run with a non-zero exit and no result line:
                against the camera's motion) and with bytetrack (no FAST
                launch); ms of both chunks, FAST launches, homographies
                against the camera
-  9 reference  the same port on a small oracle clip with a moving camera,
+  9 georef     ``georeference`` as users run it at the reference regime: a
+               synthetic 15000^2 orthophoto (tools/benchmark_ortho_matching.py's
+               recipe), 4K reference and master frames rendered from it in
+               torch, the assets written as files (PNG through the port's
+               writer, center-text-file parameters, lane segmentation,
+               flight log, 5 minutes of 4K tracks at 36 vehicles per
+               frame); run_georeferencing with the master path, then again
+               from the cache (the reference frame in memory:
+               get_video_data replaced): corner errors against the true
+               warps (3 px), 50 inliers, the feature counts, the CSV's
+               columns, sections and lanes, the rerun's homography within
+               0.01 px; the registration's device steps timed alone (CUDA
+               events) with match_l2's float32 bound, and the ortho's
+               RootSIFT by level and by piece of a band against each
+               bound; the single-level Stabilizer on a pair of the
+               reference view (two FAST launches)
+ 10 reference  the same port on a small oracle clip with a moving camera,
                on the card and on the CPU (plain versions), for botsort,
                botsort with ReID, deepocsort with ReID, tracktrack with
                ReID, ocsort and fasttrack: equal track ids, close geometry
 Then a JSON line describing each kernel, the card's nvidia-smi line, and as
 the last line {"ok": true, "device": {...}}. ``--kernels-only`` serves to
 time the kernels of two checkouts in one call: copy this script into the
-other checkout and run it there too.
+other checkout and run it there too. ``--georef-only`` runs phases 0, 1 and
+9 (no result line).
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import math
 import os
 import subprocess
@@ -1059,6 +1078,504 @@ def breakdown(fx, width: int, height: int, seed: int, horizon: int, start: int,
 
 
 # --------------------------------------------------------------------------
+# georeferencing
+# --------------------------------------------------------------------------
+
+# The reference regime (cfg/default.yaml, georef): 4K reference and master
+# frames registered against a 15000 px orthophoto cutout
+# (transformation.cutout_width_px) with 250k RootSIFT features.
+GEO_ORTHO_PX = 15000
+GEO_RECTS = 4000
+GEO_LOCATION = "A"
+# The Songdo load of PERF.md §4: 5 minutes of 4K video at 30 fps with
+# VEHICLES_PER_4K_FRAME vehicles in every frame.
+GEO_FPS = 30
+GEO_FRAMES = 5 * 60 * GEO_FPS
+GEO_LANES, GEO_SECTIONS = 8, 3
+# The ortho mosaic's affine (EPSG:4326 degrees per pixel, about 0.1 m at
+# 37.4 N) and the cutout's centre in it, Songdo-like.
+GEO_MOSAIC = (126.60, 37.42, 1.13e-6, -0.9e-6, 0.0, 0.0)
+GEO_CENTER = (21000.0, 17500.0)
+GEO_COLUMNS = ["Vehicle_ID", "Timestamp", "Frame_Number", "Ortho_X", "Ortho_Y", "Local_X",
+               "Local_Y", "Latitude", "Longitude", "Vehicle_Length", "Vehicle_Width",
+               "Vehicle_Class", "Vehicle_Speed", "Vehicle_Acceleration", "Road_Section",
+               "Lane_Number", "Visibility", "Is_Interpolated"]
+
+
+def synthetic_ortho(size: int, rects: int = GEO_RECTS, seed: int = 7) -> tuple:
+    """tools/benchmark_ortho_matching.py's synthetic orthophoto (its
+    --synthetic-ortho recipe, the same draws): 8 px blocks of random colour,
+    a road grid and vehicle-sized rectangles. Returns (ortho, generator)."""
+    rng = np.random.default_rng(seed)
+    blocks = rng.integers(30, 220, (size // 8, size // 8, 3)).astype(np.uint8)
+    ortho = np.repeat(np.repeat(blocks, 8, axis=0), 8, axis=1)
+    for k in range(0, size, size // 24):  # road grid
+        ortho[k:k + 12, :] = 72
+        ortho[:, k:k + 12] = 72
+    for _ in range(rects):  # vehicle-scale rectangles
+        y, x = rng.integers(0, size - 40, 2)
+        ortho[y:y + rng.integers(12, 36), x:x + rng.integers(12, 36)] = (
+            rng.integers(0, 255, 3))
+    return ortho, rng
+
+
+def frame_to_ortho(rng, size: int, fw: int, fh: int) -> np.ndarray:
+    """The recipe's frame -> ortho homography: a central ground patch at
+    0.82-0.95 of the ortho's width, rotated by up to 15 degrees."""
+    scale = rng.uniform(0.82, 0.95) * size / fw
+    ang = rng.uniform(-np.pi / 12, np.pi / 12)
+    c_, s_ = np.cos(ang) * scale, np.sin(ang) * scale
+    cx, cy = fw / 2, fh / 2
+    jitter = 80 * size / GEO_ORTHO_PX
+    tx = size / 2 - (c_ * cx - s_ * cy) + rng.uniform(-jitter, jitter)
+    ty = size / 2 - (s_ * cx + c_ * cy) + rng.uniform(-jitter, jitter)
+    return np.array([[c_, -s_, tx], [s_, c_, ty], [0, 0, 1.0]])
+
+
+def similarity(angle_deg: float, tx: float, ty: float, cx: float, cy: float) -> np.ndarray:
+    a = np.deg2rad(angle_deg)
+    c, s = np.cos(a), np.sin(a)
+    return np.array([[c, -s, cx - c * cx + s * cy + tx], [s, c, cy - s * cx - c * cy + ty],
+                     [0, 0, 1.0]])
+
+
+def render_frame(ortho: torch.Tensor, h: np.ndarray, fw: int, fh: int, gamma: float,
+                 seed: int) -> np.ndarray:
+    """The frame a camera with frame -> ortho homography ``h`` sees: the
+    ortho (a (S,S,3) uint8 tensor) sampled bilinearly at h @ (x, y, 1), zero
+    outside (cv2.warpPerspective with WARP_INVERSE_MAP, in torch), then the
+    recipe's gamma, contrast and N(0, 5) noise."""
+    dev = ortho.device
+    ys, xs = torch.meshgrid(torch.arange(fh, device=dev, dtype=torch.float64),
+                            torch.arange(fw, device=dev, dtype=torch.float64), indexing="ij")
+    hh = [float(v) for v in h.reshape(-1)]
+    den = hh[6] * xs + hh[7] * ys + hh[8]
+    sx = (hh[0] * xs + hh[1] * ys + hh[2]) / den
+    sy = (hh[3] * xs + hh[4] * ys + hh[5]) / den
+    x0, y0 = torch.floor(sx), torch.floor(sy)
+    fx, fy = (sx - x0).float()[..., None], (sy - y0).float()[..., None]
+    x0, y0 = x0.long(), y0.long()
+    size_y, size_x = ortho.shape[:2]
+
+    def tap(yy, xx):
+        ok = (yy >= 0) & (yy < size_y) & (xx >= 0) & (xx < size_x)
+        v = ortho[yy.clamp(0, size_y - 1), xx.clamp(0, size_x - 1)].float()
+        return torch.where(ok[..., None], v, 0.0)
+
+    out = (tap(y0, x0) * (1 - fx) * (1 - fy) + tap(y0, x0 + 1) * fx * (1 - fy)
+           + tap(y0 + 1, x0) * (1 - fx) * fy + tap(y0 + 1, x0 + 1) * fx * fy)
+    out = 255.0 * (out.clamp(0, 255) / 255.0) ** gamma
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    noise = torch.randn(out.shape, generator=gen, device=dev)
+    return (out * 0.85 + 15 + 5 * noise).clamp(0, 255).to(torch.uint8).cpu().numpy()
+
+
+def lane_layout(fw: int, fh: int) -> tuple:
+    """Lane centres, lane height and section x-edges in the reference frame."""
+    lane_h = 0.4 * fh / GEO_LANES
+    centers = fh * 0.3 + lane_h * (np.arange(GEO_LANES) + 0.5)
+    edges = np.linspace(0.05 * fw, 0.95 * fw, GEO_SECTIONS + 1)
+    return centers, lane_h, edges
+
+
+def segmentation_rows(h_ref: np.ndarray, fw: int, fh: int) -> list:
+    """Lane polygons in ortho pixels (section, lane, tl, bl, br, tr and a
+    note column past the ten the stage reads): each lane's strip of the
+    reference frame in each section, mapped by the true reference -> ortho
+    homography. Sections are written zero-padded ('01'), which the stage
+    reads as integers, as pandas does."""
+    centers, lane_h, edges = lane_layout(fw, fh)
+    rows = []
+    for j in range(GEO_SECTIONS):
+        for k, yc in enumerate(centers):
+            quad = np.array([[edges[j], yc - lane_h / 2], [edges[j], yc + lane_h / 2],
+                             [edges[j + 1], yc + lane_h / 2], [edges[j + 1], yc - lane_h / 2]])
+            p = np.concatenate([quad, np.ones((4, 1))], 1) @ h_ref.T
+            p = p[:, :2] / p[:, 2:]
+            rows.append([f"{j + 1:02d}", str(k + 1)] + [f"{v:.3f}" for v in p.reshape(-1)]
+                        + [f"lane {k + 1}"])
+    return rows
+
+
+def synthetic_tracks(n_frames: int, vehicles: int, fw: int, fh: int, seed: int = 11) -> np.ndarray:
+    """The extract stage's 15-column tracks of ``vehicles`` vehicles per
+    frame over ``n_frames`` frames in reference-frame pixels: each vehicle
+    drives along its lane at its own speed and, once it leaves the frame,
+    comes back as a new track; every 37th frame of a track is interpolated.
+    Columns: frame, id, box (cx, cy, w, h), stabilized centre, stabilized
+    size, class, score, length and width [px], is_interpolated."""
+    rng = np.random.default_rng(seed)
+    centers, _, _ = lane_layout(fw, fh)
+    lane = np.arange(vehicles) % GEO_LANES
+    speed = rng.uniform(4.0, 12.0, vehicles) * fw / 3840
+    start = rng.uniform(0, fw, vehicles)
+    length = rng.uniform(40, 70, vehicles) * fw / 3840
+    width = rng.uniform(18, 26, vehicles) * fw / 3840
+    cls = rng.integers(0, 4, vehicles)
+    period = fw + 200.0 * fw / 3840
+    t = np.arange(n_frames)[:, None]
+    travel = start[None, :] + speed[None, :] * t
+    laps = np.floor(travel / period).astype(np.int64)
+    x = travel - laps * period - 100.0 * fw / 3840
+    x = np.where(lane[None, :] % 2 == 0, x, fw - x)
+    y = centers[lane][None, :] + 3.0 * np.sin(t / 25.0 + lane[None, :])
+    ids = laps * vehicles + np.arange(vehicles)[None, :] + 1
+    first = np.zeros_like(laps)
+    for v in range(vehicles):  # frame of each lap's first appearance
+        _, idx = np.unique(laps[:, v], return_index=True)
+        starts = np.zeros(n_frames, np.int64)
+        starts[idx] = idx
+        first[:, v] = np.maximum.accumulate(starts)
+    interp = ((t - first) % 37 == 36).astype(np.float64)
+    cols = [np.broadcast_to(a, (n_frames, vehicles)).astype(np.float64) for a in (
+        t, ids, x, y, length, width, x, y, length, width, cls, 0.9, length, width, interp)]
+    return np.stack(cols, -1).reshape(-1, 15)
+
+
+def write_tracks(path, tracks: np.ndarray) -> None:
+    fmt = ["%d", "%d"] + ["%.2f"] * 8 + ["%d", "%.2f", "%.2f", "%.2f", "%d"]
+    np.savetxt(path, tracks, fmt=fmt, delimiter=",")
+
+
+def expected_lanes(tracks: np.ndarray, fw: int, fh: int, margin: float = 8.0) -> dict:
+    """{(id, frame): (section, lane)} of the rows farther than ``margin``
+    px from every strip's edge: ('', '') outside every section."""
+    centers, lane_h, edges = lane_layout(fw, fh)
+    x, y = tracks[:, 6], tracks[:, 7]
+    lane = np.argmin(np.abs(y[:, None] - centers[None, :]), axis=1)
+    sec = np.searchsorted(edges, x) - 1
+    inside = (sec >= 0) & (sec < GEO_SECTIONS)
+    y_edges = np.concatenate([centers - lane_h / 2, centers[-1:] + lane_h / 2])
+    far = ((np.min(np.abs(x[:, None] - edges[None, :]), axis=1) > margin)
+           & (np.min(np.abs(y[:, None] - y_edges[None, :]), axis=1) > margin))
+    out = {}
+    for i in np.nonzero(far)[0]:
+        key = (int(tracks[i, 1]), int(tracks[i, 0]))
+        out[key] = (str(sec[i] + 1), str(lane[i] + 1)) if inside[i] else ("", "")
+    return out
+
+
+def corner_error(h_est: np.ndarray, h_true: np.ndarray, w: int, h: int) -> float:
+    """Largest distance [px] between where the two homographies map a
+    w x h frame's corners."""
+    c = np.array([[0, 0, 1], [w - 1, 0, 1], [w - 1, h - 1, 1], [0, h - 1, 1]], float)
+    p, q = c @ h_est.T, c @ h_true.T
+    return float(np.abs(p[:, :2] / p[:, 2:] - q[:, :2] / q[:, 2:]).max())
+
+
+def feature_slots(h: int, w: int, max_features: int) -> int:
+    """How many features detect_and_describe returns at this size: each
+    level's budget, cut by TOPK_CAP where the reference caps it."""
+    from geotrax_tpu_torch.ops import sift
+
+    total = 0
+    for _, lh, lw, budget in sift.level_plan(h, w, max_features):
+        if lh * lw > sift.BAND_PIXEL_LIMIT:
+            n_bands = sift.band_layout(lh, lw)[0]
+            total += min(budget, n_bands * int(min(np.ceil(2 * budget / n_bands), sift.TOPK_CAP)))
+        else:
+            total += min(budget, sift.TOPK_CAP) if lh * lw > sift.TOPK_CAP_MIN_INPUT else budget
+    return total
+
+
+class LogLines(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def events_ms(fn, device: str) -> tuple:
+    """(ms of one call, its result): CUDA events on the card, the host's
+    clock on the CPU."""
+    if device != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return (time.perf_counter() - t0) * 1e3, out
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def bound_ms(moved_bytes: float, flops: float) -> tuple:
+    """(ms, "bytes" | "operations"): the larger of the bytes over HBM's rate
+    and the float32 operations over the card's float32 rate."""
+    by_bytes = moved_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def sift_breakdown(gray: torch.Tensor, max_features: int, device: str) -> dict:
+    """Where ``detect_and_describe``'s time goes on ``gray``, each piece
+    timed alone (CUDA events) beside its bound: per level the resize (a
+    dense float32 product per axis, the reference's form) and the level's
+    features; on the largest level's first band (the level itself when it
+    is not banded) the DoG's two blurs, the eight orientation planes' blur,
+    their tent filter and the exact top-k (a stable sort)."""
+    from geotrax_tpu_torch.ops import features as feat
+    from geotrax_tpu_torch.ops import sift
+    from geotrax_tpu_torch.ops.topk import exact_top_k
+
+    h, w = gray.shape
+    levels = []
+    for s, lh, lw, budget in sift.level_plan(h, w, max_features):
+        resize_ms, level = events_ms(
+            lambda: gray if s == 1.0 else sift.resize_linear(gray, lh, lw), device)
+        flops = 0 if s == 1.0 else 2.0 * lh * h * w + 2.0 * lh * w * lw
+        banded = lh * lw > sift.BAND_PIXEL_LIMIT
+        fn = sift._level_features_banded if banded else sift._level_features
+        features_ms, _ = events_ms(lambda: fn(level, budget), device)
+        levels.append({"shape": (lh, lw), "budget": budget, "banded": banded,
+                       "resize_ms": resize_ms,
+                       "resize_bound_ms": bound_ms(4.0 * (h * w + lh * lw), flops)[0],
+                       "features_ms": features_ms})
+        del level
+    _, band_h, bands = sift.band_layout(h, w)
+    band = gray[bands[0][0]:bands[0][0] + band_h] if h * w > sift.BAND_PIXEL_LIMIT else gray
+    px = band.numel()
+    planes = sift._orientation_planes(band)[0]
+    pieces = {}
+    for name, fn, channels, taps in (
+            ("blur 1.6", lambda: feat._gaussian_blur(band, 1.6), 1, 11),
+            ("blur 2.56", lambda: feat._gaussian_blur(band, 2.56), 1, 17),
+            ("planes blur 2.4", lambda: feat._gaussian_blur(planes, 2.4), 8, 15),
+            ("planes tent 4", lambda: sift._triangle_blur(planes, 4), 8, 9)):
+        ms, _ = events_ms(fn, device)
+        pieces[name] = (ms, *bound_ms(8.0 * channels * px, 4.0 * taps * channels * px))
+    k = min(sift.TOPK_CAP, px)
+    ms, _ = events_ms(lambda: exact_top_k(band.reshape(-1), k), device)
+    pieces["top-k"] = (ms, *bound_ms(4.0 * px + 8.0 * k, 0.0))
+    return {"levels": levels, "band": tuple(band.shape), "pieces": pieces}
+
+
+def geo_assets(root: Path, device: str, size: int, fw: int, fh: int, n_frames: int,
+               vehicles: int, rects: int) -> dict:
+    """The georeferencing inputs of one video, as files: the orthophoto
+    (through the port's PNG writer), its center-text-file parameters, the
+    master frame, the lane segmentation, the flight log and the extract
+    stage's tracks; the reference frame stays in memory (the card's machine
+    cannot decode a video). Returns the true homographies and the frames."""
+    from geotrax_tpu_torch.io import png
+
+    t0 = time.perf_counter()
+    ortho, rng = synthetic_ortho(size, rects)
+    h_master = frame_to_ortho(rng, size, fw, fh)
+    gammas = rng.uniform(1.3, 1.6, 2)
+    # the reference frame: the master's view turned 1.5 degrees and moved,
+    # seen in another light
+    h_ref_to_master = similarity(1.5, 25.0 * fw / 3840, -15.0 * fw / 3840, fw / 2, fh / 2)
+    h_ref = h_master @ h_ref_to_master
+    ortho_dev = torch.as_tensor(ortho).to(device)
+    master = render_frame(ortho_dev, h_master, fw, fh, float(gammas[0]), 1)
+    ref = render_frame(ortho_dev, h_ref, fw, fh, float(gammas[1]), 2)
+    # a second frame of the reference view for the orb-path Stabilizer pair
+    h_next = h_ref @ similarity(0.3, 6.0, -4.0, fw / 2, fh / 2)
+    nxt = render_frame(ortho_dev, h_next, fw, fh, float(gammas[1]), 3)
+    del ortho_dev
+    scene_s = time.perf_counter() - t0
+
+    ortho_dir = root / "ORTHOPHOTOS"
+    for sub in ("master_frames", "segmentations"):
+        (ortho_dir / sub).mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    png.write_png(ortho_dir / f"{GEO_LOCATION}.png", ortho, compress_level=1)
+    png.write_png(ortho_dir / "master_frames" / f"{GEO_LOCATION}.png", master, compress_level=1)
+    png_s = time.perf_counter() - t0
+    (ortho_dir / f"{GEO_LOCATION}_center.txt").write_text(
+        f"# cutout centre in the mosaic [px]\n{GEO_CENTER[0]} {GEO_CENTER[1]}\n")
+    (ortho_dir / "ortho_parameters.txt").write_text(
+        "# lng0 lat0 dlng dlat skew_x skew_y\n" + " ".join(repr(v) for v in GEO_MOSAIC) + "\n")
+    seg = ["section,lane,tlx,tly,blx,bly,brx,bry,trx,try,note"]
+    seg += [",".join(r) for r in segmentation_rows(h_ref, fw, fh)]
+    (ortho_dir / "segmentations" / f"{GEO_LOCATION}.csv").write_text("\n".join(seg) + "\n")
+
+    source = root / f"{GEO_LOCATION}_smoke.mp4"
+    t0 = time.perf_counter()
+    stamps = [f"2024-05-14 08:{(f // GEO_FPS) // 60 % 60:02d}:{(f // GEO_FPS) % 60:02d}."
+              f"{(f % GEO_FPS) * 1000 // GEO_FPS:03d}" for f in range(n_frames)]
+    source.with_suffix(".csv").write_text(
+        "frame,timestamp\n" + "".join(f"{f},{t}\n" for f, t in enumerate(stamps)))
+    tracks = synthetic_tracks(n_frames, vehicles, fw, fh)
+    (root / "results").mkdir(exist_ok=True)
+    write_tracks(root / "results" / f"{source.stem}.txt", tracks)
+    tracks_s = time.perf_counter() - t0
+    return {"source": source, "ortho_dir": ortho_dir, "ortho": ortho, "master": master,
+            "ref": ref, "next": nxt, "h_master": h_master, "h_ref": h_ref,
+            "h_ref_to_master": h_ref_to_master, "h_next_to_ref": np.linalg.inv(h_ref) @ h_next,
+            "tracks": tracks, "scene_s": scene_s, "png_s": png_s, "tracks_s": tracks_s}
+
+
+def check_geo_csv(path: Path, tracks: np.ndarray, fw: int, fh: int, margin: float) -> dict:
+    """The written CSV: the 18 columns, finite coordinates, and every row's
+    section and lane those of its place in the layout (rows within
+    ``margin`` px of a strip's edge aside)."""
+    from geotrax_tpu_torch.io import table
+
+    with open(path) as fh_:
+        header = fh_.readline().strip().split(",")
+    if header != GEO_COLUMNS:
+        raise AssertionError(f"georeferenced CSV columns {header}")
+    cols = table.read_csv(path)
+    n = len(cols["Vehicle_ID"])
+    if not n > 0.5 * len(tracks):
+        raise AssertionError(f"{n} rows of {len(tracks)} tracked rows")
+    for name in ("Ortho_X", "Ortho_Y", "Local_X", "Local_Y", "Latitude", "Longitude"):
+        if not np.isfinite(cols[name]).all():
+            raise AssertionError(f"non-finite {name}")
+    expected = expected_lanes(tracks, fw, fh, margin)
+    # read back typed: a column with empty cells comes back as floats
+    sections, lanes = ([("" if np.isnan(v) else str(int(v))) for v in cols[name].tolist()]
+                       for name in ("Road_Section", "Lane_Number"))
+    checked = wrong = assigned = 0
+    for i, key in enumerate(zip(cols["Vehicle_ID"].tolist(), cols["Frame_Number"].tolist())):
+        want = expected.get(key)
+        assigned += lanes[i] != ""
+        if want is None:
+            continue
+        checked += 1
+        wrong += (sections[i], lanes[i]) != want
+    if wrong or checked < 0.5 * n or assigned == 0:
+        raise AssertionError(f"sections/lanes: {wrong} of {checked} checked rows differ "
+                             f"({assigned} of {n} rows assigned)")
+    return {"rows": n, "checked": checked, "assigned": assigned,
+            "tracks": int(len(np.unique(cols["Vehicle_ID"])))}
+
+
+def phase_georef(device: str = "cuda", size: int = GEO_ORTHO_PX, fw: int = 3840, fh: int = 2160,
+                 n_frames: int = GEO_FRAMES, vehicles: int = VEHICLES_PER_4K_FRAME,
+                 rects: int = GEO_RECTS, max_features: int = 250_000,
+                 tol_px: float = 3.0, min_inliers: int = 50, min_share: float = 0.9) -> dict:
+    """``georeference`` as users run it at the reference regime: the master
+    path (reference -> master and master -> ortho registrations, the second
+    cached), then the same command again from the cache; the files checked;
+    then the registration's device steps timed alone on the same images,
+    and the single-level Stabilizer on a pair of the reference view. At
+    least ``min_share`` of each image's feature slots must be valid."""
+    from geotrax_tpu_torch.ops import prng, sift
+    from geotrax_tpu_torch.ops.ransac import ransac_fit
+    from geotrax_tpu_torch.pipeline import georeference as port_geo
+    from geotrax_tpu_torch.stabilize import Stabilizer, StabilizerConfig
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        a = geo_assets(root, device, size, fw, fh, n_frames, vehicles, rects)
+        res.update({k: a[k] for k in ("scene_s", "png_s", "tracks_s")})
+        res["tracked_rows"] = len(a["tracks"])
+        cfg = "default"
+        if max_features != port_cfg.DEFAULT["georef"]["matching"]["max_features"]:
+            cfg = str(root / "default_copy.yaml")  # a rehearsal's budget
+            text = (port_cfg.CFG_DIR / "default.yaml").read_text()
+            Path(cfg).write_text(text.replace("    max_features: 250000\n",
+                                              f"    max_features: {max_features}\n"))
+        argv = [str(a["source"]), "-c", cfg, "--device", device,
+                "--ortho-folder", str(a["ortho_dir"])]
+        logger = logging.getLogger("smoke.georeference")
+        logger.setLevel(logging.INFO)
+        lines = LogLines()
+        logger.addHandler(lines)
+        replaced = port_geo.get_video_data
+        port_geo.get_video_data = lambda src, ref_frame, log: (a["ref"], (fh, fw), float(GEO_FPS))
+        runs = []
+        try:
+            for _ in range(2):  # the master path, then again from the cache
+                lines.lines.clear()
+                base = 0
+                if device == "cuda":
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                out = port_geo.run_georeferencing(port_geo.parse_cli_args(argv), logger)
+                out["wall_s"] = time.perf_counter() - t0
+                # the stage's own peak, above what earlier phases still hold
+                out["peak_gib"] = ((torch.cuda.max_memory_allocated() - base) / 2**30
+                                   if device == "cuda" else None)
+                out["log"] = list(lines.lines)
+                runs.append(out)
+        finally:
+            port_geo.get_video_data = replaced
+            logger.removeHandler(lines)
+
+        first, second = runs
+        cache = (a["ortho_dir"] / "master_frames" / f"{GEO_LOCATION}.txt").read_text().splitlines()
+        h_m2o = np.array([float(v) for v in cache[0].split(",")]).reshape(3, 3)
+        stats = cache[-1]
+        nums = [int(t.strip(".,")) for t in stats.split() if t.strip(".,").isdigit()]
+        res["n_master"], res["n_ortho"], res["inliers"], res["matches"] = nums[:4]
+        res["master_err_px"] = corner_error(h_m2o, a["h_master"], fw, fh)
+        res["ref_err_px"] = corner_error(first["h_ref_to_ortho"], a["h_ref"], fw, fh)
+        res["ortho_slots"] = feature_slots(size, size, max_features)
+        res["frame_slots"] = feature_slots(fh, fw, max_features)
+        if res["master_err_px"] > tol_px or res["ref_err_px"] > tol_px:
+            raise AssertionError(f"georeferencing error: master -> ortho "
+                                 f"{res['master_err_px']:.2f} px, reference -> ortho "
+                                 f"{res['ref_err_px']:.2f} px (limit {tol_px})")
+        if res["inliers"] < min_inliers:
+            raise AssertionError(f"{res['inliers']} master -> ortho inliers, fewer than "
+                                 f"{min_inliers}")
+        if not (min_share * res["ortho_slots"] <= res["n_ortho"] <= res["ortho_slots"]
+                and min_share * res["frame_slots"] <= res["n_master"] <= res["frame_slots"]):
+            raise AssertionError(f"feature counts {res['n_master']} / {res['n_ortho']}, "
+                                 f"expected up to {res['frame_slots']} / {res['ortho_slots']}")
+        if not any("Loaded cached master->ortho homography" in line for line in second["log"]):
+            raise AssertionError("the second run did not load the cached homography")
+        # the cache holds the float32 fit in float64, so the rerun's product
+        # is taken in float64: the same homography to float32 precision
+        res["rerun_px"] = corner_error(second["h_ref_to_ortho"], first["h_ref_to_ortho"], fw, fh)
+        if res["rerun_px"] > 0.01 or second["rows"] != first["rows"]:
+            raise AssertionError(f"the cached rerun moved the homography by "
+                                 f"{res['rerun_px']:.4f} px, {second['rows']} rows")
+        # rows farther from a strip's edge than the registration's error
+        res["csv"] = check_geo_csv(first["csv"], a["tracks"], fw, fh,
+                                   max(8.0 * fw / 3840, 2.0 * res["ref_err_px"]))
+        res["runs"] = [{k: r[k] for k in ("seconds", "wall_s", "peak_gib", "rows")} for r in runs]
+
+        # the registration's device steps alone, on the stage's images
+        dev = torch.device(device)
+        ortho_gray = features.rgb_to_gray(torch.as_tensor(a["ortho"]).to(dev))
+        master_gray = features.rgb_to_gray(torch.as_tensor(a["master"]).to(dev))
+        res["ortho_ms"], fo = events_ms(lambda: sift.detect_and_describe(ortho_gray, max_features),
+                                        device)
+        res["ortho_breakdown"] = sift_breakdown(ortho_gray, max_features, device)
+        del ortho_gray
+        res["frame_ms"], fm = events_ms(lambda: sift.detect_and_describe(master_gray,
+                                                                         max_features), device)
+        ratio = port_cfg.DEFAULT["georef"]["matching"]["filter_ratio"]
+        res["match_ms"], m = events_ms(lambda: sift.match_l2(fm.desc, fm.valid, fo.desc, fo.valid,
+                                                             ratio=ratio), device)
+        ka, kb = fm.desc.shape[0], fo.desc.shape[0]
+        res["match_shape"] = (ka, kb)
+        res["match_bound_ms"] = 2 * ka * kb * 128 / FP32_FLOP_PER_S * 1e3
+        stab_cfg = StabilizerConfig(detector_name="rsift", ransac_max_iter=10000)
+        res["ransac_ms"], r = events_ms(lambda: ransac_fit(
+            fm.xy[m.idx_a], fo.xy[m.idx_b], m.valid, threshold=3.0,
+            key=prng.fold_in(prng.PRNGKey(0), 2), num_hypotheses=stab_cfg.num_hypotheses), device)
+        res["ransac_hypotheses"] = stab_cfg.num_hypotheses
+        res["timed_inliers"] = int(r.num_inliers)
+        res["timed_err_px"] = corner_error(r.h_matrix.double().cpu().numpy(), a["h_master"], fw, fh)
+
+        # the single-level (orb) Stabilizer on a pair of the reference view
+        fast.fast_score_map.launches = 0
+        stab = Stabilizer(**port_cfg.DEFAULT["stabilo"], device=device)
+        stab.set_ref_frame(a["ref"])
+        stab.stabilize(a["next"])
+        res["orb_launches"] = fast.fast_score_map.launches
+        res["orb_err_px"] = corner_error(stab.get_cur_trans_matrix(), a["h_next_to_ref"], fw, fh)
+        res["orb_inliers"] = stab.get_cur_inliers_count()
+        if res["orb_launches"] != 2 * (device == "cuda") or res["orb_err_px"] > 2.0:
+            raise AssertionError(f"orb-path Stabilizer: {res['orb_launches']} FAST launches, "
+                                 f"corner error {res['orb_err_px']:.2f} px")
+    return res
+
+
+# --------------------------------------------------------------------------
 # main
 # --------------------------------------------------------------------------
 
@@ -1067,6 +1584,42 @@ def fast_line(res: dict) -> str:
             f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}), {res['gb_per_s']:.0f} GB/s, "
             f"{100 * res['share']:.1f}% of the bound, {100 * res['full_test_share']:.1f}% of "
             f"pixels take the full test")
+
+
+def georef_line(geo: dict, seconds: float, smi: str) -> str:
+    first, second = geo["runs"]
+    steps = "; ".join(f"{k} {v:.2f}" for k, v in first["seconds"].items())
+    cached = "; ".join(f"{k} {v:.2f}" for k, v in second["seconds"].items())
+    ka, kb = geo["match_shape"]
+    return (
+        f"georef ok {seconds:.1f}s georeference with the master path, 3840x2160 reference and "
+        f"master frames against a {GEO_ORTHO_PX}^2 ortho at 250k features: assets (scene "
+        f"{geo['scene_s']:.1f}s, PNG writes {geo['png_s']:.1f}s, flight log and "
+        f"{geo['tracked_rows']} tracked rows {geo['tracks_s']:.1f}s); run 1 {first['wall_s']:.1f}s"
+        f" (stage peak mem {first['peak_gib']:.1f} GiB; s per step: {steps}), run 2 from the cache "
+        f"{second['wall_s']:.1f}s (peak mem {second['peak_gib']:.1f} GiB; {cached}); "
+        f"keypoints master {geo['n_master']} (slots {geo['frame_slots']}), ortho "
+        f"{geo['n_ortho']} (slots {geo['ortho_slots']}), inliers {geo['inliers']} of "
+        f"{geo['matches']} matches, corner error master->ortho {geo['master_err_px']:.3f} px, "
+        f"reference->ortho {geo['ref_err_px']:.3f} px; CSV {geo['csv']['rows']} rows / "
+        f"{geo['csv']['tracks']} tracks, lanes and sections equal on {geo['csv']['checked']} "
+        f"rows, rerun within {geo['rerun_px']:.2e} px; device steps alone (CUDA events): ortho features "
+        f"{geo['ortho_ms']:.1f} ms, frame features {geo['frame_ms']:.1f} ms, match_l2 "
+        f"{ka}x{kb} {geo['match_ms']:.1f} ms (float32 bound {geo['match_bound_ms']:.1f} ms), "
+        f"RANSAC {geo['ransac_hypotheses']} hypotheses {geo['ransac_ms']:.1f} ms "
+        f"({geo['timed_inliers']} inliers, {geo['timed_err_px']:.3f} px); orb-path Stabilizer "
+        f"pair: {geo['orb_launches']} FAST launches, {geo['orb_inliers']} inliers, corner error "
+        f"{geo['orb_err_px']:.3f} px [{smi}]")
+
+
+def breakdown_lines(brk: dict) -> list:
+    lines = [f"    ortho level {i} {lv['shape'][0]}x{lv['shape'][1]} budget {lv['budget']}"
+             f"{' banded' if lv['banded'] else ''}: resize {lv['resize_ms']:.1f} ms (bound "
+             f"{lv['resize_bound_ms']:.1f} ms), features {lv['features_ms']:.1f} ms"
+             for i, lv in enumerate(brk["levels"])]
+    lines += [f"    ortho band {brk['band'][0]}x{brk['band'][1]}: {name} {ms:.2f} ms (bound "
+              f"{bound:.3f} ms, {by})" for name, (ms, bound, by) in brk["pieces"].items()]
+    return lines
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: int, res: dict) -> dict:
@@ -1078,6 +1631,7 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int, res: dict
 
 def main(argv) -> int:
     kernels_only = "--kernels-only" in argv
+    georef_only = "--georef-only" in argv
     t_all = time.perf_counter()
     width, height, chunk, seed = 3840, 2160, 32, 0
     n_main = 2 * chunk
@@ -1108,6 +1662,13 @@ def main(argv) -> int:
             f"({pg['bound_by']}, {pg['bytes'] / 1e6:.1f} MB) [{dev['smi']}]")
         if kernels_only:
             log(f"kernels-only ok {time.perf_counter() - t_all:.1f}s")
+            return 0
+        if georef_only:
+            t = time.perf_counter()
+            geo = phase_georef("cuda")
+            log(georef_line(geo, time.perf_counter() - t, dev["smi"]))
+            print("\n".join(breakdown_lines(geo["ortho_breakdown"])), flush=True)
+            log(f"georef-only ok {time.perf_counter() - t_all:.1f}s")
             return 0
 
         t = time.perf_counter()
@@ -1222,6 +1783,11 @@ def main(argv) -> int:
                 + (f", GMC error {v['gmc_err_px']:.3f} px" if "gmc_err_px" in v else "")
                 for k, v in opts.items())
             + f"; peak mem {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{dev['smi']}]")
+
+        t = time.perf_counter()
+        geo = phase_georef("cuda")
+        log(georef_line(geo, time.perf_counter() - t, dev["smi"]))
+        print("\n".join(breakdown_lines(geo["ortho_breakdown"])), flush=True)
 
         t = time.perf_counter()
         ref = phase_reference("cuda")

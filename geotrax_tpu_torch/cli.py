@@ -2,9 +2,9 @@
 
 The counterpart of ``geotrax_tpu/cli.py``: the reference's seven commands
 and ``-V/--version``, each stage module imported only when its command
-runs and given its own argv. ``extract`` runs on the card unless
-``--device cpu`` is given (the counterpart of the reference's
-``JAX_PLATFORMS``); the other six commands are not ported yet and exit
+runs and given its own argv. ``extract`` and ``georeference`` run on the
+card unless ``--device cpu`` is given (the counterpart of the reference's
+``JAX_PLATFORMS``); the other five commands are not ported yet and exit
 with the ROADMAP item that will bring them.
 """
 
@@ -20,7 +20,8 @@ COMMANDS = {
     "batch": ("A17", "Run the full pipeline over a video or a directory tree"),
     "extract": ("geotrax_tpu_torch.pipeline.extract",
                 "Detect, track and stabilize vehicle trajectories (pixel coords)"),
-    "georeference": ("A12", "Map extracted tracks to WGS84 + local CRS with kinematics"),
+    "georeference": ("geotrax_tpu_torch.pipeline.georeference",
+                     "Map extracted tracks to WGS84 + local CRS with kinematics"),
     "aggregate": ("A17", "Merge per-video georeferenced CSVs across drones/sessions"),
     "visualize": ("A17", "Render annotated videos (5 modes incl. oriented boxes)"),
     "plot": ("A17", "Generate trajectory / kinematics / class-distribution plots"),

@@ -171,6 +171,13 @@ class VideoReader:
         if self._error is not None:
             raise self._error
 
+    def read_frame(self, index: int) -> np.ndarray:
+        """Decode one frame by its exact index (a sequential walk; for the
+        reference and master frames, not the hot loop)."""
+        for _, frame in VideoReader(self.path, start=index, stop=index + 1, backend=self.backend):
+            return frame
+        raise IndexError(f"Frame {index} not found in {self.path}")
+
     def close(self):
         self._stop_event.set()
         if self._thread is not None:

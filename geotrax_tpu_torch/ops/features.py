@@ -40,23 +40,23 @@ def rgb_to_gray(image: torch.Tensor) -> torch.Tensor:
     return img[..., 0] * 0.299 + img[..., 1] * 0.587 + img[..., 2] * 0.114
 
 
-@lru_cache(maxsize=16)
-def _linear_resize_weights(in_size: int, out_size: int) -> np.ndarray:
+def linear_resize_weights(in_size: int, out_size: int, device) -> torch.Tensor:
     """(in, out) float32 weights of ``jax.image.resize(method="linear")``
-    along one axis: a triangle kernel widened by the downscale factor
-    (antialiasing), normalized per output sample."""
+    along one axis, made on ``device``: a triangle kernel widened by the
+    downscale factor (antialiasing), normalized per output sample."""
     scale = np.float32(out_size) / np.float32(in_size)
     inv_scale = np.float32(1.0) / scale
-    kernel_scale = max(inv_scale, np.float32(1.0))
-    sample_f = ((np.arange(out_size, dtype=np.float32) + np.float32(0.5)) * inv_scale
-                - np.float32(0.5))
-    x = np.abs(sample_f[None, :] - np.arange(in_size, dtype=np.float32)[:, None]) / kernel_scale
-    weights = np.maximum(np.float32(0.0), np.float32(1.0) - x)
-    total = weights.sum(axis=0, keepdims=True)
-    weights = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
-                       weights / np.where(total != 0, total, 1), 0)
+    kernel_scale = float(max(inv_scale, np.float32(1.0)))
+    sample_f = ((torch.arange(out_size, dtype=torch.float32, device=device) + 0.5)
+                * float(inv_scale) - 0.5)
+    src = torch.arange(in_size, dtype=torch.float32, device=device)
+    weights = torch.clamp_min(1.0 - torch.abs(sample_f[None, :] - src[:, None]) / kernel_scale,
+                              0.0)
+    total = weights.sum(dim=0, keepdim=True)
+    weights = torch.where(torch.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                          weights / torch.where(total != 0, total, 1.0), 0.0)
     inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
-    return np.where(inside[None, :], weights, 0).astype(np.float32)
+    return torch.where(inside[None, :], weights, 0.0)
 
 
 def downsample(gray: torch.Tensor, ratio: float) -> torch.Tensor:
@@ -73,8 +73,8 @@ def downsample(gray: torch.Tensor, ratio: float) -> torch.Tensor:
         s = s + gray[..., 1::2, 1::2]
         return s * 0.25
     new_h, new_w = int(h * ratio), int(w * ratio)
-    wy = torch.as_tensor(_linear_resize_weights(h, new_h), device=gray.device)
-    wx = torch.as_tensor(_linear_resize_weights(w, new_w), device=gray.device)
+    wy = linear_resize_weights(h, new_h, gray.device)
+    wx = linear_resize_weights(w, new_w, gray.device)
     return torch.matmul(torch.matmul(wy.T, gray), wx)
 
 
@@ -114,8 +114,8 @@ def fast_detect(gray: torch.Tensor, max_features: int, threshold: float = 20.0,
     ``gray`` is (H,W) or (B,H,W); one score-map launch covers the batch."""
     if oriented:
         raise NotImplementedError(
-            "fast_detect(oriented=True) is not ported yet (ROADMAP A11: the "
-            "sequential Stabilizer and georeferencing need it)"
+            "fast_detect(oriented=True) is not ported yet (ROADMAP A18: no "
+            "command of the reference reaches oriented FAST)"
         )
     h, w = gray.shape[-2], gray.shape[-1]
     score = fast_score_map(gray.contiguous(), threshold)
@@ -151,29 +151,49 @@ _GRID_OFFS = np.array([-9, -3, 3, 9], dtype=np.int64)
 GRID_DESC_DIM = 64  # 16 grid points x 4 channels
 
 
-@lru_cache(maxsize=4)
-def _blur_taps_bf16(sigma: float) -> tuple:
-    """Gaussian taps rounded to bf16 (as ``jnp.bfloat16(k[i])``), returned as
-    Python floats: a bf16 tensor times one of these rounds once to bf16,
-    exactly like the reference's bf16 x bf16 product."""
+@lru_cache(maxsize=16)
+def _blur_taps(sigma: float) -> tuple:
+    """Normalized Gaussian taps of radius ``int(3*sigma+0.5)``, made in
+    float64 and rounded to float32 as the reference makes them, returned as
+    Python floats (exact float32 values)."""
     radius = int(3 * sigma + 0.5)
     x = np.arange(-radius, radius + 1)
     k = np.exp(-0.5 * (x / sigma) ** 2)
-    k = (k / k.sum()).astype(np.float32)
-    return tuple(float(torch.tensor(float(v)).to(torch.bfloat16)) for v in k)
+    return tuple(float(v) for v in (k / k.sum()).astype(np.float32))
+
+
+def _tap_sum(img: torch.Tensor, taps: tuple) -> torch.Tensor:
+    """Separable float32 tap sum over the last two axes of (..., H, W),
+    zero-padded borders: rows first, then columns, each adding its taps in
+    order from tap 0 (the reference's order; a convolution adds in another
+    and moves ties between scores)."""
+    radius = len(taps) // 2
+    h, w = img.shape[-2], img.shape[-1]
+    rows = F.pad(img, (radius, radius))
+    out = sum(taps[i] * rows[..., :, i:i + w] for i in range(len(taps)))
+    cols = F.pad(out, (0, 0, radius, radius))
+    return sum(taps[i] * cols[..., i:i + h, :] for i in range(len(taps)))
+
+
+def _gaussian_blur(gray: torch.Tensor, sigma: float = 2.0) -> torch.Tensor:
+    """Float32 separable Gaussian blur of (..., H, W) (the reference's
+    ``_gaussian_blur``: tap sums over zero-padded borders)."""
+    return _tap_sum(gray, _blur_taps(float(sigma)))
+
+
+@lru_cache(maxsize=4)
+def _blur_taps_bf16(sigma: float) -> tuple:
+    """``_blur_taps`` rounded to bf16 (as ``jnp.bfloat16(k[i])``), returned
+    as Python floats: a bf16 tensor times one of these rounds once to bf16,
+    exactly like the reference's bf16 x bf16 product."""
+    return tuple(float(torch.tensor(v).to(torch.bfloat16)) for v in _blur_taps(sigma))
 
 
 def _gaussian_blur_bf16(gray: torch.Tensor, sigma: float = 2.0) -> torch.Tensor:
     """Separable bf16 tap-sum blur of (..., H, W), zero-padded borders. Every
     product and every partial sum rounds to bf16, as the reference's
     elementwise bf16 chain does on the CPU."""
-    taps = _blur_taps_bf16(sigma)
-    radius = len(taps) // 2
-    h, w = gray.shape[-2], gray.shape[-1]
-    rows = F.pad(gray.to(torch.bfloat16), (radius, radius))
-    blurred = sum(taps[i] * rows[..., :, i:i + w] for i in range(len(taps)))
-    cols = F.pad(blurred, (0, 0, radius, radius))
-    return sum(taps[i] * cols[..., i:i + h, :] for i in range(len(taps)))
+    return _tap_sum(gray.to(torch.bfloat16), _blur_taps_bf16(float(sigma)))
 
 
 def describe_grid(gray: torch.Tensor, kps: Keypoints) -> torch.Tensor:

@@ -2,8 +2,8 @@
 
 ``StabilizerConfig(**cfg["stabilo"])`` derives the same settings the JAX
 ``Stabilizer.__init__`` does (feature budgets, hypothesis count, thresholds,
-detector family); the fused chunk step reads them. The sequential
-``Stabilizer`` itself waits for a later slice of the port (ROADMAP A11).
+detector family); the fused chunk step reads them, and the sequential
+``Stabilizer`` (``stabilize/stabilizer.py``) is built on them.
 """
 
 from __future__ import annotations

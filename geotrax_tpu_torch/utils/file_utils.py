@@ -1,12 +1,16 @@
 """Output paths and serialization: the port's copy of the parts of
-``geotrax_tpu/utils/file_utils.py`` that ``extract`` uses (the results
-folder with its configurable name and postfixes)."""
+``geotrax_tpu/utils/file_utils.py`` that ``extract`` and ``georeference``
+use (the results folder with its configurable name and postfixes, the
+delimiter sniffing, the location ID of a video's name and the orthophoto
+folder's lookup)."""
 
 from __future__ import annotations
 
 import argparse
+import logging
+import sys
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 # Historical output-naming defaults, used only when no config dict is supplied.
 DEFAULT_OUTPUT = {
@@ -60,6 +64,83 @@ def check_if_results_exist(file: Path, result_type: str, viz_mode: Optional[int]
     """(exists, expected_path) for a given result kind of *file*."""
     path = build_result_path(file, result_type, output_cfg, viz_mode, ext)
     return (path.exists() if path else False), path
+
+
+def detect_delimiter(filepath: Path, lines_to_check: int = 5) -> str:
+    """Pick the most frequent of ',', ' ', '\\t' over the first few lines."""
+    counts = {",": 0, " ": 0, "\t": 0}
+    with open(filepath, "r") as fh:
+        for _ in range(lines_to_check):
+            line = fh.readline()
+            if not line:
+                break
+            for d in counts:
+                counts[d] += line.count(d)
+    return max(counts, key=counts.get)
+
+
+def determine_location_id(source: Path, logger: Optional[logging.Logger] = None) -> str:
+    """Leading alphabetic run of the filename stem ('2025-01-01_A_PM1' -> 'A').
+
+    Alphabetic characters accumulate; once at least one has been seen, a digit
+    or '_'/'-' terminates the ID. Exits on failure (matches reference
+    file_utils.py:102-130 semantics).
+    """
+    chars: list[str] = []
+    for ch in source.stem:
+        if ch.isalpha():
+            chars.append(ch)
+        elif chars and (ch in "_-" or ch.isdigit()):
+            break
+    location_id = "".join(chars)
+    if not location_id:
+        msg = f"Failed to extract location ID from filename {source}."
+        (logger.error if logger else print)(msg)
+        sys.exit(1)
+    if logger:
+        logger.info(f"Detected location ID '{location_id}' from {source.name}.")
+    return location_id
+
+
+def get_ortho_folder(
+    source: Path,
+    ortho_folder: Union[Path, None],
+    logger: logging.Logger,
+    critical: bool = True,
+) -> Optional[Path]:
+    """Resolve the orthophoto folder.
+
+    When not given explicitly, walk up from the video until a 'PROCESSED' or
+    'DATASET' ancestor is found and use its sibling 'ORTHOPHOTOS' folder
+    (reference file_utils.py:133-173).
+    """
+    if ortho_folder is None:
+        node = source.parent
+        while node != node.parent and node.name not in ("PROCESSED", "DATASET"):
+            node = node.parent
+        if node.name not in ("PROCESSED", "DATASET"):
+            msg = (
+                f"Could not auto-detect the orthophoto folder for '{source}'. "
+                f"Provide --ortho-folder, skip georeferencing with --no-geo, or "
+                f"use the PROCESSED/ORTHOPHOTOS folder layout."
+            )
+            if critical:
+                logger.critical(msg)
+                sys.exit(1)
+            logger.info(msg)
+            return None
+        ortho_folder = node.parent / "ORTHOPHOTOS"
+
+    ortho_folder = Path(ortho_folder)
+    if not ortho_folder.exists():
+        msg = f"Orthophoto folder '{ortho_folder}' not found."
+        if critical:
+            logger.critical(msg)
+            sys.exit(1)
+        logger.info(msg)
+        return None
+    logger.info(f"Using orthophoto folder: '{ortho_folder}'.")
+    return ortho_folder
 
 
 def convert_to_serializable(obj):

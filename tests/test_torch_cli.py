@@ -266,12 +266,13 @@ def test_double_buffered_rows_equal_the_serial_loops(assets, patched):
     (["-V"], 0, "geotrax_tpu_torch 0.1.0"),
     (["--help"], 0, "extract"),
     (["batch", "x"], 2, "ROADMAP A17"),
-    (["georeference"], 2, "ROADMAP A12"),
+    (["aggregate", "x"], 2, "ROADMAP A17"),
     (["nope"], 2, "unknown command"),
 ])
 def test_umbrella_cli_dispatch(capsys, argv, code, text):
-    """The seven commands of the reference's usage; only ``extract`` is
-    ported, the others name the ROADMAP item that ports them."""
+    """The seven commands of the reference's usage; ``extract`` and
+    ``georeference`` are ported, the others name the ROADMAP item that ports
+    them."""
     from geotrax_tpu_torch import cli
 
     assert cli.main(argv) == code

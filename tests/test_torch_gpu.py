@@ -294,3 +294,105 @@ def test_pinned_driver_rows_equal_the_serial_loops_on_card():
     for tracks, transforms, _ in runs[1:]:
         np.testing.assert_array_equal(tracks, runs[0][0])
         np.testing.assert_array_equal(transforms, runs[0][1])
+
+
+def _separated_equal(card, cpu, gap=1e-5, score_rtol=1e-4, desc_atol=1e-4):
+    """SIFT features of the card and the CPU: the same pixels where scores
+    are separated by more than ``gap`` (relative to the largest; the
+    pyramid's resize products add in another order on the card), scores,
+    descriptors and angles within the tolerances."""
+    sc_cpu = cpu.score.numpy()
+    scale = max(float(sc_cpu.max()), 1e-6)
+    gaps = np.abs(np.diff(sc_cpu)) > gap * scale
+    sep = np.concatenate([[True], gaps]) & np.concatenate([gaps, [True]]) & cpu.valid.numpy()
+    assert sep.sum() > 0.8 * cpu.valid.numpy().sum() > 0
+    np.testing.assert_array_equal(card.xy.cpu().numpy()[sep], cpu.xy.numpy()[sep])
+    np.testing.assert_allclose(card.score.cpu().numpy(), sc_cpu, rtol=score_rtol,
+                               atol=score_rtol * scale)
+    np.testing.assert_allclose(card.desc.cpu().numpy()[sep], cpu.desc.numpy()[sep], atol=desc_atol)
+    dang = card.angle.cpu().numpy()[sep] - cpu.angle.numpy()[sep]
+    assert np.abs(np.angle(np.exp(1j * dang))).max() < 1e-3
+
+
+@pytest.mark.gpu
+def test_detect_and_describe_on_card_equals_cpu():
+    """RootSIFT on the card against the plain CPU run, with a mask and with
+    banding forced on the first level (as on a 15000 px ortho)."""
+    _need_card()
+    from geotrax_tpu_torch.ops import sift
+
+    # a smooth random field with blocks: few exactly tied DoG scores
+    rng = np.random.default_rng(0)
+    field = torch.as_tensor(rng.uniform(0, 255, (1, 1, 64, 64)).astype(np.float32))
+    gray = torch.nn.functional.interpolate(field, size=(512, 512), mode="bicubic")[0, 0]
+    for _ in range(300):
+        y, x = rng.integers(0, 500, 2)
+        gray[y:y + rng.integers(3, 12), x:x + rng.integers(3, 12)] = float(rng.uniform(0, 255))
+    mask = torch.ones(gray.shape, dtype=torch.bool)
+    mask[100:300, 50:200] = False
+    cpu = sift.detect_and_describe(gray, 6000, mask=mask)
+    card = sift.detect_and_describe(gray.cuda(), 6000, mask=mask.cuda())
+    _separated_equal(card, cpu)
+    limit = sift.BAND_PIXEL_LIMIT
+    try:
+        sift.BAND_PIXEL_LIMIT = 512 * 512 // 3
+        cpu = sift.detect_and_describe(gray, 6000)
+        card = sift.detect_and_describe(gray.cuda(), 6000)
+    finally:
+        sift.BAND_PIXEL_LIMIT = limit
+    _separated_equal(card, cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("detector", ["orb", "rsift"])
+def test_stabilizer_on_card_equals_cpu(detector):
+    """Both branches of the sequential Stabilizer on a pair of views of one
+    scene: the card's homography within 0.1 px of the CPU's at the corners,
+    inliers within 2 %, boxes within 0.1 px; two FAST launches on the orb
+    path."""
+    _need_card()
+    import chip_smoke
+    from geotrax_tpu_torch.stabilize import Stabilizer
+
+    ortho, _ = chip_smoke.synthetic_ortho(1024, rects=400)
+    fw, fh = 640, 360
+    h_a = chip_smoke.similarity(0.0, 200.0, 300.0, 0, 0) @ np.diag([1.2, 1.2, 1.0])
+    h_b = h_a @ chip_smoke.similarity(1.0, 8.0, -5.0, fw / 2, fh / 2)
+    dev = torch.as_tensor(ortho)
+    ref = chip_smoke.render_frame(dev, h_a, fw, fh, 1.0, 0)
+    cur = chip_smoke.render_frame(dev, h_b, fw, fh, 1.0, 1)
+    boxes = np.array([[200.0, 150.0, 40.0, 20.0], [420.0, 260.0, 30.0, 50.0]], np.float32)
+    cfg = dict(detector_name=detector, max_features=2000 if detector == "orb" else 20000,
+               ransac_epipolar_threshold=2.0 if detector == "orb" else 3.0)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        before = fast.fast_score_map.launches
+        stab = Stabilizer(**cfg, device=device)
+        stab.set_ref_frame(ref, boxes)
+        stab.stabilize(cur, boxes)
+        runs[device] = (stab, fast.fast_score_map.launches - before)
+    (cpu, _), (card, launches) = runs["cpu"], runs["cuda"]
+    assert launches == (2 if detector == "orb" else 0)
+    assert chip_smoke.corner_error(card.get_cur_trans_matrix(), cpu.get_cur_trans_matrix(),
+                                   fw, fh) < 0.1
+    assert abs(card.get_cur_inliers_count() - cpu.get_cur_inliers_count()) <= max(
+        2, 0.02 * cpu.get_cur_inliers_count())
+    np.testing.assert_allclose(card.transform_cur_boxes(), cpu.transform_cur_boxes(), atol=0.1)
+    truth = np.linalg.inv(h_a) @ h_b
+    assert chip_smoke.corner_error(card.get_cur_trans_matrix(), truth, fw, fh) < 1.0
+
+
+@pytest.mark.gpu
+def test_assign_first_polygon_on_card_equals_cpu():
+    _need_card()
+    from geotrax_tpu_torch.ops import polygon
+
+    rng = np.random.default_rng(3)
+    pts = torch.as_tensor(rng.uniform(0, 1000, (300_000, 2)).astype(np.float32))
+    base = rng.uniform(0, 900, (24, 1, 2))
+    quads = torch.as_tensor((base + np.array([[0, 0], [0, 60], [90, 64], [88, -3]])
+                             + rng.uniform(-4, 4, (24, 4, 2))).astype(np.float32))
+    cpu = polygon.assign_first_polygon(pts, quads)
+    card = polygon.assign_first_polygon(pts.cuda(), quads.cuda())
+    np.testing.assert_array_equal(card.cpu().numpy(), cpu.numpy())
+    assert (cpu >= 0).sum() > 1000

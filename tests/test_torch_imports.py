@@ -1,14 +1,15 @@
 """The port stands alone: nothing of JAX, of the JAX package, or of the
-packages the card's machine lacks (yaml, cv2, pandas, tqdm, flax, optax) is
-imported by geotrax_tpu_torch or chip_smoke.py, at import time or on the
-smoke's path. A subprocess refuses those imports, imports every module, and
-rehearses the smoke's phases on the CPU at a tiny size: one subprocess the
-kernel, main, steady and ReID phases, another the reference phase's six
-trackers and the cli phase (its decode branch included, since this machine
-has FFmpeg's headers) (two, each with one intra-op thread, so that each
-stays well inside its time limit when the suite runs on every core;
-tests/test_torch_imports_options.py rehearses the options phase in a third,
-on another worker); an AST walk checks the sources."""
+packages the card's machine lacks or the port does without (yaml, cv2,
+pandas, tqdm, flax, optax, PIL) is imported by geotrax_tpu_torch or
+chip_smoke.py, at import time or on the smoke's path. A subprocess refuses
+those imports, imports every module, and rehearses the smoke's phases on
+the CPU at a tiny size: one subprocess the kernel, main, steady and ReID
+phases, another the reference phase's six trackers and the cli phase (its
+decode branch included, since this machine has FFmpeg's headers) (two, each
+with one intra-op thread, so that each stays well inside its time limit
+when the suite runs on every core; tests/test_torch_imports_options.py and
+tests/test_torch_imports_georef.py rehearse the options and georef phases
+in their own, on other workers); an AST walk checks the sources."""
 
 import ast
 import subprocess
@@ -17,7 +18,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "geotrax_tpu_torch"
-REFUSED = ("jax", "jaxlib", "flax", "optax", "yaml", "cv2", "pandas", "tqdm", "geotrax_tpu")
+REFUSED = ("jax", "jaxlib", "flax", "optax", "yaml", "cv2", "pandas", "tqdm", "PIL", "geotrax_tpu")
 
 PRELUDE = r'''
 import importlib, importlib.abc, pkgutil, sys
@@ -121,7 +122,8 @@ def test_sources_import_no_jax_and_no_reference_package():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
     bad = [(f.relative_to(ROOT), m) for f in files for m in _imports(f)
-           if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "geotrax_tpu")]
+           if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "geotrax_tpu", "PIL",
+                                  "pandas", "tqdm")]
     assert not bad, bad
 
 

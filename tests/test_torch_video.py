@@ -96,3 +96,24 @@ def test_early_close_and_missing_file(clips, tmp_path):
     assert list(reader) == []
     with pytest.raises((FileNotFoundError, OSError)):
         tvideo.VideoReader(tmp_path / "missing.mp4")
+
+
+@pytest.mark.parametrize("index", [0, 5, 11])
+def test_read_frame_and_the_stages_video_data(clips, index):
+    """``VideoReader.read_frame`` and georeferencing's ``get_video_data``
+    equal the reference's on the same clip; a frame past the end raises."""
+    import logging
+
+    from geotrax_tpu.pipeline import _georeference_impl as jgeo
+    from geotrax_tpu_torch.pipeline import georeference as tgeo
+
+    path = clips["small"]
+    got = tvideo.VideoReader(path).read_frame(index)
+    np.testing.assert_array_equal(got, jvideo.VideoReader(path).read_frame(index))
+    log = logging.getLogger("test-torch-video")
+    frame, size, fps = tgeo.get_video_data(path, index, log)
+    ref_frame, ref_size, ref_fps = jgeo.get_video_data(path, index, log)
+    np.testing.assert_array_equal(frame, ref_frame)
+    assert size == ref_size == (48, 64) and fps == ref_fps
+    with pytest.raises(IndexError):
+        tvideo.VideoReader(path).read_frame(12)
