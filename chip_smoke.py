@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py                  # every phase; the last line is the result
     python3 chip_smoke.py --kernels-only   # phases 0-2 only, no result line
-    python3 chip_smoke.py --georef-only    # phases 0, 1 and 9 only, no result line
+    python3 chip_smoke.py --georef-only    # phases 0, 1 and 10 only, no result line
 
 Phases, one ``[smoke] <phase> ok <seconds>s ...`` line each; a failing phase
 ends the run with a non-zero exit and no result line:
@@ -65,7 +65,28 @@ ends the run with a non-zero exit and no result line:
                against the camera's motion) and with bytetrack (no FAST
                launch); ms of both chunks, FAST launches, homographies
                against the camera
-  9 georef     ``georeference`` as users run it at the reference regime: a
+  9 sequential the sequential per-frame extract path on 16 frames of a
+               drifting 3840x2160 video with 36 moving vehicles: (a) the
+               reader's vehicles as oracle detections through the fused
+               chunk step and through the sequential loop (SequentialOnly),
+               default configuration with ReID: with 1-frame chunks
+               every value equal; with one 16-frame chunk frames, ids,
+               classes and scores equal, boxes and homographies within
+               0.05 px (a chunk's batched RANSAC refinement and ReID
+               projection add in another order on the card);
+               (b) YOLOv8s at imgsz 1920 with a ``stabilo.detector_name:
+               rsift`` copy of the default preset through run_extraction
+               (one detect_batch group, every homography within 2 px of the
+               camera's); (c) RT-DETR-L at ULSpec's published widths (nc=4,
+               seeded random weights, the last score head's bias set for 36
+               detections per frame) at imgsz 1920 with the orb Stabilizer
+               and ReID through run_extraction (the detector in memory):
+               FAST and the patch gather launched once per frame, files
+               checked; its forward timed (CUDA events) against the float32
+               bound of its counted FLOPs, the stage's peak memory, one
+               frame at imgsz 640 on the card against the CPU; then both
+               kernels exact and timed on the path's own per-frame inputs
+ 10 georef     ``georeference`` as users run it at the reference regime: a
                synthetic 15000^2 orthophoto (tools/benchmark_ortho_matching.py's
                recipe), 4K reference and master frames rendered from it in
                torch, the assets written as files (PNG through the port's
@@ -81,7 +102,7 @@ ends the run with a non-zero exit and no result line:
                RootSIFT by level and by piece of a band against each
                bound; the single-level Stabilizer on a pair of the
                reference view (two FAST launches)
- 10 reference  the same port on a small oracle clip with a moving camera,
+ 11 reference  the same port on a small oracle clip with a moving camera,
                on the card and on the CPU (plain versions), for botsort,
                botsort with ReID, deepocsort with ReID, tracktrack with
                ReID, ocsort and fasttrack: equal track ids, close geometry
@@ -89,7 +110,7 @@ Then a JSON line describing each kernel, the card's nvidia-smi line, and as
 the last line {"ok": true, "device": {...}}. ``--kernels-only`` serves to
 time the kernels of two checkouts in one call: copy this script into the
 other checkout and run it there too. ``--georef-only`` runs phases 0, 1 and
-9 (no result line).
+10 (no result line).
 """
 
 from __future__ import annotations
@@ -110,7 +131,7 @@ import torch
 
 from geotrax_tpu_torch import cfg as port_cfg
 from geotrax_tpu_torch.io.synthetic import SyntheticVideoReader
-from geotrax_tpu_torch.models import yolov8
+from geotrax_tpu_torch.models import rtdetr_ul, yolov8
 from geotrax_tpu_torch.models.detector import Detector, OracleDetector
 from geotrax_tpu_torch.ops import fast, features, patches
 from geotrax_tpu_torch.ops.resize import resize_u8_linear
@@ -406,11 +427,27 @@ def vehicles_per_frame(width: int, height: int) -> int:
 
 
 def smoke_reader(width: int, height: int, seed: int, horizon: int, start: int = 0,
-                 stop=None) -> SyntheticVideoReader:
+                 stop=None, boxes=None) -> SyntheticVideoReader:
     """Frames ``start..stop-1`` of one ``horizon``-frame video seen by the
-    drifting camera (the same video whatever the slice)."""
+    drifting camera (the same video whatever the slice), with the reader's
+    two rectangles or ``boxes`` (``vehicle_boxes``)."""
     return SyntheticVideoReader(width=width, height=height, n_frames=horizon, seed=seed,
-                                camera=CAMERA, start=start, stop=stop)
+                                camera=CAMERA, start=start, stop=stop, boxes=boxes)
+
+
+def vehicle_boxes(width: int, height: int, n: int, seed: int) -> list:
+    """``n`` seeded vehicle-sized rectangles (about 100x40 px at 4K, scaled
+    with the frame) moving at up to 3 px per frame: the reader's boxes."""
+    rng = np.random.default_rng(seed)
+    scale = width / 3840
+    out = []
+    for _ in range(n):
+        w, h = rng.uniform(70, 130) * scale, rng.uniform(30, 50) * scale
+        out.append({"xy0": (float(rng.uniform(w, width - w)), float(rng.uniform(h, height - h))),
+                    "v": tuple(float(v) for v in rng.uniform(-3, 3, 2)),
+                    "wh": (int(w), int(h)),
+                    "color": tuple(int(c) for c in rng.integers(100, 256, 3))})
+    return out
 
 
 def make_frames(reader: SyntheticVideoReader) -> list:
@@ -1579,6 +1616,370 @@ def phase_georef(device: str = "cuda", size: int = GEO_ORTHO_PX, fw: int = 3840,
 # main
 # --------------------------------------------------------------------------
 
+# --------------------------------------------------------------------------
+# the sequential per-frame path
+# --------------------------------------------------------------------------
+
+SEQ_FRAMES = 16
+RTDETR_CHECK_IMGSZ = 640
+# card against CPU at RTDETR_CHECK_IMGSZ: float32 products summed in other
+# orders through ~100 layers move scores by ~1e-5 and boxes by ~1e-5 of the
+# frame's width once un-stretched (6x from 640 to 3840 px)
+RTDETR_SCORE_TOL = 1e-4
+RTDETR_BOX_TOL_PX = 0.2
+# fused (a chunk of frames) against sequential on the card: the tolerance of
+# the card against the CPU (phase_reference)
+FUSED_SEQ_TOL_PX = 0.05
+_INV_255 = float(np.float32(1.0) / np.float32(255.0))
+
+
+def config_file(path: Path, imgsz: int, **edits) -> str:
+    """A user's copy of the default preset at ``imgsz`` with lines replaced
+    ({old line: new line}); returns its path."""
+    text = (port_cfg.CFG_DIR / "default.yaml").read_text()
+    for old, new in {"  imgsz: 1920\n": f"  imgsz: {imgsz}\n", **edits}.items():
+        if text.count(old) != 1:
+            raise AssertionError(f"the default preset has {text.count(old)} lines {old!r}")
+        text = text.replace(old, new)
+    path.write_text(text)
+    return str(path)
+
+
+REID_ON = {"    appearance_thresh: 0.8\n    with_reid: false\n":
+           "    appearance_thresh: 0.8\n    with_reid: true\n"}
+
+
+def rtdetr_images(frames_u8: torch.Tensor, imgsz: int) -> torch.Tensor:
+    """The Detector's RT-DETR input: the square stretch, scaled to [0,1]."""
+    return resize_u8_linear(frames_u8, imgsz, imgsz).to(torch.float32) * _INV_255
+
+
+def calibrate_rtdetr_bias(detector: Detector, frame_u8: np.ndarray, boxes: int) -> int:
+    """Shift the last score head's biases of a random RT-DETR so that
+    ``boxes`` queries of ``frame_u8`` score at or above ``conf`` (one shift
+    for every class keeps each query's best class); returns the valid
+    detections on that frame."""
+    x = torch.as_tensor(frame_u8[None]).to(detector.device)
+    spec = detector.spec
+    with torch.no_grad():
+        _, probs = rtdetr_ul.forward(detector.model, rtdetr_images(x, detector.imgsz), spec)
+        logits = torch.logit(probs.amax(dim=-1).double()).flatten()
+        kth = float(torch.topk(logits, boxes).values[-1])
+        shift = math.log(detector.conf / (1.0 - detector.conf)) - kth + 1e-6
+        detector.model.p["decoder"][f"dec_score_head{spec.ndl - 1}"]["b"].add_(shift)
+    return int(detector(x[0])["valid"].sum())
+
+
+class CountFlops:
+    """Within the block, counts the operations of every convolution
+    (``F.conv2d``) and matrix product (``@``) that runs: 2 x each output
+    element x its reduction length (the work that bounds a forward in
+    float32; elementwise work and gathers are left out)."""
+
+    def __enter__(self):
+        import torch.nn.functional as F
+
+        self.flops = 0.0
+        self._conv, self._matmul = F.conv2d, torch.Tensor.__matmul__
+
+        def conv2d(x, w, *args, **kwargs):
+            out = self._conv(x, w, *args, **kwargs)
+            self.flops += 2.0 * out.numel() * w.shape[1] * w.shape[2] * w.shape[3]
+            return out
+
+        def matmul(a, b):
+            out = self._matmul(a, b)
+            self.flops += 2.0 * out.numel() * a.shape[-1]
+            return out
+
+        F.conv2d, torch.Tensor.__matmul__ = conv2d, matmul
+        return self
+
+    def __exit__(self, *exc):
+        import torch.nn.functional as F
+
+        F.conv2d, torch.Tensor.__matmul__ = self._conv, self._matmul
+
+
+def run_extraction_in_memory(args, frames, info, detector=None) -> dict:
+    """``run_extraction`` with the frames in memory (``open_reader``
+    replaced, the card's machine cannot decode) and, when given, the
+    detector in memory (``load_detector`` replaced): the reference's own
+    patch points."""
+    replaced = port_extract.open_reader, port_extract.load_detector
+    port_extract.open_reader = lambda src, start, stop, config: FrameList(info, frames)
+    if detector is not None:
+        port_extract.load_detector = lambda config, logger: detector
+    try:
+        return port_extract.run_extraction(args, port_extract._LOG)
+    finally:
+        port_extract.open_reader, port_extract.load_detector = replaced
+
+
+def reset_launches() -> None:
+    fast.fast_score_map.launches = 0
+    patches.patches32.launches = 0
+
+
+def launches() -> dict:
+    return {"fast_score": fast.fast_score_map.launches,
+            "patch_gather": patches.patches32.launches}
+
+
+def fused_vs_sequential(frames, reader, device: str, imgsz: int, vehicles: int) -> dict:
+    """(a) The same frames and oracle detections (the reader's vehicles)
+    through the sequential loop with ``SequentialOnly`` (one frame at a
+    time) and through the fused chunk step, the default configuration with
+    ReID, the reference's contract (tests/test_fused_parity.py):
+
+    - with chunks of one frame, the step's batched functions run at the
+      loop's shapes: every value of the rows and transforms must be equal;
+    - with one chunk of all the frames, frames, ids, classes and scores must
+      be equal, and boxes and homographies within FUSED_SEQ_TOL_PX (on the
+      card a chunk's batched RANSAC refinement and ReID projection add in
+      another order than one frame's; on the CPU every value is equal)."""
+    from geotrax_tpu_torch.models.detector import SequentialOnly
+
+    info = reader.info
+    config = smoke_config(imgsz, {"with_reid": True})
+
+    def oracle():
+        return OracleDetector(lambda i: [list(b) + [0.9, 0] for b in reader.boxes_at(i)],
+                              max_det=2 * vehicles, device=device)
+
+    def fused(chunk):
+        parts = port_extract.make_extract_tracker(config, device=device)
+        fx = port_extract.make_fused_extractor(config, oracle(), *parts[:3], info.height,
+                                               info.width, parts[3], chunk=chunk, device=device)
+        return port_extract.track_video_fused(FrameList(info, frames), fx, chunk=chunk)[:2]
+
+    st, sh = port_extract.track_video_sequential(
+        FrameList(info, frames), SequentialOnly(oracle()),
+        port_extract.make_extract_tracker(config, device=device), config)[:2]
+    res = {"rows": int(len(st))}
+    for name, chunk in (("chunk1", 1), ("chunk", len(frames))):
+        ft, fh = fused(chunk)
+        if ft.shape != st.shape or fh.shape != sh.shape or len(st) == 0:
+            raise AssertionError(f"fused ({chunk}-frame chunks) != sequential: rows {ft.shape} vs "
+                                 f"{st.shape}, transforms {fh.shape} vs {sh.shape}")
+        r = res[name] = {
+            "equal": bool(np.array_equal(ft, st) and np.array_equal(fh, sh)),
+            "same_ids": bool(np.array_equal(ft[:, [0, 1, 10, 11]], st[:, [0, 1, 10, 11]])
+                             and np.array_equal(fh[:, 0], sh[:, 0])),
+            "box_diff_px": float(np.abs(ft[:, 2:10] - st[:, 2:10]).max()),
+            "h_diff": float(np.abs(fh - sh).max()),
+            "h_diff_px": max(corner_error(a.reshape(3, 3), b.reshape(3, 3), info.width,
+                                          info.height) for a, b in zip(fh[:, 1:], sh[:, 1:]))}
+        if (chunk == 1 and not r["equal"]) or not r["same_ids"] or max(
+                r["box_diff_px"], r["h_diff_px"]) > FUSED_SEQ_TOL_PX:
+            raise AssertionError(f"fused ({chunk}-frame chunks) != sequential: {r}")
+    res["camera_err_px"] = camera_error(sh[:, 1:].reshape(-1, 3, 3), sh[:, 0].astype(int), reader)
+    return res
+
+
+def path_kernels(detector: Detector, frame: np.ndarray, device: str, reps: int) -> dict:
+    """Both kernels on the sequential path's own per-frame inputs: FAST on
+    the Stabilizer's gray of ``frame``, the gather on ``embed_boxes``'
+    planes of ``frame`` and its detections; each exact against its plain
+    version, timed with its bound on the card."""
+    x = torch.as_tensor(frame).to(device)
+    gray = features.downsample(features.rgb_to_gray(x), 0.5)[None].contiguous()
+    if not torch.equal(fast.fast_score_map(gray, 20.0), fast.fast_score_map_torch(gray, 20.0)):
+        raise AssertionError("FAST kernel != plain on the sequential path's gray")
+    seen = {}
+
+    def plain_gather(planes, x0, y0):  # the plain version, keeping its inputs
+        seen.update(planes=planes, x0=x0, y0=y0)
+        return patches.patches32_torch(planes, x0, y0)
+
+    det = detector(x)
+    embed_boxes(x[None], det["boxes_xywh"][None], gather=plain_gather)
+    planes, x0, y0 = seen["planes"], seen["x0"], seen["y0"]
+    if not torch.equal(patches.patches32(planes, x0, y0), patches.patches32_torch(planes, x0, y0)):
+        raise AssertionError("patch gather != plain on the sequential path's planes")
+    res = {"gray_shape": tuple(gray.shape), "planes_shape": tuple(planes.shape),
+           "corners": int(x0.shape[1])}
+    res["gather_bound_ms"], _, res["gather_bytes"] = patch_bound_ms(planes, x0, y0)
+    if device == "cuda":
+        res["fast"] = time_fast(gray, reps)
+        res["gather_ms"] = cuda_ms(lambda: patches.patches32(planes, x0, y0), reps)
+        res["gather_plain_ms"] = cuda_ms(lambda: patches.patches32_torch(planes, x0, y0), reps)
+        res["gather_library_ms"] = cuda_ms(lambda: unfold_gather(planes, x0, y0), reps)
+    return res
+
+
+def rtdetr_card_vs_cpu(model, frame: np.ndarray, config: dict, imgsz: int) -> dict:
+    """One frame through the Detector at ``imgsz`` on the model's device and
+    on a CPU copy of the model: equal valid slots and classes, scores
+    within RTDETR_SCORE_TOL, each box within RTDETR_BOX_TOL_PX of the CPU's
+    box in its slot or in a slot of the same class whose score ties."""
+    import copy
+
+    cfg = {**config["ultralytics"], "imgsz": imgsz}
+    dev = Detector(model, cfg, device=str(next(model.parameters()).device))
+    cpu = Detector(copy.deepcopy(model).cpu(), cfg, device="cpu")
+    a = {k: v.cpu() for k, v in dev(frame).items()}
+    b = cpu(frame)
+    if not (torch.equal(a["valid"], b["valid"]) and torch.equal(a["classes"], b["classes"])):
+        raise AssertionError("RT-DETR on the card and on the CPU differ in valid slots or classes")
+    score_err = float((a["scores"] - b["scores"]).abs().max())
+    tie = ((a["scores"][:, None] - b["scores"][None, :]).abs() <= RTDETR_SCORE_TOL) & (
+        a["classes"][:, None] == b["classes"][None, :])
+    dist = (a["boxes_xywh"][:, None, :] - b["boxes_xywh"][None, :, :]).abs().amax(-1)
+    slot_err = dist.diagonal()
+    tied_err = torch.where(tie, dist, torch.inf).amin(1)
+    box_err = float(torch.minimum(slot_err, tied_err).max())
+    if score_err > RTDETR_SCORE_TOL or box_err > RTDETR_BOX_TOL_PX:
+        raise AssertionError(f"RT-DETR card vs CPU: scores {score_err}, boxes {box_err} px")
+    return {"score_err": score_err, "box_err_px": box_err, "slot_box_err_px": float(slot_err.max()),
+            "valid": int(a["valid"].sum())}
+
+
+def phase_sequential(device: str = "cuda", width: int = 3840, height: int = 2160,
+                     n_frames: int = SEQ_FRAMES, imgsz: int = 1920, seed: int = 0,
+                     tol_px: float = 2.0, check_imgsz: int = RTDETR_CHECK_IMGSZ,
+                     variant: str = "s", rsift_features: int = 2000, reps: int = 10) -> dict:
+    """The sequential per-frame path on ``n_frames`` frames of a drifting
+    video with ``vehicles_per_frame`` vehicles: (a) fused == sequential,
+    (b) YOLOv8 with the rsift stabilizer through ``run_extraction`` (one
+    ``detect_batch`` group), (c) RT-DETR-L (ULSpec's published widths, nc=4,
+    random weights calibrated to the vehicle count) with the orb stabilizer
+    and ReID through ``run_extraction``, its forward timed and bounded,
+    card against CPU at ``check_imgsz``, and both kernels on the path's own
+    per-frame inputs."""
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    vehicles = vehicles_per_frame(width, height)
+    reader = smoke_reader(width, height, seed, n_frames,
+                          boxes=vehicle_boxes(width, height, vehicles, seed))
+    frames = make_frames(reader)
+    info = reader.info
+    res = {"vehicles": vehicles, "frames": n_frames, "size": (width, height), "imgsz": imgsz,
+           "check_imgsz": check_imgsz, "variant": variant}
+    t0 = time.perf_counter()
+    res["a"] = fused_vs_sequential(frames, reader, device, imgsz, vehicles)
+    res["a"]["s"] = time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        from geotrax_tpu_torch.models import convert
+
+        # (b) YOLOv8 and the rsift stabilizer, as a user's -c copy runs them
+        t0 = time.perf_counter()
+        model = yolov8.init_params(torch.Generator().manual_seed(seed),
+                                   yolov8.ModelSpec(variant=variant, nc=4), device=device)
+        det = Detector(model, smoke_config(imgsz)["ultralytics"], device=device)
+        res["b_detections_frame0"] = calibrate_class_bias(det, frames[0][1], vehicles)
+        convert.save_npz(tmp / "yolo.npz", det.model)
+        cfg = config_file(tmp / "rsift.yaml", imgsz, **{
+            "  detector_name: 'orb'           # [orb, sift, rsift, brisk, kaze, akaze]\n":
+            "  detector_name: rsift\n",
+            "  max_features: 2000\n  ref_multiplier":
+            f"  max_features: {rsift_features}\n  ref_multiplier"})
+        batches = []
+        detect_batch = Detector.detect_batch
+
+        def counted(self, frames_u8):
+            batches.append(len(frames_u8))
+            return detect_batch(self, frames_u8)
+
+        Detector.detect_batch = counted
+        reset_launches()
+        try:
+            stats = run_extraction_in_memory(cli_args(tmp / "V_rsift.mp4", cfg, tmp / "yolo.npz",
+                                                      device), frames, info)
+        finally:
+            Detector.detect_batch = detect_batch
+        sync()
+        if batches != [n_frames] or launches() != {"fast_score": 0, "patch_gather": 0}:
+            raise AssertionError(f"rsift run: detect_batch groups {batches}, launches {launches()}")
+        res["b"] = {"stats": stats, "s": time.perf_counter() - t0, "checks": check_files(
+            stats["tracks_file"], stats["transforms_file"], stats.get("metadata_file"), n_frames,
+            reader, tol_px, may_lack_tracks=True)}
+        del det, model
+
+        # (c) RT-DETR-L at its published widths, orb stabilizer and ReID
+        t0 = time.perf_counter()
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        ul = rtdetr_ul.init_params(torch.Generator().manual_seed(seed), rtdetr_ul.ULSpec(nc=4),
+                                   device=device)
+        cfg = config_file(tmp / "rtdetr_reid.yaml", imgsz, **REID_ON)
+        config_c = port_cfg.load_config(cfg)
+        det = Detector(ul, config_c["ultralytics"], device=device)
+        res["c_detections_frame0"] = calibrate_rtdetr_bias(det, frames[0][1], vehicles)
+        placeholder = tmp / "rtdetr-l.pt"  # the detector comes from memory (load_detector)
+        torch.save({"class_names": {0: "car", 1: "bus", 2: "truck", 3: "motorcycle"}}, placeholder)
+        reset_launches()
+        stats = run_extraction_in_memory(cli_args(tmp / "V_rtdetr.mp4", cfg, placeholder, device),
+                                         frames, info, detector=det)
+        sync()
+        res["c_launches"] = launches()
+        expected = {"fast_score": n_frames * (device == "cuda"),
+                    "patch_gather": n_frames * (device == "cuda")}
+        if res["c_launches"] != expected:
+            raise AssertionError(f"RT-DETR run: launches {res['c_launches']}, expected {expected}")
+        res["c"] = {"stats": stats, "s": time.perf_counter() - t0, "checks": check_files(
+            stats["tracks_file"], stats["transforms_file"], stats.get("metadata_file"), n_frames,
+            reader, tol_px, may_lack_tracks=True)}
+        if device == "cuda":
+            res["c"]["peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    x = torch.as_tensor(np.stack([f for _, f in frames[:1]])).to(device)
+    imgs = rtdetr_images(x, imgsz)
+    with torch.no_grad():
+        dets = det.detect_batch(x)
+        res["c_valid_frame0"] = int(dets["valid"].sum())
+        with CountFlops() as counter:
+            rtdetr_ul.forward(det.model, imgs, det.spec)
+        res["c_flops"] = counter.flops
+        res["c_bound_ms"] = res["c_flops"] / FP32_FLOP_PER_S * 1e3
+        if device == "cuda":
+            res["c_forward_ms"] = cuda_ms(lambda: rtdetr_ul.forward(det.model, imgs, det.spec), 5)
+            res["c_detect_ms"] = cuda_ms(lambda: det.detect_batch(x), 5)
+    res["c_card_vs_cpu"] = rtdetr_card_vs_cpu(det.model, frames[0][1], config_c, check_imgsz)
+    res["kernels"] = path_kernels(det, frames[0][1], device, reps)
+    return res
+
+
+def sequential_line(sq: dict, seconds: float, smi: str) -> str:
+    a, b, c = sq["a"], sq["b"], sq["c"]
+    ms = lambda st: (f"detect {st['avg_detect_ms']:.1f}, stabilize {st['avg_stab_ms']:.1f}, "  # noqa: E731
+                     f"track {st['avg_track_ms']:.1f} ms/frame")
+    k = sq["kernels"]
+    w, h = sq["size"]
+    line = (f"sequential ok {seconds:.1f}s {sq['frames']} frames {w}x{h}, {sq['vehicles']} "
+            f"vehicles: (a) fused vs sequential (oracle, ReID, {a['rows']} rows): 1-frame chunks "
+            f"every value equal {a['chunk1']['equal']}; one {sq['frames']}-frame chunk: frames, "
+            f"ids, classes, scores equal, every value equal {a['chunk']['equal']}, boxes within "
+            f"{a['chunk']['box_diff_px']:.3g} px, H within {a['chunk']['h_diff']:.3g} "
+            f"({a['chunk']['h_diff_px']:.3g} px at the corners); camera error "
+            f"{a['camera_err_px']:.3f} px; "
+            f"(b) YOLOv8{sq['variant']} imgsz {sq['imgsz']} + rsift, one detect_batch group: "
+            f"{ms(b['stats'])}, "
+            f"{sq['b_detections_frame0']} detections on frame 0, {b['checks']['rows']} rows, "
+            f"camera error {b['checks']['camera_err_px']:.3f} px, run {b['s']:.1f}s; (c) RT-DETR-L "
+            f"(ULSpec nc=4) imgsz {sq['imgsz']} + orb + ReID: {ms(c['stats'])}, "
+            f"{sq['c_detections_frame0']} "
+            f"detections on frame 0, {c['checks']['rows']} rows, camera error "
+            f"{c['checks']['camera_err_px']:.3f} px, launches {sq['c_launches']}, run {c['s']:.1f}s")
+    if "c_forward_ms" in sq:
+        line += (f"; forward {sq['c_forward_ms']:.2f} ms/frame (detect_batch "
+                 f"{sq['c_detect_ms']:.2f} ms) against the float32 bound {sq['c_bound_ms']:.2f} ms "
+                 f"({sq['c_flops'] / 1e12:.3f} TFLOP), stage peak {c['peak_gib']:.2f} GiB")
+    cc = sq["c_card_vs_cpu"]
+    line += (f"; card vs CPU at imgsz {sq['check_imgsz']}: {cc['valid']} valid, scores "
+             f"{cc['score_err']:.2e}, boxes {cc['box_err_px']:.2e} px (slot-wise "
+             f"{cc['slot_box_err_px']:.2e})")
+    if "fast" in k:
+        line += (f"; on the path's own inputs: fast_score {k['gray_shape']} "
+                 f"{fast_line(k['fast'])}, patch_gather {k['planes_shape']} x {k['corners']} "
+                 f"kernel {k['gather_ms']:.4f} ms, plain {k['gather_plain_ms']:.3f} ms, "
+                 f"unfold-gather {k['gather_library_ms']:.3f} ms, bound "
+                 f"{k['gather_bound_ms']:.4f} ms ({k['gather_bytes'] / 1e6:.1f} MB)")
+    return line + f" [{smi}]"
+
+
 def fast_line(res: dict) -> str:
     return (f"kernel_ms={res['ms']:.4f} plain_ms={res['plain_ms']:.3f} "
             f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}), {res['gb_per_s']:.0f} GB/s, "
@@ -1622,11 +2023,12 @@ def breakdown_lines(brk: dict) -> list:
     return lines
 
 
-def kernel_entry(name: str, source: str, replaces: str, launches: int, res: dict) -> dict:
+def kernel_entry(name: str, source: str, replaces: str, launches: int, res: dict,
+                 sequential_launches: int) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": res["max_abs_err"], "ms": res["ms"],
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
-            "library_ms": res.get("library_ms")}
+            "library_ms": res.get("library_ms"), "launches_sequential": sequential_launches}
 
 
 def main(argv) -> int:
@@ -1785,6 +2187,10 @@ def main(argv) -> int:
             + f"; peak mem {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{dev['smi']}]")
 
         t = time.perf_counter()
+        sq = phase_sequential("cuda")
+        log(sequential_line(sq, time.perf_counter() - t, dev["smi"]))
+
+        t = time.perf_counter()
         geo = phase_georef("cuda")
         log(georef_line(geo, time.perf_counter() - t, dev["smi"]))
         print("\n".join(breakdown_lines(geo["ortho_breakdown"])), flush=True)
@@ -1805,9 +2211,10 @@ def main(argv) -> int:
 
     log(f"all phases ok {time.perf_counter() - t_all:.1f}s")
     kernels = {"kernels": [
-        kernel_entry("fast_score", FAST_SOURCE, FAST_REPLACES, launches, kern),
+        kernel_entry("fast_score", FAST_SOURCE, FAST_REPLACES, launches, kern,
+                     sq["c_launches"]["fast_score"]),
         kernel_entry("patch_gather", PATCH_SOURCE, PATCH_REPLACES,
-                     rd["launches"]["patch_gather"], pg),
+                     rd["launches"]["patch_gather"], pg, sq["c_launches"]["patch_gather"]),
     ]}
     print(json.dumps(kernels), flush=True)
     print(dev["smi"], flush=True)

@@ -1,8 +1,7 @@
 """Detector checkpoints: ultralytics ``.pt`` state dicts and ``.npz``
-parameter files, loaded into the port's ``YOLOv8``.
+parameter files, loaded into the port's ``YOLOv8`` and RT-DETR models.
 
-The port's copy of the YOLOv8 part of ``geotrax_tpu/models/convert.py``
-(RT-DETR waits for ROADMAP A14):
+The port's copy of ``geotrax_tpu/models/convert.py``:
 
 - ``.pt``: a flat ultralytics ``DetectionModel`` state dict (``model.<i>.``
   keys, Conv2d + BatchNorm2d per block), as a raw dict, under ``model`` or
@@ -15,6 +14,12 @@ The port's copy of the YOLOv8 part of ``geotrax_tpu/models/convert.py``
   path parts), ``meta:<key>`` scalars (variant, nc, reg_max, p2) and a
   pickled ``class_names`` dict. A file written by either package loads in
   the other.
+
+- RT-DETR ``.pt``: an ultralytics ``RTDETRDetectionModel`` state dict of
+  the ``rtdetr-l`` graph (``convert_rtdetr_ultralytics``): batch norm
+  folded, each RepConv's 3x3 and 1x1 branches merged into one 3x3 kernel,
+  into the JAX converter's parameter tree and from it into the port's
+  ``rtdetr_ul.RTDETRL``.
 
 A real ultralytics checkpoint pickles ultralytics' own classes, which
 ``torch.load`` cannot rebuild without that package; such a file loads once
@@ -282,3 +287,185 @@ def save_pt(path: Path, model: yolov8.YOLOv8, class_names: Optional[dict] = None
     if class_names is not None:
         ckpt["class_names"] = dict(class_names)
     torch.save(ckpt, Path(path))
+
+
+# ---------------------------------------------------------------------------
+# RT-DETR (ultralytics RTDETRDetectionModel, rtdetr-l graph)
+# ---------------------------------------------------------------------------
+
+def _conv_t(sd: dict, prefix: str) -> dict:
+    """Conv2d + BatchNorm2d -> {'w': HWIO, 'b'} with BN folded."""
+    w, b = _fold_conv_bn(sd, prefix)
+    return {"w": np.transpose(w, (2, 3, 1, 0)), "b": b}
+
+
+def _lin_t(sd: dict, prefix: str) -> dict:
+    """torch nn.Linear -> {'w' (in,out), 'b'} (transposed for x @ w)."""
+    return {"w": np.ascontiguousarray(sd[f"{prefix}.weight"].T).astype(np.float32),
+            "b": np.asarray(sd[f"{prefix}.bias"], np.float32)}
+
+
+def _ln_t(sd: dict, prefix: str) -> dict:
+    return {"scale": np.asarray(sd[f"{prefix}.weight"], np.float32),
+            "bias": np.asarray(sd[f"{prefix}.bias"], np.float32)}
+
+
+def _mha_t(sd: dict, prefix: str) -> dict:
+    """torch nn.MultiheadAttention (packed qkv in_proj)."""
+    return {
+        "in_w": np.ascontiguousarray(sd[f"{prefix}.in_proj_weight"].T).astype(np.float32),
+        "in_b": np.asarray(sd[f"{prefix}.in_proj_bias"], np.float32),
+        "out_w": np.ascontiguousarray(sd[f"{prefix}.out_proj.weight"].T).astype(np.float32),
+        "out_b": np.asarray(sd[f"{prefix}.out_proj.bias"], np.float32),
+    }
+
+
+def _repconv_merged(sd: dict, prefix: str) -> dict:
+    """RepConv (3x3 + 1x1 branches, each Conv+BN) as ONE 3x3 conv: BN folded
+    per branch, the 1x1 kernel added at the 3x3 kernel's centre."""
+    b3 = _conv_t(sd, f"{prefix}.conv1")
+    b1 = _conv_t(sd, f"{prefix}.conv2")
+    w = b3["w"].copy()
+    w[1:2, 1:2] += b1["w"]
+    return {"w": w, "b": b3["b"] + b1["b"]}
+
+
+def _hgblock_t(sd: dict, prefix: str, light: bool, n: int = 6) -> dict:
+    out = {}
+    for i in range(n):
+        if light:
+            out[f"m{i}"] = {"conv1": _conv_t(sd, f"{prefix}.m.{i}.conv1"),
+                            "conv2": _conv_t(sd, f"{prefix}.m.{i}.conv2")}
+        else:
+            out[f"m{i}"] = _conv_t(sd, f"{prefix}.m.{i}")
+    out["sc"] = _conv_t(sd, f"{prefix}.sc")
+    out["ec"] = _conv_t(sd, f"{prefix}.ec")
+    return out
+
+
+def _repc3_t(sd: dict, prefix: str, n: int = 3) -> dict:
+    out = {"cv1": _conv_t(sd, f"{prefix}.cv1"), "cv2": _conv_t(sd, f"{prefix}.cv2")}
+    for i in range(n):
+        out[f"m{i}"] = _repconv_merged(sd, f"{prefix}.m.{i}")
+    if f"{prefix}.cv3.conv.weight" in sd:
+        out["cv3"] = _conv_t(sd, f"{prefix}.cv3")
+    return out
+
+
+def _input_proj_t(sd: dict, prefix: str) -> dict:
+    """The decoder's input_proj: Conv2d(bias=False) + a plain BatchNorm2d
+    (eps 1e-5)."""
+    w = sd[f"{prefix}.0.weight"]
+    mean, var = sd[f"{prefix}.1.running_mean"], sd[f"{prefix}.1.running_var"]
+    scale = sd[f"{prefix}.1.weight"] / np.sqrt(var + 1e-5)
+    return {"w": np.transpose(w * scale[:, None, None, None], (2, 3, 1, 0)).astype(np.float32),
+            "b": (sd[f"{prefix}.1.bias"] - mean * scale).astype(np.float32)}
+
+
+def _mlp_t(sd: dict, prefix: str, n_layers: int) -> dict:
+    return {f"l{i}": _lin_t(sd, f"{prefix}.layers.{i}") for i in range(n_layers)}
+
+
+def infer_rtdetr_spec(sd: dict):
+    """ULSpec of an ultralytics RT-DETR state dict (rtdetr-l family)."""
+    from geotrax_tpu_torch.models.rtdetr_ul import ULSpec
+
+    stem = sd["model.0.stem1.conv.weight"].shape[0]
+    if stem != 32:
+        raise NotImplementedError(
+            f"Only the rtdetr-l (HGNetv2-L, stem 32) graph is supported; "
+            f"this checkpoint has stem width {stem} (rtdetr-x is unsupported).")
+    ndl = 0
+    while f"model.28.dec_score_head.{ndl}.weight" in sd:
+        ndl += 1
+    return ULSpec(nc=int(sd["model.28.dec_score_head.0.weight"].shape[0]),
+                  hd=int(sd["model.28.enc_output.0.weight"].shape[0]), ndl=ndl,
+                  d_ffn=int(sd["model.28.decoder.layers.0.linear1.weight"].shape[0]))
+
+
+def rtdetr_ultralytics_tree(sd: dict, spec) -> dict:
+    """Flat ultralytics RT-DETR state dict -> the JAX converter's parameter
+    tree (numpy, HWIO convolutions)."""
+    m = "model"
+    backbone = {
+        "stem": {k: _conv_t(sd, f"{m}.0.{k}") for k in ("stem1", "stem2a", "stem2b", "stem3", "stem4")},
+        "s1": _hgblock_t(sd, f"{m}.1", light=False),
+        "dw2": _conv_t(sd, f"{m}.2"),
+        "s2": _hgblock_t(sd, f"{m}.3", light=False),
+        "dw3": _conv_t(sd, f"{m}.4"),
+        "s3a": _hgblock_t(sd, f"{m}.5", light=True),
+        "s3b": _hgblock_t(sd, f"{m}.6", light=True),
+        "s3c": _hgblock_t(sd, f"{m}.7", light=True),
+        "dw4": _conv_t(sd, f"{m}.8"),
+        "s4": _hgblock_t(sd, f"{m}.9", light=True),
+    }
+    encoder = {
+        "proj5": _conv_t(sd, f"{m}.10"),
+        "aifi": {"ma": _mha_t(sd, f"{m}.11.ma"), "fc1": _lin_t(sd, f"{m}.11.fc1"),
+                 "fc2": _lin_t(sd, f"{m}.11.fc2"), "norm1": _ln_t(sd, f"{m}.11.norm1"),
+                 "norm2": _ln_t(sd, f"{m}.11.norm2")},
+        "lat0": _conv_t(sd, f"{m}.12"), "proj4": _conv_t(sd, f"{m}.14"),
+        "fpn0": _repc3_t(sd, f"{m}.16"), "lat1": _conv_t(sd, f"{m}.17"),
+        "proj3": _conv_t(sd, f"{m}.19"), "fpn1": _repc3_t(sd, f"{m}.21"),
+        "down0": _conv_t(sd, f"{m}.22"), "pan0": _repc3_t(sd, f"{m}.24"),
+        "down1": _conv_t(sd, f"{m}.25"), "pan1": _repc3_t(sd, f"{m}.27"),
+    }
+    dec = f"{m}.28"
+    decoder = {
+        "enc_output_l": _lin_t(sd, f"{dec}.enc_output.0"),
+        "enc_output_ln": _ln_t(sd, f"{dec}.enc_output.1"),
+        "enc_score_head": _lin_t(sd, f"{dec}.enc_score_head"),
+        "enc_bbox_head": _mlp_t(sd, f"{dec}.enc_bbox_head", 3),
+        "query_pos_head": _mlp_t(sd, f"{dec}.query_pos_head", 2),
+    }
+    for i in range(3):
+        decoder[f"input_proj{i}"] = _input_proj_t(sd, f"{dec}.input_proj.{i}")
+    for i in range(spec.ndl):
+        lp = f"{dec}.decoder.layers.{i}"
+        decoder[f"dec_layer{i}"] = {
+            "self_attn": _mha_t(sd, f"{lp}.self_attn"),
+            "cross_attn": {name: _lin_t(sd, f"{lp}.cross_attn.{name}") for name in (
+                "sampling_offsets", "attention_weights", "value_proj", "output_proj")},
+            "norm1": _ln_t(sd, f"{lp}.norm1"),
+            "norm2": _ln_t(sd, f"{lp}.norm2"),
+            "norm3": _ln_t(sd, f"{lp}.norm3"),
+            "linear1": _lin_t(sd, f"{lp}.linear1"),
+            "linear2": _lin_t(sd, f"{lp}.linear2"),
+        }
+        decoder[f"dec_bbox_head{i}"] = _mlp_t(sd, f"{dec}.dec_bbox_head.{i}", 3)
+        decoder[f"dec_score_head{i}"] = _lin_t(sd, f"{dec}.dec_score_head.{i}")
+    return {"backbone": backbone, "encoder": encoder, "decoder": decoder}
+
+
+def convert_rtdetr_ultralytics(sd: dict, spec=None) -> tuple:
+    """Flat ultralytics RT-DETR state dict (rtdetr-l graph) -> (``RTDETRL``
+    on the CPU, ULSpec)."""
+    from geotrax_tpu_torch.models import rtdetr_ul
+
+    spec = spec or infer_rtdetr_spec(sd)
+    return rtdetr_ul.params_from_jax(rtdetr_ultralytics_tree(sd, spec), spec, device="cpu"), spec
+
+
+def load_rtdetr(model_path: Path) -> tuple:
+    """An RT-DETR checkpoint -> (model on the CPU, spec, class names or
+    None): a ``.pt`` is the ultralytics rtdetr-l graph (``RTDETRL``), a
+    ``.npz`` the native family (``rtdetr.RTDETR``, spec from its metadata)."""
+    from geotrax_tpu_torch.models import rtdetr
+
+    model_path = Path(model_path)
+    if model_path.suffix == ".pt":
+        model, spec = convert_rtdetr_ultralytics(torch_state_dict(model_path))
+        return model, spec, read_class_names(model_path)
+    if model_path.suffix != ".npz":
+        raise ValueError(f"Unsupported model format: {model_path}")
+    raw, meta = load_npz(model_path)
+    spec = rtdetr.RTDETRSpec(
+        variant=str(meta.get("variant", "s")),
+        nc=int(meta.get("nc", 4)),
+        hidden=int(meta.get("hidden", 256)),
+        num_queries=int(meta.get("num_queries", 300)),
+        num_decoder_layers=int(meta.get("num_decoder_layers", 4)),
+        num_heads=int(meta.get("num_heads", 8)),
+        num_points=int(meta.get("num_points", 4)),
+    )
+    return rtdetr.params_from_jax(_restore_lists(raw), spec, device="cpu"), spec, meta.get("class_names")

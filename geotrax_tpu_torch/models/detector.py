@@ -1,12 +1,17 @@
-"""Host-facing detector: letterbox -> YOLOv8 forward -> NMS, batched.
+"""Host-facing detector: YOLOv8 (letterbox, forward, NMS) or RT-DETR
+(square stretch, forward, top-k), batched or one frame at a time.
 
-Counterpart of ``geotrax_tpu/models/detector.py`` for YOLOv8: built from a
-checkpoint (``.pt`` or ``.npz``, ``models/convert.py``) or from a model
-made in memory (``yolov8.init_params``, ``yolov8.params_from_jax``), with
-the reference's config surface: ``imgsz``, ``conf``, ``iou``,
-``max_det``, ``agnostic_nms``, ``classes``, ``half`` (bfloat16 weights and
-activations, float32 post-processing) and ``tiles`` / ``tile_overlap``
-(``parallel/tiling.py``). RT-DETR waits for ROADMAP A14.
+Counterpart of ``geotrax_tpu/models/detector.py``: built from a checkpoint
+(``.pt`` or ``.npz``, ``models/convert.py``) or from a model made in memory
+(``yolov8.init_params`` / ``params_from_jax``, ``rtdetr_ul.init_params``,
+``rtdetr.params_from_jax``), with the reference's config surface:
+``imgsz``, ``conf``, ``iou``, ``max_det``, ``agnostic_nms``, ``classes``,
+``half`` (bfloat16 weights and activations, float32 post-processing) and
+``tiles`` / ``tile_overlap`` (``parallel/tiling.py``, YOLOv8 only). A path
+whose name contains ``rtdetr`` is an RT-DETR checkpoint, as in the
+reference: a ``.pt`` the ultralytics rtdetr-l graph, a ``.npz`` the native
+family. Every call returns ``(max_det,)``-slot dicts (``boxes_xywh``,
+``scores``, ``classes``, ``valid``) on the detector's device.
 """
 
 from __future__ import annotations
@@ -18,15 +23,18 @@ import numpy as np
 import torch
 
 from geotrax_tpu_torch._device import resolve_device
-from geotrax_tpu_torch.models import yolov8
+from geotrax_tpu_torch.models import rtdetr, rtdetr_ul, yolov8
 from geotrax_tpu_torch.ops.nms import postprocess_detections
+from geotrax_tpu_torch.ops.resize import resize_u8_linear
+from geotrax_tpu_torch.ops.topk import exact_top_k
+
+_INV_255 = float(np.float32(1.0) / np.float32(255.0))
 
 
 class Detector:
-    """YOLOv8 + NMS over batches of frames. ``model`` is a ``YOLOv8`` or the
-    path of a checkpoint, whose class names then replace ``class_names``."""
-
-    is_rtdetr = False
+    """YOLOv8 + NMS, or NMS-free RT-DETR, over frames. ``model`` is a
+    ``YOLOv8``, an ``RTDETRL``, an ``RTDETR`` or the path of a checkpoint,
+    whose class names then replace ``class_names``."""
 
     def __init__(self, model, detect_cfg: dict, class_names=None, logger=None, device="cuda"):
         self.device = resolve_device(device)
@@ -39,13 +47,23 @@ class Detector:
         self.tiles = int(detect_cfg.get("tiles", 1) or 1)
         self.tile_overlap = int(detect_cfg.get("tile_overlap", 128) or 128)
         if isinstance(model, (str, Path)):
-            if "rtdetr" in str(model).lower():
-                raise NotImplementedError("RT-DETR detection is not ported yet (ROADMAP A14)")
-            from geotrax_tpu_torch.models.convert import load_model
+            from geotrax_tpu_torch.models.convert import load_model, load_rtdetr
 
-            model, _, class_names = load_model(model)
+            load = load_rtdetr if "rtdetr" in str(model).lower() else load_model
+            model, _, names = load(model)
+            class_names = names or class_names
         elif self.half:
             model = copy.deepcopy(model)  # the cast below must not touch the caller's model
+        self.is_ul_rtdetr = isinstance(model, rtdetr_ul.RTDETRL)
+        self.is_rtdetr = self.is_ul_rtdetr or isinstance(model, rtdetr.RTDETR)
+        if self.is_ul_rtdetr and self.half:
+            raise ValueError(
+                "half is not supported for the rtdetr-l graph: the reference's bfloat16 rtdetr-l "
+                "does not run (its float32 convolution results meet bfloat16 weights; ROADMAP C6)")
+        if self.is_rtdetr and self.tiles > 1:
+            if logger:
+                logger.warning("Spatial tiling is not supported for RT-DETR; ignored.")
+            self.tiles = 1
         self.model = model.to(self.device).eval()
         if self.half:
             self.model = self.model.to(torch.bfloat16)
@@ -66,15 +84,21 @@ class Detector:
                 mask[in_range] = True
                 self.class_mask = torch.as_tensor(mask, device=self.device)
         if logger:
-            logger.info(
-                f"Detector: yolov8{self.spec.variant} nc={self.spec.nc} "
-                f"imgsz={self.imgsz} conf={self.conf} iou={self.iou} max_det={self.max_det}"
-            )
+            if self.is_ul_rtdetr:
+                logger.info(f"Detector: ultralytics rtdetr-l nc={self.spec.nc} (NMS-free)")
+            elif self.is_rtdetr:
+                logger.info(f"Detector: rtdetr-{self.spec.variant} nc={self.spec.nc} (NMS-free)")
+            else:
+                logger.info(
+                    f"Detector: yolov8{self.spec.variant} nc={self.spec.nc} "
+                    f"imgsz={self.imgsz} conf={self.conf} iou={self.iou} max_det={self.max_det}"
+                )
 
     def resize_geometry(self, src_h: int, src_w: int):
         """(new_h, new_w, r, top, left, out_h, out_w) of the letterbox resize
-        for a source resolution, or None with tiles (no shared resize)."""
-        if self.tiles > 1:
+        for a source resolution, or None where there is no shared resize
+        (tiles, RT-DETR)."""
+        if self.tiles > 1 or self.is_rtdetr:
             return None
         out_h, out_w, r, top, left = yolov8.letterbox_shape(src_h, src_w, self.imgsz)
         return round(src_h * r), round(src_w * r), r, top, left, out_h, out_w
@@ -108,8 +132,8 @@ class Detector:
         return run
 
     def batch_trace(self, src_h: int, src_w: int):
-        """Detection on full (C,H,W,3) uint8 frames: the letterbox (resize
-        and padding) inside, or the tiled detector with ``tiles`` > 1."""
+        """YOLOv8 detection on full (C,H,W,3) uint8 frames: the letterbox
+        (resize and padding) inside, or the tiled detector with ``tiles`` > 1."""
         if self.tiles > 1:
             from geotrax_tpu_torch.parallel.tiling import tiled_batch_trace
 
@@ -125,6 +149,51 @@ class Detector:
             return self._detect_letterboxed(imgs, r, top, left)
 
         return run
+
+    def _rtdetr_detect(self, frames_u8: torch.Tensor) -> dict:
+        """RT-DETR on (B,H,W,3) uint8 frames: the square stretch to imgsz x
+        imgsz (ultralytics' RTDETRPredictor, not a letterbox), the forward,
+        the class mask, score = largest probability, class = its index, the
+        top ``max_det`` queries (invalid slots past the query count) and
+        ``valid = score >= conf``; boxes un-stretched to source pixels."""
+        src_h, src_w = frames_u8.shape[1], frames_u8.shape[2]
+        imgs = resize_u8_linear(frames_u8, self.imgsz, self.imgsz).to(torch.float32) * _INV_255
+        if self.half:
+            imgs = imgs.to(torch.bfloat16)
+        forward = rtdetr_ul.forward if self.is_ul_rtdetr else rtdetr.forward
+        with torch.no_grad():
+            boxes, probs = forward(self.model, imgs, self.spec)
+        boxes, probs = boxes.float(), probs.float()
+        if self.class_mask is not None:
+            probs = torch.where(self.class_mask, probs, 0.0)
+        scores, classes = probs.amax(dim=-1), probs.argmax(dim=-1)
+        k = min(self.max_det, scores.shape[-1])
+        top_scores, idx = exact_top_k(scores, k)
+        sx, sy = src_w / self.imgsz, src_h / self.imgsz
+        unstretch = torch.tensor([sx, sy, sx, sy], dtype=torch.float32, device=boxes.device)
+        det_boxes = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4)) * unstretch
+        pad = self.max_det - k
+        return {
+            "boxes_xywh": torch.nn.functional.pad(det_boxes, (0, 0, 0, pad)),
+            "scores": torch.nn.functional.pad(top_scores, (0, pad)),
+            "classes": torch.nn.functional.pad(torch.gather(classes, 1, idx), (0, pad), value=-1),
+            "valid": torch.nn.functional.pad(top_scores >= self.conf, (0, pad)),
+        }
+
+    def _frames(self, frames) -> torch.Tensor:
+        return torch.as_tensor(frames).to(self.device)
+
+    def detect_batch(self, frames_rgb_u8) -> dict:
+        """Detection on (B,H,W,3) uint8 frames (numpy or a tensor, on the
+        host or the card) -> dict of (B, max_det, ...) tensors."""
+        frames = self._frames(frames_rgb_u8)
+        if self.is_rtdetr:
+            return self._rtdetr_detect(frames)
+        return self.batch_trace(frames.shape[1], frames.shape[2])(frames)
+
+    def __call__(self, frame_rgb_u8, frame_index: int = 0) -> dict:
+        """Detection on one (H,W,3) uint8 frame -> dict of (max_det,) tensors."""
+        return {k: v[0] for k, v in self.detect_batch(self._frames(frame_rgb_u8)[None]).items()}
 
 
 class OracleDetector:
@@ -191,3 +260,19 @@ class OracleDetector:
             return {"boxes_xywh": tb[idx], "scores": ts[idx], "classes": tc[idx], "valid": tv[idx]}
 
         return run
+
+
+class SequentialOnly:
+    """Hides ``batch_trace`` and ``detect_batch``, so that extraction takes
+    the sequential per-frame loop, one detection per frame, with a detector
+    that could take the fused path (the reference's parity tests)."""
+
+    is_rtdetr = False
+
+    def __init__(self, detector):
+        self._d = detector
+        self.max_det = detector.max_det
+        self.class_names = detector.class_names
+
+    def __call__(self, frame_rgb_u8, frame_index: int = 0):
+        return self._d(frame_rgb_u8, frame_index)

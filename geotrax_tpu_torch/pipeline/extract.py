@@ -25,9 +25,17 @@ double-buffered: a host thread copies decoded frames into two reused
 staging buffers (pinned on the card), each chunk is uploaded on a copy
 stream while the previous one computes, and chunk k's rows are emitted
 after chunk k+1 is dispatched. ``pipelined=False`` runs the chunks one
-after another from pageable memory; both give the same rows. The
-sequential per-frame path (SIFT-class stabilizers) waits for ROADMAP A11,
-RT-DETR for A14.
+after another from pageable memory; both give the same rows.
+
+Where the fused step does not apply (an RT-DETR detector, a multi-level
+stabilizer: ``stabilo.detector_name`` sift/rsift/kaze/akaze, or a detector
+without ``batch_trace``), ``track_video_sequential`` runs the reference's
+per-frame loop: detection in groups of ``SEQUENTIAL_GROUP`` frames
+(``detect_batch``; one frame at a time for RT-DETR), one upload per group
+shared by the detector, the sequential ``Stabilizer`` and the ReID gather,
+then per frame the homography, GMC, embeddings, tracker step and
+stabilized boxes, through the same functions as the fused step, so that
+both paths write the same rows.
 """
 
 from __future__ import annotations
@@ -48,8 +56,10 @@ from geotrax_tpu_torch import __version__
 from geotrax_tpu_torch.cfg import DEFAULT, select_tracker
 from geotrax_tpu_torch.io import yaml_emit
 from geotrax_tpu_torch.pipeline import postprocess
-from geotrax_tpu_torch.pipeline.device_pipeline import FusedExtractor
+from geotrax_tpu_torch.pipeline.device_pipeline import (FusedExtractor, _transform_boxes_h,
+                                                         embed_boxes, gmc_from_h)
 from geotrax_tpu_torch.stabilize.config import StabilizerConfig
+from geotrax_tpu_torch.stabilize.stabilizer import Stabilizer
 from geotrax_tpu_torch.track import make_tracker
 from geotrax_tpu_torch.track.reid import resolve_head
 from geotrax_tpu_torch.utils.cli_utils import add_common_args
@@ -58,6 +68,10 @@ from geotrax_tpu_torch.utils.file_utils import convert_to_serializable, get_outp
 # One chunk per fused dispatch (the JAX package's _extract_impl.FUSED_CHUNK).
 FUSED_CHUNK = 32
 MIN_MATCH_WARNING = 4
+# Frames per detect_batch call of the sequential loop (the reference's group).
+SEQUENTIAL_GROUP = 16
+# The sequential loop logs its progress every this many frames.
+PROGRESS_FRAMES = 100
 
 _LOG = logging.getLogger("geotrax")
 
@@ -160,6 +174,19 @@ def _fids(idxs, cut_left: int) -> np.ndarray:
     return np.asarray(idxs, np.int64) - cut_left + 1
 
 
+def _groups(reader, size: int):
+    """``reader``'s (index, frame) pairs in lists of ``size`` (the last one
+    shorter)."""
+    buf = []
+    for item in reader:
+        buf.append(item)
+        if len(buf) == size:
+            yield buf
+            buf = []
+    if buf:
+        yield buf
+
+
 def _drive_serial(reader, fx, chunk: int, cut_left: int, rows: _Rows) -> None:
     """One chunk after another: stack the frames on the host, run the chunk
     step (which uploads them from pageable memory), fetch, emit."""
@@ -174,13 +201,7 @@ def _drive_serial(reader, fx, chunk: int, cut_left: int, rows: _Rows) -> None:
         out = fx.process_chunk(frames, _fids(idxs, cut_left), n)
         rows.drain(out, idxs, n, time.perf_counter() - t0)
 
-    buf = []
-    for item in reader:
-        buf.append(item)
-        if len(buf) == chunk:
-            run(buf)
-            buf = []
-    if buf:
+    for buf in _groups(reader, chunk):
         run(buf)
 
 
@@ -331,6 +352,123 @@ def track_video_fused(reader, fx, cut_left: int = 0, chunk: int = FUSED_CHUNK,
     logger.info(f"Extraction (fused): {stats['frames']} frames, device "
                 f"{stats['avg_detect_ms']:.1f} ms/f, pipeline {stats['fps']:.1f} fps")
     return tracks, transforms, stats
+
+
+# --------------------------------------------------------------------------
+# the sequential per-frame loop
+# --------------------------------------------------------------------------
+
+def track_video_sequential(reader, detector, tracker_parts: tuple, config: dict,
+                           cut_left: int = 0, logger=_LOG) -> tuple:
+    """The per-frame loop of the reference's ``track_video`` over
+    ``reader``'s (index, frame) pairs, on ``detector``'s device; returns
+    (tracks rows, transform rows, stats). ``tracker_parts`` is
+    ``make_extract_tracker``'s result. Detection runs in groups of
+    ``SEQUENTIAL_GROUP`` frames through ``detect_batch`` (one frame at a time
+    for RT-DETR or a detector without it); each group is uploaded once. The
+    reference frame (``cut_left``) sets the stabilizer's reference; every
+    later frame adds a transform row (the identity, with a warning, where
+    stabilization fails). GMC comes from consecutive homographies on the
+    card in float32, the tracker counts frames from 1, and the stabilized
+    boxes transform the whole slot table before the valid rows are taken.
+    Rows have 12 columns, 8 with stabilization off. ``avg_detect_ms``,
+    ``avg_stab_ms`` and ``avg_track_ms`` are host times per frame (the
+    detections, the homography and the embeddings, tracker and rows each
+    read back to the host)."""
+    tracker_cfg, state, step, reid_params = tracker_parts
+    stabilize = bool(config.get("extraction", DEFAULT["extraction"]).get("stabilize", True))
+    dev = torch.device(detector.device) if hasattr(detector, "device") else state.track_id.device
+    stabilizer = (Stabilizer(**config.get("stabilo", DEFAULT["stabilo"]), device=dev)
+                  if stabilize else None)
+    head = None if reid_params is None else {k: v.to(dev) for k, v in reid_params.items()}
+    group = (SEQUENTIAL_GROUP if hasattr(detector, "detect_batch")
+             and not getattr(detector, "is_rtdetr", False) else 1)
+    class_names = config.get("class_names") or {}
+    class_counts: dict = {}
+    rows, transforms = [], []
+    h_prev = None
+    detect_s = stab_s = track_s = 0.0
+    n_frames = 0
+    t_start = time.perf_counter()
+    with torch.no_grad():
+        for chunk in _groups(reader, group):
+            t0 = time.perf_counter()
+            frames = torch.as_tensor(np.stack([f for _, f in chunk])).to(dev)
+            if group > 1 and len(chunk) > 1:
+                batch = detector.detect_batch(frames)
+                dets = [{k: v[i] for k, v in batch.items()} for i in range(len(chunk))]
+            else:
+                dets = [detector(frames[i], idx) for i, (idx, _) in enumerate(chunk)]
+            host = [(d["boxes_xywh"].cpu().numpy(), d["valid"].cpu().numpy()) for d in dets]
+            detect_s += time.perf_counter() - t0
+
+            for i, ((frame_idx, _), det) in enumerate(zip(chunk, dets)):
+                frame = frames[i]
+                det_boxes, det_valid = host[i]
+                t0 = time.perf_counter()
+                h_cur = np.eye(3, dtype=np.float32)
+                if stabilizer is not None:
+                    if frame_idx == cut_left:
+                        stabilizer.set_ref_frame(frame, det_boxes[det_valid])
+                    else:
+                        stabilizer.stabilize(frame, det_boxes[det_valid])
+                        h_est = stabilizer.get_cur_trans_matrix()
+                        if h_est is not None:
+                            h_cur = h_est.astype(np.float32)
+                        else:
+                            logger.warning(f"Frame {frame_idx}: stabilization failed; identity used.")
+                        transforms.append(np.concatenate([[frame_idx], h_cur.reshape(-1)]))
+                stab_s += time.perf_counter() - t0
+
+                t0 = time.perf_counter()
+                h_t = torch.as_tensor(h_cur, device=dev)
+                gmc_h = None if h_prev is None else gmc_from_h(h_t[None], h_prev[None])[0]
+                h_prev = h_t
+                det_emb = None
+                if tracker_cfg.with_reid:
+                    det_emb = embed_boxes(frame[None], det["boxes_xywh"][None], head_params=head)[0]
+                state, out = step(state, det["boxes_xywh"], det["scores"], det["classes"],
+                                  det["valid"], frame_idx - cut_left + 1, gmc_h, det_emb)
+                head_cols = [out.track_id, out.box_xywh]
+                if stabilize and frame_idx != cut_left:
+                    head_cols.append(_transform_boxes_h(h_t[None], out.box_xywh[None])[0])
+                out_np = [t.cpu().numpy() for t in head_cols + [out.cls, out.score, out.valid]]
+                valid = out_np[-1]
+                ids, boxes = out_np[0][valid], out_np[1][valid]
+                classes, scores = out_np[-3][valid], out_np[-2][valid]
+                cols = [np.full(len(ids), frame_idx, float), ids.astype(float), boxes]
+                if stabilize:
+                    cols.append(boxes if frame_idx == cut_left else out_np[2][valid])
+                rows.append(np.column_stack(cols + [classes.astype(float), scores]))
+                track_s += time.perf_counter() - t0
+                n_frames += 1
+                for tid, c in zip(ids, classes):
+                    class_counts.setdefault(int(c), set()).add(int(tid))
+                if n_frames % PROGRESS_FRAMES == 0:
+                    counts = ", ".join(f"{class_names.get(c, c)}: {len(v)}"
+                                       for c, v in sorted(class_counts.items()))
+                    logger.info(f"Extracting: {n_frames} frames [{counts}] det "
+                                f"{detect_s * 1e3 / n_frames:.0f} ms/f, stab "
+                                f"{stab_s * 1e3 / n_frames:.0f} ms/f")
+
+    elapsed = max(time.perf_counter() - t_start, 1e-9)
+    per = 1e3 / max(n_frames, 1)
+    stats = {
+        "frames": n_frames,
+        "avg_detect_ms": detect_s * per,
+        "avg_stab_ms": stab_s * per,
+        "avg_track_ms": track_s * per,
+        "fps": n_frames / elapsed,
+        "wall_s": elapsed,
+        "frame_size": (int(reader.info.width), int(reader.info.height)),
+        "video_fps": float(reader.info.fps),
+    }
+    logger.info(f"Extraction: {n_frames} frames, detect {stats['avg_detect_ms']:.1f} ms/f, "
+                f"stab {stats['avg_stab_ms']:.1f} ms/f, pipeline {stats['fps']:.1f} fps")
+    n_cols = 12 if stabilize else 8
+    tracks = np.concatenate(rows, axis=0) if rows else np.empty((0, n_cols))
+    transforms_arr = np.asarray(transforms) if transforms else np.empty((0, 10))
+    return tracks, transforms_arr, stats
 
 
 # --------------------------------------------------------------------------
@@ -530,16 +668,14 @@ def _extract_cache_key(config: dict, stabilize_on: bool) -> str:
 
 
 def track_video(args, config: dict, logger, pipelined: bool = True) -> tuple:
-    """Decode, detect, track and stabilize ``args.source`` through the fused
-    chunk step; returns (tracks rows, transforms rows, stats)."""
+    """Decode, detect, track and stabilize ``args.source``; returns (tracks
+    rows, transforms rows, stats). The fused chunk step runs where the
+    detector has ``batch_trace`` and is not RT-DETR and the stabilizer is
+    single-level; the sequential per-frame loop everywhere else."""
     from geotrax_tpu_torch.models.detector import Detector
 
     main = config["main"]
     stabilize_on = bool(main["extraction"].get("stabilize", True))
-    if stabilize_on and StabilizerConfig(**config.get("stabilo", {})).n_levels != 1:
-        raise NotImplementedError(
-            "multi-level stabilizers (stabilo.detector_name sift/rsift/kaze/akaze) run the "
-            "sequential per-frame extract path, which is not ported yet (ROADMAP A11)")
     flat = flat_config(config)
     device = _device(config)
     cache_key = _extract_cache_key(config, stabilize_on)
@@ -548,10 +684,6 @@ def track_video(args, config: dict, logger, pipelined: bool = True) -> tuple:
         detector, tracker_parts, fx_by_shape = cached
     else:
         detector = load_detector(config, logger)
-        if not hasattr(detector, "batch_trace") or getattr(detector, "is_rtdetr", False):
-            raise NotImplementedError(
-                "this detector runs the sequential per-frame extract path, which is not "
-                "ported yet (ROADMAP A11)")
         tracker_parts = make_extract_tracker(flat, device=device, logger=logger)
         fx_by_shape = {}
         if type(detector) is Detector:
@@ -561,6 +693,13 @@ def track_video(args, config: dict, logger, pipelined: bool = True) -> tuple:
 
     cut_left = int(args.cut_frame_left or 0)
     reader = open_reader(args.source, cut_left, args.cut_frame_right, config)
+    fused_ok = (hasattr(detector, "batch_trace") and not getattr(detector, "is_rtdetr", False)
+                and (not stabilize_on
+                     or StabilizerConfig(**config.get("stabilo", {})).n_levels == 1))
+    if not fused_ok:
+        flat["class_names"] = main.get("class_names")
+        return track_video_sequential(reader, detector, tracker_parts, flat, cut_left=cut_left,
+                                      logger=logger)
     src_w, src_h = int(reader.info.width), int(reader.info.height)
     fx = fx_by_shape.get((src_h, src_w))
     if fx is not None:

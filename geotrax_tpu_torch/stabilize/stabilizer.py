@@ -21,6 +21,9 @@ the RootSIFT scale space (``ops/sift.py``) with L2 matching; every other
 name runs the single-level path (unoriented FAST through the CUDA score
 kernel, the grid descriptor, ``match_l2``). Frame ``fid`` (the reference
 frame is 1) draws its RANSAC samples from ``fold_in(PRNGKey(0), fid)``.
+A frame may be a host array or a tensor; a tensor on the stabilizer's
+device is used where it lies (the extract loop's frames are already on the
+card).
 """
 
 from __future__ import annotations
@@ -58,8 +61,10 @@ class Stabilizer(StabilizerConfig):
         self.mask_slots = 1024
 
     # ------------------------------------------------------------------ internals
-    def _gray(self, frame: np.ndarray) -> torch.Tensor:
-        gray = features.rgb_to_gray(torch.as_tensor(np.asarray(frame)).to(self.device))
+    def _gray(self, frame) -> torch.Tensor:
+        if not isinstance(frame, torch.Tensor):
+            frame = torch.as_tensor(np.asarray(frame))
+        gray = features.rgb_to_gray(frame.to(self.device))
         gray = features.downsample(gray, self.downsample_ratio)
         if self.clahe:
             from geotrax_tpu_torch.ops.clahe import clahe
@@ -79,7 +84,7 @@ class Stabilizer(StabilizerConfig):
         kps = features.fast_detect(gray, n_features, mask=mask, oriented=False)
         return kps, features.describe_grid(gray, kps)
 
-    def _prepare(self, frame: np.ndarray, boxes, n_features: int) -> tuple:
+    def _prepare(self, frame, boxes, n_features: int) -> tuple:
         gray = self._gray(frame)
         mask = None
         if self.mask_use and boxes is not None and len(boxes):
@@ -97,12 +102,12 @@ class Stabilizer(StabilizerConfig):
         self._cur_boxes_ref = None
 
     # ------------------------------------------------------------------ API
-    def set_ref_frame(self, frame: np.ndarray, boxes=None) -> None:
+    def set_ref_frame(self, frame, boxes=None) -> None:
         """Fix the reference frame (its features at the ref_multiplier budget)."""
         self._ref = self._prepare(frame, boxes, self.ref_features)
         self._fid = 1
 
-    def stabilize(self, frame: np.ndarray, boxes=None) -> None:
+    def stabilize(self, frame, boxes=None) -> None:
         """Estimate the cur->ref homography of this frame."""
         if self._ref is None:
             raise RuntimeError("set_ref_frame must be called before stabilize")

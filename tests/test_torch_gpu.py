@@ -396,3 +396,71 @@ def test_assign_first_polygon_on_card_equals_cpu():
     card = polygon.assign_first_polygon(pts.cuda(), quads.cuda())
     np.testing.assert_array_equal(card.cpu().numpy(), cpu.numpy())
     assert (cpu >= 0).sum() > 1000
+
+
+def _oracle_sequential(device: str, stabilizer_frames: str = "numpy"):
+    """The sequential loop over a 320x240 oracle clip with a moving camera,
+    default configuration with ReID, on ``device``."""
+    import copy
+
+    from geotrax_tpu_torch import cfg as tcfg
+    from geotrax_tpu_torch.io.synthetic import SyntheticVideoReader
+    from geotrax_tpu_torch.models.detector import OracleDetector, SequentialOnly
+    from geotrax_tpu_torch.pipeline import extract as textract
+
+    config = copy.deepcopy(tcfg.DEFAULT)
+    config["tracker"]["botsort"]["with_reid"] = True
+    reader = SyntheticVideoReader(width=320, height=240, n_frames=16, camera=(0.5, -0.3, 0.2, 1.002))
+    det = OracleDetector(lambda i: [list(b) + [0.9, i % 2] for b in reader.boxes_at(i)],
+                         device=device)
+    parts = textract.make_extract_tracker(config, device=device)
+    return textract.track_video_sequential(reader, SequentialOnly(det), parts, config)
+
+
+@pytest.mark.gpu
+def test_sequential_loop_on_card_equals_cpu():
+    """The per-frame loop on the card against the plain CPU run: equal
+    frames, ids and classes, geometry within 0.05 px, homographies within
+    0.05; FAST and the patch gather launched once per frame (the ReID
+    embedding and the single-level Stabilizer)."""
+    _need_card()
+    cpu = _oracle_sequential("cpu")
+    before = (fast.fast_score_map.launches, patches.patches32.launches)
+    card = _oracle_sequential("cuda")
+    assert (fast.fast_score_map.launches - before[0], patches.patches32.launches - before[1]) \
+        == (16, 16)
+    (t_card, h_card, _), (t_cpu, h_cpu, _) = card, cpu
+    assert t_card.shape == t_cpu.shape and len(t_cpu) > 20
+    np.testing.assert_array_equal(t_card[:, [0, 1, 10, 11]], t_cpu[:, [0, 1, 10, 11]])
+    np.testing.assert_allclose(t_card[:, 2:10], t_cpu[:, 2:10], rtol=0, atol=0.05)
+    np.testing.assert_allclose(h_card, h_cpu, rtol=0, atol=0.05)
+
+
+@pytest.mark.gpu
+def test_rtdetr_l_on_card_equals_cpu():
+    """RT-DETR-L at its published widths (seeded random weights) on a seeded
+    256x256 image, on the card against the CPU: the forward's boxes within
+    1e-2 px and probabilities within 1e-4 (float32 products summed in other
+    orders), and the Detector's slots on a 4K frame equal in validity and
+    class."""
+    _need_card()
+    import copy
+
+    from geotrax_tpu_torch.models import rtdetr_ul
+    from geotrax_tpu_torch.models.detector import Detector
+
+    gen = torch.Generator().manual_seed(0)
+    ul = rtdetr_ul.init_params(gen, rtdetr_ul.ULSpec(nc=4), device="cpu")
+    card = copy.deepcopy(ul).cuda()
+    x = torch.rand((1, 256, 256, 3), generator=gen)
+    with torch.no_grad():
+        want = rtdetr_ul.forward(ul, x, ul.spec)
+        got = rtdetr_ul.forward(card, x.cuda(), ul.spec)
+    for w, g, tol in zip(want, got, (1e-2, 1e-4)):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=tol)
+    frame = np.random.default_rng(0).integers(0, 256, (2160, 3840, 3), np.uint8)
+    cfg = {"imgsz": 256, "conf": 0.5}
+    a = Detector(card, cfg, device="cuda")(frame)
+    b = Detector(ul, cfg, device="cpu")(frame)
+    np.testing.assert_array_equal(a["valid"].cpu().numpy(), b["valid"].numpy())
+    np.testing.assert_array_equal(a["classes"].cpu().numpy(), b["classes"].numpy())
