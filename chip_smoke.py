@@ -3,6 +3,7 @@
     python3 chip_smoke.py                  # every phase; the last line is the result
     python3 chip_smoke.py --kernels-only   # phases 0-2 only, no result line
     python3 chip_smoke.py --georef-only    # phases 0, 1 and 10 only, no result line
+    python3 chip_smoke.py --lockstep-only  # phases 0, 1 and 12 only, no result line
 
 Phases, one ``[smoke] <phase> ok <seconds>s ...`` line each; a failing phase
 ends the run with a non-zero exit and no result line:
@@ -106,11 +107,30 @@ ends the run with a non-zero exit and no result line:
                on the card and on the CPU (plain versions), for botsort,
                botsort with ReID, deepocsort with ReID, tracktrack with
                ReID, ocsort and fasttrack: equal track ids, close geometry
+ 12 lockstep  ``batch --parallel-videos 4`` on four drifting 3840x2160
+               videos of 16, 16, 16 and 12 frames with 36 moving vehicles
+               each: (a) the readers' vehicles as oracle detections,
+               stabilization off, bytetrack and botsort: each video's
+               lockstep files against run_extraction of that video alone
+               (the sequential loop), equal or the largest difference per
+               column; (b) YOLOv8s imgsz 1920 (the main phase's calibrated
+               detector) with ReID under the default preset through
+               extract_videos_batch: files, homographies within 2 px of each
+               video's camera, FAST launched once per video's reference
+               frame and once per later step, the gather once per step, unit
+               embeddings; ms per step, frames/s in turns against the four
+               videos through run_extraction one after another, peak
+               memory; (c) both kernels exact and timed on the phase's own
+               (4,1080,1920) grays and (12,1080,1920) x max_det planes; (d)
+               process_input on a directory of the four videos
+               (open_reader, probe_video and load_detector replaced), every
+               metadata file parallel-group-4, a second run runs no stage
 Then a JSON line describing each kernel, the card's nvidia-smi line, and as
 the last line {"ok": true, "device": {...}}. ``--kernels-only`` serves to
 time the kernels of two checkouts in one call: copy this script into the
 other checkout and run it there too. ``--georef-only`` runs phases 0, 1 and
-10 (no result line).
+10, ``--lockstep-only`` phases 0, 1 and 12 with its own calibrated detector
+(no result line).
 """
 
 from __future__ import annotations
@@ -1081,7 +1101,7 @@ def breakdown(fx, width: int, height: int, seed: int, horizon: int, start: int,
     """Host and device time by stage (the chunk step's ``fx.*`` ranges) and
     by kernel over one more chunk of the same video, under torch.profiler;
     the chunk's homographies are checked as in the other phases."""
-    from torch.profiler import DeviceType, ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile
 
     reader = smoke_reader(width, height, seed, horizon, start, start + chunk)
     frames = np.stack([frame for _, frame in make_frames(reader)])
@@ -1093,6 +1113,14 @@ def breakdown(fx, width: int, height: int, seed: int, horizon: int, start: int,
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     check_homographies(out.h.cpu().numpy(), range(start, start + chunk), reader, tol_px)
+    return {"wall_ms": wall_ms, **profile_ranges(prof, "fx.", top)}
+
+
+def profile_ranges(prof, prefix: str, top: int = 12) -> dict:
+    """Host and device ms of each ``prefix`` range of a torch.profiler run,
+    the device's busy ms and its largest kernels."""
+    from torch.profiler import DeviceType
+
     events = prof.key_averages()
 
     def device_us(e, attr):
@@ -1101,15 +1129,14 @@ def breakdown(fx, width: int, height: int, seed: int, horizon: int, start: int,
     # a range shows twice: its host row (host time, device time of the
     # kernels it launched) and its device-timeline row (span on the card)
     span = {e.key: device_us(e, "self_device_time_total") / 1e3 for e in events
-            if e.key.startswith("fx.") and e.device_type == DeviceType.CUDA}
+            if e.key.startswith(prefix) and e.device_type == DeviceType.CUDA}
     stages = [(e.key, e.cpu_time_total / 1e3, device_us(e, "device_time_total") / 1e3,
                span.get(e.key, 0.0))
-              for e in events if e.key.startswith("fx.") and e.device_type == DeviceType.CPU]
+              for e in events if e.key.startswith(prefix) and e.device_type == DeviceType.CPU]
     kernels = sorted(((device_us(e, "self_device_time_total"), e.key, e.count) for e in events
-                      if e.device_type == DeviceType.CUDA and not e.key.startswith("fx.")),
+                      if e.device_type == DeviceType.CUDA and not e.key.startswith(prefix)),
                      reverse=True)
-    return {"wall_ms": wall_ms,
-            "device_busy_ms": sum(k[0] for k in kernels) / 1e3,
+    return {"device_busy_ms": sum(k[0] for k in kernels) / 1e3,
             "stages": stages,
             "top": [(k, us / 1e3, n) for us, k, n in kernels[:top]]}
 
@@ -1942,6 +1969,426 @@ def phase_sequential(device: str = "cuda", width: int = 3840, height: int = 2160
     return res
 
 
+# --------------------------------------------------------------------------
+# the lockstep multi-video path (batch --parallel-videos)
+# --------------------------------------------------------------------------
+
+# Four videos of one resolution, one shorter, so that the group goes ragged.
+LOCK_LENGTHS = (16, 16, 16, 12)
+# each video's own camera drift per frame (px right, px down, degrees, zoom)
+LOCK_CAMERAS = ((1.0, -0.5, 0.01, 1.0001), (-0.8, 0.6, -0.012, 0.9999),
+                (0.6, 0.9, 0.006, 1.0), (-1.1, -0.4, 0.0, 1.00005))
+LOCK_TRACKER = {"bytetrack": "  active: bytetrack\n", "botsort": "  active: botsort\n"}
+STABILIZE_OFF = {"  stabilize: true        # append stabilized box columns to the tracks file\n":
+                 "  stabilize: false\n"}
+
+
+class LockstepOracle:
+    """The readers' vehicles as detections with the lockstep's batch
+    interface: at call t the videos longer than t are the batch, in video
+    order (as tests/test_parallel_extract.py's oracle)."""
+
+    is_rtdetr = False
+
+    def __init__(self, readers, max_det: int, device: str):
+        self.lengths = [r.n_frames for r in readers]
+        self.oracles = [OracleDetector(lambda i, r=r: [list(b) + [0.9, 0] for b in r.boxes_at(i)],
+                                       max_det=max_det, device=device) for r in readers]
+        self.max_det, self.class_names = max_det, self.oracles[0].class_names
+        self._frame = 0
+
+    def detect_batch(self, stacked):
+        live = [v for v, n in enumerate(self.lengths) if n > self._frame]
+        if stacked.shape[0] != len(live):
+            raise AssertionError(f"step {self._frame}: {stacked.shape[0]} frames, {len(live)} live")
+        outs = [self.oracles[v](None, self._frame) for v in live]
+        self._frame += 1
+        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+class InMemory:
+    """The lockstep's patch points (the reference's test patch points):
+    ``open_reader`` gives each source's frames from memory, ``load_detector``
+    the detector given, ``probe_video`` each source's size."""
+
+    def __init__(self, videos: dict, detector):
+        from geotrax_tpu_torch.io import video
+
+        self.videos, self.detector, self.video = videos, detector, video
+
+    def __enter__(self):
+        self.saved = (port_extract.open_reader, port_extract.load_detector, self.video.probe_video)
+        port_extract.open_reader = lambda src, start, stop, config: FrameList(
+            *self.videos[Path(src).name])
+        port_extract.load_detector = lambda config, logger: self.detector
+        self.video.probe_video = lambda src, backend=None: self.videos[Path(src).name][0]
+        return self
+
+    def __exit__(self, *exc):
+        port_extract.open_reader, port_extract.load_detector, self.video.probe_video = self.saved
+
+
+def lockstep_args(folder: Path, cfg: str, model, device: str, *argv):
+    """``batch``'s arguments for ``folder`` (the flags that turn off the
+    stages that are not ported, and no georeferencing)."""
+    from geotrax_tpu_torch.pipeline import batch as port_batch
+
+    return port_batch.parse_cli_args(
+        [str(folder), "-m", str(model), "-c", cfg, "--device", device, "--no-geo", "--no-save",
+         "--no-show", "--no-plot-save", "--no-plot-show", "--log-path", str(folder / "logs"),
+         *argv])
+
+
+def run_lockstep(sources, cfg: str, model, device: str, **args_extra) -> dict:
+    """``extract_videos_batch`` on ``sources`` as ``batch`` calls it."""
+    from geotrax_tpu_torch.parallel.extract_batch import extract_videos_batch
+    from geotrax_tpu_torch.utils.config_utils import load_config_all
+
+    args = lockstep_args(sources[0].parent, cfg, model, device, "--parallel-videos",
+                         str(len(sources)))
+    for k, v in args_extra.items():
+        setattr(args, k, v)
+    args.source = sources[0]
+    config = load_config_all(args, port_extract._LOG, needs_model=True)
+    return extract_videos_batch(sources, args, config, port_extract._LOG)
+
+
+def read_run(tracks_file, transforms_file=None) -> tuple:
+    tracks = np.loadtxt(tracks_file, delimiter=",", ndmin=2) if Path(tracks_file).exists() else None
+    transf = (np.loadtxt(transforms_file, delimiter=",", ndmin=2)
+              if transforms_file is not None and Path(transforms_file).exists() else None)
+    return tracks, transf
+
+
+def column_diffs(a: np.ndarray, b: np.ndarray) -> list:
+    return [float(np.abs(a[:, c] - b[:, c]).max()) for c in range(a.shape[1])]
+
+
+def lockstep_oracle_runs(tmp: Path, readers, frames, sources, model, imgsz: int,
+                         device: str, edits: dict) -> dict:
+    """(a) The readers' vehicles as oracle detections, stabilization off,
+    bytetrack and botsort: each video's lockstep files against
+    ``run_extraction`` of that video alone (its detector without a batch
+    interface: the sequential per-frame loop)."""
+    from geotrax_tpu_torch.models.detector import SequentialOnly
+
+    vehicles = vehicles_per_frame(readers[0].info.width, readers[0].info.height)
+    res = {}
+    for tracker, line in LOCK_TRACKER.items():
+        cfg = config_file(tmp / f"lock_{tracker}.yaml", imgsz,
+                          **{"  active: botsort\n": line}, **STABILIZE_OFF, **edits)
+        oracle = LockstepOracle(readers, 2 * vehicles, device)
+        with InMemory({s.name: (r.info, f) for s, r, f in zip(sources, readers, frames)}, oracle):
+            run_lockstep(sources, cfg, model, device)
+        lock = [read_run(s.parent / "results" / f"{s.stem}.txt") for s in sources]
+        out = res[tracker] = {"equal": True, "rows": 0, "col_diff": None}
+        for v, (src, reader) in enumerate(zip(sources, readers)):
+            single = SequentialOnly(LockstepOracle([reader], 2 * vehicles, device).oracles[0])
+            seq_dir = tmp / f"seq_{tracker}"
+            run_extraction_in_memory(cli_args(src, cfg, model, device,
+                                              argv=["-of", str(seq_dir)]),
+                                     frames[v], reader.info, detector=single)
+            seq = read_run(seq_dir / f"{src.stem}.txt")[0]
+            got = lock[v][0]
+            if got is None or seq is None or got.shape != seq.shape:
+                raise AssertionError(f"(a) {tracker} video {v}: lockstep rows "
+                                     f"{None if got is None else got.shape} vs sequential "
+                                     f"{None if seq is None else seq.shape}")
+            out["rows"] += len(got)
+            if not np.array_equal(got, seq, equal_nan=True):
+                out["equal"] = False
+                diffs = column_diffs(got, seq)
+                out["col_diff"] = [max(a, b) for a, b in zip(out["col_diff"] or diffs, diffs)]
+                # frame, id, class and score exact; geometry within the card's rounding
+                if max(diffs[0], diffs[1], diffs[6], diffs[7]) > 0 or max(diffs[2:6]) > \
+                        FUSED_SEQ_TOL_PX:
+                    raise AssertionError(f"(a) {tracker} video {v}: lockstep != sequential, "
+                                         f"largest difference per column {diffs}")
+    return res
+
+
+PROFILE_STEPS = 3
+
+
+def lockstep_profile(sources, cfg: str, model, device: str, readers, frames, detector,
+                     steps: int) -> dict:
+    """The first ``steps`` frames of each video through the lockstep under
+    torch.profiler: host and device ms of each ``lock.*`` range per step
+    (host times inflated by the profiler), the device's busy ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    videos = {s.name: (r.info, f[:steps]) for s, r, f in zip(sources, readers, frames)}
+    with InMemory(videos, detector):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run_lockstep(sources, cfg, model, device)
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return {"wall_ms": wall_ms, "steps": steps, **profile_ranges(prof, "lock.")}
+
+
+def lockstep_kernels(detector, frames: list, device: str, reps: int) -> dict:
+    """Both kernels on this phase's own inputs: FAST on the four grays of
+    the first step after the reference, the gather on ``embed_boxes``'
+    planes of those frames and their detections; exact against their plain
+    versions, timed with their bounds on the card."""
+    x = torch.as_tensor(np.stack([f[1][1] for f in frames])).to(device)
+    gray = features.downsample(features.rgb_to_gray(x), 0.5).contiguous()
+    if not torch.equal(fast.fast_score_map(gray, 20.0), fast.fast_score_map_torch(gray, 20.0)):
+        raise AssertionError("FAST kernel != plain on the lockstep step's grays")
+    seen = {}
+
+    def plain_gather(planes, x0, y0):  # the plain version, keeping its inputs
+        seen.update(planes=planes, x0=x0, y0=y0)
+        return patches.patches32_torch(planes, x0, y0)
+
+    with torch.no_grad():
+        det = detector.detect_batch(x)
+        embed_boxes(x, det["boxes_xywh"], gather=plain_gather)
+    planes, x0, y0 = seen["planes"], seen["x0"], seen["y0"]
+    if not torch.equal(patches.patches32(planes, x0, y0), patches.patches32_torch(planes, x0, y0)):
+        raise AssertionError("patch gather != plain on the lockstep step's planes")
+    res = {"gray_shape": tuple(gray.shape), "planes_shape": tuple(planes.shape),
+           "corners": int(x0.shape[1]), "max_abs_err": 0.0}
+    res["fast_bound_ms"], res["fast_bound_by"] = fast_bound_ms(tuple(gray.shape))
+    res["gather_bound_ms"], _, res["gather_bytes"] = patch_bound_ms(planes, x0, y0)
+    if device == "cuda":
+        res["fast"] = time_fast(gray, reps)
+        res["gather_ms"] = cuda_ms(lambda: patches.patches32(planes, x0, y0), reps)
+        res["gather_plain_ms"] = cuda_ms(lambda: patches.patches32_torch(planes, x0, y0), reps)
+        res["gather_library_ms"] = cuda_ms(lambda: unfold_gather(planes, x0, y0), reps)
+        # the detector per frame at the step's batch and at four times it
+        with torch.no_grad():
+            res["detect_ms_per_frame"] = {
+                len(b): cuda_ms(lambda b=b: detector.detect_batch(b), 3, warmup=1) / len(b)
+                for b in (x, x.repeat(4, 1, 1, 1))}
+    return res
+
+
+def phase_lockstep(detector=None, device: str = "cuda", width: int = 3840, height: int = 2160,
+                   lengths=LOCK_LENGTHS, imgsz: int = 1920, variant: str = "s", seed: int = 0,
+                   tol_px: float = 2.0, max_det: int = 1000, max_features: int = 2000,
+                   rounds: int = 2, reps: int = 10) -> dict:
+    """The lockstep multi-video path (``batch --parallel-videos 4``) on four
+    drifting videos of ``lengths`` frames with ``vehicles_per_frame``
+    vehicles each: (a) oracle detections, stabilization off, lockstep ==
+    sequential per video; (b) YOLOv8 (``detector``, or a calibrated random
+    one) with ReID under the default preset through
+    ``extract_videos_batch``: files, homographies, launches, embeddings,
+    ms per step, frames/s against the videos one after another through
+    ``run_extraction`` (in turns), peak memory; (c) both kernels on the
+    phase's own inputs; (d) ``batch`` as users run it, twice. ``max_det``
+    and ``max_features`` (the preset's 1000 and 2000) shrink the rehearsal
+    on the CPU."""
+    from geotrax_tpu_torch.io import yaml_load
+    from geotrax_tpu_torch.parallel import extract_batch
+    from geotrax_tpu_torch.pipeline import batch as port_batch
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    vehicles = vehicles_per_frame(width, height)
+    readers = [SyntheticVideoReader(width=width, height=height, n_frames=n, seed=seed + 1 + v,
+                                    camera=LOCK_CAMERAS[v % len(LOCK_CAMERAS)],
+                                    boxes=vehicle_boxes(width, height, vehicles, seed + 1 + v))
+               for v, n in enumerate(lengths)]
+    frames = [make_frames(r) for r in readers]
+    steps, n_total = max(lengths), sum(lengths)
+    res = {"vehicles": vehicles, "lengths": list(lengths), "size": (width, height),
+           "imgsz": imgsz}
+    edits = {} if max_det == 1000 else {"  max_det: 1000\n": f"  max_det: {max_det}\n"}
+    if max_features != 2000:
+        edits["  max_features: 2000\n  ref_multiplier"] = \
+            f"  max_features: {max_features}\n  ref_multiplier"
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        folder = tmp / "campaign"
+        folder.mkdir()
+        sources = [folder / f"V{v}.mp4" for v in range(len(lengths))]
+        for s in sources:
+            s.write_bytes(b"placeholder")  # never decoded: the frames are in memory
+        model = tmp / "model.pt"  # the detector comes from memory (load_detector)
+        torch.save({"class_names": {0: "car", 1: "bus", 2: "truck", 3: "motorcycle"}}, model)
+        videos = {s.name: (r.info, f) for s, r, f in zip(sources, readers, frames)}
+
+        t0 = time.perf_counter()
+        res["a"] = lockstep_oracle_runs(tmp, readers, frames, sources, model, imgsz, device, edits)
+        for s in sources:
+            (folder / "results" / f"{s.stem}.txt").unlink(missing_ok=True)
+        res["a_s"] = time.perf_counter() - t0
+
+        # (b) YOLOv8 with ReID under the default preset
+        t0 = time.perf_counter()
+        if detector is None:
+            model_p = yolov8.init_params(torch.Generator().manual_seed(seed),
+                                         yolov8.ModelSpec(variant=variant, nc=4), device=device)
+            detect_cfg = {**smoke_config(imgsz)["ultralytics"], "max_det": max_det}
+            detector = Detector(model_p, detect_cfg, device=device)
+            res["detections_frame0"] = calibrate_class_bias(detector, frames[0][0][1], vehicles)
+        cfg = config_file(tmp / "lock_reid.yaml", imgsz, **REID_ON, **edits)
+        embeddings = []
+        embed = extract_batch.embed_boxes
+
+        def kept(*a, **kw):  # the lockstep's embeddings, kept for the norm check
+            out = embed(*a, **kw)
+            embeddings.append(out)
+            return out
+
+        extract_batch.embed_boxes = kept
+        runs = {"lockstep": [], "serial": []}
+        try:
+            with InMemory(videos, detector):
+                for r in range(rounds):
+                    for mode in ("lockstep", "serial"):
+                        if device == "cuda":
+                            torch.cuda.reset_peak_memory_stats()
+                        reset_launches()
+                        t1 = time.perf_counter()
+                        if mode == "lockstep":
+                            stats = run_lockstep(sources, cfg, model, device)
+                        else:
+                            stats = [run_extraction_in_memory(
+                                cli_args(s, cfg, model, device, argv=["-of", str(tmp / "serial")]),
+                                frames[v], readers[v].info) for v, s in enumerate(sources)]
+                        sync()
+                        wall = time.perf_counter() - t1
+                        runs[mode].append({"wall_s": wall, "fps": n_total / wall,
+                                           "launches": launches(), "stats": stats,
+                                           "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                                                        if device == "cuda" else None)})
+                        if mode == "lockstep" and r == 0:
+                            res["b_checks"] = [check_files(
+                                st["tracks_file"], st["transforms_file"], st.get("metadata_file"),
+                                lengths[v], readers[v], tol_px, may_lack_tracks=True)
+                                for v, st in enumerate(stats["videos"])]
+                            modes = [yaml_load.safe_load(Path(st["metadata_file"]).read_text())
+                                     ["runtime"]["extraction_mode"] for st in stats["videos"]]
+                            if modes != [f"parallel-group-{len(lengths)}"] * len(lengths):
+                                raise AssertionError(f"(b) extraction modes {modes}")
+                            norms = torch.cat([torch.linalg.vector_norm(e, dim=-1).flatten()
+                                               for e in embeddings])
+                            res["emb_norm_err"] = float((norms - 1).abs().max())
+                            res["emb_rows"] = int(norms.numel())
+                            if res["emb_norm_err"] > 1e-5 or len(embeddings) != steps:
+                                raise AssertionError(f"(b) {len(embeddings)} embedding calls, "
+                                                     f"norm error {res['emb_norm_err']}")
+        finally:
+            extract_batch.embed_boxes = embed
+        on_card = device == "cuda"
+        expected = {"fast_score": (len(lengths) + steps - 1) * on_card,
+                    "patch_gather": steps * on_card}
+        for run in runs["lockstep"]:
+            if run["launches"] != expected:
+                raise AssertionError(f"(b) lockstep launches {run['launches']}, "
+                                     f"expected {expected}")
+        if device == "cuda":  # one more group of the first frames, under the profiler
+            res["b_profile"] = lockstep_profile(sources, cfg, model, device, readers, frames,
+                                                detector, PROFILE_STEPS)
+        first = runs["lockstep"][0]["stats"]
+        last = runs["lockstep"][-1]["stats"]
+        step_ms = sorted(s * 1e3 for s in first["step_s"][1:])
+        last_ms = sorted(s * 1e3 for s in last["step_s"][1:])
+        res["b"] = {"runs": runs, "launches": expected, "steps": first["steps"],
+                    "step_ms": [s * 1e3 for s in first["step_s"]],
+                    "step_median_ms": step_ms[len(step_ms) // 2],
+                    "last_step_ms": [s * 1e3 for s in last["step_s"]],
+                    "last_step_median_ms": last_ms[len(last_ms) // 2],
+                    "camera_err_px": max(c["camera_err_px"] for c in res["b_checks"]),
+                    "rows": sum(c["rows"] for c in res["b_checks"]), "s": time.perf_counter() - t0}
+
+        # (c) both kernels on this phase's own inputs
+        t0 = time.perf_counter()
+        res["kernels"] = lockstep_kernels(detector, frames, device, reps)
+        res["c_s"] = time.perf_counter() - t0
+
+        # (d) batch as users run it: a directory of four videos, then again
+        for s in sources:
+            for stale in (folder / "results").glob(f"{s.stem}*"):
+                stale.unlink()
+        t0 = time.perf_counter()
+        cfg_default = config_file(tmp / "lock_default.yaml", imgsz, **edits)
+        calls = {"lockstep": 0, "per_file": 0}
+        batch_fn, per_file = extract_batch.extract_videos_batch, port_batch.detect_track_stabilize
+
+        def counted_batch(*a, **kw):
+            calls["lockstep"] += 1
+            return batch_fn(*a, **kw)
+
+        def counted_file(*a, **kw):
+            calls["per_file"] += 1
+            return per_file(*a, **kw)
+
+        extract_batch.extract_videos_batch = counted_batch
+        port_batch.detect_track_stabilize = counted_file
+        try:
+            # the readers' vehicles as detections, so that every video keeps
+            # tracks and so a tracks file, the extract stage's checkpoint
+            with InMemory(videos, LockstepOracle(readers, 2 * vehicles, device)):
+                for run in range(2):
+                    args = lockstep_args(folder, cfg_default, model, device,
+                                         "--parallel-videos", str(len(lengths)), "-y")
+                    before = dict(calls)
+                    port_batch.process_input(args, port_extract._LOG)
+                    res[f"d_calls_{run}"] = {k: calls[k] - before[k] for k in calls}
+        finally:
+            extract_batch.extract_videos_batch = batch_fn
+            port_batch.detect_track_stabilize = per_file
+        modes = [yaml_load.safe_load(s.with_suffix(".yaml").read_text())["runtime"]
+                 ["extraction_mode"] for s in sources]
+        if modes != [f"parallel-group-{len(lengths)}"] * len(lengths):
+            raise AssertionError(f"(d) extraction modes {modes}")
+        if res["d_calls_0"] != {"lockstep": 1, "per_file": 0} or res["d_calls_1"] != {
+                "lockstep": 0, "per_file": 0}:
+            raise AssertionError(f"(d) stage calls {res['d_calls_0']}, then {res['d_calls_1']}")
+        res["d_modes"] = modes
+        res["d_s"] = time.perf_counter() - t0
+    return res
+
+
+def lockstep_line(lk: dict, seconds: float, smi: str) -> str:
+    b, k = lk["b"], lk["kernels"]
+    lock = [r["fps"] for r in b["runs"]["lockstep"]]
+    serial = [r["fps"] for r in b["runs"]["serial"]]
+    a = "; ".join(f"{t} " + ("equal" if r["equal"] else
+                             f"largest difference per column {r['col_diff']}")
+                  + f" ({r['rows']} rows)" for t, r in lk["a"].items())
+    peak = [None if r["peak_gib"] is None else round(r["peak_gib"], 1)
+            for r in b["runs"]["lockstep"]]
+    line = (f"lockstep ok {seconds:.1f}s 4 videos {lk['size'][0]}x{lk['size'][1]} of "
+            f"{lk['lengths']} frames, {lk['vehicles']} vehicles each: (a) oracle, stabilization "
+            f"off, lockstep vs run_extraction alone: {a}; (b) YOLOv8 imgsz {lk['imgsz']} with "
+            f"ReID, {b['steps']} steps: ms/step {[round(m, 1) for m in b['step_ms']]}, median "
+            f"after the first {b['step_median_ms']:.1f} ms (last run "
+            f"{[round(m, 1) for m in b['last_step_ms']]}, median {b['last_step_median_ms']:.1f} "
+            f"ms); frames/s in turns lockstep "
+            f"{[round(x, 2) for x in lock]}, run_extraction one video after another "
+            f"{[round(x, 2) for x in serial]}; {b['rows']} rows, camera error "
+            f"{b['camera_err_px']:.3f} px, launches {b['launches']}, embedding norm err "
+            f"{lk['emb_norm_err']:.2e}; peak mem {peak} GiB; (c) FAST {k['gray_shape']} and "
+            f"gather {k['planes_shape']} x {k['corners']} exact")
+    if "fast" in k:
+        line += (f": FAST {k['fast']['ms']:.4f} ms (plain {k['fast']['plain_ms']:.3f}, bound "
+                 f"{k['fast_bound_ms']:.4f}), gather {k['gather_ms']:.4f} ms (plain "
+                 f"{k['gather_plain_ms']:.3f}, unfold-gather {k['gather_library_ms']:.3f}, bound "
+                 f"{k['gather_bound_ms']:.4f})")
+        line += ", detect_batch ms per frame at batch " + ", ".join(
+            f"{n}: {ms:.1f}" for n, ms in k["detect_ms_per_frame"].items())
+    return line + (f"; (d) batch --parallel-videos 4 twice: stage calls {lk['d_calls_0']} then "
+                   f"{lk['d_calls_1']}, modes {sorted(set(lk['d_modes']))}; seconds (a) "
+                   f"{lk['a_s']:.1f}, (b) {b['s']:.1f}, (c) {lk['c_s']:.1f}, (d) {lk['d_s']:.1f}"
+                   f" [{smi}]")
+
+
+def lockstep_profile_lines(prof: dict) -> list:
+    n = prof["steps"]
+    lines = [f"    lockstep profile: {n} steps in {prof['wall_ms']:.1f} ms under the profiler, "
+             f"device busy {prof['device_busy_ms']:.1f} ms"]
+    lines += [f"    stage {name:16s} host {cpu / n:8.1f} ms/step  kernels {dev / n:8.1f} ms/step  "
+              f"device span {span / n:8.1f} ms/step" for name, cpu, dev, span in prof["stages"]]
+    lines += [f"    kernel {ms:9.3f} ms  x{count:<6d} {name[:90]}" for name, ms, count in
+              prof["top"][:8]]
+    return lines
+
+
 def sequential_line(sq: dict, seconds: float, smi: str) -> str:
     a, b, c = sq["a"], sq["b"], sq["c"]
     ms = lambda st: (f"detect {st['avg_detect_ms']:.1f}, stabilize {st['avg_stab_ms']:.1f}, "  # noqa: E731
@@ -2024,16 +2471,21 @@ def breakdown_lines(brk: dict) -> list:
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: int, res: dict,
-                 sequential_launches: int) -> dict:
+                 sequential_launches: int, lockstep_launches: int, lockstep: dict) -> dict:
+    """One kernel's entry of the JSON line; ``lockstep`` holds its shape,
+    time and bound on the lockstep phase's own inputs."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": res["max_abs_err"], "ms": res["ms"],
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
-            "library_ms": res.get("library_ms"), "launches_sequential": sequential_launches}
+            "library_ms": res.get("library_ms"), "launches_sequential": sequential_launches,
+            "launches_lockstep": lockstep_launches, **{f"{k}_lockstep": v
+                                                        for k, v in lockstep.items()}}
 
 
 def main(argv) -> int:
     kernels_only = "--kernels-only" in argv
     georef_only = "--georef-only" in argv
+    lockstep_only = "--lockstep-only" in argv
     t_all = time.perf_counter()
     width, height, chunk, seed = 3840, 2160, 32, 0
     n_main = 2 * chunk
@@ -2071,6 +2523,13 @@ def main(argv) -> int:
             log(georef_line(geo, time.perf_counter() - t, dev["smi"]))
             print("\n".join(breakdown_lines(geo["ortho_breakdown"])), flush=True)
             log(f"georef-only ok {time.perf_counter() - t_all:.1f}s")
+            return 0
+        if lockstep_only:  # its own calibrated detector
+            t = time.perf_counter()
+            lk = phase_lockstep(None, "cuda")
+            log(lockstep_line(lk, time.perf_counter() - t, dev["smi"]))
+            print("\n".join(lockstep_profile_lines(lk["b_profile"])), flush=True)
+            log(f"lockstep-only ok {time.perf_counter() - t_all:.1f}s")
             return 0
 
         t = time.perf_counter()
@@ -2202,6 +2661,11 @@ def main(argv) -> int:
                                     f"{v['box_err']:.2e} px H err {v['h_err']:.2e}"
                                     for k, v in ref.items()))
 
+        t = time.perf_counter()
+        lk = phase_lockstep(main_run["fx"].detector, "cuda")
+        log(lockstep_line(lk, time.perf_counter() - t, dev["smi"]))
+        print("\n".join(lockstep_profile_lines(lk["b_profile"])), flush=True)
+
     except Exception as exc:  # noqa: BLE001 — every phase failure ends the run
         import traceback
 
@@ -2210,11 +2674,17 @@ def main(argv) -> int:
         return 1
 
     log(f"all phases ok {time.perf_counter() - t_all:.1f}s")
+    lk_k = lk["kernels"]
     kernels = {"kernels": [
         kernel_entry("fast_score", FAST_SOURCE, FAST_REPLACES, launches, kern,
-                     sq["c_launches"]["fast_score"]),
+                     sq["c_launches"]["fast_score"], lk["b"]["launches"]["fast_score"],
+                     {"shape": lk_k["gray_shape"], "ms": lk_k["fast"]["ms"],
+                      "bound_ms": lk_k["fast_bound_ms"]}),
         kernel_entry("patch_gather", PATCH_SOURCE, PATCH_REPLACES,
-                     rd["launches"]["patch_gather"], pg, sq["c_launches"]["patch_gather"]),
+                     rd["launches"]["patch_gather"], pg, sq["c_launches"]["patch_gather"],
+                     lk["b"]["launches"]["patch_gather"],
+                     {"shape": lk_k["planes_shape"] + (lk_k["corners"],), "ms": lk_k["gather_ms"],
+                      "bound_ms": lk_k["gather_bound_ms"]}),
     ]}
     print(json.dumps(kernels), flush=True)
     print(dev["smi"], flush=True)

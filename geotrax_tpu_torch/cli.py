@@ -2,10 +2,11 @@
 
 The counterpart of ``geotrax_tpu/cli.py``: the reference's seven commands
 and ``-V/--version``, each stage module imported only when its command
-runs and given its own argv. ``extract`` and ``georeference`` run on the
-card unless ``--device cpu`` is given (the counterpart of the reference's
-``JAX_PLATFORMS``); the other five commands are not ported yet and exit
-with the ROADMAP item that will bring them.
+runs and given its own argv. ``extract``, ``georeference`` and ``batch``
+run on the card unless ``--device cpu`` is given (the counterpart of the
+reference's ``JAX_PLATFORMS``); ``config`` and ``aggregate`` run on the
+host; ``visualize`` and ``plot`` are not ported yet and exit with the
+ROADMAP item that will bring them.
 """
 
 from __future__ import annotations
@@ -17,15 +18,18 @@ from geotrax_tpu_torch import __version__
 
 # command -> (module path, or the ROADMAP item that ports it; one-line help)
 COMMANDS = {
-    "batch": ("A17", "Run the full pipeline over a video or a directory tree"),
+    "batch": ("geotrax_tpu_torch.pipeline.batch",
+              "Run the full pipeline over a video or a directory tree"),
     "extract": ("geotrax_tpu_torch.pipeline.extract",
                 "Detect, track and stabilize vehicle trajectories (pixel coords)"),
     "georeference": ("geotrax_tpu_torch.pipeline.georeference",
                      "Map extracted tracks to WGS84 + local CRS with kinematics"),
-    "aggregate": ("A17", "Merge per-video georeferenced CSVs across drones/sessions"),
-    "visualize": ("A17", "Render annotated videos (5 modes incl. oriented boxes)"),
-    "plot": ("A17", "Generate trajectory / kinematics / class-distribution plots"),
-    "config": ("A17", "Show or copy the bundled configuration presets"),
+    "aggregate": ("geotrax_tpu_torch.pipeline.aggregate",
+                  "Merge per-video georeferenced CSVs across drones/sessions"),
+    "visualize": ("A17b", "Render annotated videos (5 modes incl. oriented boxes)"),
+    "plot": ("A17b", "Generate trajectory / kinematics / class-distribution plots"),
+    "config": ("geotrax_tpu_torch.pipeline.config_cmd",
+               "Show or copy the bundled configuration presets"),
 }
 
 PROG = "python -m geotrax_tpu_torch"

@@ -9,7 +9,7 @@ The port's copy of the sequential part of ``geotrax_tpu/io/video.py``:
 
 Frames are numpy uint8 HxWx3 in RGB order. ``VideoReader`` decodes in a
 background thread that keeps a few frames ahead of the consumer. The
-GOP-parallel reader waits for ROADMAP A15 and the writer for A17.
+GOP-parallel reader waits for ROADMAP A15b and the writer for A17b.
 """
 
 from __future__ import annotations
@@ -192,5 +192,5 @@ class VideoReader:
 
 def make_reader(path: Path | str, start: int = 0, stop: Optional[int] = None, prefetch: int = 4,
                 backend: Optional[str] = None) -> VideoReader:
-    """The sequential reader (the GOP-parallel one is ROADMAP A15)."""
+    """The sequential reader (the GOP-parallel one is ROADMAP A15b)."""
     return VideoReader(path, start=start, stop=stop, prefetch=prefetch, backend=backend)

@@ -20,46 +20,53 @@ AUCTION_ROUNDS_PER_CHECK = 8
 
 
 def auction_assignment(cost: torch.Tensor, eps: float = 2e-4, max_iters: int = 512) -> torch.Tensor:
-    """Min-cost assignment of (N,M) cost rows to distinct columns, N <= M.
+    """Min-cost assignment of (..., N, M) cost rows to distinct columns, N <= M,
+    for each leading (video) index.
 
     Jacobi forward auction (every unassigned row bids at once) from zero
-    prices; optimal within N*eps. Returns (N,) int64 column per row; rows
-    still unassigned at the iteration cap return -1."""
-    n, m = cost.shape
+    prices; optimal within N*eps. Returns (..., N) int64 column per row; rows
+    still unassigned at the iteration cap return -1. A batch of problems
+    runs until every one has converged: a converged problem makes no bid
+    in later rounds, so its prices and owners stay put and each result is
+    the one it has alone."""
+    n, m = cost.shape[-2:]
+    lead = cost.shape[:-2]
     dev = cost.device
     benefit = -cost
     cols = torch.arange(m, device=dev)
     neg_inf = float("-inf")
-    prices = torch.zeros((m,), dtype=cost.dtype, device=dev)
-    owner = torch.full((m,), -1, dtype=torch.int64, device=dev)
-    assigned = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    prices = torch.zeros(lead + (m,), dtype=cost.dtype, device=dev)
+    owner = torch.full(lead + (m,), -1, dtype=torch.int64, device=dev)
+    assigned = torch.full(lead + (n,), -1, dtype=torch.int64, device=dev)
+    cols_b = cols.expand(lead + (m,))
 
     it = 0
     while it < max_iters:
         for _ in range(min(AUCTION_ROUNDS_PER_CHECK, max_iters - it)):
             unassigned = assigned < 0
-            values = benefit - prices[None, :]
-            best_col = torch.argmax(values, dim=1)
-            best_val = values.gather(1, best_col[:, None])[:, 0]
-            second_val = values.scatter(1, best_col[:, None], neg_inf).amax(dim=1)
+            values = benefit - prices[..., None, :]
+            best_col = torch.argmax(values, dim=-1)
+            best_val = values.gather(-1, best_col[..., None])[..., 0]
+            second_val = values.scatter(-1, best_col[..., None], neg_inf).amax(dim=-1)
             second_val = torch.where(torch.isfinite(second_val), second_val, best_val - 1.0)
             bid = torch.where(unassigned, best_val - second_val + eps, neg_inf)
 
-            bid_matrix = torch.where(best_col[:, None] == cols[None, :], bid[:, None], neg_inf)
-            win_bid = bid_matrix.amax(dim=0)
-            win_row = torch.argmax(bid_matrix, dim=0)
+            bid_matrix = torch.where(best_col[..., :, None] == cols, bid[..., :, None], neg_inf)
+            win_bid = bid_matrix.amax(dim=-2)
+            win_row = torch.argmax(bid_matrix, dim=-2)
             col_has_bid = torch.isfinite(win_bid)
 
             # rows outbid this round lose their column (slot n is a sink)
             displaced = torch.where(col_has_bid & (owner >= 0), owner, n)
-            lost = torch.zeros((n + 1,), dtype=torch.bool, device=dev).index_fill_(0, displaced, True)
-            assigned = torch.where(lost[:n], -1, assigned)
+            lost = torch.zeros(lead + (n + 1,), dtype=torch.bool, device=dev).scatter_(
+                -1, displaced, True)
+            assigned = torch.where(lost[..., :n], -1, assigned)
 
             owner = torch.where(col_has_bid, win_row, owner)
             prices = prices + torch.where(col_has_bid, win_bid, 0.0)
             winner_rows = torch.where(col_has_bid, win_row, n)
-            sink = torch.cat([assigned, assigned.new_full((1,), -1)])
-            assigned = sink.index_copy_(0, winner_rows, cols)[:n]
+            sink = torch.cat([assigned, assigned.new_full(lead + (1,), -1)], dim=-1)
+            assigned = sink.scatter_(-1, winner_rows, cols_b)[..., :n]
             it += 1
         if not bool((assigned < 0).any()):
             break
@@ -70,22 +77,23 @@ def masked_assignment(cost: torch.Tensor, row_valid: torch.Tensor, col_valid: to
                       threshold: float, eps: float = 2e-4, max_iters: int = 512):
     """Gated rectangular assignment (the tracker-association primitive).
 
-    cost: (N,M); invalid rows/columns and pairs with cost > ``threshold`` may
-    not match. Returns (row_to_col (N,), matched (N,)); unmatched rows get -1.
-    Each row gets a private dummy column at ``threshold + delta``, every other
-    dummy is at the gated level ``threshold + 2*delta``, so an unmatched row
-    takes its own dummy without contention."""
-    n, m = cost.shape
+    cost: (..., N, M); invalid rows/columns and pairs with cost >
+    ``threshold`` may not match. Returns (row_to_col (..., N), matched
+    (..., N)); unmatched rows get -1. Each row gets a private dummy column
+    at ``threshold + delta``, every other dummy is at the gated level
+    ``threshold + 2*delta``, so an unmatched row takes its own dummy without
+    contention. A leading (video) axis runs one auction for the group."""
+    n, m = cost.shape[-2:]
     dev = cost.device
     delta = 0.05 * max(float(threshold), 1.0)
     gated_cost = threshold + 2.0 * delta
     gated = torch.where(
-        row_valid[:, None] & col_valid[None, :] & (cost <= threshold), cost, gated_cost
+        row_valid[..., :, None] & col_valid[..., None, :] & (cost <= threshold), cost, gated_cost
     )
     eye = torch.eye(n, dtype=torch.bool, device=dev)
     dummies = torch.where(eye, threshold + delta, gated_cost).to(gated.dtype)
-    padded = torch.cat([gated, dummies], dim=1)
+    padded = torch.cat([gated, dummies.expand(gated.shape[:-1] + (n,))], dim=-1)
     col = auction_assignment(padded, eps=eps, max_iters=max_iters)
-    pair_cost = padded[torch.arange(n, device=dev), torch.clamp(col, 0, m + n - 1)]
+    pair_cost = padded.gather(-1, torch.clamp(col, 0, m + n - 1)[..., None])[..., 0]
     matched = (col >= 0) & (col < m) & row_valid & (pair_cost <= threshold)
     return torch.where(matched, col, -1), matched

@@ -81,3 +81,13 @@ def uniform(key: np.ndarray, shape: tuple) -> np.ndarray:
     bits = random_bits(key, shape)
     floats = ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32) - np.float32(1.0)
     return np.maximum(np.float32(0.0), floats)
+
+
+def split(key: np.ndarray, num: int = 2) -> np.ndarray:
+    """``jax.random.split(key, num)`` for (..., 2) keys: (..., num, 2) keys.
+    Partitionable threefry splits as it folds in: key ``i`` is the cipher of
+    the counter pair (0, i) under ``key`` (``_threefry_split_foldlike``)."""
+    key = np.asarray(key, np.uint32)
+    i = np.arange(num, dtype=np.uint32)
+    y0, y1 = threefry2x32(key[..., None, :], np.zeros_like(i), i)
+    return np.stack([y0, y1], axis=-1)

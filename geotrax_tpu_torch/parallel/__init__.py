@@ -1,2 +1,6 @@
-"""Spatial tiling of the detector (``tiling.py``); sharding over several
-cards waits for ROADMAP A15."""
+"""Several frames, tiles or videos at once: spatial tiling of the detector
+(``tiling.py``), the lockstep multi-video extractor that ``batch
+--parallel-videos`` runs (``extract_batch.py``, with ``--devices`` splitting
+its tracker timelines over cards) and V tracker timelines over a block of
+detections with the aggregation's device arithmetic (``video_batch.py``).
+Tiles sharded over cards and the GOP-parallel reader wait for ROADMAP A15b."""

@@ -7,7 +7,7 @@ overlapping vertical tiles of one width, each tile is letterboxed to
 small-object lever at 4K), and the per-tile detections are merged into one
 set: x offsets, then one fixed-shape NMS over all tiles that keeps a single
 box for an object seen by two neighbours. The C x T tiles of a chunk run as
-one batch; sharding the tile axis over several cards is ROADMAP A15.
+one batch; sharding the tile axis over several cards is ROADMAP A15b.
 """
 
 from __future__ import annotations

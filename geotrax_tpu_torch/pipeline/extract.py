@@ -221,15 +221,17 @@ class Staging:
             self.uploaded = [torch.cuda.Event() for _ in range(2)]
             self.consumed = [torch.cuda.Event() for _ in range(2)]
 
-    def upload(self, slot: int) -> None:
-        """Copy host slot ``slot`` into its device buffer once the chunk
-        step that last read that buffer is done; non-blocking on the card."""
+    def upload(self, slot: int, n: int | None = None) -> None:
+        """Copy host slot ``slot`` (its first ``n`` frames, all by default)
+        into its device buffer once the chunk step that last read that
+        buffer is done; non-blocking on the card."""
+        n = self.shape[0] if n is None else n
         if not self.cuda:
-            self.dev[slot].copy_(self.host[slot])
+            self.dev[slot][:n].copy_(self.host[slot][:n])
             return
         with torch.cuda.stream(self.stream):
             self.stream.wait_event(self.consumed[slot])
-            self.dev[slot].copy_(self.host[slot], non_blocking=True)
+            self.dev[slot][:n].copy_(self.host[slot][:n], non_blocking=True)
             self.uploaded[slot].record(self.stream)
 
     def frames(self, slot: int) -> torch.Tensor:
@@ -710,6 +712,12 @@ def track_video(args, config: dict, logger, pipelined: bool = True) -> tuple:
             chunk=FUSED_CHUNK, device=device)
     return track_video_fused(reader, fx, cut_left=cut_left, chunk=FUSED_CHUNK,
                              stabilize=stabilize_on, pipelined=pipelined, logger=logger)
+
+
+def detect_track_stabilize(args, logger) -> dict:
+    """The extract stage for one video (the library entry point that
+    ``batch`` calls): ``run_extraction``."""
+    return run_extraction(args, logger)
 
 
 def run_extraction(args, logger) -> dict:

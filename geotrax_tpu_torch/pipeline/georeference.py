@@ -530,6 +530,12 @@ def run_georeferencing(args, logger: logging.Logger) -> dict:
 # The CLI
 # ---------------------------------------------------------------------------
 
+def georeference(args, logger: logging.Logger) -> dict:
+    """The georeference stage for one video (the library entry point that
+    ``batch`` calls): ``run_georeferencing``."""
+    return run_georeferencing(args, logger)
+
+
 def add_georeferencing_args(group) -> None:
     """The georeferencing flags (all default to None and are backfilled
     from the config)."""

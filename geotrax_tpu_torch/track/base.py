@@ -19,6 +19,10 @@ low-confidence dets vs still-unmatched tracked (gate 0.5); stage 3
 remaining high dets vs tentative tracks (gate 0.7, fused); new tracks from
 remaining high dets above new_track_thresh; lost tracks pruned after
 track_buffer frames. Output boxes are the KF means.
+
+The BYTE step takes one timeline's state or, with a leading video axis, V
+timelines' at once (``make_batch_tracker``, the lockstep multi-video
+extractor's tracker): every video steps exactly as it steps alone.
 """
 
 from __future__ import annotations
@@ -123,16 +127,26 @@ def _iou_cost(state, cfg, det_boxes):
 def _fused(cost, det_scores, enable: bool):
     if not enable:
         return cost
-    return 1.0 - (1.0 - cost) * det_scores[None, :]
+    return 1.0 - (1.0 - cost) * det_scores[..., None, :]
 
 
 def _l2_normalize(v, dim=-1, eps=1e-12):
     return v / torch.clamp_min(torch.linalg.vector_norm(v, dim=dim, keepdim=True), eps)
 
 
+def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b``; with a leading video axis, one product per video: a
+    batched product may add in another order than one timeline's (the
+    CPU's small-matrix batched kernel, cuBLAS's batched kernels), and each
+    video must step exactly as it steps alone."""
+    if a.dim() == 2:
+        return a @ b
+    return torch.stack([x @ y for x, y in zip(a, b)])
+
+
 def _emb_distance(track_emb, det_emb):
-    """Cosine distance (K,M) between L2-normalized embeddings."""
-    return 1.0 - track_emb @ det_emb.T
+    """Cosine distance (..., K, M) between L2-normalized embeddings."""
+    return 1.0 - _matmul(track_emb, det_emb.transpose(-1, -2))
 
 
 def _ema_alpha(cfg: TrackerConfig, det_scores):
@@ -147,48 +161,57 @@ def _ema_alpha(cfg: TrackerConfig, det_scores):
 
 
 def _scatter_drop(base: torch.Tensor, index: torch.Tensor, values) -> torch.Tensor:
-    """``base.at[index].set(values, mode="drop")``: indices outside
-    [0, len(base)) are dropped (written to a sink slot)."""
-    size = base.shape[0]
-    sink = torch.cat([base, base[:1]])
+    """``base.at[index].set(values, mode="drop")`` along the last axis, for
+    each leading (video) index: indices outside [0, size) are dropped
+    (written to a sink slot)."""
+    size = base.shape[-1]
+    sink = torch.cat([base, base[..., :1]], dim=-1)
     safe = torch.where((index >= 0) & (index < size), index, size)
     if isinstance(values, torch.Tensor):
-        sink.index_copy_(0, safe, values.to(sink.dtype))
+        sink.scatter_(-1, safe, values.to(sink.dtype).expand(safe.shape))
     else:
-        sink.index_fill_(0, safe, values)
-    return sink[:size]
+        sink.scatter_(-1, safe, values)
+    return sink[..., :size]
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows of ``x`` at ``idx``: ``x[idx]`` for one timeline, and per video
+    for a leading video axis ((V, M, ...) at (V, K) -> (V, K, ...))."""
+    if idx.dim() == 1:
+        return x[idx]
+    return x[torch.arange(idx.shape[0], device=idx.device)[:, None], idx]
 
 
 def _apply_matches(state: TrackerState, cfg: TrackerConfig, det_boxes, det_scores,
                    det_cls, row_col, matched, frame_id, det_emb=None) -> TrackerState:
     """KF-update every matched slot with its assigned detection."""
-    safe_col = torch.clamp(row_col, 0, det_boxes.shape[0] - 1)
-    boxes = det_boxes[safe_col]
+    safe_col = torch.clamp(row_col, 0, det_boxes.shape[-2] - 1)
+    boxes = _take(det_boxes, safe_col)
     meas = kalman.measurement_from_xywh(boxes, fmt=cfg.kf_fmt)
     upd = kalman.update(kalman.KFState(state.kf_mean, state.kf_cov), meas, fmt=cfg.kf_fmt)
     m = matched
-    shifted_hist = torch.cat([state.obs_hist[:, 1:], boxes[:, None, :]], dim=1)
+    shifted_hist = torch.cat([state.obs_hist[..., 1:, :], boxes[..., None, :]], dim=-2)
     shifted_frames = torch.cat(
-        [state.hist_frame[:, 1:], torch.full_like(state.hist_frame[:, :1], frame_id)], dim=1
+        [state.hist_frame[..., 1:], torch.full_like(state.hist_frame[..., :1], frame_id)], dim=-1
     )
     new_emb = state.emb
     if cfg.with_reid and det_emb is not None:
-        feat = _l2_normalize(det_emb[safe_col])
-        alpha = _ema_alpha(cfg, det_scores[safe_col])[:, None]
+        feat = _l2_normalize(_take(det_emb, safe_col))
+        alpha = _ema_alpha(cfg, _take(det_scores, safe_col))[..., None]
         smooth = _l2_normalize(alpha * state.emb + (1.0 - alpha) * feat)
-        new_emb = torch.where(m[:, None], smooth, state.emb)
+        new_emb = torch.where(m[..., None], smooth, state.emb)
     return state._replace(
         emb=new_emb,
-        kf_mean=torch.where(m[:, None], upd.mean, state.kf_mean),
-        kf_cov=torch.where(m[:, None, None], upd.cov, state.kf_cov),
+        kf_mean=torch.where(m[..., None], upd.mean, state.kf_mean),
+        kf_cov=torch.where(m[..., None, None], upd.cov, state.kf_cov),
         status=torch.where(m, TRACKED, state.status),
-        score=torch.where(m, det_scores[safe_col], state.score),
-        cls=torch.where(m, det_cls[safe_col].to(state.cls.dtype), state.cls),
+        score=torch.where(m, _take(det_scores, safe_col), state.score),
+        cls=torch.where(m, _take(det_cls, safe_col).to(state.cls.dtype), state.cls),
         last_frame=torch.where(m, frame_id, state.last_frame),
         hits=torch.where(m, state.hits + 1, state.hits),
-        obs_box=torch.where(m[:, None], boxes, state.obs_box),
-        obs_hist=torch.where(m[:, None, None], shifted_hist, state.obs_hist),
-        hist_frame=torch.where(m[:, None], shifted_frames, state.hist_frame),
+        obs_box=torch.where(m[..., None], boxes, state.obs_box),
+        obs_hist=torch.where(m[..., None, None], shifted_hist, state.obs_hist),
+        hist_frame=torch.where(m[..., None], shifted_frames, state.hist_frame),
     )
 
 
@@ -198,39 +221,41 @@ def _spawn_new(state: TrackerState, cfg: TrackerConfig, det_boxes, det_scores,
     sequencing: each empty slot computes its rank among empty slots and
     gathers the same-ranked spawning detection."""
     k = cfg.max_tracks
-    m = det_boxes.shape[0]
+    m = det_boxes.shape[-2]
+    lead = det_boxes.shape[:-2]  # () for one timeline, (V,) for a video axis
     dev = det_boxes.device
     empty = state.status == EMPTY
-    slot_rank = torch.cumsum(empty, dim=0) - 1          # rank among empty slots
-    spawn_rank = torch.cumsum(spawn_mask, dim=0) - 1    # rank among spawning dets
-    num_spawn = spawn_mask.sum()
+    slot_rank = torch.cumsum(empty, dim=-1) - 1          # rank among empty slots
+    spawn_rank = torch.cumsum(spawn_mask, dim=-1) - 1    # rank among spawning dets
+    num_spawn = spawn_mask.sum(dim=-1)
 
     # rank -> detection index table (ranks >= k are dropped)
-    det_of_rank = _scatter_drop(torch.full((k,), m, dtype=torch.int64, device=dev),
+    det_of_rank = _scatter_drop(torch.full(lead + (k,), m, dtype=torch.int64, device=dev),
                                 torch.where(spawn_mask, spawn_rank, k), torch.arange(m, device=dev))
-    recv = empty & (slot_rank < num_spawn)
-    safe_det = torch.clamp(det_of_rank[torch.clamp(slot_rank, 0, k - 1)], 0, m - 1)
+    recv = empty & (slot_rank < num_spawn[..., None])
+    safe_det = torch.clamp(_take(det_of_rank, torch.clamp(slot_rank, 0, k - 1)), 0, m - 1)
 
-    boxes_new = det_boxes[safe_det]
+    boxes_new = _take(det_boxes, safe_det)
     meas = kalman.measurement_from_xywh(boxes_new, fmt=cfg.kf_fmt)
     init = kalman.initiate(meas, fmt=cfg.kf_fmt)
-    new_ids = state.next_id + slot_rank.to(torch.int32)
+    new_ids = state.next_id[..., None] + slot_rank.to(torch.int32)
 
     status_new = TRACKED if frame_id == 1 else TENTATIVE
     hist_new = torch.cat(
-        [torch.zeros((k, HIST - 1, 4), dtype=boxes_new.dtype, device=dev), boxes_new[:, None, :]],
-        dim=1,
+        [torch.zeros(lead + (k, HIST - 1, 4), dtype=boxes_new.dtype, device=dev),
+         boxes_new[..., None, :]],
+        dim=-2,
     )
-    hist_frame_new = torch.zeros((k, HIST), dtype=torch.int32, device=dev)
-    hist_frame_new[:, -1] = frame_id
+    hist_frame_new = torch.zeros(lead + (k, HIST), dtype=torch.int32, device=dev)
+    hist_frame_new[..., -1] = frame_id
 
     def pick(new, old):
-        mask = recv.reshape(recv.shape + (1,) * (old.dim() - 1))
+        mask = recv.reshape(recv.shape + (1,) * (old.dim() - recv.dim()))
         return torch.where(mask, new, old)
 
     emb_new = state.emb
     if cfg.with_reid and det_emb is not None:
-        emb_new = pick(_l2_normalize(det_emb[safe_det]), state.emb)
+        emb_new = pick(_l2_normalize(_take(det_emb, safe_det)), state.emb)
 
     return state._replace(
         emb=emb_new,
@@ -238,8 +263,8 @@ def _spawn_new(state: TrackerState, cfg: TrackerConfig, det_boxes, det_scores,
         kf_cov=pick(init.cov, state.kf_cov),
         status=pick(torch.full_like(state.status, status_new), state.status),
         track_id=pick(new_ids, state.track_id),
-        score=pick(det_scores[safe_det], state.score),
-        cls=pick(det_cls[safe_det].to(state.cls.dtype), state.cls),
+        score=pick(_take(det_scores, safe_det), state.score),
+        cls=pick(_take(det_cls, safe_det).to(state.cls.dtype), state.cls),
         last_frame=pick(torch.full_like(state.last_frame, frame_id), state.last_frame),
         start_frame=pick(torch.full_like(state.start_frame, frame_id), state.start_frame),
         hits=pick(torch.ones_like(state.hits), state.hits),
@@ -247,7 +272,7 @@ def _spawn_new(state: TrackerState, cfg: TrackerConfig, det_boxes, det_scores,
         obs_hist=pick(hist_new, state.obs_hist),
         hist_frame=pick(hist_frame_new, state.hist_frame),
         occ=pick(torch.zeros_like(state.occ), state.occ),
-        next_id=state.next_id + torch.minimum(num_spawn, empty.sum()).to(torch.int32),
+        next_id=state.next_id + torch.minimum(num_spawn, empty.sum(dim=-1)).to(torch.int32),
     )
 
 
@@ -260,13 +285,13 @@ def predict_stage(state: TrackerState, cfg: TrackerConfig,
     mean = state.kf_mean.clone()
     not_tracked = state.status != TRACKED
     if cfg.kf_fmt == "xyah":
-        mean[:, 7] = torch.where(not_tracked, 0.0, mean[:, 7])
+        mean[..., 7] = torch.where(not_tracked, 0.0, mean[..., 7])
     else:
-        mean[:, 6] = torch.where(not_tracked, 0.0, mean[:, 6])
-        mean[:, 7] = torch.where(not_tracked, 0.0, mean[:, 7])
+        mean[..., 6] = torch.where(not_tracked, 0.0, mean[..., 6])
+        mean[..., 7] = torch.where(not_tracked, 0.0, mean[..., 7])
     pred = kalman.predict(kalman.KFState(mean, state.kf_cov), fmt=cfg.kf_fmt)
-    new_mean = torch.where(live[:, None], pred.mean, state.kf_mean)
-    new_cov = torch.where(live[:, None, None], pred.cov, state.kf_cov)
+    new_mean = torch.where(live[..., None], pred.mean, state.kf_mean)
+    new_cov = torch.where(live[..., None, None], pred.cov, state.kf_cov)
 
     if cfg.use_gmc and gmc_h is not None:
         # Track centers go through the camera-motion homography; its linear
@@ -274,25 +299,25 @@ def predict_stage(state: TrackerState, cfg: TrackerConfig,
         # velocity (ultralytics multi_gmc applies kron(eye(4), R)). The
         # factored covariance cannot hold R C R^T; those second-order terms
         # are dropped, as in the reference.
-        centers = new_mean[:, :2]
-        moved = apply_homography(gmc_h, centers[None, :, :])[0]
-        lin = gmc_h[:2, :2]
-        vel = new_mean[:, 4:6] @ lin.T
+        centers = new_mean[..., :2]
+        moved = apply_homography(gmc_h, centers)
+        lin_t = gmc_h[..., :2, :2].transpose(-1, -2)
+        vel = _matmul(new_mean[..., 4:6], lin_t)
         new_mean = new_mean.clone()
-        new_mean[:, :2] = torch.where(live[:, None], moved, centers)
-        new_mean[:, 4:6] = torch.where(live[:, None], vel, new_mean[:, 4:6])
+        new_mean[..., :2] = torch.where(live[..., None], moved, centers)
+        new_mean[..., 4:6] = torch.where(live[..., None], vel, new_mean[..., 4:6])
         if cfg.kf_fmt == "xywh":
-            wh = new_mean[:, 2:4] @ lin.T
-            vwh = new_mean[:, 6:8] @ lin.T
-            new_mean[:, 2:4] = torch.where(live[:, None], wh, new_mean[:, 2:4])
-            new_mean[:, 6:8] = torch.where(live[:, None], vwh, new_mean[:, 6:8])
+            wh = _matmul(new_mean[..., 2:4], lin_t)
+            vwh = _matmul(new_mean[..., 6:8], lin_t)
+            new_mean[..., 2:4] = torch.where(live[..., None], wh, new_mean[..., 2:4])
+            new_mean[..., 6:8] = torch.where(live[..., None], vwh, new_mean[..., 6:8])
     return state._replace(kf_mean=new_mean, kf_cov=new_cov)
 
 
 def byte_associate(state: TrackerState, cfg: TrackerConfig, det_boxes, det_scores,
                    det_cls, det_valid, frame_id, det_emb=None):
     """The BYTE two-stage association schedule; returns the updated state."""
-    m = det_boxes.shape[0]
+    m = det_boxes.shape[-2]
     high = det_valid & (det_scores >= cfg.track_high_thresh)
     low = det_valid & (det_scores > cfg.track_low_thresh) & (det_scores < cfg.track_high_thresh)
 
@@ -411,3 +436,65 @@ def make_tracker(name: str, params: dict, max_tracks: int = 256, device="cuda"):
         return step(state, boxes, scores, cls, valid, frame_id, cfg, gmc_h, det_emb)
 
     return cfg, init_state(cfg, device), step_fn
+
+
+# Trackers whose step runs on a leading video axis as one batched step (the
+# BYTE family through byte_step); the others step their live videos one by
+# one behind the same interface (ROADMAP queues their batching).
+BATCHED_TRACKERS = ("botsort", "bytetrack")
+
+
+def stack_states(state: TrackerState, num_videos: int) -> TrackerState:
+    """``num_videos`` copies of one timeline's state on a leading axis."""
+    return TrackerState(*(t.expand((num_videos,) + t.shape).clone() for t in state))
+
+
+def _frozen(new: TrackerState, old: TrackerState, alive: torch.Tensor) -> TrackerState:
+    """``new`` where the video is alive, ``old`` (its state unchanged) where
+    it has ended."""
+    return TrackerState(*(
+        torch.where(alive.reshape(alive.shape + (1,) * (n.dim() - 1)), n, o)
+        for n, o in zip(new, old)))
+
+
+def make_batch_tracker(name: str, params: dict, num_videos: int, max_tracks: int = 256,
+                       device="cuda"):
+    """Build (cfg, states, vstep) for ``num_videos`` timelines of a named
+    tracker, the counterpart of the reference's ``vmap`` of the step
+    (``geotrax_tpu/parallel/extract_batch.py:tracker_vstep``):
+
+        states, out = vstep(states, boxes, scores, cls, valid, frame_id,
+                            alive, gmc_h=None, det_emb=None)
+
+    with (V, M, ...) detections, (V,) bool ``alive``, (V, 3, 3) GMC and
+    (V, M, EMB_DIM) embeddings; ``out`` is a (V, K, ...) FrameOutput. A
+    video that has ended (``alive`` False) keeps its state and has no valid
+    output. botsort and bytetrack run one batched ``byte_step`` (one
+    auction per association stage for the group); the other trackers run
+    their own step on each live video."""
+    name = name.lower()
+    cfg, state0, step = make_tracker(name, params, max_tracks=max_tracks, device=device)
+    states = stack_states(state0, num_videos)
+
+    if name in BATCHED_TRACKERS:
+        def vstep(states, boxes, scores, cls, valid, frame_id, alive, gmc_h=None, det_emb=None):
+            new, out = step(states, boxes, scores, cls, valid, frame_id, gmc_h, det_emb)
+            return _frozen(new, states, alive), out._replace(valid=out.valid & alive[:, None])
+        return cfg, states, vstep
+
+    def vstep(states, boxes, scores, cls, valid, frame_id, alive, gmc_h=None, det_emb=None):
+        new, outs = [], []
+        for v, live in enumerate(alive.tolist()):
+            state = TrackerState(*(t[v] for t in states))
+            if live:
+                state, out = step(state, boxes[v], scores[v], cls[v], valid[v], frame_id,
+                                  None if gmc_h is None else gmc_h[v],
+                                  None if det_emb is None else det_emb[v])
+            else:
+                out = frame_output(state, cfg, frame_id)
+                out = out._replace(valid=torch.zeros_like(out.valid))
+            new.append(state)
+            outs.append(out)
+        return (TrackerState(*(torch.stack(f) for f in zip(*new))),
+                FrameOutput(*(torch.stack(f) for f in zip(*outs))))
+    return cfg, states, vstep

@@ -1,8 +1,9 @@
 """Output paths and serialization: the port's copy of the parts of
-``geotrax_tpu/utils/file_utils.py`` that ``extract`` and ``georeference``
-use (the results folder with its configurable name and postfixes, the
-delimiter sniffing, the location ID of a video's name and the orthophoto
-folder's lookup)."""
+``geotrax_tpu/utils/file_utils.py`` that ``extract``, ``georeference``,
+``batch`` and ``aggregate`` use (the results folder with its configurable
+name and postfixes, the delimiter sniffing, the location ID of a video's
+name, the orthophoto folder's lookup, the platform's video container and a
+video's dimensions)."""
 
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ import logging
 import sys
 from pathlib import Path
 from typing import Optional, Tuple, Union
+
+from geotrax_tpu_torch.utils.constants import IS_MACOS, IS_WINDOWS
 
 # Historical output-naming defaults, used only when no config dict is supplied.
 DEFAULT_OUTPUT = {
@@ -141,6 +144,23 @@ def get_ortho_folder(
         return None
     logger.info(f"Using orthophoto folder: '{ortho_folder}'.")
     return ortho_folder
+
+
+def determine_suffix_and_fourcc() -> Tuple[str, str]:
+    """Platform-appropriate output video container + codec fourcc."""
+    if IS_MACOS:
+        return "mp4", "avc1"
+    if IS_WINDOWS:
+        return "avi", "WMV2"
+    return "mp4", "mp4v"
+
+
+def get_video_dimensions(video_path: Path) -> Tuple[int, int]:
+    """(width, height) of a video file, from the port's decoder."""
+    from geotrax_tpu_torch.io.video import probe_video
+
+    info = probe_video(video_path)
+    return info.width, info.height
 
 
 def convert_to_serializable(obj):

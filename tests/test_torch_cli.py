@@ -266,13 +266,15 @@ def test_double_buffered_rows_equal_the_serial_loops(assets, patched):
     (["-V"], 0, "geotrax_tpu_torch 0.1.0"),
     (["--help"], 0, "extract"),
     (["batch", "x"], 2, "ROADMAP A17"),
-    (["aggregate", "x"], 2, "ROADMAP A17"),
+    (["visualize", "x"], 2, "ROADMAP A17"),
     (["nope"], 2, "unknown command"),
+    (["plot", "x"], 2, "ROADMAP A17"),
+    (["config", "show"], 0, "Available presets"),
 ])
 def test_umbrella_cli_dispatch(capsys, argv, code, text):
-    """The seven commands of the reference's usage; ``extract`` and
-    ``georeference`` are ported, the others name the ROADMAP item that ports
-    them."""
+    """The seven commands of the reference's usage; ``visualize`` and
+    ``plot`` name the ROADMAP item that ports them, and so does ``batch``
+    when its stage gates would run them (here, with its defaults)."""
     from geotrax_tpu_torch import cli
 
     assert cli.main(argv) == code

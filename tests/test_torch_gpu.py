@@ -34,7 +34,8 @@ def textured_gray(b, h, w, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(3, 1080, 1920), (2, 37, 53), (1, 3, 5)])
+# (4, 1080, 1920): the lockstep step's four grays (batch --parallel-videos 4)
+@pytest.mark.parametrize("shape", [(3, 1080, 1920), (2, 37, 53), (1, 3, 5), (4, 1080, 1920)])
 @pytest.mark.parametrize("threshold", [20.0, 7.0])
 def test_kernel_equals_plain_on_card(shape, threshold):
     _need_card()
@@ -133,7 +134,9 @@ def seeded_corners(b, h, w, k, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape,k", [((96, 1080, 1920), 1000), ((2, 37, 53), 130), ((1, 32, 32), 3)])
+# (12, 1080, 1920) x 1000: the lockstep step's ReID planes (4 frames, max_det corners)
+@pytest.mark.parametrize("shape,k", [((96, 1080, 1920), 1000), ((2, 37, 53), 130), ((1, 32, 32), 3),
+                                     ((12, 1080, 1920), 1000)])
 def test_patch_gather_equals_plain_on_card(shape, k):
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(k)
@@ -464,3 +467,44 @@ def test_rtdetr_l_on_card_equals_cpu():
     b = Detector(ul, cfg, device="cpu")(frame)
     np.testing.assert_array_equal(a["valid"].cpu().numpy(), b["valid"].numpy())
     np.testing.assert_array_equal(a["classes"].cpu().numpy(), b["classes"].numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["bytetrack", "botsort"])
+def test_batched_tracker_step_on_card_equals_single_steps(name):
+    """The lockstep's batched tracker step (make_batch_tracker) on the card
+    against each video's single-timeline step on the card, at the
+    lockstep's 1000 slots and detections with ReID and GMC: every output and
+    state equal, as on the CPU."""
+    _need_card()
+    from geotrax_tpu_torch.track import base as tb
+
+    v, m, k = 4, 1000, 1000
+    params = {"with_reid": True, "track_buffer": 30}
+    _, states, vstep = tb.make_batch_tracker(name, params, v, max_tracks=k, device="cuda")
+    singles = [tb.make_tracker(name, params, max_tracks=k, device="cuda") for _ in range(v)]
+    single_states = [s for _, s, _ in singles]
+    rng = np.random.default_rng(0)
+    start = rng.uniform(40, 3800, (v, m, 2)).astype(np.float32)
+    vel = rng.uniform(-3, 3, (v, m, 2)).astype(np.float32)
+    for t in range(6):
+        xy = start + vel * t + rng.normal(0, 0.5, (v, m, 2)).astype(np.float32)
+        boxes = np.concatenate([xy, np.full((v, m, 2), [90, 40], np.float32)], -1)
+        gmc = np.tile(np.eye(3, dtype=np.float32), (v, 1, 1))
+        gmc[:, :2, 2] = rng.normal(0, 1, (v, 2))
+        ins = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in (
+            boxes, rng.uniform(0.05, 1, (v, m)).astype(np.float32),
+            rng.integers(0, 4, (v, m)).astype(np.int32), rng.uniform(0, 1, (v, m)) > 0.2, gmc,
+            rng.normal(0, 1, (v, m, tb.EMB_DIM)).astype(np.float32))]
+        alive = torch.tensor([True, True, True, t < 4], device="cuda")
+        states, out = vstep(states, *ins[:4], t + 1, alive, ins[4], ins[5])
+        for i in range(v):
+            if not bool(alive[i]):
+                continue
+            single_states[i], one = singles[i][2](single_states[i], *(x[i] for x in ins[:4]),
+                                                  t + 1, ins[4][i], ins[5][i])
+            for x, y in zip(one, (f[i] for f in out)):
+                torch.testing.assert_close(y, x, rtol=0, atol=0)
+    for i in range(v):
+        for x, y in zip(single_states[i], (f[i] for f in states)):
+            torch.testing.assert_close(y, x, rtol=0, atol=0)
