@@ -4,6 +4,7 @@
     python3 chip_smoke.py --kernels-only   # phases 0-2 only, no result line
     python3 chip_smoke.py --georef-only    # phases 0, 1 and 10 only, no result line
     python3 chip_smoke.py --lockstep-only  # phases 0, 1 and 12 only, no result line
+    python3 chip_smoke.py --render-only    # phases 0, 1 and 13 only, no result line
 
 Phases, one ``[smoke] <phase> ok <seconds>s ...`` line each; a failing phase
 ends the run with a non-zero exit and no result line:
@@ -125,12 +126,32 @@ ends the run with a non-zero exit and no result line:
                process_input on a directory of the four videos
                (open_reader, probe_video and load_detector replaced), every
                metadata file parallel-group-4, a second run runs no stage
+ 13 render     ``visualize`` and ``plot`` as users run them, and ``batch``
+               under its default gates: (a) the five modes of
+               visualize_results at the default preset's line width and tail
+               (lanes and class names shown) on a drifting 16-frame
+               3840x2160 clip with 36 vehicles, its tracks, transforms and a
+               georeferenced speed/lane CSV written from the reader's known
+               boxes and camera, frames from memory, on the card and on the
+               CPU: 16 frames per mode, the card's frames within one grey
+               level of the CPU's (bit-equal in modes 0, 2 and 3, which do
+               no device work); with FFmpeg's libraries the port's encoder
+               writes each file and its decoder counts 16 frames back, else
+               the writer keeps each frame's digest in memory; (b) ms per
+               frame by mode (read, warp, draw, write) and the warp of one
+               4K frame (CUDA events) against its bound, with the upload
+               and download; (c) plot on a georeferenced CSV of 324,000
+               rows: the PDFs plot_dataset names, or, where matplotlib or
+               seaborn is missing, a line saying so and the data half alone;
+               (d) process_input on four videos with --no-geo and the
+               visualize and plot gates left open: extract (lockstep),
+               visualize and plot ran for each video
 Then a JSON line describing each kernel, the card's nvidia-smi line, and as
 the last line {"ok": true, "device": {...}}. ``--kernels-only`` serves to
 time the kernels of two checkouts in one call: copy this script into the
 other checkout and run it there too. ``--georef-only`` runs phases 0, 1 and
-10, ``--lockstep-only`` phases 0, 1 and 12 with its own calibrated detector
-(no result line).
+10, ``--lockstep-only`` phases 0, 1 and 12 with its own calibrated detector,
+``--render-only`` phases 0, 1 and 13 (no result line).
 """
 
 from __future__ import annotations
@@ -2029,8 +2050,8 @@ class InMemory:
 
 
 def lockstep_args(folder: Path, cfg: str, model, device: str, *argv):
-    """``batch``'s arguments for ``folder`` (the flags that turn off the
-    stages that are not ported, and no georeferencing)."""
+    """``batch``'s arguments for ``folder``: no georeferencing, and visualize
+    and plot turned off (the render phase runs them)."""
     from geotrax_tpu_torch.pipeline import batch as port_batch
 
     return port_batch.parse_cli_args(
@@ -2344,6 +2365,450 @@ def phase_lockstep(detector=None, device: str = "cuda", width: int = 3840, heigh
     return res
 
 
+# --------------------------------------------------------------------------
+# render: visualize and plot (phase 13)
+# --------------------------------------------------------------------------
+
+RENDER_FRAMES = 16
+RENDER_CLASSES = ["0=car", "1=bus", "2=truck", "3=motorcycle"]
+# metres per pixel of 4K drone footage at the altitude of the georef phase
+RENDER_GSD_M = 0.1
+# the figures plot_dataset names for a georeferenced CSV (no pixel columns)
+GEO_FIGURES = ["Orthophoto_image_coordinates", "Local_planar_coordinates",
+               "Geographic_coordinates", "Speed_distribution", "Acceleration_distribution",
+               "Speed_and_acceleration_distribution", "Class_distribution",
+               "Vehicle_length_distribution", "Vehicle_width_distribution"]
+# ... and for a tracks file of the extract stage (14 or 15 columns)
+TRACK_FIGURES = ["Unstabilized_image_coordinates", "Stabilized_image_coordinates",
+                 "Class_distribution", "Vehicle_length_distribution", "Vehicle_width_distribution"]
+
+
+def render_tracks(reader: SyntheticVideoReader, n_frames: int) -> tuple:
+    """The extract stage's 15-column tracks of the reader's vehicles (those
+    whose centre is in the frame) and its transforms rows (frames 1..n-1),
+    written from the known boxes and camera homographies."""
+    w, h = reader.info.width, reader.info.height
+    rows, transforms = [], []
+    for i in range(n_frames):
+        hm = reader.camera_h(i)
+        scale = math.sqrt(abs(np.linalg.det(hm[:2, :2])))
+        if i > 0:
+            transforms.append(np.concatenate([[i], hm.ravel()]))
+        for v, (cx, cy, bw, bh) in enumerate(reader.boxes_at(i)):
+            if not (0 <= cx < w and 0 <= cy < h):
+                continue
+            p = hm @ np.array([cx, cy, 1.0])
+            sx, sy = p[0] / p[2], p[1] / p[2]
+            rows.append([i, v + 1, cx, cy, bw, bh, sx, sy, bw * scale, bh * scale, v % 4,
+                         0.5 + 0.5 * ((v * 7) % 10) / 10, max(bw, bh) * scale,
+                         min(bw, bh) * scale, float(i % 7 == 6)])
+    return np.array(rows), np.array(transforms)
+
+
+def write_speed_lane_csv(path: Path, tracks: np.ndarray, reader: SyntheticVideoReader) -> None:
+    """A georeferenced CSV for the same tracks: speed from each vehicle's
+    known motion (px/frame at RENDER_GSD_M m/px and the clip's rate), lane
+    from its height in the frame."""
+    from geotrax_tpu_torch.io import table
+
+    v = np.array([b["v"] for b in reader.boxes])[tracks[:, 1].astype(int) - 1]
+    speed = np.hypot(v[:, 0], v[:, 1]) * reader.info.fps * RENDER_GSD_M * 3.6
+    lanes = 1 + (tracks[:, 3] // (reader.info.height / 8)).astype(np.int64)
+    table.write_csv(path, {"Frame_Number": tracks[:, 0].astype(np.int64),
+                           "Vehicle_ID": tracks[:, 1].astype(np.int64),
+                           "Vehicle_Speed": np.round(speed, 2), "Lane_Number": lanes})
+
+
+def write_plot_csv(path: Path, n_frames: int, vehicles: int, fw: int, fh: int) -> int:
+    """A georeferenced CSV of the georef phase's size (``synthetic_tracks``'
+    recipe) with the columns plot reads; returns its rows."""
+    tr = synthetic_tracks(n_frames, vehicles, fw, fh)
+    x, y = tr[:, 6], tr[:, 7]
+    ids = tr[:, 1].astype(np.int64)
+    speed = np.zeros(len(tr))
+    accel = np.zeros(len(tr))
+    order = np.lexsort((tr[:, 0], ids))
+    same = ids[order][1:] == ids[order][:-1]
+    step = np.hypot(np.diff(x[order]), np.diff(y[order])) * GEO_FPS * RENDER_GSD_M * 3.6
+    speed[order[1:]] = np.where(same, step, 0.0)
+    accel[order[1:]] = np.where(same, np.diff(speed[order]) / 3.6 * GEO_FPS, 0.0)
+    cols = {"Vehicle_ID": ids, "Frame_Number": tr[:, 0].astype(np.int64),
+            "Ortho_X": GEO_CENTER[0] + x, "Ortho_Y": GEO_CENTER[1] + y,
+            "Local_X": 170000.0 + x * RENDER_GSD_M, "Local_Y": 532000.0 - y * RENDER_GSD_M,
+            "Latitude": GEO_MOSAIC[1] + (GEO_CENTER[1] + y) * GEO_MOSAIC[3],
+            "Longitude": GEO_MOSAIC[0] + (GEO_CENTER[0] + x) * GEO_MOSAIC[2],
+            "Vehicle_Length": tr[:, 12] * RENDER_GSD_M, "Vehicle_Width": tr[:, 13] * RENDER_GSD_M,
+            "Vehicle_Class": tr[:, 10].astype(np.int64), "Vehicle_Speed": speed,
+            "Vehicle_Acceleration": accel,
+            "Lane_Number": 1 + (y // (fh / 8)).astype(np.int64)}
+    names = list(cols)
+    fmt = ["%d" if cols[k].dtype.kind == "i" else "%.6f" for k in names]
+    np.savetxt(path, np.stack([cols[k].astype(np.float64) for k in names], 1), fmt=fmt,
+               delimiter=",", header=",".join(names), comments="")
+    return len(tr)
+
+
+class FrameSink:
+    """The visualize stage's writer in memory: each frame's digest, the
+    frames asked to be kept, and ``on_frame`` called with each frame (a
+    real writer behind it where there is one)."""
+
+    def __init__(self, on_frame=None, keep_all: bool = False, inner=None):
+        self.digests, self.frames = [], []
+        self.on_frame, self.keep_all, self.inner = on_frame, keep_all, inner
+
+    def write(self, frame: np.ndarray) -> None:
+        import hashlib
+
+        self.digests.append(hashlib.sha1(np.ascontiguousarray(frame).tobytes()).hexdigest())
+        if self.keep_all:
+            self.frames.append(np.array(frame))
+        if self.on_frame is not None:
+            self.on_frame(frame, self.digests[-1])
+        if self.inner is not None:
+            self.inner.write(frame)
+
+    def close(self) -> None:
+        if self.inner is not None:
+            self.inner.close()
+
+
+class InMemoryVisualize:
+    """The visualize stage's patch points: ``open_reader`` gives each
+    source's frames from memory, ``open_writer`` the ``make_writer(path,
+    fps, w, h)`` given, ``probe_video`` each source's size."""
+
+    def __init__(self, videos: dict, make_writer):
+        from geotrax_tpu_torch.io import video
+        from geotrax_tpu_torch.pipeline import visualize as port_visualize
+
+        self.videos, self.make_writer = videos, make_writer
+        self.video, self.viz = video, port_visualize
+
+    def __enter__(self):
+        self.saved = (self.viz.open_reader, self.viz.open_writer, self.video.probe_video)
+
+        def reader(src, start=0, stop=None):
+            info, frames = self.videos[Path(src).name]
+            return FrameList(info, [(i, f) for i, f in frames
+                                    if i >= start and (stop is None or i < stop)])
+
+        self.viz.open_reader = reader
+        self.viz.open_writer = self.make_writer
+        self.video.probe_video = lambda src, backend=None: self.videos[Path(src).name][0]
+        return self
+
+    def __exit__(self, *exc):
+        self.viz.open_reader, self.viz.open_writer, self.video.probe_video = self.saved
+
+
+def visualize_args(source: Path, mode: int, device: str, logs: Path):
+    """``visualize``'s arguments for one mode at the default preset's line
+    width and tail, with lanes and class names in the labels."""
+    from geotrax_tpu_torch.pipeline import visualize as port_visualize
+
+    return port_visualize.parse_cli_args(
+        [str(source), "-vm", str(mode), "--device", device, "--show-lanes",
+         "--show-class-names", "-lp", str(logs), "-cn", *RENDER_CLASSES])
+
+
+def warp_timing(frame: np.ndarray, h_matrix: np.ndarray, device: str, reps: int) -> dict:
+    """The warp of one frame on the card (CUDA events) against its bound
+    (each input byte read once, each output byte written once), with the
+    upload and the download beside it."""
+    from geotrax_tpu_torch.ops.warp import invert_homography, warp_perspective
+
+    h, w = frame.shape[:2]
+    h_inv = invert_homography(h_matrix)
+    host = torch.from_numpy(np.ascontiguousarray(frame))
+    moved = 2 * frame.nbytes
+    # per pixel: 9 multiply-adds, 2 divides, 4 taps of 3 channels blended (3 fma each)
+    ms_bound, by = bound_ms(moved, h * w * (18 + 2 + 12 * 3 + 6))
+    res = {"bytes": moved, "bound_ms": ms_bound, "bound_by": by, "shape": (h, w, 3)}
+    if device != "cuda":
+        t0 = time.perf_counter()
+        warp_perspective(host, h_inv, h, w)
+        res.update(ms=(time.perf_counter() - t0) * 1e3, upload_ms=None, download_ms=None)
+        return res
+    on_card = host.to(device)
+    out = warp_perspective(on_card, h_inv, h, w)
+    res["upload_ms"] = cuda_ms(lambda: host.to(device), reps)
+    res["ms"] = cuda_ms(lambda: warp_perspective(on_card, h_inv, h, w), reps)
+    res["download_ms"] = cuda_ms(lambda: out.cpu(), reps)
+    return res
+
+
+def plot_run(csv_path: Path, logs: Path) -> dict:
+    """``plot`` on one georeferenced CSV: the figures where matplotlib and
+    seaborn import, else the data half alone (file choice, the reader,
+    class filter, alerts), said so."""
+    from geotrax_tpu_torch.pipeline import plot as port_plot
+
+    args = port_plot.parse_cli_args([str(csv_path), "-lp", str(logs)])
+    res = {"figures": None}
+    try:
+        port_plot.pyplot()
+        port_plot.seaborn()
+    except RuntimeError as exc:
+        res["missing"] = str(exc)
+    t0 = time.perf_counter()
+    if "missing" in res:
+        _, _, files = port_plot.prepare(args, port_extract._LOG)
+        jobs = port_plot.plot_jobs(args, files, port_extract._LOG)
+        for _, _, datasets in jobs:
+            port_plot.report_high_value_instances(port_plot.concat([d for _, d in datasets]),
+                                                  port_extract._LOG)
+        res["rows"] = sum(len(d["Vehicle_ID"]) for _, _, ds in jobs for _, d in ds)
+        res["columns"] = sorted(jobs[0][2][0][1])
+        if [f.name for f in files] != [csv_path.name] or res["rows"] == 0:
+            raise AssertionError(f"(c) plot's data half chose {files}, read {res['rows']} rows")
+    else:
+        named = []
+        save = port_plot._save
+
+        def kept(fig, plots_dir, stem, title, *a, **kw):
+            named.append(f"{stem}_{title.replace(' ', '_')}.pdf")
+            return save(fig, plots_dir, stem, title, *a, **kw)
+
+        port_plot._save = kept
+        try:
+            port_plot.generate_plots(args, port_extract._LOG)
+        finally:
+            port_plot._save = save
+        written = sorted(p.name for p in (csv_path.parent / "plots").glob("*.pdf"))
+        expected = sorted(f"{csv_path.stem}_{t}.pdf" for t in GEO_FIGURES)
+        if sorted(named) != written or written != expected:
+            raise AssertionError(f"(c) PDFs {written}, named {sorted(named)}, "
+                                 f"expected {expected}")
+        res["figures"] = written
+    res["s"] = time.perf_counter() - t0
+    return res
+
+
+def phase_render(device: str = "cuda", width: int = 3840, height: int = 2160,
+                 n_frames: int = RENDER_FRAMES, lengths=LOCK_LENGTHS, plot_frames: int = GEO_FRAMES,
+                 seed: int = 5, edits=None, reps: int = 10) -> dict:
+    """``visualize`` and ``plot`` as users run them, and ``batch`` under its
+    default gates. (a) the five modes of ``visualize_results`` on a drifting
+    clip with ``vehicles_per_frame`` vehicles, its tracks, transforms and a
+    georeferenced CSV written from the reader's known boxes and camera, on
+    ``device`` and on the CPU: frame counts, the device's frames against
+    the CPU's within one grey level; where the decode probe succeeds the
+    real writer writes each file and the port's decoder counts its frames;
+    (b) ms per frame by mode (read, warp, draw, write) and the warp's
+    CUDA-event time against its bound; (c) ``plot`` on a georeferenced CSV
+    of the georef phase's size; (d) ``process_input`` on four videos
+    without the flags that turn visualize and plot off (``--no-geo``): the
+    gates run extract, visualize and plot for each."""
+    from geotrax_tpu_torch.io import native
+    from geotrax_tpu_torch.io.video import VideoReader, VideoWriter
+    from geotrax_tpu_torch.parallel import extract_batch
+    from geotrax_tpu_torch.pipeline import batch as port_batch
+    from geotrax_tpu_torch.pipeline import plot as port_plot
+    from geotrax_tpu_torch.pipeline import visualize as port_visualize
+
+    vehicles = vehicles_per_frame(width, height)
+    probe = native.probe()
+    res = {"size": (width, height), "frames": n_frames, "vehicles": vehicles,
+           "decode": probe["ok"], "probe": probe["found"], "modes": {}}
+    reader = SyntheticVideoReader(width=width, height=height, n_frames=n_frames, seed=seed,
+                                  camera=CAMERA, boxes=vehicle_boxes(width, height, vehicles, seed))
+    frames = make_frames(reader)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        source = tmp / "R_clip.mp4"
+        source.write_bytes(b"placeholder")  # never decoded: the frames are in memory
+        (tmp / "results").mkdir()
+        tracks, transforms = render_tracks(reader, n_frames)
+        np.savetxt(tmp / "results" / "R_clip.txt", tracks, fmt="%.6g", delimiter=",")
+        np.savetxt(tmp / "results" / "R_clip_vid_transf.txt", transforms, fmt="%.16g",
+                   delimiter=",")
+        write_speed_lane_csv(tmp / "results" / "R_clip.csv", tracks, reader)
+        res["rows"] = len(tracks)
+        videos = {source.name: (reader.info, frames)}
+
+        # (a) the five modes, on the CPU and on the device
+        t0 = time.perf_counter()
+        for mode in range(5):
+            runs = {}
+            for dev in ("cpu", device) if device != "cpu" else ("cpu",):
+                cpu_frames = runs.get("cpu", {}).get("sink")
+                diff = {"max": 0, "pixels": 0, "n": 0}
+
+                def compare(frame, digest, ref=cpu_frames, diff=diff):
+                    if ref is None:
+                        return
+                    if digest != ref.digests[diff["n"]]:
+                        d = np.abs(frame.astype(np.int16) - ref.frames[diff["n"]])
+                        diff["max"] = max(diff["max"], int(d.max()))
+                        diff["pixels"] += int((d.max(-1) > 0).sum())
+                    diff["n"] += 1
+
+                def make_writer(path, fps, w, h, dev=dev, compare=compare):
+                    inner = VideoWriter(path, fps, w, h) if probe["ok"] else None
+                    runs[dev]["sink"] = FrameSink(compare, keep_all=dev == "cpu", inner=inner)
+                    return runs[dev]["sink"]
+
+                runs[dev] = {}
+                with InMemoryVisualize(videos, make_writer):
+                    t1 = time.perf_counter()
+                    stats = port_visualize.visualize_results(
+                        visualize_args(source, mode, dev, tmp / "logs"), port_extract._LOG)[0]
+                    runs[dev]["wall_s"] = time.perf_counter() - t1
+                runs[dev]["stats"], runs[dev]["diff"] = stats, diff
+                if stats["frames"] != n_frames or len(runs[dev]["sink"].digests) != n_frames:
+                    raise AssertionError(f"(a) mode {mode} on {dev}: {stats['frames']} frames")
+                if probe["ok"]:
+                    decoded = sum(1 for _ in VideoReader(stats["path"], backend="native"))
+                    if decoded != n_frames:
+                        raise AssertionError(f"(a) mode {mode}: {decoded} frames decoded")
+                    runs[dev]["decoded"] = decoded
+            dev_run = runs[device]
+            if device != "cpu":
+                diff = dev_run["diff"]
+                if diff["n"] != n_frames or diff["max"] > 1:
+                    raise AssertionError(f"(a) mode {mode}: {device} vs cpu {diff}")
+                same = dev_run["sink"].digests == runs["cpu"]["sink"].digests
+                if mode in (0, 2, 3) and not same:
+                    raise AssertionError(f"(a) mode {mode} does no device work, yet its frames "
+                                         f"differ between {device} and cpu")
+            st = dev_run["stats"]
+            res["modes"][mode] = {
+                "frames": st["frames"], "warped": st["warped"], "wall_s": dev_run["wall_s"],
+                "cpu_wall_s": runs["cpu"]["wall_s"], "decoded": dev_run.get("decoded"),
+                "max_diff": dev_run["diff"]["max"],
+                "share_diff": dev_run["diff"]["pixels"] / (n_frames * width * height),
+                **{f"{k}_ms": st[f"{k}_s"] * 1e3 / st["frames"]
+                   for k in ("read", "warp", "draw", "write")}}
+            del runs
+        res["a_s"] = time.perf_counter() - t0
+
+        # (b) the warp alone on one frame
+        res["warp"] = warp_timing(frames[1][1], transforms[0, 1:].reshape(3, 3), device, reps)
+
+        # (c) plot on a georeferenced CSV of the georef phase's size
+        t0 = time.perf_counter()
+        (tmp / "plot" / "results").mkdir(parents=True)
+        csv_path = tmp / "plot" / "results" / "A_plot.csv"
+        res["plot_rows"] = write_plot_csv(csv_path, plot_frames, vehicles, width, height)
+        res["plot"] = plot_run(csv_path, tmp / "logs")
+        res["c_s"] = time.perf_counter() - t0
+
+        # (d) batch under its default gates: extract, visualize and plot
+        t0 = time.perf_counter()
+        res["d"] = render_batch(tmp, device, width, height, lengths, seed, edits,
+                                extract_batch, port_batch, port_plot, probe["ok"])
+        res["d_s"] = time.perf_counter() - t0
+    return res
+
+
+def render_batch(tmp: Path, device: str, width: int, height: int, lengths, seed: int, edits,
+                 extract_batch, port_batch, port_plot, can_write: bool) -> dict:
+    """``process_input`` on a directory of ``len(lengths)`` drifting videos
+    with the readers' vehicles as detections, ``--parallel-videos`` their
+    number and ``--no-geo``, visualize and plot left on: the stage calls."""
+    from geotrax_tpu_torch.io.video import VideoWriter
+
+    vehicles = vehicles_per_frame(width, height)
+    readers = [SyntheticVideoReader(width=width, height=height, n_frames=n, seed=seed + 1 + v,
+                                    camera=LOCK_CAMERAS[v % len(LOCK_CAMERAS)],
+                                    boxes=vehicle_boxes(width, height, vehicles, seed + 1 + v))
+               for v, n in enumerate(lengths)]
+    folder = tmp / "campaign"
+    folder.mkdir()
+    sources = [folder / f"V{v}.mp4" for v in range(len(lengths))]
+    for s in sources:
+        s.write_bytes(b"placeholder")
+    model = tmp / "model.pt"
+    torch.save({"class_names": {0: "car", 1: "bus", 2: "truck", 3: "motorcycle"}}, model)
+    videos = {s.name: (r.info, make_frames(r)) for s, r in zip(sources, readers)}
+    cfg = config_file(tmp / "render_default.yaml", 1920, **(edits or {}))
+    calls = {"lockstep": [], "visualize": [], "plot": []}
+    batch_fn, viz_fn, plot_fn = (extract_batch.extract_videos_batch, port_batch.visualize_results,
+                                 port_batch.generate_plots)
+    frames_written = {}
+
+    def counted_batch(group, *a, **kw):
+        calls["lockstep"].append([Path(g).name for g in group])
+        return batch_fn(group, *a, **kw)
+
+    def counted_viz(args, logger):
+        calls["visualize"].append(Path(args.source).name)
+        return viz_fn(args, logger)
+
+    def counted_plot(args, logger):
+        calls["plot"].append(Path(args.input).name)
+        try:
+            port_plot.pyplot()
+            port_plot.seaborn()
+        except RuntimeError:  # the data half alone, as in (c)
+            _, _, files = port_plot.prepare(args, logger)
+            for _, _, datasets in port_plot.plot_jobs(args, files, logger):
+                port_plot.report_high_value_instances(datasets[0][1], logger)
+            return None
+        return plot_fn(args, logger)
+
+    def make_writer(path, fps, w, h):
+        sink = FrameSink(inner=VideoWriter(path, fps, w, h) if can_write else None)
+        frames_written[Path(path).name] = sink.digests
+        return sink
+
+    extract_batch.extract_videos_batch = counted_batch
+    port_batch.visualize_results, port_batch.generate_plots = counted_viz, counted_plot
+    try:
+        with InMemory(videos, LockstepOracle(readers, 2 * vehicles, device)), \
+                InMemoryVisualize(videos, make_writer):
+            args = port_batch.parse_cli_args(
+                [str(folder), "-m", str(model), "-c", cfg, "--device", device, "--no-geo",
+                 "--parallel-videos", str(len(lengths)), "-y", "--log-path", str(folder / "logs")])
+            port_batch.process_input(args, port_extract._LOG)
+    finally:
+        extract_batch.extract_videos_batch = batch_fn
+        port_batch.visualize_results, port_batch.generate_plots = viz_fn, plot_fn
+    names = [s.name for s in sources]
+    want_frames = {f"V{v}_mode_0.mp4": n for v, n in enumerate(lengths)}
+    got_frames = {k: len(v) for k, v in frames_written.items()}
+    if (calls["lockstep"] != [names] or calls["visualize"] != names
+            or calls["plot"] != [folder.name] or got_frames != want_frames):
+        raise AssertionError(f"(d) stage calls {calls}, frames written {got_frames}")
+    pdfs = sorted(p.name for p in (folder / "results" / "plots").glob("*.pdf"))
+    if calls["plot"] and pdfs:
+        want = sorted(f"V{v}_{t}.pdf" for v in range(len(lengths)) for t in TRACK_FIGURES)
+        if pdfs != want:
+            raise AssertionError(f"(d) PDFs {pdfs}, expected {want}")
+    return {"calls": calls, "frames_written": got_frames, "pdfs": len(pdfs)}
+
+
+def render_line(rd: dict, seconds: float, smi: str) -> str:
+    w, h = rd["size"]
+    modes = "; ".join(
+        f"mode {m}: {v['frames']} frames ({v['warped']} warped), ms/frame read "
+        f"{v['read_ms']:.1f} warp {v['warp_ms']:.1f} draw {v['draw_ms']:.1f} write "
+        f"{v['write_ms']:.1f}, card vs cpu max {v['max_diff']} level(s) on "
+        f"{100 * v['share_diff']:.4f} % of pixels"
+        + (f", {v['decoded']} decoded" if v["decoded"] is not None else "")
+        for m, v in rd["modes"].items())
+    wp = rd["warp"]
+    warp = (f"warp of one {w}x{h} frame {wp['ms']:.4f} ms (bound {wp['bound_ms']:.4f} ms, "
+            f"{wp['bound_by']}, {wp['bytes'] / 1e6:.1f} MB)")
+    if wp["upload_ms"] is not None:
+        warp += f", upload {wp['upload_ms']:.3f} ms, download {wp['download_ms']:.3f} ms"
+    pl = rd["plot"]
+    plot = (f"{len(pl['figures'])} PDFs as plot_dataset names them" if pl["figures"] is not None
+            else f"figures NOT drawn ({pl['missing']}); data half only: {pl['rows']} rows read, "
+                 f"file choice, class filter and alerts run")
+    d = rd["d"]
+    return (f"render ok {seconds:.1f}s {rd['frames']} frames {w}x{h}, {rd['vehicles']} vehicles, "
+            f"{rd['rows']} track rows, writer "
+            + ("the port's encoder (decoded back)" if rd["decode"] else
+               f"in memory (no encoder: {rd['probe']})")
+            + f": (a) {modes}; (b) {warp}; (c) plot on {rd['plot_rows']} rows: {plot} in "
+              f"{pl['s']:.1f}s; (d) batch with its default gates and --no-geo: lockstep "
+              f"{d['calls']['lockstep']}, visualize {d['calls']['visualize']}, plot "
+              f"{d['calls']['plot']}, frames written {d['frames_written']}, {d['pdfs']} PDFs; "
+              f"seconds (a) {rd['a_s']:.1f}, (c) {rd['c_s']:.1f}, (d) {rd['d_s']:.1f} [{smi}]")
+
+
 def lockstep_line(lk: dict, seconds: float, smi: str) -> str:
     b, k = lk["b"], lk["kernels"]
     lock = [r["fps"] for r in b["runs"]["lockstep"]]
@@ -2471,7 +2936,8 @@ def breakdown_lines(brk: dict) -> list:
 
 
 def kernel_entry(name: str, source: str, replaces: str, launches: int, res: dict,
-                 sequential_launches: int, lockstep_launches: int, lockstep: dict) -> dict:
+                 sequential_launches: int, lockstep_launches: int, lockstep: dict,
+                 render_launches: int) -> dict:
     """One kernel's entry of the JSON line; ``lockstep`` holds its shape,
     time and bound on the lockstep phase's own inputs."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2479,13 +2945,15 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int, res: dict
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
             "library_ms": res.get("library_ms"), "launches_sequential": sequential_launches,
             "launches_lockstep": lockstep_launches, **{f"{k}_lockstep": v
-                                                        for k, v in lockstep.items()}}
+                                                        for k, v in lockstep.items()},
+            "launches_render": render_launches}
 
 
 def main(argv) -> int:
     kernels_only = "--kernels-only" in argv
     georef_only = "--georef-only" in argv
     lockstep_only = "--lockstep-only" in argv
+    render_only = "--render-only" in argv
     t_all = time.perf_counter()
     width, height, chunk, seed = 3840, 2160, 32, 0
     n_main = 2 * chunk
@@ -2524,6 +2992,13 @@ def main(argv) -> int:
             print("\n".join(breakdown_lines(geo["ortho_breakdown"])), flush=True)
             log(f"georef-only ok {time.perf_counter() - t_all:.1f}s")
             return 0
+        if render_only:
+            t = time.perf_counter()
+            reset_launches()
+            rn = phase_render("cuda")
+            log(render_line(rn, time.perf_counter() - t, dev["smi"]) + f", launches {launches()}")
+            log(f"render-only ok {time.perf_counter() - t_all:.1f}s")
+            return 0
         if lockstep_only:  # its own calibrated detector
             t = time.perf_counter()
             lk = phase_lockstep(None, "cuda")
@@ -2537,11 +3012,11 @@ def main(argv) -> int:
         fast.fast_score_map.launches = 0
         patches.patches32.launches = 0
         main_run = phase_main("cuda", width, height, n_main, chunk, seed=seed, horizon=horizon)
-        launches = fast.fast_score_map.launches
+        main_launches = fast.fast_score_map.launches
         stats, checks = main_run["stats"], main_run["checks"]
         expected = stats["chunks"] + 1  # one per chunk + the reference frame
-        if launches != expected or patches.patches32.launches != 0:
-            raise AssertionError(f"FAST kernel launched {launches} times on the main path, "
+        if main_launches != expected or patches.patches32.launches != 0:
+            raise AssertionError(f"FAST kernel launched {main_launches} times on the main path, "
                                  f"expected {expected}; patch gather "
                                  f"{patches.patches32.launches} times, expected 0")
         chunk_ms = [round(s * 1e3, 1) for s in stats["chunk_s"]]
@@ -2554,7 +3029,7 @@ def main(argv) -> int:
             f"({checks['tracks_with_dims']} with dimensions), metadata keys "
             f"{checks['metadata_keys']}, "
             f"matches >= {checks['min_matches']}, inliers >= {checks['min_inliers']}, "
-            f"camera error {checks['camera_err_px']:.3f} px, fast launches {launches}, peak mem "
+            f"camera error {checks['camera_err_px']:.3f} px, fast launches {main_launches}, peak mem "
             f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{dev['smi']}]")
 
         t = time.perf_counter()
@@ -2666,6 +3141,13 @@ def main(argv) -> int:
         log(lockstep_line(lk, time.perf_counter() - t, dev["smi"]))
         print("\n".join(lockstep_profile_lines(lk["b_profile"])), flush=True)
 
+        t = time.perf_counter()
+        reset_launches()
+        rn = phase_render("cuda")
+        render_launches = launches()
+        log(render_line(rn, time.perf_counter() - t, dev["smi"])
+            + f", launches {render_launches}")
+
     except Exception as exc:  # noqa: BLE001 — every phase failure ends the run
         import traceback
 
@@ -2676,15 +3158,15 @@ def main(argv) -> int:
     log(f"all phases ok {time.perf_counter() - t_all:.1f}s")
     lk_k = lk["kernels"]
     kernels = {"kernels": [
-        kernel_entry("fast_score", FAST_SOURCE, FAST_REPLACES, launches, kern,
+        kernel_entry("fast_score", FAST_SOURCE, FAST_REPLACES, main_launches, kern,
                      sq["c_launches"]["fast_score"], lk["b"]["launches"]["fast_score"],
                      {"shape": lk_k["gray_shape"], "ms": lk_k["fast"]["ms"],
-                      "bound_ms": lk_k["fast_bound_ms"]}),
+                      "bound_ms": lk_k["fast_bound_ms"]}, render_launches["fast_score"]),
         kernel_entry("patch_gather", PATCH_SOURCE, PATCH_REPLACES,
                      rd["launches"]["patch_gather"], pg, sq["c_launches"]["patch_gather"],
                      lk["b"]["launches"]["patch_gather"],
                      {"shape": lk_k["planes_shape"] + (lk_k["corners"],), "ms": lk_k["gather_ms"],
-                      "bound_ms": lk_k["gather_bound_ms"]}),
+                      "bound_ms": lk_k["gather_bound_ms"]}, render_launches["patch_gather"]),
     ]}
     print(json.dumps(kernels), flush=True)
     print(dev["smi"], flush=True)

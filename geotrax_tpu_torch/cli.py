@@ -2,11 +2,10 @@
 
 The counterpart of ``geotrax_tpu/cli.py``: the reference's seven commands
 and ``-V/--version``, each stage module imported only when its command
-runs and given its own argv. ``extract``, ``georeference`` and ``batch``
-run on the card unless ``--device cpu`` is given (the counterpart of the
-reference's ``JAX_PLATFORMS``); ``config`` and ``aggregate`` run on the
-host; ``visualize`` and ``plot`` are not ported yet and exit with the
-ROADMAP item that will bring them.
+runs and given its own argv. ``extract``, ``georeference``, ``batch`` and
+``visualize`` (its frame warp) run on the card unless ``--device cpu`` is
+given (the counterpart of the reference's ``JAX_PLATFORMS``); ``plot``,
+``config`` and ``aggregate`` run on the host.
 """
 
 from __future__ import annotations
@@ -16,7 +15,7 @@ import sys
 
 from geotrax_tpu_torch import __version__
 
-# command -> (module path, or the ROADMAP item that ports it; one-line help)
+# command -> (module path, one-line help)
 COMMANDS = {
     "batch": ("geotrax_tpu_torch.pipeline.batch",
               "Run the full pipeline over a video or a directory tree"),
@@ -26,8 +25,10 @@ COMMANDS = {
                      "Map extracted tracks to WGS84 + local CRS with kinematics"),
     "aggregate": ("geotrax_tpu_torch.pipeline.aggregate",
                   "Merge per-video georeferenced CSVs across drones/sessions"),
-    "visualize": ("A17b", "Render annotated videos (5 modes incl. oriented boxes)"),
-    "plot": ("A17b", "Generate trajectory / kinematics / class-distribution plots"),
+    "visualize": ("geotrax_tpu_torch.pipeline.visualize",
+                  "Render annotated videos (5 modes incl. oriented boxes)"),
+    "plot": ("geotrax_tpu_torch.pipeline.plot",
+             "Generate trajectory / kinematics / class-distribution plots"),
     "config": ("geotrax_tpu_torch.pipeline.config_cmd",
                "Show or copy the bundled configuration presets"),
 }
@@ -44,9 +45,8 @@ def build_usage() -> str:
         "commands:",
     ]
     width = max(len(name) for name in COMMANDS)
-    for name, (target, help_text) in COMMANDS.items():
-        note = "" if "." in target else f"  [not ported yet: ROADMAP {target}]"
-        lines.append(f"  {name:<{width}}  {help_text}{note}")
+    for name, (_, help_text) in COMMANDS.items():
+        lines.append(f"  {name:<{width}}  {help_text}")
     lines += [
         "",
         f"Run '{PROG} <command> --help' for command-specific options.",
@@ -69,12 +69,7 @@ def main(argv: list[str] | None = None) -> int:
         print(f"{PROG}: unknown command '{command}'\n", file=sys.stderr)
         print(build_usage(), file=sys.stderr)
         return 2
-    target, _ = COMMANDS[command]
-    if "." not in target:
-        print(f"{PROG}: '{command}' is not ported to PyTorch yet (ROADMAP {target}); "
-              f"run it with the JAX package ('geotrax {command}').", file=sys.stderr)
-        return 2
-    module = importlib.import_module(target)
+    module = importlib.import_module(COMMANDS[command][0])
     result = module.main(argv[1:])
     return int(result) if result is not None else 0
 

@@ -1,7 +1,8 @@
-"""The port's native video decoder: ``decode.cpp`` built with ``g++`` at
-first use and bound with ``ctypes``.
+"""The port's native video decoder and encoder: ``decode.cpp`` and
+``encode.cpp`` (its copy of the reference's MPEG-4 writer), each built with
+``g++`` at first use and bound with ``ctypes``.
 
-The library goes under ``build/native/`` at the root of the checkout (a
+Each library goes under ``build/native/`` at the root of the checkout (a
 git-ignored directory), with a hash of the source and flags in its name,
 so an edited source is rebuilt and an unchanged one reused. The FFmpeg
 headers and libraries (libavformat, libavcodec, libavutil, libswscale) are
@@ -23,6 +24,7 @@ from typing import Iterator
 import numpy as np
 
 SOURCE = Path(__file__).resolve().parent / "decode.cpp"
+ENCODER_SOURCE = Path(__file__).resolve().parent / "encode.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "native"
 CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
 PACKAGES = ("libavformat", "libavcodec", "libavutil", "libswscale")
@@ -30,6 +32,7 @@ LIBS = ("-lavformat", "-lavcodec", "-lavutil", "-lswscale")
 BUILD_TIMEOUT_S = 300
 
 _lib = None
+_enc_lib = None
 
 
 def _multiarch_include() -> Path | None:
@@ -65,26 +68,27 @@ def probe() -> dict:
     return res
 
 
-def library_path(flags) -> Path:
-    digest = hashlib.sha1(SOURCE.read_bytes() + " ".join((*CXX_FLAGS, *flags)).encode())
-    return BUILD_DIR / f"libgeotrax_decode-{digest.hexdigest()[:12]}.so"
+def library_path(flags, source: Path = SOURCE) -> Path:
+    digest = hashlib.sha1(source.read_bytes() + " ".join((*CXX_FLAGS, *flags)).encode())
+    return BUILD_DIR / f"libgeotrax_{source.stem}-{digest.hexdigest()[:12]}.so"
 
 
-def build() -> Path:
-    """Compile ``decode.cpp`` unless its library exists; return its path.
-    Raises ``RuntimeError`` when the toolchain or FFmpeg is missing."""
+def build(source: Path = SOURCE) -> Path:
+    """Compile ``source`` (``decode.cpp`` or ``encode.cpp``) unless its
+    library exists; return its path. Raises ``RuntimeError`` when the
+    toolchain or FFmpeg is missing."""
     found = probe()
     if not found["ok"]:
-        raise RuntimeError(f"cannot build the native decoder: {found['found']}")
-    out = library_path(found["flags"])
+        raise RuntimeError(f"cannot build the native {source.stem}r: {found['found']}")
+    out = library_path(found["flags"], source)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [found["cxx"], *CXX_FLAGS, "-o", str(tmp), str(SOURCE), *found["flags"]]
+    cmd = [found["cxx"], *CXX_FLAGS, "-o", str(tmp), str(source), *found["flags"]]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=BUILD_TIMEOUT_S)
     if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed for decode.cpp (exit {proc.returncode}):\n"
+        raise RuntimeError(f"g++ failed for {source.name} (exit {proc.returncode}):\n"
                            f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
     return out
@@ -111,6 +115,24 @@ def load_library() -> ctypes.CDLL:
     lib.gtx_close.restype = None
     lib.gtx_close.argtypes = [ctypes.c_void_p]
     _lib = lib
+    return lib
+
+
+def load_encoder_library() -> ctypes.CDLL:
+    """The MPEG-4 encoder library, built if needed; raises ``RuntimeError``
+    or ``OSError`` when it cannot be built or loaded."""
+    global _enc_lib
+    if _enc_lib is not None:
+        return _enc_lib
+    lib = ctypes.CDLL(str(build(ENCODER_SOURCE)))
+    lib.gtx_enc_open.restype = ctypes.c_void_p
+    lib.gtx_enc_open.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+                                 ctypes.c_long]
+    lib.gtx_enc_write.restype = ctypes.c_int
+    lib.gtx_enc_write.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.gtx_enc_close.restype = ctypes.c_int
+    lib.gtx_enc_close.argtypes = [ctypes.c_void_p]
+    _enc_lib = lib
     return lib
 
 

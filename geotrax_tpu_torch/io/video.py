@@ -1,15 +1,18 @@
-"""Video decoding with a prefetch thread.
+"""Video decoding with a prefetch thread, and the MPEG-4 writer.
 
 The port's copy of the sequential part of ``geotrax_tpu/io/video.py``:
 
-- 'native': the port's libavformat/libavcodec decoder (``io/native``),
-  built with g++ at first use; deterministic frame indexing, RGB output.
+- 'native': the port's libavformat/libavcodec decoder and encoder
+  (``io/native``), built with g++ at first use; deterministic frame
+  indexing, RGB in and out.
 - 'cv2': OpenCV, imported only inside this backend's functions (the card's
-  machine has no cv2).
+  machine has no cv2), for reading, for writing when the native encoder
+  cannot be built, and for the live preview of ``visualize --show``.
 
 Frames are numpy uint8 HxWx3 in RGB order. ``VideoReader`` decodes in a
-background thread that keeps a few frames ahead of the consumer. The
-GOP-parallel reader waits for ROADMAP A15b and the writer for A17b.
+background thread that keeps a few frames ahead of the consumer.
+``VideoWriter`` raises ``RuntimeError`` naming the missing libraries where
+neither backend exists. The GOP-parallel reader waits for ROADMAP A15b.
 """
 
 from __future__ import annotations
@@ -194,3 +197,100 @@ def make_reader(path: Path | str, start: int = 0, stop: Optional[int] = None, pr
                 backend: Optional[str] = None) -> VideoReader:
     """The sequential reader (the GOP-parallel one is ROADMAP A15b)."""
     return VideoReader(path, start=start, stop=stop, prefetch=prefetch, backend=backend)
+
+
+ENCODER_LIBRARIES = ("g++ and FFmpeg's libavformat, libavcodec, libavutil and libswscale "
+                     "with their headers (the port's native encoder)")
+
+
+class VideoWriter:
+    """Annotated-video writer: the port's MPEG-4 encoder (``io/native/
+    encode.cpp``, the mp4v codec cv2 writes on linux) where the platform's
+    fourcc is mp4v, else cv2's writer (also when GEOTRAX_VIDEO_BACKEND is
+    'cv2', as for reading). ``backend`` says which was taken and
+    ``native_error`` why the native one was not; without either it raises
+    ``RuntimeError``. Frames are RGB uint8 of (height, width, 3)."""
+
+    def __init__(self, path: Path | str, fps: float, width: int, height: int):
+        from geotrax_tpu_torch.utils.file_utils import determine_suffix_and_fourcc
+
+        _, fourcc = determine_suffix_and_fourcc()
+        self.path = str(path)
+        self.width, self.height = int(width), int(height)
+        self._native = None
+        self._writer = None
+        self.native_error = None
+        if os.environ.get("GEOTRAX_VIDEO_BACKEND") == "cv2":
+            self.native_error = "cv2 requested"
+        elif fourcc.lower() != "mp4v":
+            self.native_error = f"the native encoder writes mp4v only, not {fourcc}"
+        else:
+            from geotrax_tpu_torch.io import native
+
+            try:
+                lib = native.load_encoder_library()
+            except (OSError, RuntimeError) as exc:
+                self.native_error = str(exc)
+            else:
+                handle = lib.gtx_enc_open(self.path.encode(), self.width, self.height,
+                                          float(fps), 0)  # 0: the encoder's own rate
+                if not handle:
+                    raise OSError(f"Native encoder cannot open: {self.path}")
+                self._native = (lib, handle)
+        self.backend = "native" if self._native is not None else "cv2"
+        if self._native is None:
+            try:
+                import cv2
+            except ImportError:
+                raise RuntimeError(
+                    f"cannot write '{self.path}': the native encoder is unavailable "
+                    f"({self.native_error}) and cv2 is not installed; writing a video needs "
+                    f"{ENCODER_LIBRARIES}, or OpenCV") from None
+            self._writer = cv2.VideoWriter(self.path, cv2.VideoWriter_fourcc(*fourcc), fps,
+                                           (self.width, self.height))
+            if not self._writer.isOpened():
+                raise OSError(f"Cannot open video writer: {self.path}")
+
+    def write(self, frame_rgb: np.ndarray) -> None:
+        frame = np.ascontiguousarray(frame_rgb, dtype=np.uint8)
+        if frame.shape != (self.height, self.width, 3):
+            # the encoder reads exactly 3*w*h bytes
+            raise ValueError(f"frame shape {frame.shape} != writer ({self.height}, {self.width}, 3)")
+        if self._native is not None:
+            import ctypes
+
+            lib, handle = self._native
+            rc = lib.gtx_enc_write(handle, frame.ctypes.data_as(ctypes.c_void_p))
+            if rc < 0:
+                raise OSError(f"Native encoder write failed ({rc}): {self.path}")
+            return
+        self._writer.write(np.ascontiguousarray(frame[..., ::-1]))
+
+    def close(self) -> None:
+        if self._native is not None:
+            lib, handle = self._native
+            self._native = None
+            rc = lib.gtx_enc_close(handle)
+            if rc < 0:
+                raise OSError(f"Native encoder close failed ({rc}): {self.path}")
+        elif self._writer is not None:
+            self._writer.release()
+            self._writer = None
+
+
+def preview(frame_rgb: np.ndarray, title: str = "geotrax-tpu") -> int:
+    """Show one frame in a window (``visualize --show``); the key pressed
+    within 1 ms, or -1. Needs cv2's GUI."""
+    try:
+        import cv2
+    except ImportError:
+        raise RuntimeError("--show needs cv2 (OpenCV) for its preview window, and cv2 is "
+                           "not installed; run without --show") from None
+    cv2.imshow(title, np.ascontiguousarray(frame_rgb[..., ::-1]))
+    return cv2.waitKey(1)
+
+
+def close_preview() -> None:
+    import cv2
+
+    cv2.destroyAllWindows()

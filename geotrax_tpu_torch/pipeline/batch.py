@@ -8,12 +8,9 @@ isolation, ``cut_frame_right`` forced to None in directory mode, and with
 ``--parallel-videos N`` a pre-pass that groups the videos still to extract
 by resolution and runs each full group of N through the lockstep extractor
 (``parallel/extract_batch.py``; leftovers go through the per-file path, and
-an error in a group falls back to it, as in the reference).
-
-One difference: the visualize and plot stages are not ported yet (ROADMAP
-A17b). When the stage gates would run either of them, ``batch`` logs which
-and exits with code 2 before any stage runs; with the defaults they would,
-so pass ``--no-save --no-show --no-plot-save --no-plot-show``.
+an error in a group falls back to it, as in the reference), then the
+visualize stage per video and the plot stage (per video for a file, once
+over the tree for a directory) where their gates open, as by default.
 """
 
 from __future__ import annotations
@@ -38,33 +35,10 @@ from geotrax_tpu_torch.utils.logging_utils import AnsiColors, setup_logger
 ACTION_EXTRACT = "Detecting, tracking, and stabilizing"
 ACTION_GEOREF = "Georeferencing"
 ACTION_VISUALIZE = "Visualizing"
-# the exit code when the stage gates would run a stage that is not ported
-EXIT_NOT_PORTED = 2
-
-
-def unported_stages(args: argparse.Namespace) -> list:
-    """The stages that are not ported yet and that the stage gates of
-    ``process_file`` and ``process_input`` would run for these arguments."""
-    stages = []
-    if ((args.save is not False or args.show is not False)
-            and not args.plot_only and not args.geo_only):
-        stages.append("visualize (--no-save --no-show)")
-    if ((args.plot_save is not False or args.plot_show is not False)
-            and not args.viz_only and not args.geo_only):
-        stages.append("plot (--no-plot-save --no-plot-show)")
-    return stages
 
 
 def process_input(args: argparse.Namespace, logger: logging.Logger) -> None:
-    """Run the staged pipeline for a single video or every video in a tree.
-    Raises SystemExit(2) before any stage runs when the gates would run a
-    stage that is not ported yet."""
-    unported = unported_stages(args)
-    if unported:
-        logger.critical("Not ported to PyTorch yet (ROADMAP A17b): " + ", ".join(unported)
-                        + ". Turn them off with the flags named, or run them with the JAX "
-                          "package ('geotrax batch').")
-        raise SystemExit(EXIT_NOT_PORTED)
+    """Run the staged pipeline for a single video or every video in a tree."""
     input_path = args.input
     if not input_path.exists():
         logger.critical(f"File or directory '{input_path}' not found.")
@@ -263,9 +237,7 @@ def parse_cli_args(argv=None) -> argparse.Namespace:
         prog="python -m geotrax_tpu_torch batch",
         description="Primary entry point for the full pipeline: extraction, georeferencing, "
         "visualization, and plotting for a video file or a directory tree (PyTorch/CUDA). "
-        "Stages are skipped when their output already exists; use --overwrite to force. "
-        "Visualization and plotting are not ported yet: pass --no-save --no-show "
-        "--no-plot-save --no-plot-show."
+        "Stages are skipped when their output already exists; use --overwrite to force."
     )
     parser.add_argument("input", type=Path,
                         help="A video file or a directory of video files (searched recursively).")

@@ -4,10 +4,10 @@ The cases of tests/test_batch_process.py on the port's orchestrator, with
 its stages replaced (skip-if-exists, overwrite prompting, dry run, stage
 selection, exclusion, files the lockstep pre-pass extracted not extracted
 again), the lockstep pre-pass itself (groups by resolution, leftovers and a
-failing group through the per-file path), the port's exit with code 2 when
-the stage gates would run visualize or plot (ROADMAP A17b); and ``config
-show`` / ``config copy`` printing and copying what the reference's do,
-apart from the presets' directory."""
+failing group through the per-file path), the stage gates running
+visualize and plot where the reference's run them; and ``config show`` /
+``config copy`` printing and copying what the reference's do, apart from
+the presets' directory."""
 
 import argparse
 import logging
@@ -160,30 +160,40 @@ def test_parallel_extracted_files_not_reextracted(tmp_path, stages):
     ({"geo_only": True}, []),
     ({"plot_only": True, "plot_save": False, "plot_show": False}, []),
 ])
-def test_unported_stages_exit_before_any_stage(tmp_path, stages, caplog, over, stages_named):
-    """visualize and plot are not ported (ROADMAP A17b): where the reference
-    would run them, the port exits with code 2 before any stage, and the
-    per-file isolation does not turn that into one error per video."""
-    (tmp_path / "d").mkdir()
-    for name in ("a.mp4", "b.mp4"):
-        (tmp_path / "d" / name).write_bytes(b"x")
-    args = make_args(input=tmp_path, no_geo=True,
-                     **{"save": None, "show": None, "plot_save": None, "plot_show": None, **over})
-    assert [s.split()[0] for s in batch.unported_stages(args)] == stages_named
-    if stages_named:
-        with caplog.at_level(logging.CRITICAL), pytest.raises(SystemExit) as exc:
-            batch.process_input(args, LOG)
-        assert exc.value.code == 2 and stages == []
-        assert "ROADMAP A17b" in caplog.text
-    else:
-        batch.process_input(args, LOG)
+def test_unported_stages_exit_before_any_stage(tmp_path, monkeypatch, over, stages_named):
+    """The stage gates run visualize and plot where the reference's do (the
+    port used to exit with code 2 here, before they were ported): the same
+    stage calls, in the same order, as the JAX package's batch with its
+    stages replaced the same way, and exactly the stages named."""
+    (tmp_path / "d" / "results").mkdir(parents=True)
+    for name in ("a", "b"):
+        (tmp_path / "d" / f"{name}.mp4").write_bytes(b"x")
+        (tmp_path / "d" / "results" / f"{name}.txt").write_text("1,1,5,5,4,4,5,5,4,4,0,0.9,5,3\n")
+    runs = {}
+    for name, module in (("port", batch), ("reference", jbatch)):
+        calls = []
+        for stage in ("detect_track_stabilize", "georeference", "visualize_results",
+                      "generate_plots"):
+            monkeypatch.setattr(module, stage, lambda a, lg, n=stage: calls.append(
+                (n, Path(a.input if n == "generate_plots" else a.source))))
+        args = make_args(input=tmp_path, no_geo=True, overwrite=True, yes=True,
+                         **{"save": None, "show": None, "plot_save": None, "plot_show": None,
+                            **over})
+        module.process_input(args, LOG)
+        runs[name] = calls
+    assert runs["port"] == runs["reference"]
+    ran = {"visualize_results": "visualize", "generate_plots": "plot"}
+    assert [ran[n] for n in dict.fromkeys(n for n, _ in runs["port"]) if n in ran] == stages_named
+    assert ("visualize" in stages_named) == (("visualize_results", tmp_path / "d" / "b.mp4")
+                                             in runs["port"])
 
 
 def test_main_exit_codes(tmp_path, stages):
     (tmp_path / "d").mkdir()
     (tmp_path / "d" / "a.mp4").write_bytes(b"x")
     logs = ["--log-path", str(tmp_path / "logs")]
-    assert batch.main([str(tmp_path), "--no-geo", "--dry-run"] + logs) == 2
+    # the default gates open visualize and plot; a dry run runs no stage
+    assert batch.main([str(tmp_path), "--no-geo", "--dry-run"] + logs) == 0
     assert stages == []
     assert batch.main([str(tmp_path), "--no-geo", "--no-save", "--no-show", "--no-plot-save",
                        "--no-plot-show", "--device", "cpu"] + logs) == 0

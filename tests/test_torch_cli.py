@@ -265,19 +265,23 @@ def test_double_buffered_rows_equal_the_serial_loops(assets, patched):
 @pytest.mark.parametrize("argv,code,text", [
     (["-V"], 0, "geotrax_tpu_torch 0.1.0"),
     (["--help"], 0, "extract"),
-    (["batch", "x"], 2, "ROADMAP A17"),
-    (["visualize", "x"], 2, "ROADMAP A17"),
+    (["batch", "x"], 0, "'x' not found"),
+    (["visualize", "--help"], 0, "--viz-mode"),
     (["nope"], 2, "unknown command"),
-    (["plot", "x"], 2, "ROADMAP A17"),
+    (["plot", "--help"], 0, "--plot-save"),
     (["config", "show"], 0, "Available presets"),
 ])
 def test_umbrella_cli_dispatch(capsys, argv, code, text):
-    """The seven commands of the reference's usage; ``visualize`` and
-    ``plot`` name the ROADMAP item that ports them, and so does ``batch``
-    when its stage gates would run them (here, with its defaults)."""
+    """The seven commands of the reference's usage, all ported: ``visualize``
+    and ``plot`` print their help, and ``batch`` under its default gates
+    (which run them) gets as far as its input, as the reference's does."""
     from geotrax_tpu_torch import cli
 
-    assert cli.main(argv) == code
+    try:
+        rc = cli.main(argv)
+    except SystemExit as exc:  # argparse's --help
+        rc = exc.code
+    assert rc == code
     out = capsys.readouterr()
     assert text in out.out + out.err
     assert list(cli.COMMANDS) == ["batch", "extract", "georeference", "aggregate", "visualize",

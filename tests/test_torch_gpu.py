@@ -508,3 +508,56 @@ def test_batched_tracker_step_on_card_equals_single_steps(name):
     for i in range(v):
         for x, y in zip(single_states[i], (f[i] for f in states)):
             torch.testing.assert_close(y, x, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_warp_on_card_equals_cpu_on_a_4k_frame():
+    """The visualize stage's frame warp (modes 1 and 4) on one 3840x2160
+    frame: the card's output within one grey level of the CPU's through the
+    same host-side float32 inverse (in practice equal)."""
+    _need_card()
+    from geotrax_tpu_torch.ops.warp import invert_homography, warp_perspective
+
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 256, (2160, 3840, 3)).astype(np.uint8)
+    hm = np.array([[1.0002, 0.012, 14.5], [-0.011, 0.9998, -7.25], [2e-7, -1e-7, 1.0]], np.float32)
+    h_inv = invert_homography(hm)
+    cpu = warp_perspective(torch.from_numpy(img), h_inv, 2160, 3840).numpy()
+    card = warp_perspective(torch.from_numpy(img).cuda(), h_inv, 2160, 3840).cpu().numpy()
+    assert card.dtype == np.uint8 and card.shape == img.shape
+    assert np.abs(card.astype(int) - cpu.astype(int)).max() <= 1
+
+
+@pytest.mark.gpu
+def test_mode_1_render_on_card_equals_cpu(tmp_path, monkeypatch):
+    """One mode-1 render (warp on the device, drawing on the host) of a
+    drifting 640x360 clip, frames in memory, captured before the encoder:
+    the card's frames within one grey level of the CPU's."""
+    _need_card()
+    import chip_smoke
+    from geotrax_tpu_torch.io.synthetic import SyntheticVideoReader
+    from geotrax_tpu_torch.pipeline import visualize
+
+    reader = SyntheticVideoReader(width=640, height=360, n_frames=8, seed=3,
+                                  camera=chip_smoke.CAMERA,
+                                  boxes=chip_smoke.vehicle_boxes(640, 360, 6, 3))
+    frames = chip_smoke.make_frames(reader)
+    source = tmp_path / "R_clip.mp4"
+    source.write_bytes(b"x")
+    (tmp_path / "results").mkdir()
+    tracks, transforms = chip_smoke.render_tracks(reader, 8)
+    np.savetxt(tmp_path / "results" / "R_clip.txt", tracks, fmt="%.6g", delimiter=",")
+    np.savetxt(tmp_path / "results" / "R_clip_vid_transf.txt", transforms, fmt="%.16g",
+               delimiter=",")
+    out = {}
+    for device in ("cpu", "cuda"):
+        sink = chip_smoke.FrameSink(keep_all=True)
+        with chip_smoke.InMemoryVisualize({source.name: (reader.info, frames)},
+                                          lambda *a, s=sink: s):
+            stats = visualize.visualize_results(
+                chip_smoke.visualize_args(source, 1, device, tmp_path / "logs"),
+                chip_smoke.port_extract._LOG)
+        assert stats[0]["frames"] == 8 and stats[0]["warped"] == 7
+        out[device] = sink.frames
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
