@@ -5,6 +5,7 @@
     python3 chip_smoke.py --georef-only    # phases 0, 1 and 10 only, no result line
     python3 chip_smoke.py --lockstep-only  # phases 0, 1 and 12 only, no result line
     python3 chip_smoke.py --render-only    # phases 0, 1 and 13 only, no result line
+    python3 chip_smoke.py --train-only     # phases 0, 1 and 14 only, no result line
 
 Phases, one ``[smoke] <phase> ok <seconds>s ...`` line each; a failing phase
 ends the run with a non-zero exit and no result line:
@@ -146,12 +147,29 @@ ends the run with a non-zero exit and no result line:
                (d) process_input on four videos with --no-geo and the
                visualize and plot gates left open: extract (lockstep),
                visualize and plot ran for each video
+ 14 train      ``python -m geotrax_tpu_torch.train`` as users run it: (a) a
+               YOLO-format dataset written through the port's PNG writer,
+               16 train and 8 val 3840x2160 images with 36 vehicles each
+               over classes 0-3; (b) YOLOv8s nc=4 fine-tuned (--model) from
+               a seeded checkpoint with a detector's head priors at the
+               default preset's imgsz 1920 and batch 8 for 2 epochs, then a
+               1-epoch run resumed to 2: every file checked, finite losses
+               and weights, the resumed run's distance from the
+               uninterrupted one stated; (c) one loss and backward on the
+               card against the CPU at imgsz 640, batch 2 (loss and each
+               gradient's relative L2 error); (d) the trainer's loop
+               instrumented: forward with the loss, backward and update by
+               CUDA events, the loader's host ms per batch, the device's
+               idle share, peak memory, the step's counted FLOPs and
+               bound, evaluate's ms per image; neither hand kernel
+               launches. Depth cut: 2 epochs of 16 images, 4 timed steps
 Then a JSON line describing each kernel, the card's nvidia-smi line, and as
 the last line {"ok": true, "device": {...}}. ``--kernels-only`` serves to
 time the kernels of two checkouts in one call: copy this script into the
 other checkout and run it there too. ``--georef-only`` runs phases 0, 1 and
 10, ``--lockstep-only`` phases 0, 1 and 12 with its own calibrated detector,
-``--render-only`` phases 0, 1 and 13 (no result line).
+``--render-only`` phases 0, 1 and 13, ``--train-only`` phases 0, 1 and 14
+(no result line).
 """
 
 from __future__ import annotations
@@ -171,6 +189,7 @@ import numpy as np
 import torch
 
 from geotrax_tpu_torch import cfg as port_cfg
+from geotrax_tpu_torch._device import resolve_device
 from geotrax_tpu_torch.io.synthetic import SyntheticVideoReader
 from geotrax_tpu_torch.models import rtdetr_ul, yolov8
 from geotrax_tpu_torch.models.detector import Detector, OracleDetector
@@ -1722,22 +1741,28 @@ class CountFlops:
     """Within the block, counts the operations of every convolution
     (``F.conv2d``) and matrix product (``@``) that runs: 2 x each output
     element x its reduction length (the work that bounds a forward in
-    float32; elementwise work and gathers are left out)."""
+    float32; elementwise work and gathers are left out); ``per_call`` keeps
+    each call's count in order."""
 
     def __enter__(self):
         import torch.nn.functional as F
 
         self.flops = 0.0
+        self.per_call = []
         self._conv, self._matmul = F.conv2d, torch.Tensor.__matmul__
+
+        def count(flops):
+            self.flops += flops
+            self.per_call.append(flops)
 
         def conv2d(x, w, *args, **kwargs):
             out = self._conv(x, w, *args, **kwargs)
-            self.flops += 2.0 * out.numel() * w.shape[1] * w.shape[2] * w.shape[3]
+            count(2.0 * out.numel() * w.shape[1] * w.shape[2] * w.shape[3])
             return out
 
         def matmul(a, b):
             out = self._matmul(a, b)
-            self.flops += 2.0 * out.numel() * a.shape[-1]
+            count(2.0 * out.numel() * a.shape[-1])
             return out
 
         F.conv2d, torch.Tensor.__matmul__ = conv2d, matmul
@@ -2779,6 +2804,409 @@ def render_batch(tmp: Path, device: str, width: int, height: int, lengths, seed:
     return {"calls": calls, "frames_written": got_frames, "pdfs": len(pdfs)}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: train
+# ---------------------------------------------------------------------------
+
+TRAIN_IMAGES = (16, 8)      # train, val images of the smoke's dataset
+TRAIN_EPOCHS = 2
+TRAIN_CHECK_IMGSZ, TRAIN_CHECK_BATCH = 640, 2
+TRAIN_TIMED_STEPS = 4
+# rel L2 error of one step's loss against the CPU's, and of each parameter's
+# gradient on the card against float64 on the CPU (the CPU's own float32
+# gradients can be further off: its convolutions' weight gradients sum long
+# rows in float32, PERF.md PR 12)
+TRAIN_GRAD_TOL = 1e-4
+# a class's footprint at 4K aerial scale (long x short side, px): car, bus,
+# truck, motorcycle
+TRAIN_VEHICLE_PX = ((90, 40), (240, 60), (180, 60), (40, 18))
+TRAIN_FILES = ("last.npz", "best.npz", "trainer_state.npz", "results.csv", "metrics.jsonl",
+               "history.json", "val_summary.json")
+# the fine-tuned checkpoint's head: its last convolutions' random weights
+# scaled by this, box bins biased to 2 strides a side (small aerial boxes)
+TRAIN_HEAD_SCALE, TRAIN_BOX_BIN, TRAIN_BOX_BIAS = 0.1, 2, 4.0
+
+
+def train_start_model(seed: int, device: str) -> yolov8.YOLOv8:
+    """The smoke's stand-in for a pretrained YOLOv8s (nc=4): seeded random
+    weights with a detector's head priors, the class biases at ultralytics'
+    ``Detect.bias_init`` (log(5 / nc / (640 / stride)^2)) and the box bins
+    biased to small boxes. From the plain random init the BCE over 75,600
+    background anchors dominates, no anchor is assigned and the second
+    epoch's updates diverge; users fine-tune from a trained checkpoint."""
+    spec = yolov8.ModelSpec(variant="s", nc=4)
+    model = yolov8.init_params(torch.Generator().manual_seed(seed), spec, device="cpu")
+    head = model.layers[str(spec.head_index)]
+    with torch.no_grad():
+        for k, stride in enumerate(spec.strides):
+            box, cls = head.cv2[k][2], head.cv3[k][2]
+            box.weight.mul_(TRAIN_HEAD_SCALE)
+            cls.weight.mul_(TRAIN_HEAD_SCALE)
+            cls.bias.fill_(math.log(5 / spec.nc / (640 / stride) ** 2))
+            bins = torch.zeros(4, spec.reg_max)
+            bins[:, TRAIN_BOX_BIN] = TRAIN_BOX_BIAS
+            box.bias.copy_(bins.reshape(-1))
+    return model.to(resolve_device(device))
+
+
+def write_train_dataset(root: Path, width: int, height: int, counts=TRAIN_IMAGES,
+                        vehicles: int = VEHICLES_PER_4K_FRAME, seed: int = 5) -> int:
+    """A YOLO-format dataset (images/{train,val}/*.png through the port's
+    PNG writer, labels/{train,val}/*.txt) of width x height aerial-like
+    images: a blocky asphalt texture and ``vehicles`` boxes each over
+    classes 0-3. Returns the number of labels."""
+    from geotrax_tpu_torch.io.png import write_png
+
+    rng = np.random.default_rng(seed)
+    n_labels = 0
+    for split, n in zip(("train", "val"), counts):
+        (root / "images" / split).mkdir(parents=True)
+        (root / "labels" / split).mkdir(parents=True)
+        for i in range(n):
+            base = rng.integers(60, 120, (-(-height // 16), -(-width // 16), 3), dtype=np.uint8)
+            img = np.repeat(np.repeat(base, 16, 0), 16, 1)[:height, :width].copy()
+            lines = []
+            for _ in range(vehicles):
+                c = int(rng.integers(0, 4))
+                long, short = TRAIN_VEHICLE_PX[c]
+                bw, bh = (long, short) if rng.uniform() < 0.5 else (short, long)
+                bw, bh = min(bw, width - 1), min(bh, height - 1)
+                x0, y0 = int(rng.integers(0, width - bw)), int(rng.integers(0, height - bh))
+                img[y0:y0 + bh, x0:x0 + bw] = rng.integers(0, 256, 3, dtype=np.uint8)
+                lines.append(f"{c} {(x0 + bw / 2) / width:.6f} {(y0 + bh / 2) / height:.6f} "
+                             f"{bw / width:.6f} {bh / height:.6f}")
+            write_png(root / "images" / split / f"{i:03d}.png", img, compress_level=1)
+            (root / "labels" / split / f"{i:03d}.txt").write_text("\n".join(lines) + "\n")
+            n_labels += len(lines)
+    return n_labels
+
+
+def train_argv(data: Path, model: Path, out: Path, epochs: int, device: str, *extra) -> list:
+    return ["--data", str(data), "--model", str(model), "-c", "default", "--epochs", str(epochs),
+            "--out", str(out), "--no-tb", "--device", device, *extra]
+
+
+def check_train_run(out: Path, epochs: int, steps_per_epoch: int, n_params: int) -> dict:
+    """Every file of a run, one row per epoch, finite losses, the optimizer
+    state's leaves and count."""
+    missing = [f for f in TRAIN_FILES if not (out / f).exists()]
+    if missing:
+        raise AssertionError(f"train run in {out} wrote no {missing}")
+    rows = [json.loads(ln) for ln in (out / "metrics.jsonl").read_text().splitlines()]
+    csv_rows = (out / "results.csv").read_text().splitlines()
+    history = json.loads((out / "history.json").read_text())
+    summary = json.loads((out / "val_summary.json").read_text())
+    if [r["epoch"] for r in rows] != list(range(epochs)) or len(csv_rows) != epochs + 1:
+        raise AssertionError(f"{out}: epochs {[r['epoch'] for r in rows]}, "
+                             f"{len(csv_rows)} csv rows")
+    if len(history) != epochs or "single_cls_val" not in summary:
+        raise AssertionError(f"{out}: history of {len(history)} epochs, summary {list(summary)}")
+    losses = [r["loss"] for r in rows]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{out}: losses {losses}")
+    if not all(np.isfinite(v).all() for v in npz_params(out / "last.npz").values()):
+        raise AssertionError(f"{out}: last.npz holds non-finite weights")
+    with np.load(out / "trainer_state.npz") as z:
+        leaves = [k for k in z.files if k.startswith("leaf_")]
+        count = int(z[f"leaf_{n_params}"])
+    if len(leaves) != n_params + 1 or count != epochs * steps_per_epoch:
+        raise AssertionError(f"{out}: {len(leaves)} state leaves for {n_params} parameters, "
+                             f"count {count}")
+    return {"losses": losses, "lr": [r["lr"] for r in rows], "map50": [r["map50"] for r in rows],
+            "epoch_s": [r["epoch_s"] for r in rows], "count": count}
+
+
+def npz_params(path: Path) -> dict:
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files if k.startswith("param:")}
+
+
+class CachedLoader:
+    """Batches already in memory, served as a loader's epoch."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def epoch(self, epoch_idx: int = 0):
+        return iter(self.batches)
+
+
+def train_step_card_vs_cpu(data: Path, device: str, imgsz: int, batch: int, seed: int) -> dict:
+    """One loss and backward of the seeded start model on a loader batch at
+    ``imgsz``: on the card, on the CPU, and on the CPU in float64 (the
+    reference both float32 runs are held to). Relative L2 errors per
+    parameter (of its norm, or of 1e-6 of the whole gradient's norm where
+    that is larger) and over all parameters at once. Fails if the card is
+    off the float64 gradients by more than TRAIN_GRAD_TOL, or off the CPU
+    by more than the CPU's own error allows."""
+    import copy
+
+    from geotrax_tpu_torch.models.convert import param_leaves
+    from geotrax_tpu_torch.models.loss import detection_loss
+    from geotrax_tpu_torch.train.data import Loader
+
+    spec = yolov8.ModelSpec(variant="s", nc=4)
+    b = next(Loader(data, "train", imgsz=imgsz, batch_size=batch, training=True).epoch(0))
+    cpu = train_start_model(seed, "cpu")
+    out = {}
+    for name, model in (("cpu", cpu), ("card", copy.deepcopy(cpu).to(resolve_device(device))),
+                        ("f64", copy.deepcopy(cpu).double())):
+        model.requires_grad_(True)
+        p0 = next(model.parameters())
+        images, boxes, cls, mask = (torch.from_numpy(b[k]).to(p0.device) for k in (
+            "images", "gt_boxes", "gt_cls", "gt_mask"))
+        loss, metrics = detection_loss(model, images.to(p0.dtype), boxes.to(p0.dtype), cls, mask,
+                                       spec)
+        loss.backward()
+        out[name] = (float(loss.detach()), int(metrics["fg"]),
+                     [p.grad.detach().cpu().double() for p in param_leaves(model)])
+    ref = out["f64"][2]
+    floor = 1e-6 * float(torch.linalg.norm(torch.cat([g.flatten() for g in ref])))
+
+    def errors(a, b):
+        per = [float(torch.linalg.norm(x - y)) / max(float(torch.linalg.norm(y)), floor)
+               for x, y in zip(out[a][2], out[b][2])]
+        flat = [torch.cat([g.flatten() for g in out[k][2]]) for k in (a, b)]
+        return max(per), float(torch.linalg.norm(flat[0] - flat[1]) / torch.linalg.norm(flat[1]))
+
+    res = {"loss_cpu": out["cpu"][0], "loss_card": out["card"][0], "loss_f64": out["f64"][0],
+           "fg": (out["cpu"][1], out["card"][1], out["f64"][1]), "params": len(ref)}
+    res["loss_rel"] = abs(res["loss_card"] - res["loss_cpu"]) / abs(res["loss_cpu"])
+    for a, b_ in (("card", "cpu"), ("card", "f64"), ("cpu", "f64")):
+        res[f"{a}_{b_}_max"], res[f"{a}_{b_}_all"] = errors(a, b_)
+    if len(set(res["fg"])) != 1 or not res["fg"][0] or res["loss_rel"] > TRAIN_GRAD_TOL \
+            or res["card_f64_max"] > TRAIN_GRAD_TOL \
+            or res["card_cpu_all"] > res["cpu_f64_all"] + TRAIN_GRAD_TOL:
+        raise AssertionError(f"train step on the card vs the CPU: {res}")
+    return res
+
+
+def time_train_steps(data: Path, device: str, imgsz: int, batch: int, steps: int,
+                     seed: int, hp: dict) -> dict:
+    """The trainer's synchronous loop, instrumented: two loader batches
+    (host ms each), then ``steps`` train steps on them in turn, each with
+    CUDA events after the forward with the loss, the backward and the
+    update, and its host wall time (upload to the loss read); the device's
+    idle share of the loop (loader + step); peak memory; the step's FLOPs
+    and bound; evaluate on the val batches already loaded, ms per image,
+    and its forward + NMS alone. ``hp`` is the preset's ultralytics
+    section (the optimizer's settings)."""
+    from geotrax_tpu_torch.models.convert import param_leaves
+    from geotrax_tpu_torch.models.loss import detection_loss
+    from geotrax_tpu_torch.ops.nms import postprocess_detections
+    from geotrax_tpu_torch.parallel.mesh import make_train_step
+    from geotrax_tpu_torch.train.data import Loader
+    from geotrax_tpu_torch.train.optim import SGD, build_lr_schedule
+    from geotrax_tpu_torch.train.train import evaluate
+
+    spec = yolov8.ModelSpec(variant="s", nc=4)
+    model = train_start_model(seed, device)
+    model.requires_grad_(True)
+    loader = Loader(data, "train", imgsz=imgsz, batch_size=batch, training=True)
+    batches, load_ms = [], []
+    it = loader.epoch(0)
+    for _ in range(min(2, len(loader))):
+        t = time.perf_counter()
+        b = next(it)
+        load_ms.append((time.perf_counter() - t) * 1e3)
+        b.pop("n_valid")
+        batches.append(b)
+    schedule = build_lr_schedule(float(hp["lr0"]), float(hp["lrf"]),
+                                 int(float(hp["warmup_epochs"]) * len(loader)),
+                                 int(hp["epochs"]) * len(loader), bool(hp["cos_lr"]))
+    optimizer = SGD(schedule, float(hp["momentum"]), float(hp["weight_decay"]))
+    step = make_train_step(spec, optimizer)
+    params = param_leaves(model)
+    state = optimizer.init(params)
+
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for i in range(steps):
+        marks = {}
+
+        def mark(name):
+            if cuda:
+                marks[name] = torch.cuda.Event(enable_timing=True)
+                marks[name].record()
+            else:  # the CPU rehearsal: host clock
+                marks[name] = time.perf_counter()
+
+        def ms(a, b):
+            return marks[a].elapsed_time(marks[b]) if cuda else (marks[b] - marks[a]) * 1e3
+
+        t = time.perf_counter()
+        b = {k: torch.from_numpy(v).to(device) for k, v in batches[i % len(batches)].items()}
+        mark("start")
+        state, metrics = step(model, state, b, mark)
+        loss = float(metrics["loss"])
+        wall = (time.perf_counter() - t) * 1e3
+        sync()
+        rows.append({"forward": ms("start", "forward"), "backward": ms("forward", "backward"),
+                     "update": ms("backward", "update"), "wall": wall, "loss": loss})
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else float("nan")
+    steady = rows[1:] if len(rows) > 1 else rows
+    med = {k: float(np.median([r[k] for r in steady])) for k in ("forward", "backward", "update",
+                                                                  "wall")}
+    span = med["forward"] + med["backward"] + med["update"]
+    loop_ms = float(np.mean(load_ms)) + med["wall"]
+
+    with torch.no_grad(), CountFlops() as counter:
+        b = {k: torch.from_numpy(v).to(device) for k, v in batches[0].items()}
+        detection_loss(model, b["images"], b["gt_boxes"], b["gt_cls"], b["gt_mask"], spec)
+    # backward: the input and the weight gradient of every convolution,
+    # except the stem's input gradient (the images need none)
+    step_flops = 3 * counter.flops - counter.per_call[0]
+    n_param = sum(p.numel() for p in params)
+    # images read, each parameter, gradient and trace read and written once
+    step_bytes = batches[0]["images"].nbytes + 4 * n_param * 6
+    bound, bound_by = bound_ms(step_bytes, step_flops)
+
+    val_loader = Loader(data, "val", imgsz=imgsz, batch_size=batch, training=False)
+    t = time.perf_counter()
+    val_batches = list(val_loader.epoch(0))
+    val_load_ms = (time.perf_counter() - t) * 1e3
+    n_val = sum(vb["n_valid"] for vb in val_batches)
+    evaluate(model, spec, CachedLoader(val_batches))  # warm
+    sync()
+    t = time.perf_counter()
+    val = evaluate(model, spec, CachedLoader(val_batches))
+    sync()
+    eval_ms = (time.perf_counter() - t) * 1e3
+    # of which the forward and NMS (the rest is the host's mAP)
+    t = time.perf_counter()
+    with torch.no_grad():
+        for vb in val_batches:
+            boxes, probs = yolov8.forward(model, torch.from_numpy(vb["images"]).to(device), spec)
+            postprocess_detections(boxes, probs, 0.001, 0.7, 300, agnostic=False)
+    sync()
+    infer_ms = (time.perf_counter() - t) * 1e3
+    return {"load_ms": load_ms, "steps": rows, "median": med, "span_ms": span,
+            "idle_share": 1.0 - span / loop_ms, "peak_gib": peak, "flops": step_flops,
+            "forward_flops": counter.flops, "bound_ms": bound, "bound_by": bound_by,
+            "eval_ms_per_image": eval_ms / n_val, "infer_ms_per_image": infer_ms / n_val,
+            "val_load_ms_per_image": val_load_ms / n_val,
+            "val_images": n_val, "val_map50": val["map50"]}
+
+
+def phase_train(device: str = "cuda", width: int = 3840, height: int = 2160,
+                counts=TRAIN_IMAGES, epochs: int = TRAIN_EPOCHS, imgsz=None, batch=None,
+                check_imgsz: int = TRAIN_CHECK_IMGSZ, check_batch: int = TRAIN_CHECK_BATCH,
+                timed_steps: int = TRAIN_TIMED_STEPS, seed: int = 0,
+                vehicles: int = VEHICLES_PER_4K_FRAME) -> dict:
+    """``python -m geotrax_tpu_torch.train`` as users run it (see the
+    module's docstring, phase 14). ``imgsz`` and ``batch`` default to the
+    preset's; the CPU rehearsal passes smaller ones as ``--imgsz`` and
+    ``--batch``, and fewer ``vehicles`` (36 boxes in a tiny image overlap
+    so much that an anchor's IoUs with two of them tie within float32
+    rounding, and the assignment then differs from float64's)."""
+    from geotrax_tpu_torch.models.convert import load_model, save_npz
+    from geotrax_tpu_torch.train.train import parse_cli_args, train
+    from geotrax_tpu_torch.utils.config_utils import load_config
+    from geotrax_tpu_torch.utils.logging_utils import setup_logger
+
+    logger = setup_logger("smoke.train", dry_run=True)
+    hp = load_config("default", logger)["ultralytics"]
+    extra = [] if imgsz is None else ["--imgsz", str(imgsz), "--batch", str(batch)]
+    imgsz, batch = int(imgsz or hp["imgsz"]), int(batch or hp["batch"])
+    cuda = torch.device(device).type == "cuda"
+    res = {"size": (width, height), "counts": counts, "imgsz": imgsz, "batch": batch,
+           "epochs": epochs}
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        data = tmp / "data"
+        t = time.perf_counter()
+        res["labels"] = write_train_dataset(data, width, height, counts, vehicles)
+        res["write_s"] = time.perf_counter() - t
+        ckpt = tmp / "start.npz"
+        save_npz(ckpt, train_start_model(seed, "cpu"), class_names=dict(enumerate(
+            ("car", "bus", "truck", "motorcycle"))))
+
+        # (b) train as users run it, then a 1-epoch run resumed to ``epochs``
+        steps_per_epoch = max(1, counts[0] // batch)
+        reset_launches()
+        runs = {}
+        for name, argv in (("full", train_argv(data, ckpt, tmp / "full", epochs, device, *extra)),
+                           ("part", train_argv(data, ckpt, tmp / "resumed", 1, device, *extra)),
+                           ("resumed", train_argv(data, ckpt, tmp / "resumed", epochs, device,
+                                                  "--resume", *extra))):
+            t = time.perf_counter()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            runs[name] = {"out": train(parse_cli_args(argv), logger),
+                          "s": time.perf_counter() - t,
+                          "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda
+                          else float("nan")}
+        res["launches"] = launches()
+        if res["launches"] != {"fast_score": 0, "patch_gather": 0}:
+            raise AssertionError(f"train launched a hand kernel: {res['launches']}")
+        model, spec, _ = load_model(tmp / "full" / "last.npz", device="cpu")
+        n_params = 2 * sum(1 for m in model.modules() if isinstance(m, yolov8.ConvBN))
+        full = check_train_run(tmp / "full", epochs, steps_per_epoch, n_params)
+        resumed = check_train_run(tmp / "resumed", epochs, steps_per_epoch, n_params)
+        if [h["epoch"] for h in runs["resumed"]["out"]["history"]] != list(range(epochs)):
+            raise AssertionError("the resumed run repeated or skipped an epoch")
+        if full["lr"] != resumed["lr"]:
+            raise AssertionError(f"lr: uninterrupted {full['lr']}, resumed {resumed['lr']}")
+        pa, pb = npz_params(tmp / "full" / "last.npz"), npz_params(tmp / "resumed" / "last.npz")
+        res["resume"] = {
+            "loss_rel": [abs(a - b) / abs(a) for a, b in zip(full["losses"], resumed["losses"])],
+            "weight_max_abs": max(float(np.abs(pa[k] - pb[k]).max()) for k in pa),
+            "weight_rel_l2": max(float(np.linalg.norm(pa[k] - pb[k])
+                                       / max(np.linalg.norm(pa[k]), 1e-30)) for k in pa)}
+        res.update(full=full, resumed=resumed, full_s=runs["full"]["s"],
+                   part_s=runs["part"]["s"], resumed_s=runs["resumed"]["s"],
+                   run_peak_gib=runs["full"]["peak_gib"], n_params=n_params,
+                   single_cls=runs["full"]["out"]["single_cls_val"]["map50"])
+
+        # (c) one step on the card against the same step on the CPU
+        res["check_imgsz"], res["check_batch"] = check_imgsz, check_batch
+        res["card_vs_cpu"] = train_step_card_vs_cpu(data, device, check_imgsz, check_batch, seed)
+
+        # (d) the step's times, bound, idle share and peak memory
+        res["timed"] = time_train_steps(data, device, imgsz, batch, timed_steps, seed, hp)
+        if launches() != {"fast_score": 0, "patch_gather": 0}:
+            raise AssertionError(f"train launched a hand kernel: {launches()}")
+    return res
+
+
+def train_line(tr: dict, seconds: float, smi: str) -> str:
+    w, h = tr["size"]
+    tm, md = tr["timed"], tr["timed"]["median"]
+    cc, rs = tr["card_vs_cpu"], tr["resume"]
+    return (f"train ok {seconds:.1f}s YOLOv8s nc=4 fine-tuned from a seeded checkpoint (head "
+            f"priors) at the default preset's imgsz "
+            f"{tr['imgsz']}, batch {tr['batch']} on {tr['counts'][0]} train + {tr['counts'][1]} "
+            f"val PNGs {w}x{h} ({tr['labels']} labels, written in {tr['write_s']:.1f}s): "
+            f"(b) {tr['epochs']} epochs {tr['full_s']:.1f}s, epoch_s {tr['full']['epoch_s']}, "
+            f"losses {tr['full']['losses']}, lr {tr['full']['lr']}, mAP50 {tr['full']['map50']}, "
+            f"single-class mAP50 {tr['single_cls']:.4f}, {tr['n_params']} parameters, every file "
+            f"written, run peak {tr['run_peak_gib']:.2f} GiB; 1 epoch ({tr['part_s']:.1f}s) "
+            f"resumed to {tr['epochs']} ({tr['resumed_s']:.1f}s): losses {tr['resumed']['losses']},"
+            f" lr equal, loss rel diff {[f'{x:.2e}' for x in rs['loss_rel']]}, last.npz weights "
+            f"max abs diff {rs['weight_max_abs']:.3e} (rel L2 {rs['weight_rel_l2']:.3e}); "
+            f"(c) card vs CPU at imgsz {tr['check_imgsz']} batch {tr['check_batch']}: loss "
+            f"{cc['loss_card']:.6f} vs {cc['loss_cpu']:.6f} (rel {cc['loss_rel']:.2e}; float64 "
+            f"{cc['loss_f64']:.6f}), fg {cc['fg'][0]}, gradients' rel L2 over {cc['params']} "
+            f"parameters, worst parameter / all at once: card vs CPU {cc['card_cpu_max']:.2e} / "
+            f"{cc['card_cpu_all']:.2e}, card vs float64 {cc['card_f64_max']:.2e} / "
+            f"{cc['card_f64_all']:.2e}, CPU vs float64 {cc['cpu_f64_max']:.2e} / "
+            f"{cc['cpu_f64_all']:.2e}; (d) per step (median of {len(tm['steps']) - 1} after "
+            f"the first, CUDA events): forward+loss {md['forward']:.2f} ms, backward {md['backward']:.2f} ms, "
+            f"update {md['update']:.2f} ms, wall {md['wall']:.1f} ms, bound "
+            f"{tm['bound_ms']:.2f} ms "
+            f"({tm['bound_by']}, {tm['flops'] / 1e12:.3f} TFLOP, forward "
+            f"{tm['forward_flops'] / 1e12:.3f}), {100 * tm['bound_ms'] / tm['span_ms']:.1f}% of "
+            f"it; loader {[round(x, 1) for x in tm['load_ms']]} ms per batch of {tr['batch']} "
+            f"PNGs; idle share {100 * tm['idle_share']:.1f}%; peak {tm['peak_gib']:.2f} GiB; "
+            f"evaluate {tm['eval_ms_per_image']:.1f} ms/image, of which forward + NMS "
+            f"{tm['infer_ms_per_image']:.1f} (+ loading "
+            f"{tm['val_load_ms_per_image']:.1f}); launches {tr['launches']} [{smi}]")
+
+
 def render_line(rd: dict, seconds: float, smi: str) -> str:
     w, h = rd["size"]
     modes = "; ".join(
@@ -2937,7 +3365,7 @@ def breakdown_lines(brk: dict) -> list:
 
 def kernel_entry(name: str, source: str, replaces: str, launches: int, res: dict,
                  sequential_launches: int, lockstep_launches: int, lockstep: dict,
-                 render_launches: int) -> dict:
+                 render_launches: int, train_launches: int) -> dict:
     """One kernel's entry of the JSON line; ``lockstep`` holds its shape,
     time and bound on the lockstep phase's own inputs."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2946,7 +3374,7 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int, res: dict
             "library_ms": res.get("library_ms"), "launches_sequential": sequential_launches,
             "launches_lockstep": lockstep_launches, **{f"{k}_lockstep": v
                                                         for k, v in lockstep.items()},
-            "launches_render": render_launches}
+            "launches_render": render_launches, "launches_train": train_launches}
 
 
 def main(argv) -> int:
@@ -2954,6 +3382,7 @@ def main(argv) -> int:
     georef_only = "--georef-only" in argv
     lockstep_only = "--lockstep-only" in argv
     render_only = "--render-only" in argv
+    train_only = "--train-only" in argv
     t_all = time.perf_counter()
     width, height, chunk, seed = 3840, 2160, 32, 0
     n_main = 2 * chunk
@@ -2998,6 +3427,12 @@ def main(argv) -> int:
             rn = phase_render("cuda")
             log(render_line(rn, time.perf_counter() - t, dev["smi"]) + f", launches {launches()}")
             log(f"render-only ok {time.perf_counter() - t_all:.1f}s")
+            return 0
+        if train_only:
+            t = time.perf_counter()
+            tr = phase_train("cuda")
+            log(train_line(tr, time.perf_counter() - t, dev["smi"]))
+            log(f"train-only ok {time.perf_counter() - t_all:.1f}s")
             return 0
         if lockstep_only:  # its own calibrated detector
             t = time.perf_counter()
@@ -3148,6 +3583,10 @@ def main(argv) -> int:
         log(render_line(rn, time.perf_counter() - t, dev["smi"])
             + f", launches {render_launches}")
 
+        t = time.perf_counter()
+        tr = phase_train("cuda")
+        log(train_line(tr, time.perf_counter() - t, dev["smi"]))
+
     except Exception as exc:  # noqa: BLE001 — every phase failure ends the run
         import traceback
 
@@ -3161,12 +3600,14 @@ def main(argv) -> int:
         kernel_entry("fast_score", FAST_SOURCE, FAST_REPLACES, main_launches, kern,
                      sq["c_launches"]["fast_score"], lk["b"]["launches"]["fast_score"],
                      {"shape": lk_k["gray_shape"], "ms": lk_k["fast"]["ms"],
-                      "bound_ms": lk_k["fast_bound_ms"]}, render_launches["fast_score"]),
+                      "bound_ms": lk_k["fast_bound_ms"]}, render_launches["fast_score"],
+                     tr["launches"]["fast_score"]),
         kernel_entry("patch_gather", PATCH_SOURCE, PATCH_REPLACES,
                      rd["launches"]["patch_gather"], pg, sq["c_launches"]["patch_gather"],
                      lk["b"]["launches"]["patch_gather"],
                      {"shape": lk_k["planes_shape"] + (lk_k["corners"],), "ms": lk_k["gather_ms"],
-                      "bound_ms": lk_k["gather_bound_ms"]}, render_launches["patch_gather"]),
+                      "bound_ms": lk_k["gather_bound_ms"]}, render_launches["patch_gather"],
+                     tr["launches"]["patch_gather"]),
     ]}
     print(json.dumps(kernels), flush=True)
     print(dev["smi"], flush=True)

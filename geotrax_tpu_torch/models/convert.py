@@ -178,15 +178,37 @@ def _restore_lists(node):
     return node
 
 
-def _tree(module: nn.Module):
-    """The JAX parameter tree of a module: {'w': HWIO, 'b'} per conv, lists
-    for module lists, dicts of children otherwise."""
+def _hwio(weight: torch.Tensor) -> np.ndarray:
+    return weight.detach().cpu().permute(2, 3, 1, 0).contiguous().numpy()
+
+
+def _tree(module: nn.Module, conv=lambda m: {"b": m.bias.detach().cpu().numpy(),
+                                             "w": _hwio(m.weight)}):
+    """The JAX parameter tree of a module: ``conv(c)`` per conv (by default
+    {'w': HWIO, 'b'} arrays), lists for module lists, dicts of children
+    otherwise."""
     if isinstance(module, yolov8.ConvBN):
-        return {"b": module.bias.detach().cpu().numpy(),
-                "w": module.weight.detach().cpu().permute(2, 3, 1, 0).contiguous().numpy()}
+        return conv(module)
     if isinstance(module, nn.ModuleList):
-        return [_tree(m) for m in module]
-    return {name: _tree(child) for name, child in module.named_children()}
+        return [_tree(m, conv) for m in module]
+    return {name: _tree(child, conv) for name, child in module.named_children()}
+
+
+def tree_leaves(node) -> list:
+    """The leaves of a nested dict/list tree in JAX's flattening order
+    (dict keys sorted, list items in order)."""
+    if isinstance(node, dict):
+        return [leaf for key in sorted(node) for leaf in tree_leaves(node[key])]
+    if isinstance(node, list):
+        return [leaf for item in node for leaf in tree_leaves(item)]
+    return [node]
+
+
+def param_leaves(model: yolov8.YOLOv8) -> list:
+    """The model's parameters in the order of the reference's params tree
+    flattened by JAX (``jax.tree_util.tree_leaves``): per conv its bias,
+    then its (OIHW) weight."""
+    return tree_leaves({"layers": _tree(model.layers, lambda m: {"b": m.bias, "w": m.weight})})
 
 
 def _flatten(node, path: str, out: dict) -> None:

@@ -6,8 +6,8 @@ the hidden width, one AIFI-style encoder layer on the P5 tokens, query
 selection of the top tokens by class logit, and a deformable-attention
 decoder with iterative box refinement; NMS-free. ``init_params`` of the
 reference or a ``.npz`` written by its ``save_npz`` loads through
-``params_from_jax``. The set-prediction loss (``detr_loss``) belongs to
-training, which is not ported.
+``params_from_jax``. ``detr_loss`` is the reference's set-prediction
+loss; ``model.requires_grad_(True)`` makes the parameters trainable.
 
 With ``half`` the whole model is cast to bfloat16, as the reference casts
 every float leaf: the backbone runs the YOLOv8 port's bfloat16 path, the
@@ -28,7 +28,10 @@ import torch.nn.functional as F
 
 from geotrax_tpu_torch._device import resolve_device
 from geotrax_tpu_torch.models import yolov8
+from geotrax_tpu_torch.models.loss import clip, ciou
 from geotrax_tpu_torch.models.rtdetr_ul import ParamTree
+from geotrax_tpu_torch.ops.assignment import masked_assignment
+from geotrax_tpu_torch.ops.boxes import xywh_to_xyxy
 from geotrax_tpu_torch.ops.topk import exact_top_k
 
 
@@ -218,9 +221,61 @@ def forward_head(model: RTDETR, feats, img_h: int, img_w: int, spec: RTDETRSpec)
         queries = _layer_norm(queries + cross, layer["ln2"])
         queries = _layer_norm(queries + _ffn(layer["ffn"], queries), layer["ln3"])
         delta = _mlp3(layer["refine"], queries)
-        rb = ref_boxes.clamp(1e-5, 1.0 - 1e-5)
+        rb = clip(ref_boxes, 1e-5, 1.0 - 1e-5)
         ref_boxes = torch.sigmoid(delta + torch.log(rb / (1.0 - rb)))
 
     probs = torch.sigmoid(_linear(p["cls_head"], queries))
     scale = torch.tensor([img_w, img_h, img_w, img_h], dtype=torch.float32, device=dev)
     return ref_boxes * scale, probs
+
+
+# ---------------------------------------------------------------------------
+# set-prediction loss (auction-based bipartite matching)
+# ---------------------------------------------------------------------------
+
+def detr_loss(model: RTDETR, images: torch.Tensor, gt_boxes: torch.Tensor, gt_cls: torch.Tensor,
+              gt_mask: torch.Tensor, spec: RTDETRSpec, cls_gain: float = 1.0,
+              l1_gain: float = 5.0, giou_gain: float = 2.0):
+    """The reference's Hungarian-matched DETR loss, batched over images:
+    each GT (row) gets its best query (column) through the auction
+    (``ops/assignment.py:masked_assignment`` on the transposed, clipped
+    cost, threshold 30); the matching carries no gradient. images
+    (B,H,W,3); gt_boxes (B,G,4) xywh px; gt_cls (B,G); gt_mask (B,G).
+    Returns (scalar loss, metrics with loss, cls, l1 and giou)."""
+    boxes, probs = forward(model, images, spec)   # (B,Q,4) px, (B,Q,C)
+    b, nq, nc = probs.shape
+    g = gt_boxes.shape[1]
+    img_h, img_w = images.shape[1], images.shape[2]
+    norm = torch.tensor([img_w, img_h, img_w, img_h], dtype=torch.float32, device=boxes.device)
+    gt_cls = gt_cls.long()
+
+    with torch.no_grad():
+        cls_idx = gt_cls.clamp(0, nc - 1)[:, None, :].expand(b, nq, g)
+        cls_cost = -torch.gather(probs, 2, cls_idx)                                  # (B,Q,G)
+        l1_cost = torch.abs(boxes[:, :, None] / norm - gt_boxes[:, None] / norm).sum(-1)
+        iou_cost = 1.0 - ciou(xywh_to_xyxy(boxes)[:, :, None].expand(b, nq, g, 4),
+                              xywh_to_xyxy(gt_boxes)[:, None].expand(b, nq, g, 4))
+        cost = clip(cls_gain * cls_cost + l1_gain * l1_cost + giou_gain * iou_cost,
+                     -20.0, 20.0)
+        col, matched = masked_assignment(cost.transpose(1, 2), gt_mask,
+                                         torch.ones((b, nq), dtype=torch.bool,
+                                                    device=boxes.device), threshold=30.0)
+    safe_col = col.clamp(0, nq - 1)
+
+    # classification: matched queries get their GT class, the rest background;
+    # unmatched GT rows write nothing (the reference scatters at the
+    # unclipped index with mode="drop")
+    onehot = (gt_cls[..., None] == torch.arange(nc, device=gt_cls.device)).to(probs.dtype)
+    bi, gi = matched.nonzero(as_tuple=True)
+    target = torch.zeros((b, nq, nc), dtype=probs.dtype, device=probs.device)
+    target[bi, col[bi, gi]] = onehot[bi, gi]
+    bce = -(target * torch.log(probs + 1e-8)
+            + (1 - target) * torch.log(1 - probs + 1e-8)).mean(dim=(1, 2))
+
+    mb = torch.gather(boxes, 1, safe_col[..., None].expand(b, g, 4))             # (B,G,4)
+    l1 = torch.where(matched[..., None], torch.abs(mb / norm - gt_boxes / norm), 0.0).sum((1, 2))
+    giou = torch.where(matched, 1.0 - ciou(xywh_to_xyxy(mb), xywh_to_xyxy(gt_boxes)), 0.0).sum(1)
+    denom = matched.sum(1).clamp_min(1)
+    l1, giou = l1 / denom, giou / denom
+    loss = cls_gain * bce.mean() + l1_gain * l1.mean() + giou_gain * giou.mean()
+    return loss, {"loss": loss, "cls": bce.mean(), "l1": l1.mean(), "giou": giou.mean()}

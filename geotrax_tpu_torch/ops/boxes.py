@@ -21,9 +21,15 @@ def xyxy_to_xywh(boxes: torch.Tensor) -> torch.Tensor:
     return torch.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1], dim=-1)
 
 
+# a 0-dim CPU tensor is a scalar operand of a binary op on any device
+_ZERO = torch.tensor(0.0)
+
+
 def box_area(boxes_xyxy: torch.Tensor) -> torch.Tensor:
-    w = torch.clamp_min(boxes_xyxy[..., 2] - boxes_xyxy[..., 0], 0.0)
-    h = torch.clamp_min(boxes_xyxy[..., 3] - boxes_xyxy[..., 1], 0.0)
+    # torch.maximum, not clamp_min: at a tie JAX's maximum gives each side
+    # half the gradient, and the training loss differentiates through IoUs
+    w = torch.maximum(boxes_xyxy[..., 2] - boxes_xyxy[..., 0], _ZERO)
+    h = torch.maximum(boxes_xyxy[..., 3] - boxes_xyxy[..., 1], _ZERO)
     return w * h
 
 
@@ -31,7 +37,7 @@ def iou_matrix(a_xyxy: torch.Tensor, b_xyxy: torch.Tensor, eps: float = 1e-9) ->
     """Pairwise IoU of (..., N, 4) x (..., M, 4) corner boxes -> (..., N, M)."""
     lt = torch.maximum(a_xyxy[..., :, None, :2], b_xyxy[..., None, :, :2])
     rb = torch.minimum(a_xyxy[..., :, None, 2:], b_xyxy[..., None, :, 2:])
-    wh = torch.clamp_min(rb - lt, 0.0)
+    wh = torch.maximum(rb - lt, _ZERO)
     inter = wh[..., 0] * wh[..., 1]
     union = box_area(a_xyxy)[..., :, None] + box_area(b_xyxy)[..., None, :] - inter
     return inter / (union + eps)

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from geotrax_tpu_torch import _cuda
+from geotrax_tpu_torch._device import resolve_device
 from geotrax_tpu_torch.ops import fast
 from geotrax_tpu_torch.ops import features
 from geotrax_tpu_torch.ops import patches
@@ -561,3 +562,104 @@ def test_mode_1_render_on_card_equals_cpu(tmp_path, monkeypatch):
         out[device] = sink.frames
     for a, b in zip(out["cuda"], out["cpu"]):
         assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
+
+
+# ---------------------------------------------------------------- training
+TRAIN_LOSS_RTOL = 1e-4   # the card's float32 convolutions (TF32 off) sum in other orders
+TRAIN_GRAD_REL_L2 = 1e-4  # the card's gradients against float64
+# (the port's entry points turn TF32 off through resolve_device; so do these)
+
+
+def train_batch(b, imgsz, g, seed):
+    """Letterboxed images (a 114 border above and below) and large GT boxes
+    (random-init predictions are ~15 strides wide), padded rows masked."""
+    rng = np.random.default_rng(seed)
+    img = np.full((b, imgsz, imgsz, 3), 114, np.uint8)
+    img[:, imgsz // 5: imgsz - imgsz // 5] = rng.integers(0, 256, (b, imgsz - 2 * (imgsz // 5),
+                                                                   imgsz, 3))
+    xy = rng.uniform(0.3 * imgsz, 0.7 * imgsz, (b, g, 2))
+    wh = rng.uniform(0.2 * imgsz, 0.6 * imgsz, (b, g, 2))
+    mask = np.zeros((b, g), bool)
+    mask[:, : g - 2] = True
+    return (img.astype(np.float32) / 255.0, np.concatenate([xy, wh], -1).astype(np.float32),
+            rng.integers(0, 2, (b, g)).astype(np.int32), mask)
+
+
+def rel_l2(a, b):
+    return float(torch.linalg.norm(a.cpu() - b.cpu()) / max(float(torch.linalg.norm(b.cpu())),
+                                                            1e-30))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant,imgsz", [("n", 128), ("s", 320)])
+def test_detection_loss_gradients_card_vs_cpu(variant, imgsz):
+    """The loss on the card against the CPU's, and every parameter's
+    gradient on the card against the CPU's in float64 (relative L2 of the
+    parameter's norm, or of 1e-6 of the whole gradient's where larger; the
+    CPU's float32 convolutions can be further off than the card)."""
+    _need_card()
+    import copy
+
+    from geotrax_tpu_torch.models import yolov8
+    from geotrax_tpu_torch.models.convert import param_leaves
+    from geotrax_tpu_torch.models.loss import detection_loss
+
+    spec = yolov8.ModelSpec(variant=variant, nc=2)
+    cpu = yolov8.init_params(torch.Generator().manual_seed(3), spec, device="cpu")
+    batch = train_batch(2, imgsz, 8, seed=imgsz)
+    out = []
+    card = copy.deepcopy(cpu).to(resolve_device("cuda"))
+    for model in (cpu, card, copy.deepcopy(cpu).double()):
+        model.requires_grad_(True)
+        p0 = next(model.parameters())
+        images, boxes, cls, mask = (torch.from_numpy(x).to(p0.device) for x in batch)
+        loss, metrics = detection_loss(model, images.to(p0.dtype), boxes.to(p0.dtype), cls, mask,
+                                       spec)
+        loss.backward()
+        out.append((float(loss.detach()), int(metrics["fg"]),
+                    [p.grad.detach().cpu().double() for p in param_leaves(model)]))
+    (l_cpu, fg_cpu, _), (l_card, fg_card, g_card), (_, fg_64, g_64) = out
+    assert fg_card == fg_cpu == fg_64 > 0
+    assert abs(l_card - l_cpu) <= TRAIN_LOSS_RTOL * abs(l_cpu)
+    floor = 1e-6 * float(torch.linalg.norm(torch.cat([g.flatten() for g in g_64])))
+    for a, b in zip(g_card, g_64):
+        err = float(torch.linalg.norm(a - b)) / max(float(torch.linalg.norm(b)), floor)
+        assert err <= TRAIN_GRAD_REL_L2
+
+
+@pytest.mark.gpu
+def test_train_step_card_vs_cpu():
+    """Two steps of make_train_step (loss, backward, the SGD update) on the
+    card and on the CPU from the same weights: losses and weights agree."""
+    _need_card()
+    import copy
+
+    from geotrax_tpu_torch.models import yolov8
+    from geotrax_tpu_torch.models.convert import param_leaves
+    from geotrax_tpu_torch.parallel.mesh import make_train_step
+    from geotrax_tpu_torch.train.optim import SGD, build_lr_schedule
+
+    spec = yolov8.ModelSpec(variant="n", nc=2)
+    cpu = yolov8.init_params(torch.Generator().manual_seed(4), spec, device="cpu")
+    card = copy.deepcopy(cpu).to(resolve_device("cuda"))
+    optimizer = SGD(build_lr_schedule(0.01, 0.01, 1, 10, False))
+    step = make_train_step(spec, optimizer)
+    batches = [train_batch(2, 128, 6, seed=s) for s in (1, 2)]
+    losses, weights = [], []
+    for model in (cpu, card):
+        model.requires_grad_(True)
+        dev = next(model.parameters()).device
+        state = optimizer.init(param_leaves(model))
+        run = []
+        for batch in batches:
+            b = dict(zip(("images", "gt_boxes", "gt_cls", "gt_mask"),
+                         (torch.from_numpy(x).to(dev) for x in batch)))
+            state, metrics = step(model, state, b)
+            run.append(float(metrics["loss"]))
+        assert state.count == 2
+        losses.append(run)
+        weights.append([p.detach().cpu() for p in param_leaves(model)])
+    for a, b in zip(losses[1], losses[0]):
+        assert abs(a - b) <= TRAIN_LOSS_RTOL * abs(b)
+    for a, b in zip(weights[1], weights[0]):
+        assert rel_l2(a, b) <= TRAIN_LOSS_RTOL
