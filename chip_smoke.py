@@ -6,13 +6,16 @@
     python3 chip_smoke.py --lockstep-only  # phases 0, 1 and 12 only, no result line
     python3 chip_smoke.py --render-only    # phases 0, 1 and 13 only, no result line
     python3 chip_smoke.py --train-only     # phases 0, 1 and 14 only, no result line
+    python3 chip_smoke.py --features-only  # phases 0, 1 and 15 only, no result line
 
 Phases, one ``[smoke] <phase> ok <seconds>s ...`` line each; a failing phase
 ends the run with a non-zero exit and no result line:
 
   0 device     the card's name and power limit (exit 1 without a card)
   1 build      nvcc builds csrc/fast_score.cu and csrc/patch_gather.cu for
-               sm_90a, both at once (-Xptxas -v shown)
+               sm_90a and g++ the TIFF reader's io/native/tiff.cpp and the
+               exact assignment's io/native/lapjv.cpp, all at once
+               (-Xptxas -v shown)
   2 kernel     the FAST kernel equals its plain PyTorch version exactly on a
                seeded (33,1080,1920) batch, an odd (2,37,53) batch, a
                3-pixel checkerboard and a constant image, at thresholds 20
@@ -163,21 +166,47 @@ ends the run with a non-zero exit and no result line:
                idle share, peak memory, the step's counted FLOPs and
                bound, evaluate's ms per image; neither hand kernel
                launches. Depth cut: 2 epochs of 16 images, 4 timed steps
+ 15 features   (run after the georef phase, on its assets) the ORB-style
+               library, the exact assignment and GeoTIFF orthophotos: (a)
+               the 0.5x gray (1080x1920) of a drifting 4K frame and a copy
+               zoomed 1.6x about its centre: oriented fast_detect (K=2000),
+               describe on its three routes, the 4-level pyramid of both,
+               match_descriptors and ransac_fit, each step timed (CUDA
+               events, median of 3), FAST launched once in fast_detect and
+               once per pyramid level and the patch gather once (counted
+               over the first run); against the CPU's plain versions:
+               keypoints equal, angles within ANGLE_TOL, unoriented bits
+               equal and oriented ones within ORIENTED_BIT_SHARE, pyramid
+               keypoints shared at PYRAMID_OVERLAP, matches equal; the zoom
+               recovered within 4 px at four interior corners; both kernels
+               exact on these inputs; (b) lapjv_exact on a seeded 1000x2000
+               float64 cost equal to scipy's linear_sum_assignment, both
+               timed; (c) the TIFF fixtures of tests/data/tiff (LZW,
+               deflate with predictor 2, PackBits, palette, JPEG through
+               Pillow) equal to Pillow's pixel digests; the georef phase's
+               15000^2 ortho written as a tiled GeoTIFF (tiepoint and scale
+               from its parameters), georeference from the cache on a
+               text-file folder and on a folder holding only <loc>.tif: the
+               converted PNG equal to the ortho, the parameters equal, the
+               CSVs byte-equal, the conversion's host seconds
 Then a JSON line describing each kernel, the card's nvidia-smi line, and as
 the last line {"ok": true, "device": {...}}. ``--kernels-only`` serves to
 time the kernels of two checkouts in one call: copy this script into the
 other checkout and run it there too. ``--georef-only`` runs phases 0, 1 and
 10, ``--lockstep-only`` phases 0, 1 and 12 with its own calibrated detector,
-``--render-only`` phases 0, 1 and 13, ``--train-only`` phases 0, 1 and 14
-(no result line).
+``--render-only`` phases 0, 1 and 13, ``--train-only`` phases 0, 1 and 14,
+``--features-only`` phases 0, 1 and 15 with its own georef assets (no
+result line).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -289,11 +318,19 @@ def phase_device() -> dict:
 
 
 def phase_build() -> dict:
-    """Both kernels, each by its own nvcc, started together; their logs."""
+    """Both kernels, each by its own nvcc, and the host libraries of the
+    TIFF reader and the exact assignment, each by its own g++, all started
+    together; their logs (a g++ build's: the library's path)."""
+    from geotrax_tpu_torch.io import native, tiff
+    from geotrax_tpu_torch.ops.assignment import LAPJV_SOURCE
+
     modules = {"fast_score": fast, "patch_gather": patches}
-    with ThreadPoolExecutor(len(modules)) as pool:
+    host = {"tiff.cpp": tiff.SOURCE, "lapjv.cpp": LAPJV_SOURCE}
+    with ThreadPoolExecutor(len(modules) + len(host)) as pool:
         futures = {name: pool.submit(mod.build, verbose=True) for name, mod in modules.items()}
-        return {name: fut.result()[1] for name, fut in futures.items()}
+        built = {name: pool.submit(native.build_plain, src) for name, src in host.items()}
+        return {**{name: fut.result()[1] for name, fut in futures.items()},
+                **{name: f"g++ built {fut.result().name}" for name, fut in built.items()}}
 
 
 def checkerboard(b: int, h: int, w: int, cell: int = 3) -> np.ndarray:
@@ -1458,6 +1495,20 @@ def sift_breakdown(gray: torch.Tensor, max_features: int, device: str) -> dict:
     return {"levels": levels, "band": tuple(band.shape), "pieces": pieces}
 
 
+@contextlib.contextmanager
+def scratch_dir(keep: bool = False):
+    """A temporary folder, removed on leaving unless ``keep`` (its user
+    then removes it), and whenever an exception leaves."""
+    tmp = tempfile.mkdtemp()
+    try:
+        yield tmp
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    if not keep:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def geo_assets(root: Path, device: str, size: int, fw: int, fh: int, n_frames: int,
                vehicles: int, rects: int) -> dict:
     """The georeferencing inputs of one video, as files: the orthophoto
@@ -1554,32 +1605,27 @@ def check_geo_csv(path: Path, tracks: np.ndarray, fw: int, fh: int, margin: floa
 def phase_georef(device: str = "cuda", size: int = GEO_ORTHO_PX, fw: int = 3840, fh: int = 2160,
                  n_frames: int = GEO_FRAMES, vehicles: int = VEHICLES_PER_4K_FRAME,
                  rects: int = GEO_RECTS, max_features: int = 250_000,
-                 tol_px: float = 3.0, min_inliers: int = 50, min_share: float = 0.9) -> dict:
+                 tol_px: float = 3.0, min_inliers: int = 50, min_share: float = 0.9,
+                 keep: bool = False) -> dict:
     """``georeference`` as users run it at the reference regime: the master
     path (reference -> master and master -> ortho registrations, the second
     cached), then the same command again from the cache; the files checked;
     then the registration's device steps timed alone on the same images,
     and the single-level Stabilizer on a pair of the reference view. At
-    least ``min_share`` of each image's feature slots must be valid."""
+    least ``min_share`` of each image's feature slots must be valid. With
+    ``keep`` the assets and their folder stay, under ``res["kept"]``."""
     from geotrax_tpu_torch.ops import prng, sift
     from geotrax_tpu_torch.ops.ransac import ransac_fit
     from geotrax_tpu_torch.pipeline import georeference as port_geo
     from geotrax_tpu_torch.stabilize import Stabilizer, StabilizerConfig
 
     res = {}
-    with tempfile.TemporaryDirectory() as tmp:
+    with scratch_dir(keep) as tmp:
         root = Path(tmp)
         a = geo_assets(root, device, size, fw, fh, n_frames, vehicles, rects)
         res.update({k: a[k] for k in ("scene_s", "png_s", "tracks_s")})
         res["tracked_rows"] = len(a["tracks"])
-        cfg = "default"
-        if max_features != port_cfg.DEFAULT["georef"]["matching"]["max_features"]:
-            cfg = str(root / "default_copy.yaml")  # a rehearsal's budget
-            text = (port_cfg.CFG_DIR / "default.yaml").read_text()
-            Path(cfg).write_text(text.replace("    max_features: 250000\n",
-                                              f"    max_features: {max_features}\n"))
-        argv = [str(a["source"]), "-c", cfg, "--device", device,
-                "--ortho-folder", str(a["ortho_dir"])]
+        argv = georef_argv(root, a["ortho_dir"], a["source"], device, max_features)
         logger = logging.getLogger("smoke.georeference")
         logger.setLevel(logging.INFO)
         lines = LogLines()
@@ -1676,6 +1722,8 @@ def phase_georef(device: str = "cuda", size: int = GEO_ORTHO_PX, fw: int = 3840,
         if res["orb_launches"] != 2 * (device == "cuda") or res["orb_err_px"] > 2.0:
             raise AssertionError(f"orb-path Stabilizer: {res['orb_launches']} FAST launches, "
                                  f"corner error {res['orb_err_px']:.2f} px")
+    if keep:  # for the features phase's GeoTIFF leg, which removes the folder
+        res["kept"] = {"root": Path(tmp), "assets": a}
     return res
 
 
@@ -3173,6 +3221,354 @@ def phase_train(device: str = "cuda", width: int = 3840, height: int = 2160,
     return res
 
 
+# --------------------------------------------------------------------------
+# the feature library, the exact assignment and GeoTIFF orthophotos
+# --------------------------------------------------------------------------
+
+FEATURE_K = 2000
+FEATURE_ZOOM = 1.6
+FEATURE_LEVELS = 4
+# the recovered zoom at four interior corners (tests/test_features_stabilize.py)
+FEATURE_H_TOL_PX = 4.0
+# card vs CPU: the orientation's two 961-term float32 sums add in another
+# order on the card; an oriented test point that rounds at .5 may move with
+# the angle's last bits; the pyramid's deeper levels are resize products
+# that add in another order
+ANGLE_TOL = 1e-4
+ORIENTED_BIT_SHARE = 1e-3
+PYRAMID_OVERLAP = 0.98
+LAPJV_SHAPE = (1000, 2000)
+TIFF_FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "tiff"
+
+
+def zoom_about(cx: float, cy: float, zoom: float) -> np.ndarray:
+    """The homography that zooms by ``zoom`` about (cx, cy)."""
+    return np.array([[zoom, 0.0, (1 - zoom) * cx], [0.0, zoom, (1 - zoom) * cy], [0, 0, 1.0]])
+
+
+def interior_error(h_est: np.ndarray, h_true: np.ndarray, w: int, h: int) -> float:
+    """Largest distance [px] between where the two homographies map four
+    interior corners (0.35 and 0.65 of each side), which stay in view
+    under the zoom."""
+    c = np.array([[0.35 * w, 0.35 * h, 1], [0.65 * w, 0.35 * h, 1], [0.65 * w, 0.65 * h, 1],
+                  [0.35 * w, 0.65 * h, 1]])
+    p, q = c @ h_est.T, c @ h_true.T
+    return float(np.linalg.norm(p[:, :2] / p[:, 2:] - q[:, :2] / q[:, 2:], axis=1).max())
+
+
+def feature_steps(ga: torch.Tensor, gb: torch.Tensor, device: str, k: int, levels: int) -> dict:
+    """The library's steps on a pair of grays, each timed (CUDA events on
+    the card): oriented FAST, ``describe`` on its three routes, the pyramid
+    of both images, ``match_descriptors`` and RANSAC."""
+    from geotrax_tpu_torch.ops import prng
+    from geotrax_tpu_torch.ops.ransac import ransac_fit
+
+    ms, out = {}, {}
+    ms["fast_oriented"], out["kps"] = events_ms(lambda: features.fast_detect(ga, k), device)
+    for name, oriented, method in (("describe_patches", False, "patches"),
+                                   ("describe_planes", False, "planes"),
+                                   ("describe_oriented", True, "patches")):
+        ms[name], out[name] = events_ms(lambda: features.describe(
+            ga, out["kps"], oriented=oriented, method=method), device)
+    ms["pyramid_a"], out["pyr_a"] = events_ms(
+        lambda: features.detect_and_describe_pyramid(ga, k, n_levels=levels), device)
+    ms["pyramid_b"], out["pyr_b"] = events_ms(
+        lambda: features.detect_and_describe_pyramid(gb, k, n_levels=levels), device)
+    (ka, da), (kb, db) = out["pyr_a"], out["pyr_b"]
+    ms["match"], m = events_ms(lambda: features.match_descriptors(da, ka.valid, db, kb.valid),
+                               device)
+    ms["ransac"], r = events_ms(lambda: ransac_fit(
+        ka.xy[m.idx_a], kb.xy[m.idx_b], m.valid, threshold=3.0, key=prng.PRNGKey(0),
+        num_hypotheses=2048), device)
+    out["matches"], out["ransac"] = m, r
+    return {"ms": ms, **out}
+
+
+def wrapped(a: torch.Tensor) -> torch.Tensor:
+    return torch.remainder(a + math.pi, 2 * math.pi) - math.pi
+
+
+def feature_library(device: str, width: int, height: int, seed: int, k: int = FEATURE_K,
+                    levels: int = FEATURE_LEVELS, reps: int = 3) -> dict:
+    """(a): the 0.5x gray of a drifting frame and a copy zoomed by
+    FEATURE_ZOOM about its centre, through the library on ``device`` (the
+    launches counted over the first run, each step's time the median of
+    ``reps`` runs), held against the CPU's plain versions and the true
+    homography; then both kernels exact on the phase's own inputs."""
+    from geotrax_tpu_torch.ops.warp import invert_homography, warp_perspective
+
+    dev = torch.device(device)
+    _, frame = next(iter(smoke_reader(width, height, seed, horizon=1)))
+    ga = features.downsample(features.rgb_to_gray(torch.as_tensor(frame).to(dev)), 0.5)
+    h, w = ga.shape
+    h_true = zoom_about(w / 2, h / 2, FEATURE_ZOOM)
+    gb = warp_perspective(ga[..., None], invert_homography(h_true), h, w)[..., 0].contiguous()
+
+    reset_launches()
+    runs = [feature_steps(ga, gb, device, k, levels)]
+    counted = launches()
+    runs += [feature_steps(ga, gb, device, k, levels) for _ in range(reps - 1)]
+    card = runs[0]
+    res = {"shape": (h, w), "k": k, "levels": levels, "launches": counted,
+           "ms": {n: float(np.median([r["ms"][n] for r in runs])) for n in card["ms"]}}
+    want = {"fast_score": (1 + 2 * levels) * (device == "cuda"),
+            "patch_gather": 1 * (device == "cuda")}
+    if counted != want:
+        raise AssertionError(f"feature library launches {counted}, expected {want}")
+
+    r = card["ransac"]
+    res["matches"] = int(card["matches"].valid.sum())
+    res["inliers"] = int(r.num_inliers)
+    res["h_err_px"] = interior_error(r.h_matrix.double().cpu().numpy(), h_true, w, h)
+    if res["h_err_px"] > FEATURE_H_TOL_PX:
+        raise AssertionError(f"the {FEATURE_ZOOM}x zoom recovered within {res['h_err_px']:.2f} "
+                             f"px (limit {FEATURE_H_TOL_PX})")
+
+    # the CPU's plain versions on the same inputs
+    ga_c, gb_c = ga.cpu(), gb.cpu()
+    kps = card["kps"]
+    kps_c = features.fast_detect(ga_c, k)
+    for name in ("xy", "score", "valid"):
+        if not torch.equal(getattr(kps, name).cpu(), getattr(kps_c, name)):
+            raise AssertionError(f"oriented FAST: card and CPU {name} differ")
+    res["angle_err"] = float(wrapped(kps.angle.cpu() - kps_c.angle).abs().max())
+    if res["angle_err"] > ANGLE_TOL:
+        raise AssertionError(f"angles differ by {res['angle_err']:.2e} rad (limit {ANGLE_TOL})")
+    kps_on_cpu = features.Keypoints(*(t.cpu() for t in kps))
+    res["bits"] = {}
+    for name, oriented, method in (("describe_patches", False, "patches"),
+                                   ("describe_planes", False, "planes"),
+                                   ("describe_oriented", True, "patches")):
+        plain = features.describe(ga_c, kps_on_cpu, oriented=oriented, method=method)
+        res["bits"][name] = float((card[name].cpu() != plain).float().mean())
+        limit = ORIENTED_BIT_SHARE if oriented else 0.0
+        if res["bits"][name] > limit:
+            raise AssertionError(f"{name}: {res['bits'][name]:.2e} of the bits differ from the "
+                                 f"CPU's (limit {limit})")
+    res["overlap"] = []
+    for key, g in (("pyr_a", ga_c), ("pyr_b", gb_c)):
+        kc, _ = features.detect_and_describe_pyramid(g, k, n_levels=levels)
+        on_cpu = {tuple(v) for v in torch.round(kc.xy * 1000).to(torch.int64).tolist()}
+        mine = torch.round(card[key][0].xy.cpu() * 1000).to(torch.int64).tolist()
+        res["overlap"].append(float(np.mean([tuple(v) in on_cpu for v in mine])))
+    if min(res["overlap"]) < PYRAMID_OVERLAP:
+        raise AssertionError(f"pyramid keypoints shared with the CPU's: {res['overlap']} "
+                             f"(limit {PYRAMID_OVERLAP})")
+    (ka, da), (kb, db) = card["pyr_a"], card["pyr_b"]
+    mc = features.match_descriptors(da.cpu(), ka.valid.cpu(), db.cpu(), kb.valid.cpu())
+    m = card["matches"]
+    if not (torch.equal(m.idx_b.cpu(), mc.idx_b) and torch.equal(m.valid.cpu(), mc.valid)):
+        raise AssertionError("match_descriptors: card and CPU differ")
+
+    # both kernels exact on this phase's own inputs (these launches are not counted)
+    res["kernel_err"] = {}
+    res["kernel_err"]["fast_score"] = float(
+        (fast.fast_score_map(ga, 20.0).cpu() - fast.fast_score_map_torch(ga_c, 20.0)).abs().max())
+    smooth = features._gaussian_blur(ga)
+    x0 = torch.clamp(kps.xy[:, 0].to(torch.int32) - 15, 0, w - 32)
+    y0 = torch.clamp(kps.xy[:, 1].to(torch.int32) - 15, 0, h - 32)
+    res["kernel_err"]["patch_gather"] = float((patches.patches32(smooth, x0, y0).cpu()
+                                               - patches.patches32_torch(smooth.cpu(), x0.cpu(),
+                                                                         y0.cpu())).abs().max())
+    if any(res["kernel_err"].values()):
+        raise AssertionError(f"kernels against their plain versions: {res['kernel_err']}")
+    return res
+
+
+def lapjv_check(shape=LAPJV_SHAPE, seed: int = 0) -> dict:
+    """(b): ``lapjv_exact`` on a seeded float64 cost against scipy's
+    ``linear_sum_assignment``, both timed on the host."""
+    from scipy.optimize import linear_sum_assignment
+
+    from geotrax_tpu_torch.ops.assignment import lapjv_exact
+
+    cost = np.random.default_rng(seed).uniform(0.0, 1.0, shape)
+    t0 = time.perf_counter()
+    cols = lapjv_exact(cost)
+    lap_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows, want = linear_sum_assignment(cost)
+    scipy_s = time.perf_counter() - t0
+    if not (np.array_equal(rows, np.arange(shape[0])) and np.array_equal(cols, want)):
+        raise AssertionError(f"lapjv_exact differs from scipy on {int((cols != want).sum())} rows")
+    return {"shape": shape, "s": lap_s, "scipy_s": scipy_s, "cost": float(cost[rows, cols].sum())}
+
+
+def tiff_fixtures() -> dict:
+    """The committed compressed fixtures (LZW, deflate with predictor 2,
+    PackBits, palette, JPEG) decoded by the port against Pillow's pixel
+    digests."""
+    import hashlib
+
+    from geotrax_tpu_torch.io import tiff
+
+    want = json.loads((TIFF_FIXTURES / "pixels.json").read_text())
+    got = {name: hashlib.sha1(tiff.read_tiff(TIFF_FIXTURES / name).tobytes()).hexdigest()
+           for name in want}
+    bad = [name for name in want if got[name] != want[name]]
+    if bad:
+        raise AssertionError(f"TIFF fixtures decoded unlike Pillow: {bad}")
+    return {"files": sorted(want)}
+
+
+def georef_argv(root: Path, ortho_dir: Path, source: Path, device: str,
+                max_features: int) -> list:
+    """``georeference``'s arguments: the default preset, or a copy of it with
+    a rehearsal's smaller feature budget."""
+    cfg = "default"
+    if max_features != port_cfg.DEFAULT["georef"]["matching"]["max_features"]:
+        cfg = str(root / "default_copy.yaml")
+        text = (port_cfg.CFG_DIR / "default.yaml").read_text()
+        Path(cfg).write_text(text.replace("    max_features: 250000\n",
+                                          f"    max_features: {max_features}\n"))
+    return [str(source), "-c", cfg, "--device", device, "--ortho-folder", str(ortho_dir)]
+
+
+def geotiff_leg(root: Path, a: dict, device: str, fw: int, fh: int, max_features: int) -> dict:
+    """(c): the georef assets' ortho as a tiled GeoTIFF (tiepoint and scale
+    from the center-text-file parameters), ``georeference`` on a text-file
+    folder and on a folder holding only ``<loc>.tif`` from the text-file
+    run's master -> ortho cache: the PNG converted from the .tif equal to the
+    ortho, the parameters equal, the two CSVs byte-equal."""
+    from geotrax_tpu_torch.io import geoassets, png
+    from geotrax_tpu_torch.io.tiff_tiled import write_tiled_tiff
+    from geotrax_tpu_torch.pipeline import georeference as port_geo
+
+    logger = logging.getLogger("smoke.geotiff")
+    src_dir = a["ortho_dir"]
+    params = geoassets.get_ortho_parameters(src_dir, GEO_LOCATION, "center-text-file", None,
+                                            logger)
+    res = {"params": params}
+
+    def folder(name: str, cache) -> Path:
+        d = root / name
+        (d / "master_frames").mkdir(parents=True)
+        shutil.copytree(src_dir / "segmentations", d / "segmentations")
+        shutil.copy(src_dir / "master_frames" / f"{GEO_LOCATION}.png", d / "master_frames")
+        if cache is not None and cache.exists():
+            shutil.copy(cache, d / "master_frames")
+        return d
+
+    txt_dir = folder("ORTHO_TEXT", src_dir / "master_frames" / f"{GEO_LOCATION}.txt")
+    os.link(src_dir / f"{GEO_LOCATION}.png", txt_dir / f"{GEO_LOCATION}.png")
+    (txt_dir / f"{GEO_LOCATION}.txt").write_text(
+        "# lng0 lat0 dlng dlat skew_x skew_y\n" + " ".join(repr(v) for v in params) + "\n")
+    tif_dir = folder("ORTHO_TIF", None)
+    lng0, lat0, dlng, dlat = params[:4]
+    tif = tif_dir / f"{GEO_LOCATION}.tif"
+
+    def run(ortho_dir: Path) -> dict:
+        return port_geo.run_georeferencing(port_geo.parse_cli_args(
+            georef_argv(root, ortho_dir, a["source"], device, max_features)), logger)
+
+    cache = txt_dir / "master_frames" / f"{GEO_LOCATION}.txt"
+    replaced = port_geo.get_video_data
+    port_geo.get_video_data = lambda src, ref_frame, log: (a["ref"], (fh, fw), float(GEO_FPS))
+    try:
+        res["cache_s"] = None
+        if not cache.exists():  # without the georef phase's cache: the master path writes it
+            t0 = time.perf_counter()
+            run(txt_dir)
+            res["cache_s"] = time.perf_counter() - t0
+        # both runs from the cache (a fresh fit and its cached copy give
+        # homographies equal to float32 precision only)
+        t0 = time.perf_counter()
+        text_run = run(txt_dir)
+        res["text_s"] = time.perf_counter() - t0
+        text_csv = Path(text_run["csv"]).read_bytes()
+        shutil.copy(cache, tif_dir / "master_frames")
+        t0 = time.perf_counter()
+        write_tiled_tiff(tif, a["ortho"], tile=256, geo=(lng0, lat0, dlng, -dlat))
+        res["write_s"] = time.perf_counter() - t0
+        res["tif_bytes"] = tif.stat().st_size
+
+        timed = geoassets.get_geo_params_source
+        spent = []
+
+        def timed_source(*args):
+            t = time.perf_counter()
+            out = timed(*args)
+            spent.append(time.perf_counter() - t)
+            return out
+
+        geoassets.get_geo_params_source = timed_source
+        try:
+            t0 = time.perf_counter()
+            tif_run = run(tif_dir)
+            res["tif_s"] = time.perf_counter() - t0
+        finally:
+            geoassets.get_geo_params_source = timed
+    finally:
+        port_geo.get_video_data = replaced
+    res["convert_s"] = spent[0]
+    if geoassets.get_geo_params_source(None, tif_dir, GEO_LOCATION, logger) != "metadata-tif":
+        raise AssertionError("the .tif folder is not detected as metadata-tif")
+    tif_params = geoassets.get_ortho_parameters(tif_dir, GEO_LOCATION, "metadata-tif", None,
+                                                logger)
+    text_params = geoassets.get_ortho_parameters(txt_dir, GEO_LOCATION, "text-file", None, logger)
+    if tif_params != text_params:
+        raise AssertionError(f"GeoTIFF parameters {tif_params} != text-file {text_params}")
+    if not np.array_equal(png.read_png(tif_dir / f"{GEO_LOCATION}.png"), a["ortho"]):
+        raise AssertionError("the PNG converted from the .tif differs from the ortho")
+    if Path(tif_run["csv"]).read_bytes() != text_csv:
+        raise AssertionError("the GeoTIFF run's CSV differs from the text-file run's")
+    res["rows"] = tif_run["rows"]
+    res["csv_bytes"] = len(text_csv)
+    res["seconds"] = tif_run["seconds"]
+    return res
+
+
+def phase_features(device: str = "cuda", geo: dict | None = None, width: int = 3840,
+                   height: int = 2160, seed: int = 0, k: int = FEATURE_K,
+                   lap_shape=LAPJV_SHAPE, size: int = GEO_ORTHO_PX, fw: int = 3840,
+                   fh: int = 2160, n_frames: int = GEO_FRAMES,
+                   vehicles: int = VEHICLES_PER_4K_FRAME, rects: int = GEO_RECTS,
+                   max_features: int = 250_000) -> dict:
+    """The feature library (a), ``lapjv_exact`` (b) and the GeoTIFF leg
+    with the TIFF fixtures (c). ``geo`` holds the georef phase's assets and
+    folder (``phase_georef(keep=True)``); without it the phase writes them."""
+    res = {}
+    t0 = time.perf_counter()
+    res["a"] = feature_library(device, width, height, seed, k)
+    res["a_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["b"] = lapjv_check(lap_shape, seed)
+    res["b_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["fixtures"] = tiff_fixtures()
+    if geo is None:
+        root = Path(tempfile.mkdtemp())
+        geo = {"root": root, "assets": geo_assets(root, device, size, fw, fh, n_frames,
+                                                  vehicles, rects)}
+    try:
+        res["c"] = geotiff_leg(geo["root"], geo["assets"], device, fw, fh, max_features)
+    finally:
+        shutil.rmtree(geo["root"], ignore_errors=True)
+    res["c_s"] = time.perf_counter() - t0
+    return res
+
+
+def features_line(ft: dict, seconds: float, smi: str) -> str:
+    a, b, c = ft["a"], ft["b"], ft["c"]
+    steps = ", ".join(f"{n} {v:.2f}" for n, v in a["ms"].items())
+    cache = ("" if c["cache_s"] is None else
+             f"text-file run with the master path {c['cache_s']:.1f}s; ")
+    return (f"features ok {seconds:.1f}s (a) {a['shape'][0]}x{a['shape'][1]} gray of a drifting "
+            f"4K frame and its {FEATURE_ZOOM}x zoom, K={a['k']}, {a['levels']}-level pyramids: ms "
+            f"(median of 3; CUDA events on the card) {steps}; launches {a['launches']}; "
+            f"{a['matches']} matches, {a['inliers']} inliers, zoom recovered within "
+            f"{a['h_err_px']:.3f} px; card vs CPU: keypoints equal, angles within "
+            f"{a['angle_err']:.2e} rad, bits differing {a['bits']}, pyramid keypoints shared "
+            f"{a['overlap']}, matches equal; kernels exact on these inputs; (b) lapjv_exact "
+            f"{b['shape'][0]}x{b['shape'][1]} {b['s']:.3f}s, equal to scipy ({b['scipy_s']:.3f}s);"
+            f" (c) fixtures {ft['fixtures']['files']} equal to Pillow's pixels; GeoTIFF "
+            f"{c['tif_bytes'] / 1e6:.1f} MB written in {c['write_s']:.1f}s; {cache}text-file run "
+            f"from the cache {c['text_s']:.1f}s, .tif-only run {c['tif_s']:.1f}s of which the "
+            f".tif -> .png conversion {c['convert_s']:.1f}s (host); PNG equal to the ortho, "
+            f"parameters equal, CSV byte-equal ({c['rows']} rows, {c['csv_bytes']} bytes); "
+            f"seconds (a) {ft['a_s']:.1f}, (b) {ft['b_s']:.1f}, (c) {ft['c_s']:.1f} [{smi}]")
+
+
 def train_line(tr: dict, seconds: float, smi: str) -> str:
     w, h = tr["size"]
     tm, md = tr["timed"], tr["timed"]["median"]
@@ -3365,7 +3761,7 @@ def breakdown_lines(brk: dict) -> list:
 
 def kernel_entry(name: str, source: str, replaces: str, launches: int, res: dict,
                  sequential_launches: int, lockstep_launches: int, lockstep: dict,
-                 render_launches: int, train_launches: int) -> dict:
+                 render_launches: int, train_launches: int, features_launches: int) -> dict:
     """One kernel's entry of the JSON line; ``lockstep`` holds its shape,
     time and bound on the lockstep phase's own inputs."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3374,7 +3770,8 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int, res: dict
             "library_ms": res.get("library_ms"), "launches_sequential": sequential_launches,
             "launches_lockstep": lockstep_launches, **{f"{k}_lockstep": v
                                                         for k, v in lockstep.items()},
-            "launches_render": render_launches, "launches_train": train_launches}
+            "launches_render": render_launches, "launches_train": train_launches,
+            "launches_features": features_launches}
 
 
 def main(argv) -> int:
@@ -3383,6 +3780,7 @@ def main(argv) -> int:
     lockstep_only = "--lockstep-only" in argv
     render_only = "--render-only" in argv
     train_only = "--train-only" in argv
+    features_only = "--features-only" in argv
     t_all = time.perf_counter()
     width, height, chunk, seed = 3840, 2160, 32, 0
     n_main = 2 * chunk
@@ -3394,7 +3792,7 @@ def main(argv) -> int:
 
         t = time.perf_counter()
         build_logs = phase_build()
-        log(f"build ok {time.perf_counter() - t:.1f}s (both at once) nvcc -Xptxas -v:")
+        log(f"build ok {time.perf_counter() - t:.1f}s (all at once) nvcc -Xptxas -v and g++:")
         for name, build_log in build_logs.items():
             for line in build_log.strip().splitlines():
                 print(f"    {name}: {line}", flush=True)
@@ -3433,6 +3831,12 @@ def main(argv) -> int:
             tr = phase_train("cuda")
             log(train_line(tr, time.perf_counter() - t, dev["smi"]))
             log(f"train-only ok {time.perf_counter() - t_all:.1f}s")
+            return 0
+        if features_only:  # its own georef assets, at the georef phase's size
+            t = time.perf_counter()
+            ft = phase_features("cuda")
+            log(features_line(ft, time.perf_counter() - t, dev["smi"]))
+            log(f"features-only ok {time.perf_counter() - t_all:.1f}s")
             return 0
         if lockstep_only:  # its own calibrated detector
             t = time.perf_counter()
@@ -3560,9 +3964,13 @@ def main(argv) -> int:
         log(sequential_line(sq, time.perf_counter() - t, dev["smi"]))
 
         t = time.perf_counter()
-        geo = phase_georef("cuda")
+        geo = phase_georef("cuda", keep=True)
         log(georef_line(geo, time.perf_counter() - t, dev["smi"]))
         print("\n".join(breakdown_lines(geo["ortho_breakdown"])), flush=True)
+
+        t = time.perf_counter()
+        ft = phase_features("cuda", geo.pop("kept"))
+        log(features_line(ft, time.perf_counter() - t, dev["smi"]))
 
         t = time.perf_counter()
         ref = phase_reference("cuda")
@@ -3601,13 +4009,13 @@ def main(argv) -> int:
                      sq["c_launches"]["fast_score"], lk["b"]["launches"]["fast_score"],
                      {"shape": lk_k["gray_shape"], "ms": lk_k["fast"]["ms"],
                       "bound_ms": lk_k["fast_bound_ms"]}, render_launches["fast_score"],
-                     tr["launches"]["fast_score"]),
+                     tr["launches"]["fast_score"], ft["a"]["launches"]["fast_score"]),
         kernel_entry("patch_gather", PATCH_SOURCE, PATCH_REPLACES,
                      rd["launches"]["patch_gather"], pg, sq["c_launches"]["patch_gather"],
                      lk["b"]["launches"]["patch_gather"],
                      {"shape": lk_k["planes_shape"] + (lk_k["corners"],), "ms": lk_k["gather_ms"],
                       "bound_ms": lk_k["gather_bound_ms"]}, render_launches["patch_gather"],
-                     tr["launches"]["patch_gather"]),
+                     tr["launches"]["patch_gather"], ft["a"]["launches"]["patch_gather"]),
     ]}
     print(json.dumps(kernels), flush=True)
     print(dev["smi"], flush=True)

@@ -2,10 +2,11 @@
 
 The port of ``geotrax_tpu/io/geoassets.py``. Images are read through the
 port's PNG codec (``io/png.py``) and the segmentation CSV through
-``io/table.py``, typed as pandas types it. The geo-parameters come from a
+``io/table.py``, typed as pandas types it. The geo-parameters come from the
+GeoTIFF tags of ``<loc>.tif`` ('metadata-tif', read by ``io/tiff.py``,
+which also converts the file to the ``<loc>.png`` the stage reads), from a
 plain ``<loc>.txt`` ('text-file') or from the Songdo cutout's
-``<loc>_center.txt`` and ``ortho_parameters.txt`` ('center-text-file');
-the GeoTIFF source ('metadata-tif') is not ported yet (ROADMAP A19).
+``<loc>_center.txt`` and ``ortho_parameters.txt`` ('center-text-file').
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import Optional
 
 import numpy as np
 
-from geotrax_tpu_torch.io import png, table
+from geotrax_tpu_torch.io import png, table, tiff
 
 SEGMENTATION_COLUMNS = 10
 
@@ -42,17 +43,21 @@ def read_ortho_config_file(filepath: Path) -> np.ndarray:
     return np.asarray(values)
 
 
-def _metadata_tif() -> NotImplementedError:
-    return NotImplementedError(
-        "the 'metadata-tif' geo source (GeoTIFF tags and the TIFF-to-PNG "
-        "conversion) is not ported yet (ROADMAP A19); use 'text-file' or "
-        "'center-text-file'")
+def _tiff_or_exit(read, tif: Path, logger: logging.Logger, what: str):
+    """``read(tif)``, or exit 1 naming what the file lacks (the reference
+    reads the file through Pillow, which exits or raises there)."""
+    try:
+        return read(tif)
+    except ValueError as exc:
+        logger.critical(f"Cannot {what} '{tif}': {exc}")
+        sys.exit(1)
 
 
 def get_geo_params_source(
     geo_source: Optional[str], ortho_folder: Path, location_id: str, logger: logging.Logger
 ) -> str:
-    """Auto-detect (or validate) which geo-parameter source applies."""
+    """Auto-detect (or validate) which geo-parameter source applies;
+    converts a lone .tif into the .png the rest of the pipeline uses."""
     if geo_source is not None:
         if geo_source not in ("metadata-tif", "text-file", "center-text-file"):
             logger.critical(f"Invalid --geo-source '{geo_source}'.")
@@ -69,7 +74,10 @@ def get_geo_params_source(
         logger.error(f"Both .tif and .txt geo sources present for '{base}'; use --geo-source.")
         sys.exit(1)
     if tif.exists():
-        raise _metadata_tif()
+        if not base.exists():
+            logger.warning(f"Converting '{tif}' to '{base}'.")
+            save_image(base, _tiff_or_exit(tiff.read_tiff, tif, logger, "convert"))
+        return "metadata-tif"
     if txt.exists() and center.exists() and params.exists():
         logger.error(f"Both '.txt' and '_center.txt' present for '{base}'; use --geo-source.")
         sys.exit(1)
@@ -93,7 +101,30 @@ def get_ortho_parameters(
     base = ortho_folder / f"{location_id}.png"
 
     if geo_source == "metadata-tif":
-        raise _metadata_tif()
+        tif = base.with_suffix(".tif")
+        _, tags = _tiff_or_exit(tiff.read_ifd, tif, logger, "read GeoTIFF tags from")
+        if 33922 in tags and 33550 in tags:
+            tiepoint = tags[33922]
+            scale = tags[33550]
+            lng0, lat0 = float(tiepoint[3]), float(tiepoint[4])
+            dlng, dlat = float(scale[0]), -float(scale[1])
+            skew_x = skew_y = 0.0
+            if 34264 in tags:
+                # ModelTransformation is 4x4 row-major: X' row is t[0..3],
+                # Y' row is t[4..7]; skew_y lives at t[4]
+                transform = tags[34264]
+                skew_x, skew_y = float(transform[1]), float(transform[4])
+        elif 34264 in tags:
+            # a transformation-only GeoTIFF (gdalwarp with a rotation writes
+            # ModelTransformation instead of tiepoint and scale)
+            t = tags[34264]
+            dlng, skew_x, lng0 = float(t[0]), float(t[1]), float(t[3])
+            skew_y, dlat, lat0 = float(t[4]), float(t[5]), float(t[7])
+        else:
+            logger.critical(f"GeoTIFF '{tif}' has neither ModelTiepoint+ModelPixelScale nor "
+                            "ModelTransformation tags.")
+            sys.exit(1)
+        return lng0, lat0, dlng, dlat, skew_x, skew_y
 
     if geo_source == "text-file":
         vals = read_ortho_config_file(base.with_suffix(".txt"))

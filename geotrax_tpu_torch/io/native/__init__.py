@@ -1,6 +1,8 @@
 """The port's native video decoder and encoder: ``decode.cpp`` and
 ``encode.cpp`` (its copy of the reference's MPEG-4 writer), each built with
-``g++`` at first use and bound with ``ctypes``.
+``g++`` at first use and bound with ``ctypes``; ``build_plain`` builds the
+sources that need no library beyond C++'s own (``tiff.cpp`` for
+``io/tiff.py``, ``lapjv.cpp`` for ``ops/assignment.py``).
 
 Each library goes under ``build/native/`` at the root of the checkout (a
 git-ignored directory), with a hash of the source and flags in its name,
@@ -94,6 +96,28 @@ def build(source: Path = SOURCE) -> Path:
     return out
 
 
+def build_plain(source: Path) -> Path:
+    """Compile ``source``, which needs only the C++ standard library,
+    unless its library exists; return its path. Raises ``RuntimeError``
+    when there is no compiler or the build fails: there is no slower path
+    in Python to fall back to."""
+    out = library_path((), source)
+    if out.exists():
+        return out
+    cxx = shutil.which(os.environ.get("CXX", "g++")) or shutil.which("c++")
+    if cxx is None:
+        raise RuntimeError(f"cannot build {source.name}: no C++ compiler")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(source)],
+                          capture_output=True, text=True, timeout=BUILD_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed for {source.name} (exit {proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
+    return out
+
+
 def load_library() -> ctypes.CDLL:
     """The decoder library, built if needed; raises ``RuntimeError`` or
     ``OSError`` when it cannot be built or loaded."""
@@ -114,6 +138,14 @@ def load_library() -> ctypes.CDLL:
     lib.gtx_read_frame.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     lib.gtx_close.restype = None
     lib.gtx_close.argtypes = [ctypes.c_void_p]
+    lib.gtx_open_at.restype = ctypes.c_void_p
+    lib.gtx_open_at.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int]
+    lib.gtx_read_frame_pts.restype = ctypes.c_int
+    lib.gtx_read_frame_pts.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                       ctypes.POINTER(ctypes.c_int64)]
+    lib.gtx_scan_pts.restype = ctypes.c_long
+    lib.gtx_scan_pts.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64),
+                                 ctypes.POINTER(ctypes.c_int), ctypes.c_long]
     _lib = lib
     return lib
 
@@ -169,5 +201,57 @@ def native_frames(path: str) -> Iterator[tuple[int, np.ndarray]]:
                 break
             yield idx, frame
             idx += 1
+    finally:
+        lib.gtx_close(handle)
+
+
+def scan_frame_pts(path: str, max_count: int = 1 << 18):
+    """Display-order (pts, is_keyframe) arrays of every frame, the index
+    ``ParallelVideoReader`` splits on; None when the stream has no usable
+    pts or does not open (the caller decodes sequentially)."""
+    lib = load_library()
+    pts = np.empty(max_count, dtype=np.int64)
+    keys = np.empty(max_count, dtype=np.int32)
+    n = lib.gtx_scan_pts(str(path).encode(), pts.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                         keys.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), max_count)
+    if n < 0 or n > max_count:
+        return None
+    return pts[:n].copy(), keys[:n].copy()
+
+
+def native_frames_segment(path: str, seg_pts: np.ndarray, first_index: int,
+                          seek_pts: int | None = None,
+                          threads: int = 1) -> Iterator[tuple[int, np.ndarray]]:
+    """Yield (display index, RGB frame) for exactly the frames whose pts are
+    in ``seg_pts`` (a contiguous display-order slice of ``scan_frame_pts``).
+    Opens its own decoder, seeks backward to ``seek_pts`` (a keyframe at or
+    before the segment, with an open-GOP margin) and drops the warm-up
+    frames whose pts are not in the segment, so concurrent segments give
+    the sequential stream bit for bit."""
+    lib = load_library()
+    if seek_pts is None:
+        seek_pts = int(seg_pts[0])
+    handle = lib.gtx_open_at(str(path).encode(), int(seek_pts), threads)
+    if not handle:
+        raise OSError(f"native decoder failed to open or seek {path}")
+    try:
+        h, w = lib.gtx_height(handle), lib.gtx_width(handle)
+        pts_out = ctypes.c_int64()
+        want = {int(p): first_index + i for i, p in enumerate(seg_pts)}
+        served = 0
+        while served < len(seg_pts):
+            frame = np.empty((h, w, 3), dtype=np.uint8)
+            rc = lib.gtx_read_frame_pts(handle, frame.ctypes.data_as(ctypes.c_void_p),
+                                        ctypes.byref(pts_out))
+            if rc < 0:
+                raise OSError(f"native decoder error {rc} in a segment of {path}")
+            if rc != 0:
+                raise OSError(f"end of stream after {served}/{len(seg_pts)} frames of a "
+                              f"segment of {path}")
+            idx = want.get(int(pts_out.value))
+            if idx is None:
+                continue  # a warm-up frame before the segment
+            yield idx, frame
+            served += 1
     finally:
         lib.gtx_close(handle)

@@ -1,19 +1,27 @@
-// Native video decoder of geotrax_tpu_torch (the port's copy of the
-// sequential decoder of geotrax_tpu/io/native/decode.cpp).
+// Native video decoder of geotrax_tpu_torch (the port's copy of
+// geotrax_tpu/io/native/decode.cpp: the sequential decoder and the
+// GOP-parallel extension).
 //
-// Deterministic sequential decoding on libavformat/libavcodec with swscale
-// conversion to packed RGB24, driven from Python through ctypes
+// Deterministic decoding on libavformat/libavcodec with swscale conversion
+// to packed RGB24, driven from Python through ctypes
 // (geotrax_tpu_torch/io/native/__init__.py builds this file with g++ at
-// first use). No seeking: frames are decoded in stream order, so indices
-// are exact regardless of keyframe placement.
+// first use). gtx_open decodes in stream order, so indices are exact
+// regardless of keyframe placement. For GOP-parallel decoding,
+// gtx_scan_pts maps display index -> pts from the packets alone, and each
+// worker opens its own decoder with gtx_open_at, seeked backward to a
+// keyframe, and keeps the frames whose pts fall in its segment.
 //
 // C ABI:
 //   void*  gtx_open(const char* path)
+//   void*  gtx_open_at(const char* path, int64_t seek_pts, int threads)
 //   int    gtx_width(void*), gtx_height(void*)
 //   double gtx_fps(void*)
 //   long   gtx_frame_count(void*)   // container estimate; <=0 if unknown
 //   int    gtx_read_frame(void*, uint8_t* rgb_out)  // 0 ok, 1 EOF, <0 error
+//   int    gtx_read_frame_pts(void*, uint8_t* rgb_out, int64_t* pts_out)
 //   void   gtx_close(void*)
+//   long   gtx_scan_pts(const char* path, int64_t* pts_out, int* key_out,
+//                       long max_out)  // frames, -2 without pts, -1 error
 
 extern "C" {
 #include <libavcodec/avcodec.h>
@@ -22,8 +30,11 @@ extern "C" {
 #include <libswscale/swscale.h>
 }
 
+#include <algorithm>
 #include <cstdint>
 #include <cstring>
+#include <utility>
+#include <vector>
 
 namespace {
 
@@ -101,6 +112,22 @@ extern "C" {
 
 void* gtx_open(const char* path) { return open_impl(path, 0); }
 
+// Open and seek backward to the keyframe at-or-before seek_pts (stream time
+// base). The caller (a ParallelVideoReader worker) then discards decoded
+// frames whose pts precede its segment: exact wherever the demuxer lands,
+// because segment membership is decided by the display pts of
+// gtx_scan_pts, never by counting frames after a seek.
+void* gtx_open_at(const char* path, int64_t seek_pts, int threads) {
+  Decoder* d = open_impl(path, threads);
+  if (!d) return nullptr;
+  if (av_seek_frame(d->fmt, d->stream_index, seek_pts, AVSEEK_FLAG_BACKWARD) < 0) {
+    destroy(d);
+    return nullptr;
+  }
+  avcodec_flush_buffers(d->codec);
+  return d;
+}
+
 int gtx_width(void* h) { return static_cast<Decoder*>(h)->codec->width; }
 int gtx_height(void* h) { return static_cast<Decoder*>(h)->codec->height; }
 
@@ -124,10 +151,17 @@ long gtx_frame_count(void* h) {
 }
 
 // Decode the next frame into rgb_out (height*width*3, packed RGB24).
-static int read_frame_impl(Decoder* d, uint8_t* rgb_out) {
+// pts_out (optional) receives the frame's best-effort display timestamp in
+// the stream time base: the key of ParallelVideoReader's segments.
+static int read_frame_impl(Decoder* d, uint8_t* rgb_out, int64_t* pts_out) {
   while (true) {
     int rc = avcodec_receive_frame(d->codec, d->frame);
     if (rc == 0) {
+      if (pts_out) {
+        *pts_out = d->frame->best_effort_timestamp != AV_NOPTS_VALUE
+                       ? d->frame->best_effort_timestamp
+                       : d->frame->pts;
+      }
       if (!d->sws) {
         d->sws = sws_getContext(
             d->codec->width, d->codec->height,
@@ -187,9 +221,57 @@ static int read_frame_impl(Decoder* d, uint8_t* rgb_out) {
 }
 
 int gtx_read_frame(void* h, uint8_t* rgb_out) {
-  return read_frame_impl(static_cast<Decoder*>(h), rgb_out);
+  return read_frame_impl(static_cast<Decoder*>(h), rgb_out, nullptr);
+}
+
+int gtx_read_frame_pts(void* h, uint8_t* rgb_out, int64_t* pts_out) {
+  return read_frame_impl(static_cast<Decoder*>(h), rgb_out, pts_out);
 }
 
 void gtx_close(void* h) { destroy(static_cast<Decoder*>(h)); }
+
+// Display-order frame map for GOP-parallel decoding: pts_out[i] and
+// key_out[i] give the pts and keyframe flag of display frame i. A scan of
+// the packets (no decoding), so mapping a 2 h 4K video costs a pass over
+// the file, not a decode. Returns the frame count (which may exceed
+// max_out: only max_out are written), -2 when a packet lacks a pts (the
+// caller decodes sequentially: segments cannot be keyed), -1 when the file
+// does not open.
+long gtx_scan_pts(const char* path, int64_t* pts_out, int* key_out, long max_out) {
+  AVFormatContext* fmt = nullptr;
+  if (avformat_open_input(&fmt, path, nullptr, nullptr) < 0) return -1;
+  if (avformat_find_stream_info(fmt, nullptr) < 0) {
+    avformat_close_input(&fmt);
+    return -1;
+  }
+  int stream_index = av_find_best_stream(fmt, AVMEDIA_TYPE_VIDEO, -1, -1, nullptr, 0);
+  if (stream_index < 0) {
+    avformat_close_input(&fmt);
+    return -1;
+  }
+  AVPacket* pkt = av_packet_alloc();
+  std::vector<std::pair<int64_t, int>> stamps;  // (pts, is_key)
+  bool have_ts = true;
+  while (av_read_frame(fmt, pkt) >= 0) {
+    if (pkt->stream_index == stream_index) {
+      if (pkt->pts == AV_NOPTS_VALUE) have_ts = false;
+      stamps.emplace_back(pkt->pts, (pkt->flags & AV_PKT_FLAG_KEY) ? 1 : 0);
+    }
+    av_packet_unref(pkt);
+  }
+  av_packet_free(&pkt);
+  avformat_close_input(&fmt);
+  if (!have_ts) return -2;
+  std::stable_sort(stamps.begin(), stamps.end(),
+                   [](const std::pair<int64_t, int>& a, const std::pair<int64_t, int>& b) {
+                     return a.first < b.first;
+                   });
+  long n = std::min(static_cast<long>(stamps.size()), max_out);
+  for (long i = 0; i < n; ++i) {
+    pts_out[i] = stamps[i].first;
+    key_out[i] = stamps[i].second;
+  }
+  return static_cast<long>(stamps.size());
+}
 
 }  // extern "C"

@@ -17,50 +17,26 @@ numpy version the tests hold the native one to.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
 import struct
-import subprocess
 import zlib
 from pathlib import Path
 
 import numpy as np
 
+from geotrax_tpu_torch.io import native
+
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 SOURCE = Path(__file__).resolve().parent / "native" / "png.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
-CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
-BUILD_TIMEOUT_S = 120
 # channels per PNG color type: gray, RGB, palette, gray+alpha, RGBA
 CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 
 _lib = None
 
 
-def library_path() -> Path:
-    digest = hashlib.sha1(SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"libgeotrax_png-{digest.hexdigest()[:12]}.so"
-
-
 def build() -> Path:
     """Compile ``png.cpp`` unless its library exists; return its path.
     Raises ``RuntimeError`` when there is no compiler or the build fails."""
-    out = library_path()
-    if out.exists():
-        return out
-    cxx = shutil.which(os.environ.get("CXX", "g++")) or shutil.which("c++")
-    if cxx is None:
-        raise RuntimeError("cannot build the PNG unfilter (png.cpp): no C++ compiler")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True, timeout=BUILD_TIMEOUT_S)
-    if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed for png.cpp (exit {proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
-    return out
+    return native.build_plain(SOURCE)
 
 
 def load_library() -> ctypes.CDLL:

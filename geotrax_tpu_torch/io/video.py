@@ -1,6 +1,6 @@
-"""Video decoding with a prefetch thread, and the MPEG-4 writer.
+"""Video decoding with prefetch threads, and the MPEG-4 writer.
 
-The port's copy of the sequential part of ``geotrax_tpu/io/video.py``:
+The port's copy of ``geotrax_tpu/io/video.py``:
 
 - 'native': the port's libavformat/libavcodec decoder and encoder
   (``io/native``), built with g++ at first use; deterministic frame
@@ -10,9 +10,11 @@ The port's copy of the sequential part of ``geotrax_tpu/io/video.py``:
   cannot be built, and for the live preview of ``visualize --show``.
 
 Frames are numpy uint8 HxWx3 in RGB order. ``VideoReader`` decodes in a
-background thread that keeps a few frames ahead of the consumer.
-``VideoWriter`` raises ``RuntimeError`` naming the missing libraries where
-neither backend exists. The GOP-parallel reader waits for ROADMAP A15b.
+background thread that keeps a few frames ahead of the consumer;
+``ParallelVideoReader`` decodes disjoint GOP-aligned segments of one video
+in several threads (native backend), and ``make_reader`` takes it when
+``workers`` (or GEOTRAX_DECODE_WORKERS) is above 1. ``VideoWriter`` raises
+``RuntimeError`` naming the missing libraries where neither backend exists.
 """
 
 from __future__ import annotations
@@ -193,9 +195,152 @@ class VideoReader:
         self._finished = True
 
 
+class ParallelVideoReader:
+    """GOP-parallel frame reader: worker threads decode disjoint index
+    ranges of one video at once, merged in display order.
+
+    The display-order pts map is scanned from the packets (no decoding),
+    the index range is split into ``workers`` equal segments, and every
+    worker opens its own decoder, seeks backward to the keyframe before its
+    segment (one more GOP back for open-GOP streams), drops the warm-up
+    frames and serves exactly its slice of pts. ctypes releases the GIL in
+    the decoder's calls, so the threads run on as many cores.
+
+    The merged stream equals ``VideoReader``'s bit for bit, because segment
+    membership is decided by the scanned display pts, never by counting
+    frames after a seek. Raises ``ValueError`` when the stream has no
+    usable pts map; ``make_reader`` then takes the sequential reader."""
+
+    def __init__(self, path: Path | str, start: int = 0, stop: Optional[int] = None,
+                 workers: int = 2, prefetch: int = 8):
+        from geotrax_tpu_torch.io.native import scan_frame_pts
+
+        self.path = str(path)
+        self.backend = "native"
+        scan = scan_frame_pts(self.path)
+        if scan is None:
+            raise ValueError(f"no display-pts map for {path} (the stream lacks pts): use "
+                             "the sequential VideoReader")
+        self._pts, keys = scan
+        n = len(self._pts)
+        info = probe_video(self.path, "native")
+        # the packet scan counts the actual frames: trust it over the
+        # container's estimate, so that no segment runs past the end
+        self.info = VideoInfo(info.width, info.height, info.fps, n)
+        self._kf = np.flatnonzero(keys)
+        if n == 0 or len(self._kf) == 0 or self._kf[0] != 0:
+            raise ValueError(f"{path}: no keyframes (corrupt index?)")
+        self.start = max(0, int(start))
+        self.stop = n if stop is None else max(self.start, min(int(stop), n))
+        total = self.stop - self.start
+        self._workers = max(1, min(int(workers), max(1, total)))
+        # segments shorter than about 2 GOPs pay more seek warm-up than they win
+        approx_gop = max(1, int(np.median(np.diff(self._kf))) if len(self._kf) > 1 else n)
+        while self._workers > 1 and total / self._workers < 2 * approx_gop:
+            self._workers -= 1
+        bounds = [self.start + (total * j) // self._workers for j in range(self._workers + 1)]
+        self._segments = [(bounds[j], bounds[j + 1]) for j in range(self._workers)
+                          if bounds[j] < bounds[j + 1]]
+        self._queues = [queue.Queue(maxsize=max(1, int(prefetch))) for _ in self._segments]
+        self._stop_event = threading.Event()
+        self._threads: list[threading.Thread] = []
+        self._errors: list[Optional[BaseException]] = [None] * len(self._segments)
+        self._started = False
+        self._finished = False
+
+    def _seek_pts(self, seg_start: int) -> int:
+        """The keyframe at or before the segment's start, then one more
+        keyframe back: in an open-GOP stream the frames just after an
+        I-frame may reference the GOP before it. Warm-up frames are dropped
+        by pts, so the margin costs decoding time only."""
+        k = int(self._kf[self._kf <= seg_start][-1])
+        before = self._kf[self._kf < k]
+        if len(before):
+            k = int(before[-1])
+        return int(self._pts[k])
+
+    def _produce(self, slot: int, seg: tuple) -> None:
+        from geotrax_tpu_torch.io.native import native_frames_segment
+
+        q = self._queues[slot]
+        try:
+            # one codec thread per worker: GOP parallelism replaces frame
+            # threading, and workers x cores codec threads would thrash
+            for item in native_frames_segment(self.path, self._pts[seg[0]:seg[1]], seg[0],
+                                              seek_pts=self._seek_pts(seg[0]), threads=1):
+                if not self._put(q, item):
+                    return
+        except BaseException as exc:  # noqa: BLE001 — re-raised in the consumer
+            self._errors[slot] = exc
+        finally:
+            if not self._put(q, None):
+                try:
+                    q.put_nowait(None)
+                except queue.Full:
+                    pass
+
+    def _put(self, q: queue.Queue, item) -> bool:
+        while not self._stop_event.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def __iter__(self) -> Iterator[tuple[int, np.ndarray]]:
+        if self._finished:
+            return
+        if not self._started:
+            for slot, seg in enumerate(self._segments):
+                t = threading.Thread(target=self._produce, args=(slot, seg), daemon=True)
+                t.start()
+                self._threads.append(t)
+            self._started = True
+        for slot in range(len(self._segments)):
+            while True:
+                item = self._queues[slot].get()
+                if item is None:
+                    break
+                yield item
+            if self._errors[slot] is not None:
+                self._finished = True
+                raise self._errors[slot]
+        self._finished = True
+
+    def read_frame(self, index: int) -> np.ndarray:
+        for _, frame in VideoReader(self.path, start=index, stop=index + 1, backend="native"):
+            return frame
+        raise IndexError(f"Frame {index} not found in {self.path}")
+
+    def close(self):
+        self._stop_event.set()
+        for q in self._queues:
+            try:
+                while True:
+                    q.get_nowait()
+            except queue.Empty:
+                pass
+        for t in self._threads:
+            t.join(timeout=2.0)
+        self._finished = True
+
+
 def make_reader(path: Path | str, start: int = 0, stop: Optional[int] = None, prefetch: int = 4,
-                backend: Optional[str] = None) -> VideoReader:
-    """The sequential reader (the GOP-parallel one is ROADMAP A15b)."""
+                backend: Optional[str] = None, workers: Optional[int] = None):
+    """The GOP-parallel reader when ``workers`` (the argument, else
+    GEOTRAX_DECODE_WORKERS) is above 1, the backend is the native one and
+    the stream has a pts map; the sequential ``VideoReader`` otherwise. The
+    default stays sequential: on a host with one core the parallel reader's
+    seek warm-up per segment costs more than it wins."""
+    if workers is None:
+        workers = int(os.environ.get("GEOTRAX_DECODE_WORKERS", "1") or 1)
+    if workers > 1 and get_backend(backend) == "native":
+        try:
+            return ParallelVideoReader(path, start=start, stop=stop, workers=workers,
+                                       prefetch=max(prefetch, 2 * workers))
+        except (ValueError, OSError):
+            pass
     return VideoReader(path, start=start, stop=stop, prefetch=prefetch, backend=backend)
 
 

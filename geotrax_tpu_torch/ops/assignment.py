@@ -1,15 +1,25 @@
-"""Linear assignment for tracker association: a forward auction.
+"""Linear assignment: the tracker's forward auction and an exact host solver.
 
-Counterpart of ``geotrax_tpu/ops/assignment.py``'s ``auction_assignment`` and
-``masked_assignment``: a single-phase Jacobi forward auction from zero
-prices over a cost matrix padded with a private dummy column per row, so
-rows never compete for dummies and gated tracking matrices converge in a
-few vectorized rounds.
+Counterpart of ``geotrax_tpu/ops/assignment.py``. ``auction_assignment``
+and ``masked_assignment`` are a single-phase Jacobi forward auction from
+zero prices over a cost matrix padded with a private dummy column per row,
+so rows never compete for dummies and gated tracking matrices converge in a
+few vectorized rounds. ``lapjv_exact`` is the exact min-cost assignment on
+the host, by the port's Jonker-Volgenant solver (``io/native/lapjv.cpp``,
+built with g++ at first use); where it cannot be built it raises, it does
+not fall back to another solver.
 """
 
 from __future__ import annotations
 
+import ctypes
+from pathlib import Path
+
+import numpy as np
 import torch
+
+LAPJV_SOURCE = Path(__file__).resolve().parents[1] / "io" / "native" / "lapjv.cpp"
+_lap_lib = None
 
 # Auction rounds between two host reads of "every row assigned?": the JAX
 # reference tests it on the device every round (lax.while_loop); here each
@@ -97,3 +107,40 @@ def masked_assignment(cost: torch.Tensor, row_valid: torch.Tensor, col_valid: to
     pair_cost = padded.gather(-1, torch.clamp(col, 0, m + n - 1)[..., None])[..., 0]
     matched = (col >= 0) & (col < m) & row_valid & (pair_cost <= threshold)
     return torch.where(matched, col, -1), matched
+
+
+# ---------------------------------------------------------------------------
+# Exact host solver (the native Jonker-Volgenant solver)
+# ---------------------------------------------------------------------------
+
+def _lapjv_library() -> ctypes.CDLL:
+    global _lap_lib
+    if _lap_lib is None:
+        from geotrax_tpu_torch.io import native
+
+        lib = ctypes.CDLL(str(native.build_plain(LAPJV_SOURCE)))
+        lib.gtx_lapjv.restype = ctypes.c_int
+        lib.gtx_lapjv.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        _lap_lib = lib
+    return _lap_lib
+
+
+def lapjv_exact(cost: np.ndarray) -> np.ndarray:
+    """Exact min-cost assignment of an (N, M) cost on the host; returns (N,)
+    int64 columns, -1 for the rows left over when N > M (the problem is then
+    solved transposed). Raises ``RuntimeError`` when the solver cannot be
+    built and ``ValueError`` when it finds no finite assignment."""
+    cost = np.ascontiguousarray(cost, dtype=np.float64)
+    n, m = cost.shape
+    if n == 0 or m == 0:
+        return np.full(n, -1, dtype=np.int64)
+    if n > m:
+        cols = lapjv_exact(cost.T)
+        result = np.full(n, -1, dtype=np.int64)
+        result[cols] = np.arange(m)
+        return result
+    out = np.empty(n, dtype=np.int64)
+    rc = _lapjv_library().gtx_lapjv(cost.ctypes.data, n, m, out.ctypes.data)
+    if rc != 0:
+        raise ValueError(f"gtx_lapjv found no assignment (code {rc}): is the cost finite?")
+    return out

@@ -3,5 +3,6 @@
 --parallel-videos`` runs (``extract_batch.py``, with ``--devices`` splitting
 its tracker timelines over cards) and V tracker timelines over a block of
 detections with the aggregation's device arithmetic (``video_batch.py``),
-and the training step on one card (``mesh.py``). Tiles sharded over cards,
-data-parallel training and the GOP-parallel reader wait for ROADMAP A15b."""
+and the training step on one card (``mesh.py``). Tiles sharded over cards
+and data-parallel training wait for ROADMAP A15b; the GOP-parallel reader
+is ``io/video.py:ParallelVideoReader``."""

@@ -542,8 +542,7 @@ def add_georeferencing_args(group) -> None:
     group.add_argument("--ortho-folder", "-orf", type=Path, default=None,
                        help="Folder with orthophotos (.png, .txt); default auto-detect ORTHOPHOTOS.")
     group.add_argument("--geo-source", "-gs", choices=["metadata-tif", "text-file", "center-text-file"],
-                       default=None, help="Source of georeferencing parameters (default: auto-detect; "
-                                          "metadata-tif is not ported yet).")
+                       default=None, help="Source of georeferencing parameters (default: auto-detect).")
     group.add_argument("--ref-frame", "-rf", type=int, default=None,
                        help="Reference frame number (must match the stabilization reference frame).")
     group.add_argument("--no-master", "-nm", action="store_const", const=True, default=None,

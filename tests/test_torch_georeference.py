@@ -109,6 +109,31 @@ def write_inputs(root: Path, geo_source: str, log: bool, seg: str | None, interp
     return source
 
 
+# GeoTIFF tag sets of the 'metadata-tif' source: tiepoint and scale, with a
+# ModelTransformation's skew beside them, a transformation alone, none
+_TRANSFORM = (1.1e-6, 3e-9, 0.0, 126.61, -2e-9, -9e-7, 0.0, 37.41, 0.0, 0.0, 0.0, 0.0,
+              0.0, 0.0, 0.0, 1.0)
+GEOTIFF_TAGS = {
+    "tiepoint+scale": {33922: (0.0, 0.0, 0.0, 126.6, 37.4, 0.0), 33550: (1.1e-6, 9e-7, 0.0)},
+    "with skew": {33922: (0.0, 0.0, 0.0, 126.6, 37.4, 0.0), 33550: (1.1e-6, 9e-7, 0.0),
+                  34264: _TRANSFORM},
+    "transform only": {34264: _TRANSFORM},
+    "none": {},
+}
+
+
+def write_geotiff(path: Path, rgb: np.ndarray, tags: dict, **kw) -> None:
+    """``rgb`` as a TIFF through Pillow with the GeoTIFF ``tags`` as DOUBLE
+    (type 12) values."""
+    from PIL import TiffImagePlugin
+
+    ifd = TiffImagePlugin.ImageFileDirectory_v2()
+    for tag, values in tags.items():
+        ifd[tag] = values
+        ifd.tagtype[tag] = 12
+    Image.fromarray(rgb).save(path, "TIFF", tiffinfo=ifd, **kw)
+
+
 def args_for(source: Path, no_master: bool, port: bool) -> argparse.Namespace:
     ns = argparse.Namespace(source=source, cfg="default", output_folder=None, log_path=None,
                             verbose=False, ortho_folder=source.parent / "ORTHO", geo_source=None,
@@ -161,6 +186,35 @@ def test_run_georeferencing_bytes_equal(tmp_path, patched, case):
             assert port[key] == ref[key], key
     header = written["port"][0]["csv"].split(b"\n")[0].split(b",")
     assert len(header) == 14 + log + 2 * (seg is not None) + interpolate
+
+
+@pytest.mark.parametrize("no_master", [False, True])
+def test_run_georeferencing_from_a_geotiff(tmp_path, patched, no_master):
+    """A folder whose ortho is only ``U.tif`` (tiepoint and scale, LZW):
+    both packages convert it to ``U.png`` (equal pixels) and write the same
+    files, a second run from the PNG and the cache too."""
+    written, pngs = {}, {}
+    for name, mod in (("jax", jgeo), ("port", tgeo)):
+        root = tmp_path / name
+        source = write_inputs(root, "text-file", True, "int", True)
+        ortho = root / "ORTHO"
+        rgb = np.asarray(Image.open(ortho / "U.png").convert("RGB"))
+        (ortho / "U.png").unlink()
+        (ortho / "U.txt").unlink()
+        write_geotiff(ortho / "U.tif", rgb, GEOTIFF_TAGS["tiepoint+scale"],
+                      compression="tiff_lzw")
+        runs = []
+        for _ in range(2):
+            mod.run_georeferencing(args_for(source, no_master, name == "port"), LOG)
+            runs.append(outputs(root))
+        written[name] = runs
+        pngs[name] = np.asarray(Image.open(ortho / "U.png").convert("RGB"))
+        np.testing.assert_array_equal(pngs[name], rgb)
+    np.testing.assert_array_equal(pngs["port"], pngs["jax"])
+    for ref, port in zip(written["jax"], written["port"]):
+        assert set(port) == set(ref) and "csv" in ref
+        for key in ref:
+            assert port[key] == ref[key], key
 
 
 def test_cli_runs_the_stage(tmp_path, patched, capsys):
@@ -353,7 +407,7 @@ def test_master_cache_and_hash(tmp_path, monkeypatch):
         tgeo.get_master_to_ortho_homography(master, tmp_path / "port", None, "U", False, {}, LOG)
 
 
-def test_geoassets(tmp_path):
+def test_geoassets(tmp_path, caplog):
     write_inputs(tmp_path, "text-file", False, None, True)
     folder = tmp_path / "ORTHO"
     same(jassets.read_ortho_config_file(folder / "U.txt"),
@@ -377,12 +431,43 @@ def test_geoassets(tmp_path):
         tassets.get_master_frame(folder, tmp_path, "U", LOG)
     with pytest.raises(SystemExit):
         tassets.get_geo_params_source("geotiff", folder, "U", LOG)
-    with pytest.raises(NotImplementedError, match="ROADMAP A19"):
+    # metadata-tif: a lone GeoTIFF is detected and converted to the PNG (in
+    # each package's own folder), its tags read as the reference reads them
+    rgb = np.random.default_rng(4).integers(0, 255, (50, 70, 3), dtype=np.uint8)
+    pngs = {}
+    for name, mod in (("jax", jassets), ("port", tassets)):
+        sub = tmp_path / f"TIF_{name}"
+        sub.mkdir()
+        write_geotiff(sub / "U.tif", rgb, GEOTIFF_TAGS["tiepoint+scale"])
+        with pytest.raises(SystemExit):  # a .txt source beside it
+            (sub / "U.txt").write_text("1 2 3 4\n")
+            mod.get_geo_params_source(None, sub, "U", LOG)
+        (sub / "U.txt").unlink()
+        assert mod.get_geo_params_source(None, sub, "U", LOG) == "metadata-tif"
+        pngs[name] = np.asarray(Image.open(sub / "U.png").convert("RGB"))
+    np.testing.assert_array_equal(pngs["port"], pngs["jax"])
+    np.testing.assert_array_equal(pngs["port"], rgb)
+    for case, tags in GEOTIFF_TAGS.items():
+        write_geotiff(folder / "U.tif", rgb, tags)
+        if case == "none":
+            for mod in (jassets, tassets):
+                with pytest.raises(SystemExit):
+                    mod.get_ortho_parameters(folder, "U", "metadata-tif", None, LOG)
+            continue
+        want = jassets.get_ortho_parameters(folder, "U", "metadata-tif", None, LOG)
+        assert tassets.get_ortho_parameters(folder, "U", "metadata-tif", None, LOG) == want, case
+        assert (want[4], want[5]) != (0.0, 0.0) or case == "tiepoint+scale"
+    # not a TIFF, and a layout the port does not read: exit 1 naming it
+    (folder / "U.tif").write_bytes(b"\x89PNG\r\n\x1a\n" + bytes(40))
+    with pytest.raises(SystemExit):
         tassets.get_ortho_parameters(folder, "U", "metadata-tif", None, LOG)
-    (folder / "U.tif").write_bytes(b"II*\x00")
-    (folder / "U_center.txt").unlink()
-    with pytest.raises(NotImplementedError, match="metadata-tif"):
-        tassets.get_geo_params_source(None, folder, "U", LOG)
+    sub = tmp_path / "TIF_16"
+    sub.mkdir()
+    Image.fromarray((rgb[..., 0].astype(np.uint16) * 200)).save(sub / "U.tif")
+    with caplog.at_level(logging.CRITICAL, logger=LOG.name):
+        with pytest.raises(SystemExit):
+            tassets.get_geo_params_source(None, sub, "U", LOG)
+    assert "tag 258 BitsPerSample = (16,)" in caplog.text
 
 
 def test_file_utils(tmp_path):

@@ -117,10 +117,71 @@ def test_fast_detect_on_card_equals_cpu():
     gray = torch.from_numpy(textured_gray(4, 120, 160, seed=3))
     mask = torch.ones((120, 160), dtype=torch.bool)
     mask[40:70, 50:90] = False
-    cpu = features.fast_detect(gray, 300, mask=mask)
-    gpu = features.fast_detect(gray.cuda(), 300, mask=mask.cuda())
+    cpu = features.fast_detect(gray, 300, mask=mask, oriented=False)
+    gpu = features.fast_detect(gray.cuda(), 300, mask=mask.cuda(), oriented=False)
     for a, b in zip(cpu, gpu):
         torch.testing.assert_close(b.cpu(), a, rtol=0, atol=0)
+
+
+# card vs CPU for the ORB-style library: the orientation's float32 moment
+# sums add in another order on the card; an oriented test point that rounds
+# at .5 may move with the angle's last bits; the pyramid's deeper levels are
+# resize products that add in another order
+ANGLE_TOL = 1e-4
+ORIENTED_BIT_SHARE = 1e-3
+PYRAMID_OVERLAP = 0.98
+
+
+def _wrapped(a):
+    return torch.remainder(a + np.pi, 2 * np.pi) - np.pi
+
+
+@pytest.mark.gpu
+def test_oriented_fast_detect_on_card_equals_cpu():
+    _need_card()
+    gray = torch.from_numpy(textured_gray(1, 540, 960, seed=12)[0])
+    cpu = features.fast_detect(gray, 2000)
+    gpu = features.fast_detect(gray.cuda(), 2000)
+    for name in ("xy", "score", "valid"):
+        torch.testing.assert_close(getattr(gpu, name).cpu(), getattr(cpu, name), rtol=0, atol=0)
+    assert float(_wrapped(gpu.angle.cpu() - cpu.angle).abs().max()) <= ANGLE_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("oriented,method", [(True, "patches"), (False, "patches"),
+                                             (False, "planes")])
+def test_describe_on_card_equals_cpu(oriented, method):
+    _need_card()
+    gray = torch.from_numpy(textured_gray(1, 540, 960, seed=13)[0])
+    kps = features.fast_detect(gray, 2000)
+    before = patches.patches32.launches
+    gpu = features.describe(gray.cuda(), features.Keypoints(*(t.cuda() for t in kps)),
+                            oriented=oriented, method=method)
+    torch.cuda.synchronize()
+    assert patches.patches32.launches == before + (not oriented and method == "patches")
+    cpu = features.describe(gray, kps, oriented=oriented, method=method)
+    share = float((gpu.cpu() != cpu).float().mean())
+    assert share <= (ORIENTED_BIT_SHARE if oriented else 0.0), share
+
+
+@pytest.mark.gpu
+def test_pyramid_and_match_descriptors_on_card_equal_cpu():
+    _need_card()
+    a = torch.from_numpy(textured_gray(1, 540, 960, seed=14)[0])
+    b = torch.roll(a, (7, -5), dims=(0, 1)).contiguous()
+    before = fast.fast_score_map.launches
+    (ka, da), (kb, db) = (features.detect_and_describe_pyramid(g.cuda(), 2000) for g in (a, b))
+    torch.cuda.synchronize()
+    assert fast.fast_score_map.launches == before + 8  # one per level of each image
+    cpu_a, _ = features.detect_and_describe_pyramid(a, 2000)
+    mine = {tuple(v) for v in torch.round(cpu_a.xy * 1000).to(torch.int64).tolist()}
+    card = torch.round(ka.xy.cpu() * 1000).to(torch.int64).tolist()
+    assert np.mean([tuple(v) in mine for v in card]) >= PYRAMID_OVERLAP
+    m = features.match_descriptors(da, ka.valid, db, kb.valid)
+    mc = features.match_descriptors(da.cpu(), ka.valid.cpu(), db.cpu(), kb.valid.cpu())
+    for name in ("idx_a", "idx_b", "valid"):
+        torch.testing.assert_close(getattr(m, name).cpu(), getattr(mc, name), rtol=0, atol=0)
+    assert int(m.valid.sum()) > 100
 
 
 def seeded_corners(b, h, w, k, seed):

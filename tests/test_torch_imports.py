@@ -7,9 +7,10 @@ the CPU at a tiny size: one subprocess the kernel, main, steady and ReID
 phases, another the reference phase's six trackers and the cli phase (its
 decode branch included, since this machine has FFmpeg's headers) (two, each
 with one intra-op thread, so that each stays well inside its time limit
-when the suite runs on every core; tests/test_torch_imports_options.py and
-tests/test_torch_imports_georef.py rehearse the options and georef phases
-in their own, on other workers); an AST walk checks the sources."""
+when the suite runs on every core; tests/test_torch_imports_options.py,
+tests/test_torch_imports_georef.py and the other test_torch_imports_*.py
+files rehearse the later phases in their own, on other workers); an AST
+walk checks the sources."""
 
 import ast
 import subprocess
@@ -124,11 +125,15 @@ def _imports(path: Path):
             yield node.module, owner.get(id(node))
 
 
-# The one Pillow import of the port: the training loader reads a JPEG or BMP
-# file through Pillow, imported inside the function that meets such a file,
-# as the reference reads every image (PNG goes through io/png.py); the
-# subprocess guards above refuse PIL on every smoke path.
-PIL_ALLOWED = ("geotrax_tpu_torch/train/data.py", "load_image")
+# The two Pillow imports of the port, each inside the one function that
+# meets a file the port has no decoder for: the training loader's JPEG or
+# BMP image, as the reference reads every image (PNG goes through
+# io/png.py), and a JPEG-compressed TIFF orthophoto (every other TIFF goes
+# through io/tiff.py's own decoders). The subprocess guards refuse PIL on
+# every smoke path; tests/test_torch_imports_features.py lets that one
+# function import it.
+PIL_ALLOWED = (("geotrax_tpu_torch/train/data.py", "load_image"),
+               ("geotrax_tpu_torch/io/tiff.py", "_read_jpeg"))
 
 
 def test_sources_import_no_jax_and_no_reference_package():
@@ -137,7 +142,7 @@ def test_sources_import_no_jax_and_no_reference_package():
     found = [(str(f.relative_to(ROOT)), m, fn) for f in files for m, fn in _imports(f)
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "geotrax_tpu", "PIL",
                                     "pandas", "tqdm")]
-    bad = [x for x in found if not (x[1].split(".")[0] == "PIL" and (x[0], x[2]) == PIL_ALLOWED)]
+    bad = [x for x in found if not (x[1].split(".")[0] == "PIL" and (x[0], x[2]) in PIL_ALLOWED)]
     assert not bad, bad
 
 

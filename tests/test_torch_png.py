@@ -135,7 +135,7 @@ def test_failing_build_raises(tmp_path, monkeypatch):
     bad = tmp_path / "png.cpp"
     bad.write_text("this is not C++\n")
     monkeypatch.setattr(png, "SOURCE", bad)
-    monkeypatch.setattr(png, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(png.native, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(png, "_lib", None)
     path = tmp_path / "ok.png"
     png.write_png(path, image(8, 8, 5))
