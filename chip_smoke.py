@@ -7,6 +7,7 @@
     python3 chip_smoke.py --render-only    # phases 0, 1 and 13 only, no result line
     python3 chip_smoke.py --train-only     # phases 0, 1 and 14 only, no result line
     python3 chip_smoke.py --features-only  # phases 0, 1 and 15 only, no result line
+    python3 chip_smoke.py --multi-only     # phases 0, 1 and 16 only, no result line
 
 Phases, one ``[smoke] <phase> ok <seconds>s ...`` line each; a failing phase
 ends the run with a non-zero exit and no result line:
@@ -189,14 +190,36 @@ ends the run with a non-zero exit and no result line:
                text-file folder and on a folder holding only <loc>.tif: the
                converted PNG equal to the ortho, the parameters equal, the
                CSVs byte-equal, the conversion's host seconds
+ 16 multi      several ranks and several devices (parallel/mesh.py,
+               tiling.py:make_tiled_detector) at full width: YOLOv8s nc=4
+               at the preset's imgsz 1920, global batch 8, on the train
+               phase's recipe (16 train and 8 val 3840x2160 PNGs, 36
+               vehicles each), MULTI_STEPS steps: (a) in a process of its
+               own under PyTorch's deterministic algorithms, the steps
+               twice without a process group and once as the one rank of
+               an NCCL group: weights and momentum bit-equal;
+               (b) two ranks sharing the card through gloo (spawned, 4 rows
+               each, each decoding only its own): weights bit-equal on both
+               ranks (digests gathered), within MULTI_REL_TOL of (a); per
+               rank step ms by CUDA events with the all-reduce, the
+               loader's host ms, peak memory; (c) ``python -m
+               geotrax_tpu_torch.train --devices <cards + 1>`` exits naming
+               both counts, ``--devices 1`` writes every run file; (d)
+               make_inference_step on 16 letterboxed 4K frames over
+               [cuda:0] and [cuda:0, cuda:0], make_tiled_detector with 2
+               tiles with and without devices: each pair bit-equal; (e)
+               only with two cards or more: NCCL over min(4, cards) cards
+               held as (b), (d) over the cards, and ``batch
+               --parallel-videos 4 --devices <cards>`` through the lockstep
+               equal to ``--devices 1``; else a line says (e) did not run
 Then a JSON line describing each kernel, the card's nvidia-smi line, and as
 the last line {"ok": true, "device": {...}}. ``--kernels-only`` serves to
 time the kernels of two checkouts in one call: copy this script into the
 other checkout and run it there too. ``--georef-only`` runs phases 0, 1 and
 10, ``--lockstep-only`` phases 0, 1 and 12 with its own calibrated detector,
 ``--render-only`` phases 0, 1 and 13, ``--train-only`` phases 0, 1 and 14,
-``--features-only`` phases 0, 1 and 15 with its own georef assets (no
-result line).
+``--features-only`` phases 0, 1 and 15 with its own georef assets,
+``--multi-only`` phases 0, 1 and 16 (no result line).
 """
 
 from __future__ import annotations
@@ -3044,7 +3067,6 @@ def time_train_steps(data: Path, device: str, imgsz: int, batch: int, steps: int
     from geotrax_tpu_torch.ops.nms import postprocess_detections
     from geotrax_tpu_torch.parallel.mesh import make_train_step
     from geotrax_tpu_torch.train.data import Loader
-    from geotrax_tpu_torch.train.optim import SGD, build_lr_schedule
     from geotrax_tpu_torch.train.train import evaluate
 
     spec = yolov8.ModelSpec(variant="s", nc=4)
@@ -3059,10 +3081,7 @@ def time_train_steps(data: Path, device: str, imgsz: int, batch: int, steps: int
         load_ms.append((time.perf_counter() - t) * 1e3)
         b.pop("n_valid")
         batches.append(b)
-    schedule = build_lr_schedule(float(hp["lr0"]), float(hp["lrf"]),
-                                 int(float(hp["warmup_epochs"]) * len(loader)),
-                                 int(hp["epochs"]) * len(loader), bool(hp["cos_lr"]))
-    optimizer = SGD(schedule, float(hp["momentum"]), float(hp["weight_decay"]))
+    optimizer = preset_optimizer(hp, len(loader))
     step = make_train_step(spec, optimizer)
     params = param_leaves(model)
     state = optimizer.init(params)
@@ -3074,27 +3093,17 @@ def time_train_steps(data: Path, device: str, imgsz: int, batch: int, steps: int
         torch.cuda.reset_peak_memory_stats()
     rows = []
     for i in range(steps):
-        marks = {}
-
-        def mark(name):
-            if cuda:
-                marks[name] = torch.cuda.Event(enable_timing=True)
-                marks[name].record()
-            else:  # the CPU rehearsal: host clock
-                marks[name] = time.perf_counter()
-
-        def ms(a, b):
-            return marks[a].elapsed_time(marks[b]) if cuda else (marks[b] - marks[a]) * 1e3
-
+        marks = Marks(cuda)
         t = time.perf_counter()
         b = {k: torch.from_numpy(v).to(device) for k, v in batches[i % len(batches)].items()}
-        mark("start")
-        state, metrics = step(model, state, b, mark)
+        marks("start")
+        state, metrics = step(model, state, b, marks)
         loss = float(metrics["loss"])
         wall = (time.perf_counter() - t) * 1e3
         sync()
-        rows.append({"forward": ms("start", "forward"), "backward": ms("forward", "backward"),
-                     "update": ms("backward", "update"), "wall": wall, "loss": loss})
+        rows.append({"forward": marks.ms("start", "forward"),
+                     "backward": marks.ms("forward", "backward"),
+                     "update": marks.ms("backward", "update"), "wall": wall, "loss": loss})
     peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else float("nan")
     steady = rows[1:] if len(rows) > 1 else rows
     med = {k: float(np.median([r[k] for r in steady])) for k in ("forward", "backward", "update",
@@ -3218,6 +3227,421 @@ def phase_train(device: str = "cuda", width: int = 3840, height: int = 2160,
         res["timed"] = time_train_steps(data, device, imgsz, batch, timed_steps, seed, hp)
         if launches() != {"fast_score": 0, "patch_gather": 0}:
             raise AssertionError(f"train launched a hand kernel: {launches()}")
+    return res
+
+
+# --------------------------------------------------------------------------
+# several ranks and several devices
+# --------------------------------------------------------------------------
+
+MULTI_STEPS = 2
+MULTI_FRAMES = 16
+MULTI_TILES = 2
+MULTI_MAX_DET = 300
+# (b) against (a): the same steps with the gradients of two ranks averaged,
+# float32 sums in another order (the train phase holds the card's own
+# gradients within TRAIN_GRAD_TOL of float64): relative L2 of the momentum
+# trace over all parameters, of the weights, and relative difference of
+# each step's loss
+MULTI_REL_TOL = 1e-4
+MULTI_LOCK_FRAMES = 8
+
+
+class Marks:
+    """Named points of a step (the step's ``mark``): CUDA events on the
+    card, the host clock on the CPU."""
+
+    def __init__(self, cuda: bool):
+        self.cuda, self.at = cuda, {}
+
+    def __call__(self, name: str) -> None:
+        if self.cuda:
+            self.at[name] = torch.cuda.Event(enable_timing=True)
+            self.at[name].record()
+        else:
+            self.at[name] = time.perf_counter()
+
+    def ms(self, a: str, b: str) -> float:
+        if self.cuda:
+            return self.at[a].elapsed_time(self.at[b])
+        return (self.at[b] - self.at[a]) * 1e3
+
+
+def preset_optimizer(hp: dict, steps_per_epoch: int):
+    """The trainer's SGD with the preset's schedule (``hp``: its ultralytics
+    section)."""
+    from geotrax_tpu_torch.train.optim import SGD, build_lr_schedule
+
+    schedule = build_lr_schedule(float(hp["lr0"]), float(hp["lrf"]),
+                                 int(float(hp["warmup_epochs"]) * steps_per_epoch),
+                                 int(hp["epochs"]) * steps_per_epoch, bool(hp["cos_lr"]))
+    return SGD(schedule, float(hp["momentum"]), float(hp["weight_decay"]))
+
+
+def multi_steps(mesh, data: Path, imgsz: int, batch: int, steps: int, seed: int, hp: dict,
+                batches=None) -> dict:
+    """``steps`` train steps of the seeded start model over ``mesh``'s ranks
+    (``make_train_step``), each rank on its rows of each global batch: from
+    ``batches`` (already loaded) or decoded by this rank's loader (only its
+    rows, timed). Per step: CUDA-event ms of the forward with the loss, the
+    backward, the all-reduce and the update; the loss; peak memory."""
+    from geotrax_tpu_torch.models.convert import param_leaves
+    from geotrax_tpu_torch.parallel.mesh import batch_rows, make_train_step, shard_params
+    from geotrax_tpu_torch.train.data import Loader
+
+    spec = yolov8.ModelSpec(variant="s", nc=4)
+    model = train_start_model(seed, mesh.device)
+    model.requires_grad_(True)
+    shard_params(model, mesh)
+    loader = Loader(data, "train", imgsz=imgsz, batch_size=batch, training=True,
+                    rows=batch_rows(batch, mesh))
+    optimizer = preset_optimizer(hp, len(loader))
+    step = make_train_step(spec, optimizer, mesh)
+    state = optimizer.init(param_leaves(model))
+    load_ms = []
+    if batches is None:
+        batches, it = [], loader.epoch(0)
+        for _ in range(steps):
+            t = time.perf_counter()
+            b = next(it)
+            load_ms.append((time.perf_counter() - t) * 1e3)
+            b.pop("n_valid")
+            batches.append(b)
+    cuda = mesh.device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+    rows = []
+    for i in range(steps):
+        b = {k: torch.from_numpy(v).to(mesh.device) for k, v in batches[i].items()}
+        marks = Marks(cuda)
+        marks("start")
+        state, metrics = step(model, state, b, marks)
+        loss = float(metrics["loss"])
+        if cuda:
+            torch.cuda.synchronize(mesh.device)
+        reduced = "all_reduce" if mesh.world_size > 1 else "backward"
+        rows.append({"forward": marks.ms("start", "forward"),
+                     "backward": marks.ms("forward", "backward"),
+                     "all_reduce": marks.ms("backward", reduced),
+                     "update": marks.ms(reduced, "update"), "loss": loss,
+                     "fg": int(metrics["fg"])})
+    return {"params": [p.detach() for p in param_leaves(model)], "trace": list(state.trace),
+            "steps": rows, "load_ms": load_ms, "batches": batches, "rows": len(batches[0]["images"]),
+            "peak_gib": torch.cuda.max_memory_allocated(mesh.device) / 2**30 if cuda
+            else float("nan")}
+
+
+def weights_digest(tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def multi_rank(data: str, imgsz: int, batch: int, steps: int, seed: int, hp: dict, out: str,
+               device: str, backend) -> None:
+    """One rank of (b) / (e) (``parallel/mesh.py:spawn`` starts it): the
+    steps on its rows, the digests of every rank's weights and momentum
+    gathered, its numbers to ``out/rank<r>.json``; rank 0 also saves its
+    weights and trace."""
+    import torch.distributed as dist
+
+    from geotrax_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(device=device, backend=backend)
+    res = multi_steps(mesh, Path(data), imgsz, batch, steps, seed, hp)
+    digest = weights_digest(res["params"] + res["trace"])
+    digests = [None] * mesh.world_size
+    dist.all_gather_object(digests, digest)
+    if mesh.rank == 0:
+        torch.save({"params": [p.cpu() for p in res["params"]],
+                    "trace": [t.cpu() for t in res["trace"]]}, Path(out) / "rank0.pt")
+    (Path(out) / f"rank{mesh.rank}.json").write_text(json.dumps({
+        "rank": mesh.rank, "world": mesh.world_size, "device": str(mesh.device),
+        "backend": dist.get_backend(), "digest": digest, "digests": digests,
+        "steps": res["steps"], "load_ms": res["load_ms"], "rows": res["rows"],
+        "peak_gib": res["peak_gib"]}))
+
+
+def multi_alone(data: str, imgsz: int, batch: int, steps: int, seed: int, hp: dict, out: str,
+                device: str) -> None:
+    """(a), in a process of its own (``spawn`` with a world of one, so that
+    the determinism settings stay there): PyTorch's deterministic
+    algorithms (the loss's backward accumulates with atomics otherwise, and
+    two runs differ in the last bits), the steps twice outside any process
+    group, then ``make_mesh`` joins the group of one that the environment
+    describes (NCCL on the card) and the steps run again; to ``out/a.pt``."""
+    import torch.distributed as dist
+
+    from geotrax_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dev = resolve_device(device)
+    alone = multi_steps(Mesh({"data": 1}, 1, 0, 0, dev), Path(data), imgsz, batch, steps, seed,
+                        hp)
+    again = multi_steps(Mesh({"data": 1}, 1, 0, 0, dev), Path(data), imgsz, batch, steps, seed,
+                        hp, batches=alone["batches"])
+    mesh = make_mesh(device=device)
+    grouped = multi_steps(mesh, Path(data), imgsz, batch, steps, seed, hp,
+                          batches=alone["batches"])
+
+    def same(x, y):
+        return all(torch.equal(p, q) for p, q in zip(x["params"] + x["trace"],
+                                                      y["params"] + y["trace"]))
+
+    torch.save({"params": [p.cpu() for p in alone["params"]],
+                "trace": [t.cpu() for t in alone["trace"]],
+                "repeat_equal": same(alone, again), "group_equal": same(alone, grouped),
+                "backend": dist.get_backend(), "world": mesh.world_size,
+                **{k: alone[k] for k in ("steps", "load_ms", "peak_gib", "rows")}},
+               Path(out) / "a.pt")
+
+
+def rel_l2(a: list, b: list) -> tuple:
+    """(worst parameter, all at once) relative L2 of ``a`` against ``b``."""
+    a = [x.detach().double().cpu() for x in a]
+    b = [x.detach().double().cpu() for x in b]
+    per = [float(torch.linalg.norm(x - y) / max(float(torch.linalg.norm(y)), 1e-30))
+           for x, y in zip(a, b)]
+    flat = [torch.cat([x.flatten() for x in v]) for v in (a, b)]
+    return max(per), float(torch.linalg.norm(flat[0] - flat[1]) / torch.linalg.norm(flat[1]))
+
+
+def ranks_against(base: dict, world: int, tmp: Path, data: Path, imgsz: int, batch: int,
+                  steps: int, seed: int, hp: dict, device: str, backend) -> dict:
+    """``world`` ranks spawned on ``device`` (``backend``), held to
+    ``base`` (one rank's run of the same steps): the ranks bit-equal to each
+    other, rank 0 within MULTI_REL_TOL of ``base``."""
+    from geotrax_tpu_torch.parallel.mesh import spawn
+
+    out = tmp / f"ranks{world}_{backend or 'default'}"
+    out.mkdir()
+    t = time.perf_counter()
+    spawn(multi_rank, world, str(data), imgsz, batch, steps, seed, hp, str(out), device, backend)
+    ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(world)]
+    got = torch.load(out / "rank0.pt")
+    res = {"s": time.perf_counter() - t, "ranks": ranks, "world": world,
+           "backend": ranks[0]["backend"], "rows": ranks[0]["rows"]}
+    if len({d for r in ranks for d in r["digests"] + [r["digest"]]}) != 1:
+        raise AssertionError(f"{world} ranks hold different weights: "
+                             f"{[r['digests'] for r in ranks]}")
+    res["trace_max"], res["trace_all"] = rel_l2(got["trace"], base["trace"])
+    res["param_max"], res["param_all"] = rel_l2(got["params"], base["params"])
+    res["loss_rel"] = [abs(r["loss"] - b["loss"]) / abs(b["loss"])
+                       for r, b in zip(ranks[0]["steps"], base["steps"])]
+    res["fg"] = ([r["fg"] for r in ranks[0]["steps"]], [b["fg"] for b in base["steps"]])
+    if (res["trace_all"] > MULTI_REL_TOL or res["param_all"] > MULTI_REL_TOL
+            or max(res["loss_rel"]) > MULTI_REL_TOL or res["fg"][0] != res["fg"][1]):
+        raise AssertionError(f"{world} ranks against one: {res}")
+    return res
+
+
+def letterboxed(detector: Detector, frames_u8: torch.Tensor) -> torch.Tensor:
+    """(B,H,W,3) uint8 frames -> the detector's (B,h,w,3) float input."""
+    h, w = frames_u8.shape[1:3]
+    new_h, new_w, _, top, left, out_h, out_w = detector.resize_geometry(h, w)
+    return yolov8.letterbox_pad(resize_u8_linear(frames_u8, new_h, new_w), out_h, out_w, top,
+                                left)
+
+
+def timed(fn, device: torch.device) -> tuple:
+    """(result, seconds) of ``fn()`` after a first call, synchronised."""
+    fn()
+    sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else (lambda: None)
+    sync()
+    t = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t
+
+
+def multi_detection(detector: Detector, frames_u8: torch.Tensor, devices: list) -> dict:
+    """``make_inference_step`` over ``[devices[0]]`` and over ``devices``,
+    ``make_tiled_detector`` on frame 0 with and without them: each pair
+    bit-equal (the largest difference of the valid boxes and scores 0, the
+    valid slots and classes equal); detections and seconds of each."""
+    from geotrax_tpu_torch.parallel.mesh import make_inference_step
+    from geotrax_tpu_torch.parallel.tiling import make_tiled_detector
+
+    model, spec, home = detector.model, detector.spec, detector.device
+    imgs = letterboxed(detector, frames_u8.to(home))
+    kw = dict(conf=detector.conf, iou=0.7, max_det=MULTI_MAX_DET)
+    one, one_s = timed(lambda: make_inference_step(spec, [home], **kw)(model, imgs), home)
+    many, many_s = timed(lambda: make_inference_step(spec, devices, **kw)(model, imgs), home)
+    h, w = frames_u8.shape[1:3]
+    tkw = dict(n_tiles=MULTI_TILES, src_h=h, src_w=w, imgsz=detector.imgsz, conf=detector.conf)
+    frame = frames_u8[0].to(home)
+    tiled, tiled_s = timed(lambda: make_tiled_detector(model, spec, **tkw)(frame), home)
+    spread, spread_s = timed(
+        lambda: make_tiled_detector(model, spec, devices=devices, **tkw)(frame), home)
+    res = {"frames": int(imgs.shape[0]), "input": tuple(imgs.shape), "devices": len(devices),
+           "per_frame": [int(v) for v in one["valid"].sum(dim=1)], "tiled": int(tiled["valid"].sum()),
+           "one_s": one_s, "many_s": many_s, "tiled_s": tiled_s, "spread_s": spread_s,
+           "step_diff": same_detections(one, many), "tiled_diff": same_detections(tiled, spread)}
+    if res["step_diff"] or res["tiled_diff"] or not sum(res["per_frame"]):
+        raise AssertionError(f"detection over {devices}: {res}")
+    return res
+
+
+def multi_lockstep(detector: Detector, width: int, height: int, cards: int, imgsz: int,
+                   seed: int, frames: int = MULTI_LOCK_FRAMES) -> dict:
+    """``batch --parallel-videos 4`` through the lockstep (frames in memory)
+    with ``--devices 1`` and ``--devices cards``: each video's tracks and
+    transforms equal."""
+    vehicles = vehicles_per_frame(width, height)
+    readers = [SyntheticVideoReader(width=width, height=height, n_frames=frames, seed=seed + 1 + v,
+                                    camera=LOCK_CAMERAS[v % len(LOCK_CAMERAS)],
+                                    boxes=vehicle_boxes(width, height, vehicles, seed + 1 + v))
+               for v in range(4)]
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        folder = tmp / "campaign"
+        folder.mkdir()
+        sources = [folder / f"V{v}.mp4" for v in range(4)]
+        for s in sources:
+            s.write_bytes(b"placeholder")  # never decoded: the frames are in memory
+        model = tmp / "model.pt"  # the detector comes from memory (load_detector)
+        torch.save({"class_names": {0: "car", 1: "bus", 2: "truck", 3: "motorcycle"}}, model)
+        videos = {s.name: (r.info, make_frames(r)) for s, r in zip(sources, readers)}
+        cfg = config_file(tmp / "multi.yaml", imgsz)
+        runs = {}
+        with InMemory(videos, detector):
+            for n in (1, cards):
+                t = time.perf_counter()
+                stats = run_lockstep(sources, cfg, model, detector.device.type, devices=n)
+                runs[n] = [read_run(st["tracks_file"], st["transforms_file"])
+                           for st in stats["videos"]]
+                res[f"devices{n}_s"] = time.perf_counter() - t
+    res["rows"] = [0 if t is None else len(t) for t, _ in runs[1]]
+    def equal(a, b):  # a video without tracks has no tracks file
+        return (a is None and b is None) or (a is not None and b is not None
+                                             and np.array_equal(a, b, equal_nan=True))
+
+    for (ta, ha), (tb, hb) in zip(runs[1], runs[cards]):
+        if not (equal(ta, tb) and equal(ha, hb)):
+            raise AssertionError(f"lockstep over {cards} devices differs from one")
+    if not sum(res["rows"]):
+        raise AssertionError(f"lockstep rows {res['rows']}")
+    return res
+
+
+def phase_multi(device: str = "cuda", width: int = 3840, height: int = 2160,
+                counts=TRAIN_IMAGES, imgsz=None, batch=None, steps: int = MULTI_STEPS,
+                n_frames: int = MULTI_FRAMES, seed: int = 0,
+                vehicles: int = VEHICLES_PER_4K_FRAME, cards=None, lock_frames=MULTI_LOCK_FRAMES,
+                variant: str = "s") -> dict:
+    """Several ranks and several devices (see the module's docstring, phase
+    16). ``imgsz`` and ``batch`` default to the preset's; ``cards`` (the
+    machine's count on the card) lets the CPU rehearsal run (e) on stand-in
+    devices."""
+    from geotrax_tpu_torch.models.convert import load_model, save_npz
+    from geotrax_tpu_torch.parallel.mesh import spawn
+    from geotrax_tpu_torch.utils.config_utils import load_config
+    from geotrax_tpu_torch.utils.logging_utils import setup_logger
+
+    hp = load_config("default", setup_logger("smoke.multi", dry_run=True))["ultralytics"]
+    extra = [] if imgsz is None else ["--imgsz", str(imgsz), "--batch", str(batch)]
+    imgsz, batch = int(imgsz or hp["imgsz"]), int(batch or hp["batch"])
+    dev = resolve_device(device)
+    cuda = dev.type == "cuda"
+    cards = torch.cuda.device_count() if cuda else int(cards or 1)
+    res = {"size": (width, height), "imgsz": imgsz, "batch": batch, "steps": steps,
+           "counts": counts, "cards": cards}
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        data = tmp / "data"
+        t = time.perf_counter()
+        res["labels"] = write_train_dataset(data, width, height, counts, vehicles)
+        res["write_s"] = time.perf_counter() - t
+
+        # (a) one rank through NCCL (gloo on the CPU) against no process group
+        t = time.perf_counter()
+        cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"  # deterministic cuBLAS, (a) only
+        try:
+            spawn(multi_alone, 1, str(data), imgsz, batch, steps, seed, hp, str(tmp), device)
+        finally:
+            if cublas is None:
+                del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+            else:
+                os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
+        base = torch.load(tmp / "a.pt")
+        res["a"] = {k: base[k] for k in ("repeat_equal", "group_equal", "steps", "load_ms",
+                                         "peak_gib", "rows", "backend", "world")}
+        res["a"]["s"] = time.perf_counter() - t
+        if not (res["a"]["group_equal"] and res["a"]["repeat_equal"]) or base["world"] != 1:
+            raise AssertionError(f"(a) one rank in a {base['backend']} group against no group: "
+                                 f"equal {res['a']['group_equal']} (no group twice: "
+                                 f"{res['a']['repeat_equal']})")
+
+        # (b) two ranks sharing the card through gloo
+        res["b"] = ranks_against(base, 2, tmp, data, imgsz, batch, steps, seed, hp,
+                                 "cuda:0" if cuda else "cpu", "gloo")
+
+        # (c) the CLI: more ranks than cards exits naming both; one rank writes the run
+        t = time.perf_counter()
+        ckpt = tmp / "start.npz"
+        save_npz(ckpt, train_start_model(seed, "cpu"), class_names=dict(enumerate(
+            ("car", "bus", "truck", "motorcycle"))))
+        n = cards + 1 if cuda else batch + 1
+        want = ([f"--devices {n} needs {n} cards", f"this machine has {cards}"] if cuda
+                else [f"--batch {batch}", f"{n} ranks"])
+        cli = [sys.executable, "-m", "geotrax_tpu_torch.train"]
+        proc = subprocess.run(cli + train_argv(data, ckpt, tmp / "too_many", 1, device, "--devices",
+                                               str(n), *extra),
+                              capture_output=True, text=True, timeout=300, cwd=Path(__file__).parent)
+        if proc.returncode == 0 or not all(w in proc.stderr for w in want) \
+                or (tmp / "too_many").exists():
+            raise AssertionError(f"(c) --devices {n}: rc {proc.returncode}, "
+                                 f"{proc.stderr[-1500:]}")
+        res["c_refused"] = proc.stderr.strip().splitlines()[-1]
+        proc = subprocess.run(cli + train_argv(data, ckpt, tmp / "one", 1, device, "--devices", "1",
+                                               *extra),
+                              capture_output=True, text=True, timeout=600, cwd=Path(__file__).parent)
+        if proc.returncode != 0:
+            raise AssertionError(f"(c) --devices 1: {proc.stderr[-3000:]}")
+        model, _, _ = load_model(tmp / "one" / "last.npz", device="cpu")
+        n_params = 2 * sum(1 for m in model.modules() if isinstance(m, yolov8.ConvBN))
+        res["c_run"] = check_train_run(tmp / "one", 1, max(1, counts[0] // batch), n_params)
+        res["c_s"] = time.perf_counter() - t
+
+    # (d) detection over [dev] and [dev, dev]
+    t = time.perf_counter()
+    spec = yolov8.ModelSpec(variant=variant, nc=4)
+    detector = Detector(yolov8.init_params(torch.Generator().manual_seed(seed), spec, device=dev),
+                        {**smoke_config(imgsz)["ultralytics"], "max_det": MULTI_MAX_DET},
+                        device=dev)
+    reader = smoke_reader(width, height, seed, n_frames,
+                          boxes=vehicle_boxes(width, height, vehicles_per_frame(width, height),
+                                              seed))
+    frames = torch.from_numpy(np.stack([f for _, f in make_frames(reader)]))
+    res["d_calibrated"] = calibrate_class_bias(detector, frames[0].numpy(),
+                                               vehicles_per_frame(width, height))
+    reset_launches()
+    res["d"] = multi_detection(detector, frames, [dev, dev])
+    res["d"]["launches"] = launches()
+    res["d_s"] = time.perf_counter() - t
+
+    # (e) several cards
+    res["e"] = None
+    if cards >= 2:
+        t = time.perf_counter()
+        world = min(4, cards)
+        e_dev = [torch.device(f"cuda:{i}") for i in range(cards)] if cuda else [dev] * cards
+        with tempfile.TemporaryDirectory() as tmpdir:
+            tmp = Path(tmpdir)
+            data = tmp / "data"
+            write_train_dataset(data, width, height, counts, vehicles)
+            res["e"] = {"ranks": ranks_against(base, world, tmp, data, imgsz, batch, steps, seed,
+                                               hp, "cuda" if cuda else "cpu", None)}
+        res["e"]["d"] = multi_detection(detector, frames, e_dev)
+        res["e"]["lockstep"] = multi_lockstep(detector, width, height, cards, imgsz, seed,
+                                              lock_frames)
+        res["e"]["s"] = time.perf_counter() - t
     return res
 
 
@@ -3603,6 +4027,56 @@ def train_line(tr: dict, seconds: float, smi: str) -> str:
             f"{tm['val_load_ms_per_image']:.1f}); launches {tr['launches']} [{smi}]")
 
 
+def ranks_text(rk: dict, base_rows: int) -> str:
+    steps = "; ".join(
+        f"rank {r['rank']} ({r['device']}, {r['rows']} rows): step ms forward "
+        f"{[round(x['forward'], 2) for x in r['steps']]}, backward "
+        f"{[round(x['backward'], 2) for x in r['steps']]}, all-reduce "
+        f"{[round(x['all_reduce'], 2) for x in r['steps']]}, update "
+        f"{[round(x['update'], 2) for x in r['steps']]}, loader "
+        f"{[round(x, 1) for x in r['load_ms']]} ms per {r['rows']} PNGs, peak "
+        f"{r['peak_gib']:.2f} GiB" for r in rk["ranks"])
+    return (f"{rk['world']} ranks over {rk['backend']} ({rk['s']:.1f}s): weights bit-equal on "
+            f"every rank; against one rank of {base_rows} rows: loss rel "
+            f"{[f'{x:.2e}' for x in rk['loss_rel']]}, momentum rel L2 worst parameter / all "
+            f"{rk['trace_max']:.2e} / {rk['trace_all']:.2e}, weights {rk['param_max']:.2e} / "
+            f"{rk['param_all']:.2e} (tolerance {MULTI_REL_TOL:g} all at once), fg {rk['fg'][0]}; "
+            f"{steps}")
+
+
+def detection_text(d: dict) -> str:
+    return (f"make_inference_step on {d['frames']} frames {d['input']} over 1 device "
+            f"{d['one_s'] * 1e3:.1f} ms and {d['devices']} {d['many_s'] * 1e3:.1f} ms, "
+            f"bit-equal ({sum(d['per_frame'])} detections, {min(d['per_frame'])}-"
+            f"{max(d['per_frame'])} per frame); make_tiled_detector {MULTI_TILES} tiles "
+            f"{d['tiled_s'] * 1e3:.1f} ms, over {d['devices']} devices {d['spread_s'] * 1e3:.1f}"
+            f" ms, bit-equal ({d['tiled']} detections)")
+
+
+def multi_line(mu: dict, seconds: float, smi: str) -> str:
+    w, h = mu["size"]
+    a, c = mu["a"], mu["c_run"]
+    a_steps = "; ".join(f"forward {x['forward']:.2f} backward {x['backward']:.2f} update "
+                        f"{x['update']:.2f}" for x in a["steps"])
+    e, n = mu["e"], mu["cards"]
+    e_text = (f"(e) did not run for want of cards: {n} card, it needs 2" if e is None else
+              f"(e) {ranks_text(e['ranks'], a['rows'])}; {detection_text(e['d'])}; lockstep "
+              f"--parallel-videos 4 --devices {n} equal to --devices 1 "
+              f"({e['lockstep']['rows']} rows; {e['lockstep']['devices1_s']:.1f}s and "
+              f"{e['lockstep'][f'devices{n}_s']:.1f}s)")
+    return (f"multi ok {seconds:.1f}s YOLOv8s nc=4 at imgsz {mu['imgsz']}, global batch "
+            f"{mu['batch']}, {mu['steps']} steps on {mu['counts'][0]} train PNGs {w}x{h} "
+            f"({mu['labels']} labels, written in {mu['write_s']:.1f}s): (a) one rank in a "
+            f"{a['backend']} group bit-equal to no group, and no group twice (PyTorch's "
+            f"deterministic algorithms), per step ms {a_steps}, loader "
+            f"{[round(x, 1) for x in a['load_ms']]} ms per {a['rows']} PNGs, peak "
+            f"{a['peak_gib']:.2f} GiB ({a['s']:.1f}s); (b) {ranks_text(mu['b'], a['rows'])}; "
+            f"(c) {mu['c_refused']!r}; --devices 1 wrote every run file, loss "
+            f"{c['losses']} ({mu['c_s']:.1f}s); (d) {detection_text(mu['d'])}, calibrated "
+            f"{mu['d_calibrated']} detections on frame 0, launches {mu['d']['launches']}; "
+            f"{e_text} [{smi}]")
+
+
 def render_line(rd: dict, seconds: float, smi: str) -> str:
     w, h = rd["size"]
     modes = "; ".join(
@@ -3774,6 +4248,30 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int, res: dict
             "launches_features": features_launches}
 
 
+def multi_entry(mu: dict) -> dict:
+    """Phase 16's numbers for the JSON line: no kernel of its own (the
+    training step and detection run cuDNN convolutions and torch ops)."""
+    def ranks(rk):
+        return {"world": rk["world"], "backend": rk["backend"], "rows": rk["rows"],
+                "trace_rel_l2": rk["trace_all"], "loss_rel": rk["loss_rel"],
+                "step_ms": [[x["forward"] + x["backward"] + x["all_reduce"] + x["update"]
+                             for x in r["steps"]] for r in rk["ranks"]],
+                "all_reduce_ms": [[x["all_reduce"] for x in r["steps"]] for r in rk["ranks"]],
+                "load_ms": [r["load_ms"] for r in rk["ranks"]],
+                "peak_gib": [r["peak_gib"] for r in rk["ranks"]]}
+
+    a = mu["a"]
+    return {"a": {"group_equal": a["group_equal"], "repeat_equal": a["repeat_equal"],
+                  "step_ms": [x["forward"] + x["backward"] + x["update"] for x in a["steps"]],
+                  "load_ms": a["load_ms"], "peak_gib": a["peak_gib"]},
+            "b": ranks(mu["b"]), "d": {k: mu["d"][k] for k in ("one_s", "many_s", "tiled_s",
+                                                              "spread_s", "step_diff",
+                                                              "tiled_diff")},
+            "e": None if mu["e"] is None else {"ranks": ranks(mu["e"]["ranks"]),
+                                               "lockstep_rows": mu["e"]["lockstep"]["rows"]},
+            "cards": mu["cards"]}
+
+
 def main(argv) -> int:
     kernels_only = "--kernels-only" in argv
     georef_only = "--georef-only" in argv
@@ -3781,6 +4279,7 @@ def main(argv) -> int:
     render_only = "--render-only" in argv
     train_only = "--train-only" in argv
     features_only = "--features-only" in argv
+    multi_only = "--multi-only" in argv
     t_all = time.perf_counter()
     width, height, chunk, seed = 3840, 2160, 32, 0
     n_main = 2 * chunk
@@ -3831,6 +4330,12 @@ def main(argv) -> int:
             tr = phase_train("cuda")
             log(train_line(tr, time.perf_counter() - t, dev["smi"]))
             log(f"train-only ok {time.perf_counter() - t_all:.1f}s")
+            return 0
+        if multi_only:
+            t = time.perf_counter()
+            mu = phase_multi("cuda")
+            log(multi_line(mu, time.perf_counter() - t, dev["smi"]))
+            log(f"multi-only ok {time.perf_counter() - t_all:.1f}s")
             return 0
         if features_only:  # its own georef assets, at the georef phase's size
             t = time.perf_counter()
@@ -3995,6 +4500,10 @@ def main(argv) -> int:
         tr = phase_train("cuda")
         log(train_line(tr, time.perf_counter() - t, dev["smi"]))
 
+        t = time.perf_counter()
+        mu = phase_multi("cuda")
+        log(multi_line(mu, time.perf_counter() - t, dev["smi"]))
+
     except Exception as exc:  # noqa: BLE001 — every phase failure ends the run
         import traceback
 
@@ -4016,7 +4525,7 @@ def main(argv) -> int:
                      {"shape": lk_k["planes_shape"] + (lk_k["corners"],), "ms": lk_k["gather_ms"],
                       "bound_ms": lk_k["gather_bound_ms"]}, render_launches["patch_gather"],
                      tr["launches"]["patch_gather"], ft["a"]["launches"]["patch_gather"]),
-    ]}
+    ], "multi": multi_entry(mu)}
     print(json.dumps(kernels), flush=True)
     print(dev["smi"], flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],

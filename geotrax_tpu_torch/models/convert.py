@@ -24,12 +24,26 @@ The port's copy of ``geotrax_tpu/models/convert.py``:
 A real ultralytics checkpoint pickles ultralytics' own classes, which
 ``torch.load`` cannot rebuild without that package; such a file loads once
 its ``state_dict`` has been saved as a plain dict of tensors.
+
+CLI (the options of ``tools/export_model.py``; ``train/export.sh`` runs it
+on every ``.pt`` under a folder)::
+
+    python -m geotrax_tpu_torch.models.convert weights.pt -o weights.npz [--bf16] [--check 1920]
+    python -m geotrax_tpu_torch.models.convert trained.npz -o weights.pt --format pt
+
+``--bf16`` stores the weights as bfloat16 in the bytes the reference's
+export writes (two-byte void records, which is how numpy saves ml_dtypes'
+bfloat16); ``load_npz`` reads them back as float32 (ROADMAP C9).
+``--check`` runs one forward at that imgsz on ``--device`` (the card unless
+``--device cpu``).
 """
 
 from __future__ import annotations
 
 from pathlib import Path
 from typing import Optional
+
+import argparse
 
 import numpy as np
 import torch
@@ -224,11 +238,28 @@ def _flatten(node, path: str, out: dict) -> None:
         out[f"param:{path}"] = np.asarray(node)
 
 
-def save_npz(path: Path, model: yolov8.YOLOv8, class_names: Optional[dict] = None, **meta) -> None:
+_BF16_RECORD = np.dtype("V2")
+
+
+def _bf16_bits(a: np.ndarray) -> np.ndarray:
+    """float32 -> bfloat16 (round to nearest even) as two-byte records."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(torch.bfloat16).view(
+        torch.int16).numpy().view(_BF16_RECORD)
+
+
+def _from_bf16_bits(a: np.ndarray) -> np.ndarray:
+    return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).float().numpy()
+
+
+def save_npz(path: Path, model: yolov8.YOLOv8, class_names: Optional[dict] = None,
+             bf16: bool = False, **meta) -> None:
     """Save ``model`` as the reference's ``save_npz`` does, with the spec's
-    variant, nc, reg_max and p2 as metadata unless ``meta`` sets them."""
+    variant, nc, reg_max and p2 as metadata unless ``meta`` sets them;
+    ``bf16`` stores the weights as bfloat16 records."""
     flat: dict = {}
     _flatten({"layers": _tree(model.layers)}, "", flat)
+    if bf16:
+        flat = {k: _bf16_bits(v) for k, v in flat.items()}
     if class_names is not None:
         flat["class_names"] = np.array(class_names, dtype=object)
     spec = model.spec
@@ -250,7 +281,8 @@ def load_npz(path: Path) -> tuple[dict, dict]:
                 parts = key[len("param:"):].split("/")
                 for part in parts[:-1]:
                     node = node.setdefault(part, {})
-                node[parts[-1]] = data[key]
+                value = data[key]
+                node[parts[-1]] = _from_bf16_bits(value) if value.dtype == _BF16_RECORD else value
             elif key == "class_names":
                 meta["class_names"] = {int(k): str(v) for k, v in data[key].item().items()}
             elif key.startswith("meta:"):
@@ -491,3 +523,49 @@ def load_rtdetr(model_path: Path) -> tuple:
         num_points=int(meta.get("num_points", 4)),
     )
     return rtdetr.params_from_jax(_restore_lists(raw), spec, device="cpu"), spec, meta.get("class_names")
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m geotrax_tpu_torch.models.convert",
+        description="Convert a YOLOv8 detector checkpoint (.pt or .npz) to .npz or .pt")
+    parser.add_argument("checkpoint", type=Path, help=".pt (torch) or .npz input")
+    parser.add_argument("--out", "-o", type=Path, required=True)
+    parser.add_argument("--bf16", action="store_true", help="Store weights as bfloat16")
+    parser.add_argument("--check", type=int, default=None,
+                        help="Run one forward of the written file at this imgsz")
+    parser.add_argument("--format", choices=("npz", "pt"), default=None,
+                        help="Output format (default: from --out suffix)")
+    parser.add_argument("--device", default="cuda",
+                        help="Device of --check (default: the card; 'cpu' for the CPU)")
+    args = parser.parse_args(argv)
+
+    if args.check:  # before writing: no card, no file
+        from geotrax_tpu_torch._device import resolve_device
+
+        device = resolve_device(args.device)
+    model, spec, names = load_model(args.checkpoint)
+    fmt = args.format or ("pt" if args.out.suffix == ".pt" else "npz")
+    if fmt == "pt":
+        save_pt(args.out, model, names)
+        print(f"yolov8{spec.variant} nc={spec.nc} -> ultralytics-layout state-dict {args.out} "
+              f"({len(export_ultralytics_state_dict(model))} tensors)")
+        return 0
+    save_npz(args.out, model, class_names=names, bf16=args.bf16)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"yolov8{spec.variant} nc={spec.nc} ({n_params / 1e6:.2f}M params) -> {args.out}")
+    if args.check:
+        written, spec, _ = load_model(args.out, device=device)
+        size = -(-args.check // 32) * 32
+        with torch.no_grad():
+            boxes, probs = yolov8.forward(written, torch.zeros((1, size, size, 3), device=device),
+                                          spec)
+        if not (torch.isfinite(boxes).all() and torch.isfinite(probs).all()):
+            raise SystemExit(f"check @ {size}: the forward of {args.out} is not finite")
+        print(f"check @ {size} on {device}: boxes {tuple(boxes.shape)}, probs "
+              f"{tuple(probs.shape)} OK")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -86,27 +86,42 @@ def letterbox_sample(image: np.ndarray, boxes_norm: np.ndarray, imgsz: int):
     return canvas, boxes
 
 
+def augment_draws(rng: np.random.Generator, fliplr: float = 0.5, hsv_v: float = 0.2) -> tuple:
+    """The random draws of one sample's ``augment``: (flip, value gain or
+    None). A rank that skips another rank's sample makes them too, so that
+    every rank's generator stays where one process's would be."""
+    flip = bool(fliplr) and rng.uniform() < fliplr
+    gain = 1.0 + rng.uniform(-hsv_v, hsv_v) if hsv_v else None
+    return flip, gain
+
+
 def augment(image: np.ndarray, boxes: np.ndarray, rng: np.random.Generator,
             fliplr: float = 0.5, scale: float = 0.2, hsv_v: float = 0.2):
     """Light geometric + photometric augmentation on a letterboxed sample."""
     imgsz = image.shape[0]
-    if fliplr and rng.uniform() < fliplr:
+    flip, gain = augment_draws(rng, fliplr, hsv_v)
+    if flip:
         image = image[:, ::-1].copy()
         if len(boxes):
             boxes = boxes.copy()
             boxes[:, 1] = imgsz - boxes[:, 1]
-    if hsv_v:
-        gain = 1.0 + rng.uniform(-hsv_v, hsv_v)
+    if gain is not None:
         image = np.clip(image.astype(np.float32) * gain, 0, 255).astype(np.uint8)
     return image, boxes
 
 
 class Loader:
-    """Deterministic shuffled epoch iterator yielding fixed-shape batches."""
+    """Deterministic shuffled epoch iterator yielding fixed-shape batches.
+
+    ``rows`` (a slice of the batch, ``parallel/mesh.py:batch_rows``) makes
+    it yield only those rows of each batch of ``batch_size``, decoding only
+    their images: one rank's share of a global batch. Every rank draws the
+    same epoch permutation and augmentation, so the rows equal those of the
+    whole batch."""
 
     def __init__(self, dataset_dir: Path, split: str, imgsz: int = 640,
                  batch_size: int = 8, max_gt: int = 64, training: bool = True,
-                 seed: int = 0, fraction: float = 1.0):
+                 seed: int = 0, fraction: float = 1.0, rows: slice | None = None):
         self.samples = list_samples(dataset_dir, split)
         if fraction < 1.0:
             self.samples = self.samples[: max(1, int(len(self.samples) * fraction))]
@@ -115,6 +130,7 @@ class Loader:
         self.max_gt = max_gt
         self.training = training
         self.seed = seed
+        self.rows = range(batch_size)[rows or slice(None)]
 
     def __len__(self):
         n = len(self.samples)
@@ -137,13 +153,19 @@ class Loader:
             # validation scores every image: the tail batch is padded to full
             # shape; n_valid tells the consumer how many rows are real
             starts = range(0, n, self.batch_size)
+        rows = self.rows
         for start in starts:
             idx = order[start:start + self.batch_size]
-            images = np.zeros((self.batch_size, self.imgsz, self.imgsz, 3), np.float32)
-            gt_boxes = np.zeros((self.batch_size, self.max_gt, 4), np.float32)
-            gt_cls = np.zeros((self.batch_size, self.max_gt), np.int32)
-            gt_mask = np.zeros((self.batch_size, self.max_gt), bool)
-            for bi, si in enumerate(idx):
+            images = np.zeros((len(rows), self.imgsz, self.imgsz, 3), np.float32)
+            gt_boxes = np.zeros((len(rows), self.max_gt, 4), np.float32)
+            gt_cls = np.zeros((len(rows), self.max_gt), np.int32)
+            gt_mask = np.zeros((len(rows), self.max_gt), bool)
+            for row, si in enumerate(idx):
+                if row not in rows:
+                    if self.training:
+                        augment_draws(rng)
+                    continue
+                bi = row - rows.start
                 img_path, lbl_path = self.samples[si]
                 img = load_image(img_path)
                 labels = load_label(lbl_path)
@@ -159,5 +181,5 @@ class Loader:
             yield {
                 "images": images, "gt_boxes": gt_boxes,
                 "gt_cls": gt_cls, "gt_mask": gt_mask,
-                "n_valid": len(idx),
+                "n_valid": len(range(len(idx))[rows.start:rows.stop]),
             }

@@ -1,7 +1,9 @@
-"""Detector training loop (fine-tuning and from scratch) on one card.
+"""Detector training loop (fine-tuning and from scratch), data-parallel
+over one or several ranks.
 
 CLI:  python -m geotrax_tpu_torch.train --data <dataset_dir> [--model m.pt|.npz]
-                                        [--cfg default] [--epochs N] [--device cpu] ...
+                                        [--cfg default] [--epochs N] [--device cpu]
+                                        [--devices N] [--slices S] [--multihost] ...
 
 The port of ``geotrax_tpu/train/train.py``: hyperparameters from the
 config's ultralytics section (lr0, lrf, momentum, weight_decay,
@@ -12,24 +14,38 @@ checkpoints as .npz (last.npz / best.npz, by val mAP@50) that either
 package loads, ``trainer_state.npz`` with the reference's leaves for
 ``--resume`` (either package's file resumes in the other), and the same
 run files. The step runs on ``--device`` (the card unless ``--device cpu``
-is passed; there is no fallback); several cards wait for ROADMAP A15b.
+is passed; there is no fallback).
+
+Several ranks (``parallel/mesh.py``): ``--devices N`` starts N processes,
+rank r on ``cuda:r`` (NCCL) or, with ``--device cpu``, on the CPU (gloo);
+under torchrun's environment (``--multihost``, ``train/launch.sh``) each
+process joins the group that it describes, and ``--slices S`` lays the
+ranks out as S slices. ``--batch`` is the global batch: each rank decodes
+and steps on its own B/N rows, the gradients are averaged over the ranks,
+and the logged losses are the global batch's. Every rank evaluates; rank
+0's mAP and early-stop decision hold for all, and only rank 0 writes files.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import logging
 import os
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from geotrax_tpu_torch.models import yolov8
 from geotrax_tpu_torch.models.convert import load_model, param_leaves, save_npz
 from geotrax_tpu_torch.ops.nms import postprocess_detections
-from geotrax_tpu_torch.parallel.mesh import A15B_MESSAGE, make_mesh, make_train_step
+from geotrax_tpu_torch.parallel.mesh import (
+    batch_rows, broadcast_object, make_hybrid_mesh, make_mesh, make_train_step, shard_params,
+    spawn,
+)
 from geotrax_tpu_torch.train.data import Loader
 from geotrax_tpu_torch.train.metrics import evaluate_detections
 from geotrax_tpu_torch.train.optim import SGD, SGDState, build_lr_schedule
@@ -115,12 +131,32 @@ def _save_checkpoint(path: Path, model: yolov8.YOLOv8, spec) -> None:
              variant=spec.variant, nc=spec.nc, reg_max=spec.reg_max, p2=int(spec.p2))
 
 
+def _global_batch(args, hp: dict) -> int:
+    return int(args.batch or hp.get("batch", 8))
+
+
+def _check_batch(batch: int, world: int) -> None:
+    if batch % world:
+        raise SystemExit(f"geotrax_tpu_torch.train: --batch {batch} (the global batch) does "
+                         f"not split over {world} ranks")
+
+
 def train(args, logger=None) -> dict:
-    logger = logger or setup_logger("geotrax.train", args.verbose)
+    slices = getattr(args, "slices", None) or 1
+    device_arg = getattr(args, "device", "cuda")
+    mesh = (make_hybrid_mesh(slices, getattr(args, "devices", None), device=device_arg)
+            if slices > 1 else make_mesh(getattr(args, "devices", None), device=device_arg))
+    writer = mesh.rank == 0
+    if logger is None:  # the other ranks log warnings only, and to no file
+        logger = setup_logger("geotrax.train" if writer else f"geotrax.train.rank{mesh.rank}",
+                              args.verbose, dry_run=not writer)
+        if not writer:
+            logger.setLevel("WARNING")
     hp = load_config(args.cfg, logger).get("ultralytics", {})
 
     imgsz = int(args.imgsz or hp.get("imgsz", 640))
-    batch = int(args.batch or hp.get("batch", 8))
+    batch = _global_batch(args, hp)
+    _check_batch(batch, mesh.world_size)
     epochs = int(args.epochs or hp.get("epochs", 100))
     lr0 = float(hp.get("lr0", 0.01))
     lrf = float(hp.get("lrf", 0.01))
@@ -129,9 +165,10 @@ def train(args, logger=None) -> dict:
     warmup_epochs = float(hp.get("warmup_epochs", 3.0))
     patience = int(hp.get("patience", 50))
 
-    if (getattr(args, "slices", None) or 1) > 1 or getattr(args, "multihost", False):
-        raise SystemExit(f"geotrax_tpu_torch.train: {A15B_MESSAGE}")
-    device = make_mesh(getattr(args, "devices", None), getattr(args, "device", "cuda"))[0]
+    device = mesh.device
+    if mesh.world_size > 1:
+        logger.info(f"Data-parallel over {mesh.world_size} ranks {mesh.shape}, global batch "
+                    f"{batch}.")
 
     resume = bool(getattr(args, "resume", False))
     out_dir = Path(args.out)
@@ -156,10 +193,12 @@ def train(args, logger=None) -> dict:
         model = yolov8.init_params(generator, spec, device=device)
         logger.info(f"Training yolov8{spec.variant} (nc={spec.nc}) from scratch.")
     model.requires_grad_(True)
+    shard_params(model, mesh)
 
     train_loader = Loader(args.data, "train", imgsz=imgsz, batch_size=batch,
                           max_gt=args.max_gt, training=True,
-                          fraction=float(hp.get("fraction", 1.0)))
+                          fraction=float(hp.get("fraction", 1.0)),
+                          rows=batch_rows(batch, mesh))
     val_loader = Loader(args.data, "val", imgsz=imgsz, batch_size=batch,
                         max_gt=args.max_gt, training=False)
 
@@ -170,10 +209,11 @@ def train(args, logger=None) -> dict:
         bool(hp.get("cos_lr", False)),
     )
     optimizer = SGD(schedule, momentum=momentum, weight_decay=weight_decay)
-    step = make_train_step(spec, optimizer, float(hp.get("box", 7.5)),
+    step = make_train_step(spec, optimizer, mesh, float(hp.get("box", 7.5)),
                            float(hp.get("cls", 0.5)), float(hp.get("dfl", 1.5)))
 
-    out_dir.mkdir(parents=True, exist_ok=True)
+    if writer:
+        out_dir.mkdir(parents=True, exist_ok=True)
     best_map = -1.0
     bad_epochs = 0
     start_epoch = 0
@@ -186,7 +226,8 @@ def train(args, logger=None) -> dict:
                    if ln.strip()]
     # persisted metrics: results.csv + metrics.jsonl + TensorBoard events,
     # flushed per epoch
-    runlog = RunLogger(out_dir, enable_tensorboard=not getattr(args, "no_tb", False))
+    runlog = (RunLogger(out_dir, enable_tensorboard=not getattr(args, "no_tb", False))
+              if writer else None)
 
     opt_state = optimizer.init(param_leaves(model))
     if resume:
@@ -204,7 +245,10 @@ def train(args, logger=None) -> dict:
             losses.append(float(metrics["loss"]))
         mean_loss = float(np.mean(losses)) if losses else float("nan")
 
-        val = evaluate(model, spec, val_loader)
+        # every rank evaluates; rank 0's numbers (and so its best/patience
+        # decision) hold for all: a rank that stopped on its own would hang
+        # the others in the next all-reduce
+        val = broadcast_object(evaluate(model, spec, val_loader), mesh)
         # the reference logs the schedule called eagerly on a Python int
         lr_now = float(schedule(min((epoch + 1) * steps_per_epoch, total_steps), fused=False))
         history.append({"epoch": epoch, "loss": mean_loss, **val})
@@ -214,50 +258,56 @@ def train(args, logger=None) -> dict:
             for c, v in val.get("per_class", {}).items()
             for m in ("precision", "recall", "ap50", "ap50_95")
         }
-        runlog.log_epoch(epoch, {
-            "loss": mean_loss,
-            **{k: v for k, v in val.items()
-               if k not in ("per_class", "per_class_ap50")},
-            **flat_pc, "lr": lr_now,
-            "epoch_s": round(time.time() - t0, 2),
-        })
+        if writer:
+            runlog.log_epoch(epoch, {
+                "loss": mean_loss,
+                **{k: v for k, v in val.items()
+                   if k not in ("per_class", "per_class_ap50")},
+                **flat_pc, "lr": lr_now,
+                "epoch_s": round(time.time() - t0, 2),
+            })
         logger.info(
             f"epoch {epoch + 1}/{epochs}: loss {mean_loss:.4f} "
             f"mAP50 {val['map50']:.4f} mAP50-95 {val['map50_95']:.4f} "
             f"({time.time() - t0:.1f}s)"
         )
 
-        _save_checkpoint(out_dir / "last.npz", model, spec)
+        if writer:
+            _save_checkpoint(out_dir / "last.npz", model, spec)
         if val["map50"] > best_map:
             best_map = val["map50"]
             bad_epochs = 0
-            _save_checkpoint(out_dir / "best.npz", model, spec)
+            if writer:
+                _save_checkpoint(out_dir / "best.npz", model, spec)
         else:
             bad_epochs += 1
         # optimizer-state + loop-counter checkpoint: a killed run resumes
         # from here with --resume instead of starting over
-        save_trainer_state(out_dir / "trainer_state.npz", opt_state, epoch, best_map, bad_epochs)
+        if writer:
+            save_trainer_state(out_dir / "trainer_state.npz", opt_state, epoch, best_map,
+                               bad_epochs)
         if bad_epochs >= patience:
             logger.notice(f"Early stop after {patience} stagnant epochs.")
             break
 
     # final single-class validation pass: class-agnostic P/R/mAP of the last
     # checkpoint (the reference's separate single_cls val run)
-    val_single = evaluate(model, spec, val_loader, single_cls=True)
+    val_single = broadcast_object(evaluate(model, spec, val_loader, single_cls=True), mesh)
     logger.info(
         f"single-class val: P {val_single['precision']:.4f} "
         f"R {val_single['recall']:.4f} mAP50 {val_single['map50']:.4f} "
         f"mAP50-95 {val_single['map50_95']:.4f}"
     )
 
-    runlog.close()
-    summary = {
-        "history": history,
-        "single_cls_val": {k: v for k, v in val_single.items()
-                           if k not in ("per_class", "per_class_ap50")},
-    }
-    (out_dir / "history.json").write_text(json.dumps(history, indent=2))
-    (out_dir / "val_summary.json").write_text(json.dumps(summary, indent=2))
+    if writer:
+        runlog.close()
+        summary = {
+            "history": history,
+            "single_cls_val": {k: v for k, v in val_single.items()
+                               if k not in ("per_class", "per_class_ap50")},
+        }
+        (out_dir / "history.json").write_text(json.dumps(history, indent=2))
+        (out_dir / "val_summary.json").write_text(json.dumps(summary, indent=2))
     logger.notice(f"Training done: best mAP@50 {best_map:.4f}; checkpoints in '{out_dir}'.")
     return {"best_map50": best_map, "history": history,
             "single_cls_val": val_single}
@@ -278,11 +328,15 @@ def parse_cli_args(argv=None):
     parser.add_argument("--epochs", type=int, default=None)
     parser.add_argument("--max-gt", type=int, default=64, dest="max_gt")
     parser.add_argument("--devices", type=int, default=None,
-                        help="Card count; more than one is not ported yet (ROADMAP A15b)")
+                        help="Ranks of the data-parallel run: N processes on cuda:0..N-1 "
+                             "(or on the CPU with --device cpu); under torchrun, the world "
+                             "size it must equal")
     parser.add_argument("--slices", type=int, default=None,
-                        help="Multi-slice data parallelism; not ported yet (ROADMAP A15b)")
+                        help="Lay the ranks out as S slices (nodes) of N/S")
     parser.add_argument("--multihost", action="store_true",
-                        help="Multi-host data parallelism; not ported yet (ROADMAP A15b)")
+                        help="Join the process group that torchrun's environment describes "
+                             "(RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT; "
+                             "train/launch.sh starts one torchrun per node)")
     parser.add_argument("--out", type=Path, default=Path("runs/train"))
     parser.add_argument("--resume", action="store_true",
                         help="Resume a killed/preempted run from <out>/last.npz "
@@ -298,11 +352,53 @@ def parse_cli_args(argv=None):
     return parser.parse_args(argv)
 
 
+def _world_size(args) -> int:
+    """The run's rank count, checked before any process starts: torchrun's
+    WORLD_SIZE (which ``--devices`` must equal), else ``--devices``, which
+    needs as many cards (unless ``--device cpu``); the global batch and
+    ``--slices`` must split over it. Nothing falls back to fewer ranks."""
+    torchrun = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    if args.multihost and not torchrun:
+        raise SystemExit("geotrax_tpu_torch.train: --multihost needs torchrun's environment "
+                         "(RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT); start it "
+                         "through torchrun or train/launch.sh")
+    if torchrun:
+        world = int(os.environ["WORLD_SIZE"])
+        if args.devices and args.devices != world:
+            raise SystemExit(f"geotrax_tpu_torch.train: --devices {args.devices} disagrees "
+                             f"with torchrun's WORLD_SIZE={world}")
+    else:
+        world = args.devices or 1
+        cards = torch.cuda.device_count()
+        if world > 1 and torch.device(args.device).type == "cuda" and cards < world:
+            raise SystemExit(f"geotrax_tpu_torch.train: --devices {world} needs {world} cards; "
+                             f"this machine has {cards}")
+    slices = args.slices or 1
+    if world % slices:
+        raise SystemExit(f"geotrax_tpu_torch.train: {world} ranks do not split into "
+                         f"--slices {slices}")
+    hp = load_config(args.cfg, logging.getLogger("geotrax.train")).get("ultralytics", {})
+    _check_batch(_global_batch(args, hp), world)
+    return world
+
+
 def main(argv=None):
     args = parse_cli_args(argv)
     if os.environ.get("GEOTRAX_MULTIHOST"):
         args.multihost = True
-    train(args)
+    world = _world_size(args)
+    if world > 1 and "RANK" not in os.environ:
+        try:
+            spawn(train, world, args)
+        except torch.multiprocessing.ProcessException as exc:
+            raise SystemExit(f"geotrax_tpu_torch.train: rank {exc.error_index} of {world} "
+                             f"failed; the run is stopped:\n{exc}") from None
+        return
+    try:
+        train(args)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

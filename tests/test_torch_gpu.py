@@ -724,3 +724,74 @@ def test_train_step_card_vs_cpu():
         assert abs(a - b) <= TRAIN_LOSS_RTOL * abs(b)
     for a, b in zip(weights[1], weights[0]):
         assert rel_l2(a, b) <= TRAIN_LOSS_RTOL
+
+
+@pytest.mark.gpu
+def test_two_gloo_ranks_sharing_the_card(tmp_path):
+    """The data-parallel step of two ranks that share the card (gloo, as
+    NCCL refuses two ranks on one GPU; tests/torch_mesh_worker.py spawned)
+    against one rank: the ranks bit-equal, the losses and the momentum
+    within TRAIN_LOSS_RTOL of the one-rank run."""
+    _need_card()
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from geotrax_tpu_torch.models import yolov8
+    from geotrax_tpu_torch.models.convert import save_npz
+
+    spec = yolov8.ModelSpec(variant="n", nc=2)
+    save_npz(tmp_path / "init.npz", yolov8.init_params(torch.Generator().manual_seed(5), spec,
+                                                       device="cpu"))
+    keys = ("images", "gt_boxes", "gt_cls", "gt_mask")
+    np.savez(tmp_path / "batches.npz", **{f"{k}_{i}": v for i, s in enumerate((1, 2))
+                                          for k, v in zip(keys, train_batch(4, 256, 6, seed=s))})
+    worker = Path(__file__).resolve().parent / "torch_mesh_worker.py"
+    runs = {}
+    for world in (1, 2):
+        out = tmp_path / f"w{world}"
+        out.mkdir()
+        proc = subprocess.run([sys.executable, str(worker), str(tmp_path / "init.npz"),
+                               str(tmp_path / "batches.npz"), str(out), "--world", str(world),
+                               "--device", "cuda:0", "--backend", "gloo"],
+                              capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        runs[world] = [dict(np.load(out / f"rank{r}.npz")) for r in range(world)]
+    one, (a, b) = runs[1][0], runs[2]
+    for k in a:
+        if not k.startswith("rows_"):
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    for i in range(2):
+        assert abs(float(a[f"loss_{i}"]) - float(one[f"loss_{i}"])) <= \
+            TRAIN_LOSS_RTOL * abs(float(one[f"loss_{i}"]))
+    traces = [k for k in a if k.startswith("trace_")]
+    assert traces and all(rel_l2(torch.from_numpy(a[k]), torch.from_numpy(one[k]))
+                          <= TRAIN_LOSS_RTOL for k in traces)
+
+
+@pytest.mark.gpu
+def test_detection_over_two_devices_on_card_bit_equal():
+    """make_inference_step over [cuda:0] and [cuda:0, cuda:0], and
+    make_tiled_detector with 2 tiles with and without devices: bit-equal."""
+    _need_card()
+    from geotrax_tpu_torch.models import yolov8
+    from geotrax_tpu_torch.parallel.mesh import make_inference_step
+    from geotrax_tpu_torch.parallel.tiling import make_tiled_detector
+
+    dev = resolve_device("cuda")
+    spec = yolov8.ModelSpec(variant="n", nc=4)
+    model = yolov8.init_params(torch.Generator().manual_seed(0), spec, device=dev)
+    rng = np.random.default_rng(0)
+    imgs = torch.from_numpy(rng.uniform(0, 1, (8, 320, 512, 3)).astype(np.float32)).to(dev)
+    kw = dict(conf=0.05, max_det=100)
+    one = make_inference_step(spec, [dev], **kw)(model, imgs)
+    two = make_inference_step(spec, [dev, dev], **kw)(model, imgs)
+    assert int(one["valid"].sum()) > 0
+    for k in one:
+        torch.testing.assert_close(two[k], one[k], rtol=0, atol=0, msg=k)
+    frame = torch.from_numpy(rng.integers(0, 255, (540, 960, 3), np.uint8)).to(dev)
+    tkw = dict(n_tiles=2, src_h=540, src_w=960, imgsz=480, conf=0.05, max_det=100)
+    plain = make_tiled_detector(model, spec, **tkw)(frame)
+    spread = make_tiled_detector(model, spec, devices=[dev, dev], **tkw)(frame)
+    for k in plain:
+        torch.testing.assert_close(spread[k], plain[k], rtol=0, atol=0, msg=k)

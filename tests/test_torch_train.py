@@ -4,8 +4,9 @@ package's: the schedule and one optimizer update against optax,
 letterbox resize bit for bit (Pillow imported here, never by the port),
 ``evaluate_detections`` and the run log equal, a 2-epoch ``train()`` of
 each package from the same JAX-initialised ``.npz``, kill-and-resume
-within a package and across the two, and the exits of the multi-device
-flags (ROADMAP A15b).
+within a package and across the two, and the data-parallel CLI: ``--devices
+2``, ``--slices 2`` and ``--multihost`` under torchrun's environment against
+the 1-process run, and its exits.
 
 Tolerances: the linear schedule (the default preset's) and the SGD update
 bit-equal; the cosine schedule within 1e-6 x lr0 (libm's cosine against
@@ -13,7 +14,9 @@ XLA's, a few float32 ulps where 1 + cos cancels); per-epoch losses of
 the two packages within rel 1e-4 and their final weights within rel L2
 1e-4 (float32 convolutions summed in another order, over 4 steps); the
 port's resumed run equal to its uninterrupted one (rtol 1e-5, atol 1e-7,
-the reference's own bar)."""
+the reference's own bar); a run over 2 ranks against the 1-process run:
+losses within rel 1e-4 and weights within rel L2 1e-4 (the gradients' mean
+over ranks sums in another order), one rank under torchrun bit-equal."""
 
 import argparse
 import json
@@ -402,14 +405,93 @@ def test_kill_and_resume_matches_uninterrupted(tmp_path):
     assert "map50" in full["single_cls_val"]
 
 
-@pytest.mark.parametrize("flags", [["--devices", "2"], ["--slices", "2"], ["--multihost"]])
-def test_multi_device_flags_exit_naming_a15b(tmp_path, flags):
-    data = write_synth_dataset(tmp_path / "data", counts=(("train", 2), ("val", 1)))
-    with pytest.raises(SystemExit) as exc:
-        ttrain.main(["--data", str(data), "--variant", "n", "--nc", "2", "--imgsz", "64",
-                     "--epochs", "1", "--out", str(tmp_path / "run"), "--device", "cpu", *flags])
-    assert "A15b" in str(exc.value)
-    assert not (tmp_path / "run").exists()
+def cli_run(data: Path, out: Path, *flags, env=None, timeout=240):
+    """``python -m geotrax_tpu_torch.train`` on the CPU, 2 epochs of yolov8n
+    at imgsz 64 and global batch 8."""
+    base = [sys.executable, "-m", "geotrax_tpu_torch.train", "--data", str(data), "--variant",
+            "n", "--nc", "2", "--imgsz", "64", "--batch", "8", "--epochs", "2", "--no-tb",
+            "--out", str(out), *flags]
+    return subprocess.run(base, cwd=ROOT, capture_output=True, text=True, timeout=timeout,
+                          env={**__import__("os").environ, "OMP_NUM_THREADS": "1", **(env or {})})
+
+
+@pytest.fixture(scope="module")
+def dp_data(tmp_path_factory):
+    root = tmp_path_factory.mktemp("dp")
+    data = write_synth_dataset(root / "data")
+    proc = cli_run(data, root / "one", "--device", "cpu")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return root, data
+
+
+def torchrun_env(world: int = 1, rank: int = 0) -> dict:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    return {"RANK": str(rank), "LOCAL_RANK": str(rank), "WORLD_SIZE": str(world),
+            "LOCAL_WORLD_SIZE": str(world), "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+
+
+def csv_losses(path: Path) -> list:
+    rows = [ln.split(",") for ln in path.read_text().splitlines()]
+    col = rows[0].index("loss")
+    return [float(r[col]) for r in rows[1:]]
+
+
+@pytest.mark.parametrize("case", ["devices2", "slices2x1", "multihost_world1"])
+def test_multi_rank_run_matches_one_process(dp_data, case):
+    """``--devices 2`` and ``--slices 2 --devices 2`` spawn two gloo ranks
+    on the CPU; ``--multihost`` under torchrun's environment of world size 1
+    joins that group. Each writes the run files once (rank 0) with the
+    global batch's losses."""
+    root, data = dp_data
+    flags, env = {"devices2": (["--devices", "2"], None),
+                  "slices2x1": (["--slices", "2", "--devices", "2"], None),
+                  "multihost_world1": (["--multihost"], torchrun_env())}[case]
+    proc = cli_run(data, root / case, "--device", "cpu", *flags, env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert sorted(p.name for p in (root / case).iterdir()) == RUN_FILES
+    one, got = root / "one", root / case
+    want, losses = csv_losses(one / "results.csv"), csv_losses(got / "results.csv")
+    assert len(losses) == len(want) == 2
+    assert (one / "results.csv").read_text().splitlines()[0] == \
+        (got / "results.csv").read_text().splitlines()[0]
+    pa, pb = npz_params(one / "last.npz"), npz_params(got / "last.npz")
+    if case == "multihost_world1":  # one rank: no collective, the same step
+        assert losses == want
+        for key in pa:
+            np.testing.assert_array_equal(pb[key], pa[key], err_msg=key)
+        return
+    assert "Data-parallel over 2 ranks" in proc.stderr
+    assert losses == pytest.approx(want, rel=LOSS_RTOL)
+    assert [r["lr"] for r in jsonl(got / "metrics.jsonl")] == \
+        [r["lr"] for r in jsonl(one / "metrics.jsonl")]
+    for key in pa:
+        err = np.linalg.norm(pb[key] - pa[key]) / max(np.linalg.norm(pa[key]), 1e-30)
+        assert err <= WEIGHT_REL_L2, (key, err)
+
+
+@pytest.mark.parametrize("case", ["batch_not_divisible", "too_few_cards", "multihost_no_env"])
+def test_multi_rank_exits_naming_both_numbers(dp_data, case):
+    """Nothing falls back to fewer ranks: a global batch that does not split,
+    more ranks than cards, or --multihost outside torchrun exits before a
+    rank starts."""
+    root, data = dp_data
+    flags, words = {"batch_not_divisible": (["--devices", "3", "--device", "cpu"],
+                                            ["--batch 8", "3 ranks"]),
+                    "too_few_cards": (["--devices", "2"], ["--devices 2 needs 2 cards",
+                                                           "this machine has"]),
+                    "multihost_no_env": (["--multihost", "--device", "cpu"],
+                                         ["torchrun's environment"])}[case]
+    if case == "too_few_cards" and torch.cuda.device_count() >= 2:
+        pytest.skip("this machine has two cards")
+    proc = cli_run(data, root / case, *flags, timeout=60)
+    assert proc.returncode != 0
+    for word in words:
+        assert word in proc.stderr, proc.stderr[-2000:]
+    assert not (root / case).exists()
 
 
 def test_cli_on_the_cpu_and_no_fallback(tmp_path):
