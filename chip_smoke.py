@@ -20,14 +20,17 @@ ends the run with a non-zero exit and no result line:
   2 kernel     the FAST kernel equals its plain PyTorch version exactly on a
                seeded (33,1080,1920) batch, an odd (2,37,53) batch, a
                3-pixel checkerboard and a constant image, at thresholds 20
-               and 7; the patch gather equals its plain version exactly on
-               the ReID path's (96,1080,1920) planes with 1000 corners each
-               (out of range, at every edge, inside) and on an odd
-               (2,37,53) x 130 case; CUDA-event times of each kernel, its
-               plain version and, for the gather, one PyTorch call
-               computing it (an advanced index on an unfold view); for FAST
-               also the achieved GB/s, the share of the bound and the share
-               of pixels that take its full test
+               and 7; the float patch gather equals its plain version
+               exactly at each path's shape (TMA: describe's (1,1080,1920)
+               x 2000 and the (3, 12 and 96,1080,1920) x 1000 channel
+               planes of a frame, four frames and a chunk; corners out of
+               range, at every edge, inside) and on an odd (2,37,53) x 130
+               case (the register path); CUDA-event times of each kernel and
+               its plain version; for the gather at each shape its device
+               time (CUDA graphs, in turns with one PyTorch call computing
+               it, an advanced index on an unfold view), its time as called,
+               and its bound; for FAST also the achieved GB/s, the share of
+               the bound and the share of pixels that take its full test
   3 main       the default extract configuration: YOLOv8s at imgsz 1920
                (random weights from a seeded generator, class biases set so
                that about VEHICLES_PER_4K_FRAME boxes pass ``conf``) on two
@@ -50,7 +53,10 @@ ends the run with a non-zero exit and no result line:
                the main phase, the patch launch counter must rise by one per
                chunk, the embeddings of valid detections have unit norm and,
                on the first chunk, equal those of the plain gather on the
-               card; one more chunk timed beside the steady median, and the
+               card; the HWC gather on that chunk's own inputs exact and
+               timed (``hwc_kernel_check``: against its bound and an unfold
+               yardstick);
+               one more chunk timed beside the steady median, and the
                three kept chunks through fresh extractors without and with
                ReID in turns; then one chunk with a learned head (seeded
                init_head, saved to .npz, loaded through resolve_head)
@@ -92,7 +98,8 @@ ends the run with a non-zero exit and no result line:
                checked; its forward timed (CUDA events) against the float32
                bound of its counted FLOPs, the stage's peak memory, one
                frame at imgsz 640 on the card against the CPU; then both
-               kernels exact and timed on the path's own per-frame inputs
+               kernels exact and timed on the path's own per-frame inputs,
+               and embed_boxes on them timed
  10 georef     ``georeference`` as users run it at the reference regime: a
                synthetic 15000^2 orthophoto (tools/benchmark_ortho_matching.py's
                recipe), 4K reference and master frames rendered from it in
@@ -127,7 +134,9 @@ ends the run with a non-zero exit and no result line:
                embeddings; ms per step, frames/s in turns against the four
                videos through run_extraction one after another, peak
                memory; (c) both kernels exact and timed on the phase's own
-               (4,1080,1920) grays and (12,1080,1920) x max_det planes; (d)
+               (4,1080,1920) grays and (4,2160,3840,3) frames x max_det
+               corners (the HWC gather, pooling in the kernel), and
+               embed_boxes on them timed; (d)
                process_input on a directory of the four videos
                (open_reader, probe_video and load_detector replaced), every
                metadata file parallel-group-4, a second run runs no stage
@@ -267,6 +276,12 @@ PATCH_REPLACES = "geotrax_tpu/ops/pallas_patches.py:40"
 # frame at half resolution, max_det = 1000 corners each.
 PATCH_SHAPE = (96, 1080, 1920)
 PATCH_CORNERS = 1000
+# The float gather at each path's shape: describe's one (1080,1920) plane
+# with 2000 keypoints (features), and a frame's (sequential), four frames'
+# (lockstep) and a chunk's 3 channel planes at half resolution with 1000
+# corners each, the shapes the ReID paths gathered on before the HWC entry.
+PATCH_SHAPES = (((1, 1080, 1920), 2000), ((3, 1080, 1920), 1000), ((12, 1080, 1920), 1000),
+                (PATCH_SHAPE, PATCH_CORNERS))
 
 # Vehicles per 4K frame: the geo-trax detector's training set (Songdo
 # Vision, upstream README) holds ~679k labelled vehicles in >19,000 aerial
@@ -312,6 +327,13 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def called_ms(fn, reps: int, samples: int = 5) -> float:
+    """Ms of one call of ``fn`` as called (CUDA events around ``reps`` eager
+    calls, the host's cost included): the median of ``samples`` such
+    runs, since the host's share moves from run to run."""
+    return float(np.median([cuda_ms(fn, reps) for _ in range(samples)]))
 
 
 def fast_bound_ms(shape) -> tuple:
@@ -470,6 +492,22 @@ def unfold_gather(planes: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor) -> t
         b, torch.clamp(y0.long(), 0, h - 32), torch.clamp(x0.long(), 0, w - 32)]
 
 
+def covered_pixels(h: int, w: int, x0: torch.Tensor, y0: torch.Tensor) -> int:
+    """Distinct pixels of (B,) h x w images that the (B,K) 32x32 patches at
+    these corners (clamped) cover, by a 2-D difference array per image."""
+    xs = torch.clamp(x0.long(), 0, w - 32)
+    ys = torch.clamp(y0.long(), 0, h - 32)
+    ones = torch.ones(x0.shape[1], dtype=torch.int32, device=x0.device)
+    covered = 0
+    for i in range(x0.shape[0]):
+        d = torch.zeros((h + 1, w + 1), dtype=torch.int32, device=x0.device)
+        for dy, dx, sign in ((0, 0, 1), (0, 32, -1), (32, 0, -1), (32, 32, 1)):
+            d.index_put_((ys[i] + dy, xs[i] + dx), ones * sign, accumulate=True)
+        inside = d.cumsum(0, dtype=torch.int32).cumsum(1, dtype=torch.int32)[:h, :w] > 0
+        covered += int(inside.sum())
+    return covered
+
+
 def patch_bound_ms(planes: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor) -> tuple:
     """Least time of one gather on an H100: the patches written once, the
     distinct plane pixels they cover read once and the corners read once,
@@ -477,46 +515,182 @@ def patch_bound_ms(planes: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor) -> 
     bytes moved)."""
     b, h, w = planes.shape
     k = x0.shape[1]
-    xs = torch.clamp(x0.long(), 0, w - 32)
-    ys = torch.clamp(y0.long(), 0, h - 32)
-    covered = 0
-    for i in range(b):  # 2-D difference array of the patches' rectangles
-        d = torch.zeros((h + 1, w + 1), dtype=torch.int32, device=planes.device)
-        ones = torch.ones(k, dtype=torch.int32, device=planes.device)
-        for dy, dx, sign in ((0, 0, 1), (0, 32, -1), (32, 0, -1), (32, 32, 1)):
-            d.index_put_((ys[i] + dy, xs[i] + dx), ones * sign, accumulate=True)
-        covered += int((d.cumsum(0, dtype=torch.int32).cumsum(1, dtype=torch.int32)[:h, :w] > 0).sum())
-    moved = 4 * (b * k * 32 * 32 + covered + 2 * b * k)
+    moved = 4 * (b * k * 32 * 32 + covered_pixels(h, w, x0, y0) + 2 * b * k)
     return moved / HBM_BYTES_PER_S * 1e3, "bytes", moved
 
 
-def phase_patches(device: str = "cuda", check_shape=PATCH_SHAPE, k: int = PATCH_CORNERS,
-                  odd_shape=(2, 37, 53), odd_k: int = 130, reps: int = 20) -> dict:
-    """Patch gather == plain version (exactly) at the ReID path's shape and
-    on an odd case with more than one 128-corner group; the kernel's, the
-    plain version's and the unfold-gather's times and the bound at the
-    ReID path's shape. On the CPU (a rehearsal) nothing is timed."""
+def hwc_bound_ms(image: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor, pool2: bool,
+                 mean4: bool) -> tuple:
+    """Least time of one HWC gather on an H100: the uint8 pixels the patches
+    cover read once (each pooled pixel is 2x2 of them with ``pool2``, 3
+    bytes each), the float32 patches or 4x4 means written once, the corners
+    read once, over the memory rate; returns (ms, "bytes", bytes moved)."""
+    c, h, w = image.shape[:3]
+    f = 2 if pool2 else 1
+    m = x0.shape[1]
+    per_patch = 3 * (64 if mean4 else 32 * 32)
+    moved = (3 * f * f * covered_pixels(h // f, w // f, x0, y0) + 4 * c * m * per_patch
+             + 8 * c * m)
+    return moved / HBM_BYTES_PER_S * 1e3, "bytes", moved
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 3) -> float:
+    """Device ms of one call of ``fn``: ``reps`` calls captured in one CUDA
+    graph and replayed, so that the host's cost of each call (the wrapper's
+    checks and allocation, the ctypes call) stays out of the time. Each
+    call's output is freed before the next, so the graph's pool holds one."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * reps)
+
+
+def in_turns(calls: dict, reps: int) -> dict:
+    """Graph-timed ms of each call, taken twice in mirrored order (a, b, ...,
+    ..., b, a); returns name -> mean of the two."""
+    names = list(calls)
+    ms = {name: [] for name in names}
+    for name in names + names[::-1]:
+        ms[name].append(graph_ms(calls[name], reps))
+    return {name: sum(v) / 2 for name, v in ms.items()}
+
+
+def time_gather(planes: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor, reps: int) -> dict:
+    """The float gather's device ms and the unfold-gather's, in turns (CUDA
+    graphs); the kernel's as called (``called_ms``: the wrapper's host cost
+    included); the plain version's."""
+    calls = {"ms": lambda: patches.patches32(planes, x0, y0),
+             "library_ms": lambda: unfold_gather(planes, x0, y0)}
+    res = in_turns(calls, reps)
+    res["eager_ms"] = called_ms(calls["ms"], reps)
+    res["plain_ms"] = cuda_ms(lambda: patches.patches32_torch(planes, x0, y0), max(reps // 4, 2))
+    return res
+
+
+def phase_patches(device: str = "cuda", shapes=PATCH_SHAPES, odd_shape=(2, 37, 53),
+                  odd_k: int = 130, reps: int = 20) -> dict:
+    """The float patch gather == its plain version (exactly), and so is the
+    unfold-gather: on an odd (2,37,53) x 130 case (4W not a multiple of 16
+    bytes: the register path) and at each path's shape (TMA) with seeded
+    planes and corners out of range, at every edge and inside; at each
+    path's shape the times of ``time_gather`` and the bound. On the CPU (a
+    rehearsal) nothing is timed."""
     dev = torch.device(device)
-    res = {"max_abs_err": 0.0, "ms": None, "plain_ms": None, "library_ms": None}
-    for shape, kk, seed in ((odd_shape, odd_k, 5), (check_shape, k, 4)):
-        planes = seeded_planes(shape, seed, dev)
-        x0, y0 = seeded_corners(shape[0], shape[1], shape[2], kk, seed, dev)
-        out = patches.patches32(planes, x0, y0)
+    res = {"max_abs_err": 0.0, "shapes": []}
+    for i, (shape, k) in enumerate(((odd_shape, odd_k),) + tuple(shapes)):
+        planes = seeded_planes(shape, 4 + i, dev)
+        x0, y0 = seeded_corners(shape[0], shape[1], shape[2], k, 4 + i, dev)
         plain = patches.patches32_torch(planes, x0, y0)
-        lib = unfold_gather(planes, x0, y0)
+        outs = {"kernel": patches.patches32(planes, x0, y0),
+                "unfold-gather": unfold_gather(planes, x0, y0)}
         if dev.type == "cuda":
             torch.cuda.synchronize()
-        err = float((out - plain).abs().max())
-        if err != 0.0 or not torch.equal(out, plain) or not torch.equal(lib, plain):
-            raise AssertionError(f"patch gather != plain at {shape} x {kk}: max err {err}")
-        res["max_abs_err"] = max(res["max_abs_err"], err)
-        del out, plain, lib
-    res["bound_ms"], res["bound_by"], res["bytes"] = patch_bound_ms(planes, x0, y0)
-    if dev.type == "cuda":
-        res["ms"] = cuda_ms(lambda: patches.patches32(planes, x0, y0), reps)
-        res["plain_ms"] = cuda_ms(lambda: patches.patches32_torch(planes, x0, y0), max(reps // 4, 2))
-        res["library_ms"] = cuda_ms(lambda: unfold_gather(planes, x0, y0), max(reps // 4, 2))
+        for name, out in outs.items():
+            if not torch.equal(out, plain):
+                raise AssertionError(f"patch gather ({name}) != plain at {shape} x {k}: max err "
+                                     f"{float((out - plain).abs().max())}")
+        del outs, plain
+        if shape == odd_shape:
+            continue
+        row = {"shape": shape, "corners": k}
+        row["bound_ms"], row["bound_by"], row["bytes"] = patch_bound_ms(planes, x0, y0)
+        if dev.type == "cuda":
+            row.update(time_gather(planes, x0, y0, reps))
+        res["shapes"].append(row)
+        del planes, x0, y0
     return res
+
+
+def unfold_gather_hwc(image: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor, pool2: bool,
+                      mean4: bool) -> torch.Tensor:
+    """The HWC gather in a few PyTorch calls: an advanced index on an unfold
+    view of the uint8 image (64x64 windows at stride 2 with ``pool2``), then
+    ``.float()`` and the 2x2 and 4x4 means as reshape-sums. A yardstick; the
+    port never runs it."""
+    c, h, w = image.shape[:3]
+    f = 2 if pool2 else 1
+    hp, wp = h // f, w // f
+    m = x0.shape[1]
+    win = image[:, :hp * f, :wp * f].unfold(1, 32 * f, f).unfold(2, 32 * f, f)
+    ci = torch.arange(c, device=image.device)[:, None]
+    out = win[ci, torch.clamp(y0.long(), 0, hp - 32), torch.clamp(x0.long(), 0, wp - 32)].float()
+    if pool2:
+        out = out.reshape(c, m, 3, 32, 2, 32, 2).sum(dim=(4, 6)) * 0.25
+    if mean4:
+        out = out.reshape(c, m, 3, 8, 4, 8, 4).mean(dim=(4, 6))
+    return out
+
+
+def hwc_kernel_check(g: dict, reps: int) -> dict:
+    """The HWC gather on one path's own inputs (``g``: what ``embed_boxes``
+    handed its gather): the kernel and the unfold yardstick each equal to
+    the plain version exactly; on the card their device ms in turns (CUDA
+    graphs), the kernel as called, the memory it takes, the plain version's
+    ms and the bound."""
+    args = (g["image"], g["x0"], g["y0"], g["pool2"], g["mean4"])
+    calls = {"ms": lambda: patches.patches32_hwc(*args),
+             "library_ms": lambda: unfold_gather_hwc(*args)}
+    plain = patches.patches32_hwc_torch(*args)
+    for name, call in (("kernel", calls["ms"]), ("unfold", calls["library_ms"])):
+        out = call()
+        if not torch.equal(out, plain):
+            err = float((out - plain).abs().max())
+            raise AssertionError(f"HWC gather ({name}) != plain on {tuple(g['image'].shape)} "
+                                 f"x {g['x0'].shape[1]}: max err {err}")
+        del out
+    del plain
+    res = {"shape": tuple(g["image"].shape), "corners": int(g["x0"].shape[1]),
+           "pool2": g["pool2"], "mean4": g["mean4"], "max_abs_err": 0.0}
+    res["bound_ms"], res["bound_by"], res["bytes"] = hwc_bound_ms(*args)
+    if g["image"].device.type == "cuda":
+        res["kernel_gib"] = extra_memory_gib(calls["ms"])
+        res.update(in_turns(calls, reps))
+        res["eager_ms"] = called_ms(calls["ms"], reps)
+        res["plain_ms"] = cuda_ms(lambda: patches.patches32_hwc_torch(*args), max(reps // 4, 2))
+    return res
+
+
+def extra_memory_gib(fn) -> float:
+    """GiB that one call of ``fn`` holds at its peak beyond what was
+    allocated before it (resets the card's peak-memory counter)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def hwc_recorder(seen: dict):
+    """A ``gather`` for embed_boxes that runs the plain version and keeps
+    its inputs in ``seen``."""
+    def plain_gather(image, x0, y0, pool2, mean4):
+        seen.update(image=image, x0=x0, y0=y0, pool2=pool2, mean4=mean4)
+        return patches.patches32_hwc_torch(image, x0, y0, pool2, mean4)
+    return plain_gather
+
+
+def hwc_text(k: dict) -> str:
+    """One path's HWC gather numbers for a phase's line."""
+    text = (f"patches32_hwc {k['shape']} x {k['corners']} pool2={k['pool2']} mean4={k['mean4']} "
+            f"exact (kernel, unfold)")
+    if "ms" in k:
+        text += (f": kernel {k['ms']:.4f} ms ({100 * k['bound_ms'] / k['ms']:.1f}% of the bound "
+                 f"{k['bound_ms']:.4f} ms, {k['bytes'] / 1e6:.1f} MB), as called "
+                 f"{k['eager_ms']:.4f}, unfold-gather {k['library_ms']:.4f}, plain "
+                 f"{k['plain_ms']:.3f}; memory beyond the inputs {k['kernel_gib']:.3f} GiB")
+    return text
 
 
 def calibrate_class_bias(detector: Detector, frame_u8: np.ndarray, boxes: int) -> int:
@@ -851,25 +1025,17 @@ def embedding_checks(fx, seen, frames, gather_check: bool = True) -> dict:
         half = (frames_t.shape[1] // 2, frames_t.shape[2] // 2)
         pooled = resize_u8_linear(frames_t, *half) if fx._resize_geom == half else None
         gathered = {}
-
-        def plain_gather(planes, x0, y0):  # the plain version, keeping its inputs
-            gathered.update(planes=planes, x0=x0, y0=y0)
-            return patches.patches32_torch(planes, x0, y0)
-
         plain = embed_boxes(frames_t, boxes, pooled=pooled, head_params=fx.reid_params,
-                            gather=plain_gather)
+                            gather=hwc_recorder(gathered))
         res["plain_err"] = float((emb - plain).abs().max())
         if res["plain_err"] > 1e-5:
             raise AssertionError(f"embeddings differ from the plain gather's by {res['plain_err']}")
+        # the chunk's own gather, exact and timed alone (after the launch
+        # counts were read), and its embedding as called
+        res["gather"] = hwc_kernel_check(gathered, 10)
         if emb.device.type == "cuda":
-            # the chunk's own embedding and gather, timed alone (after the
-            # launch counts were read)
             res["embed_ms"] = cuda_ms(lambda: embed_boxes(frames_t, boxes, pooled=pooled,
                                                           head_params=fx.reid_params), 5)
-            g = gathered
-            res["gather_ms"] = cuda_ms(lambda: patches.patches32(g["planes"], g["x0"], g["y0"]), 10)
-            res["gather_bound_ms"], _, res["gather_bytes"] = patch_bound_ms(g["planes"], g["x0"],
-                                                                            g["y0"])
     return res
 
 
@@ -920,11 +1086,14 @@ def phase_reid(detector, frames, timed_frames, reader, device: str = "cuda", img
     if head is not None:
         raise AssertionError("model: auto loaded a learned head")
     with tempfile.TemporaryDirectory() as tmp:
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
         fast.fast_score_map.launches = 0
         patches.patches32.launches = 0
         stats = port_extract.extract(FrameList(info, frames), fx, tmp, "V_reid", config=config,
                                      chunk=chunk)
         sync()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
         launches = {"fast_score": fast.fast_score_map.launches,
                     "patch_gather": patches.patches32.launches}
         checks = check_outputs(stats, n, reader, tol_px)
@@ -971,7 +1140,8 @@ def phase_reid(detector, frames, timed_frames, reader, device: str = "cuda", img
     if head_vs_projection < 0.1:
         raise AssertionError("the learned head's embeddings equal the projection's")
     return {"stats": stats, "checks": checks, "launches": launches, "emb": emb,
-            "timed_ms": tstats["chunk_s"][0] * 1e3, "timed_camera_err_px": timed_err,
+            "peak_gib": peak_gib, "timed_ms": tstats["chunk_s"][0] * 1e3,
+            "timed_camera_err_px": timed_err,
             "timed_rows": int(len(tracks)), "turns": turns,
             "turn_diff_ms": float(np.median(np.subtract(turns["reid"], turns["plain"]))),
             "head_checks": checks_h, "head_emb": emb_h,
@@ -1923,32 +2093,21 @@ def fused_vs_sequential(frames, reader, device: str, imgsz: int, vehicles: int) 
 
 def path_kernels(detector: Detector, frame: np.ndarray, device: str, reps: int) -> dict:
     """Both kernels on the sequential path's own per-frame inputs: FAST on
-    the Stabilizer's gray of ``frame``, the gather on ``embed_boxes``'
-    planes of ``frame`` and its detections; each exact against its plain
-    version, timed with its bound on the card."""
+    the Stabilizer's gray of ``frame``, the HWC gather on what
+    ``embed_boxes`` gives it for ``frame`` and its detections (the frame
+    itself, pooled in the kernel); each exact against its plain version,
+    timed with its bound on the card (``hwc_kernel_check``)."""
     x = torch.as_tensor(frame).to(device)
     gray = features.downsample(features.rgb_to_gray(x), 0.5)[None].contiguous()
     if not torch.equal(fast.fast_score_map(gray, 20.0), fast.fast_score_map_torch(gray, 20.0)):
         raise AssertionError("FAST kernel != plain on the sequential path's gray")
     seen = {}
-
-    def plain_gather(planes, x0, y0):  # the plain version, keeping its inputs
-        seen.update(planes=planes, x0=x0, y0=y0)
-        return patches.patches32_torch(planes, x0, y0)
-
     det = detector(x)
-    embed_boxes(x[None], det["boxes_xywh"][None], gather=plain_gather)
-    planes, x0, y0 = seen["planes"], seen["x0"], seen["y0"]
-    if not torch.equal(patches.patches32(planes, x0, y0), patches.patches32_torch(planes, x0, y0)):
-        raise AssertionError("patch gather != plain on the sequential path's planes")
-    res = {"gray_shape": tuple(gray.shape), "planes_shape": tuple(planes.shape),
-           "corners": int(x0.shape[1])}
-    res["gather_bound_ms"], _, res["gather_bytes"] = patch_bound_ms(planes, x0, y0)
+    embed_boxes(x[None], det["boxes_xywh"][None], gather=hwc_recorder(seen))
+    res = {"gray_shape": tuple(gray.shape), "gather": hwc_kernel_check(seen, reps)}
     if device == "cuda":
         res["fast"] = time_fast(gray, reps)
-        res["gather_ms"] = cuda_ms(lambda: patches.patches32(planes, x0, y0), reps)
-        res["gather_plain_ms"] = cuda_ms(lambda: patches.patches32_torch(planes, x0, y0), reps)
-        res["gather_library_ms"] = cuda_ms(lambda: unfold_gather(planes, x0, y0), reps)
+        res["embed_ms"] = cuda_ms(lambda: embed_boxes(x[None], det["boxes_xywh"][None]), reps)
     return res
 
 
@@ -2247,34 +2406,22 @@ def lockstep_profile(sources, cfg: str, model, device: str, readers, frames, det
 
 def lockstep_kernels(detector, frames: list, device: str, reps: int) -> dict:
     """Both kernels on this phase's own inputs: FAST on the four grays of
-    the first step after the reference, the gather on ``embed_boxes``'
-    planes of those frames and their detections; exact against their plain
-    versions, timed with their bounds on the card."""
+    the first step after the reference, the HWC gather on what
+    ``embed_boxes`` gives it for those frames and their detections; exact
+    against their plain versions, timed with their bounds on the card."""
     x = torch.as_tensor(np.stack([f[1][1] for f in frames])).to(device)
     gray = features.downsample(features.rgb_to_gray(x), 0.5).contiguous()
     if not torch.equal(fast.fast_score_map(gray, 20.0), fast.fast_score_map_torch(gray, 20.0)):
         raise AssertionError("FAST kernel != plain on the lockstep step's grays")
     seen = {}
-
-    def plain_gather(planes, x0, y0):  # the plain version, keeping its inputs
-        seen.update(planes=planes, x0=x0, y0=y0)
-        return patches.patches32_torch(planes, x0, y0)
-
     with torch.no_grad():
         det = detector.detect_batch(x)
-        embed_boxes(x, det["boxes_xywh"], gather=plain_gather)
-    planes, x0, y0 = seen["planes"], seen["x0"], seen["y0"]
-    if not torch.equal(patches.patches32(planes, x0, y0), patches.patches32_torch(planes, x0, y0)):
-        raise AssertionError("patch gather != plain on the lockstep step's planes")
-    res = {"gray_shape": tuple(gray.shape), "planes_shape": tuple(planes.shape),
-           "corners": int(x0.shape[1]), "max_abs_err": 0.0}
+        embed_boxes(x, det["boxes_xywh"], gather=hwc_recorder(seen))
+    res = {"gray_shape": tuple(gray.shape), "gather": hwc_kernel_check(seen, reps)}
     res["fast_bound_ms"], res["fast_bound_by"] = fast_bound_ms(tuple(gray.shape))
-    res["gather_bound_ms"], _, res["gather_bytes"] = patch_bound_ms(planes, x0, y0)
     if device == "cuda":
         res["fast"] = time_fast(gray, reps)
-        res["gather_ms"] = cuda_ms(lambda: patches.patches32(planes, x0, y0), reps)
-        res["gather_plain_ms"] = cuda_ms(lambda: patches.patches32_torch(planes, x0, y0), reps)
-        res["gather_library_ms"] = cuda_ms(lambda: unfold_gather(planes, x0, y0), reps)
+        res["embed_ms"] = cuda_ms(lambda: embed_boxes(x, det["boxes_xywh"]), reps)
         # the detector per frame at the step's batch and at four times it
         with torch.no_grad():
             res["detect_ms_per_frame"] = {
@@ -4126,13 +4273,13 @@ def lockstep_line(lk: dict, seconds: float, smi: str) -> str:
             f"{[round(x, 2) for x in lock]}, run_extraction one video after another "
             f"{[round(x, 2) for x in serial]}; {b['rows']} rows, camera error "
             f"{b['camera_err_px']:.3f} px, launches {b['launches']}, embedding norm err "
-            f"{lk['emb_norm_err']:.2e}; peak mem {peak} GiB; (c) FAST {k['gray_shape']} and "
-            f"gather {k['planes_shape']} x {k['corners']} exact")
+            f"{lk['emb_norm_err']:.2e}; peak mem {peak} GiB; (c) FAST {k['gray_shape']} exact")
     if "fast" in k:
-        line += (f": FAST {k['fast']['ms']:.4f} ms (plain {k['fast']['plain_ms']:.3f}, bound "
-                 f"{k['fast_bound_ms']:.4f}), gather {k['gather_ms']:.4f} ms (plain "
-                 f"{k['gather_plain_ms']:.3f}, unfold-gather {k['gather_library_ms']:.3f}, bound "
-                 f"{k['gather_bound_ms']:.4f})")
+        line += (f": {k['fast']['ms']:.4f} ms (plain {k['fast']['plain_ms']:.3f}, bound "
+                 f"{k['fast_bound_ms']:.4f})")
+    line += f"; {hwc_text(k['gather'])}"
+    if "fast" in k:
+        line += f", embed_boxes {k['embed_ms']:.3f} ms"
         line += ", detect_batch ms per frame at batch " + ", ".join(
             f"{n}: {ms:.1f}" for n, ms in k["detect_ms_per_frame"].items())
     return line + (f"; (d) batch --parallel-videos 4 twice: stage calls {lk['d_calls_0']} then "
@@ -4181,13 +4328,11 @@ def sequential_line(sq: dict, seconds: float, smi: str) -> str:
     line += (f"; card vs CPU at imgsz {sq['check_imgsz']}: {cc['valid']} valid, scores "
              f"{cc['score_err']:.2e}, boxes {cc['box_err_px']:.2e} px (slot-wise "
              f"{cc['slot_box_err_px']:.2e})")
+    line += "; on the path's own inputs: "
     if "fast" in k:
-        line += (f"; on the path's own inputs: fast_score {k['gray_shape']} "
-                 f"{fast_line(k['fast'])}, patch_gather {k['planes_shape']} x {k['corners']} "
-                 f"kernel {k['gather_ms']:.4f} ms, plain {k['gather_plain_ms']:.3f} ms, "
-                 f"unfold-gather {k['gather_library_ms']:.3f} ms, bound "
-                 f"{k['gather_bound_ms']:.4f} ms ({k['gather_bytes'] / 1e6:.1f} MB)")
-    return line + f" [{smi}]"
+        line += (f"fast_score {k['gray_shape']} {fast_line(k['fast'])}, embed_boxes "
+                 f"{k['embed_ms']:.3f} ms, ")
+    return line + hwc_text(k["gather"]) + f" [{smi}]"
 
 
 def fast_line(res: dict) -> str:
@@ -4233,11 +4378,27 @@ def breakdown_lines(brk: dict) -> list:
     return lines
 
 
+def gather_text(r: dict) -> str:
+    """One shape's float-gather numbers for the kernel phase's line."""
+    text = f"{r['shape']} x {r['corners']}"
+    if "ms" in r:
+        text += (f": kernel_ms={r['ms']:.4f} ({100 * r['bound_ms'] / r['ms']:.1f}% of the bound) "
+                 f"as_called_ms={r['eager_ms']:.4f} unfold_gather_ms={r['library_ms']:.4f} "
+                 f"plain_ms={r['plain_ms']:.3f}")
+    return text + f" bound_ms={r['bound_ms']:.4f} ({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB)"
+
+
+GATHER_KEYS = ("shape", "corners", "ms", "eager_ms", "library_ms", "plain_ms", "bound_ms")
+HWC_KEYS = ("shape", "corners", "pool2", "mean4", "ms", "eager_ms", "library_ms", "plain_ms",
+            "bound_ms", "kernel_gib")
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: int, res: dict,
                  sequential_launches: int, lockstep_launches: int, lockstep: dict,
-                 render_launches: int, train_launches: int, features_launches: int) -> dict:
+                 render_launches: int, train_launches: int, features_launches: int,
+                 **extra) -> dict:
     """One kernel's entry of the JSON line; ``lockstep`` holds its shape,
-    time and bound on the lockstep phase's own inputs."""
+    time and bound on the lockstep phase's own inputs; ``extra`` adds keys."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": res["max_abs_err"], "ms": res["ms"],
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
@@ -4245,7 +4406,7 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int, res: dict
             "launches_lockstep": lockstep_launches, **{f"{k}_lockstep": v
                                                         for k, v in lockstep.items()},
             "launches_render": render_launches, "launches_train": train_launches,
-            "launches_features": features_launches}
+            "launches_features": features_launches, **extra}
 
 
 def multi_entry(mu: dict) -> dict:
@@ -4303,11 +4464,9 @@ def main(argv) -> int:
             f"{fast_line(kern)} [{dev['smi']}]")
         t = time.perf_counter()
         pg = phase_patches("cuda")
-        log(f"kernel ok {time.perf_counter() - t:.1f}s patch_gather exact on {PATCH_SHAPE} x "
-            f"{PATCH_CORNERS} and (2,37,53) x 130 (unfold-gather equal too); {PATCH_SHAPE} x "
-            f"{PATCH_CORNERS}: kernel_ms={pg['ms']:.4f} plain_ms={pg['plain_ms']:.3f} "
-            f"unfold_gather_ms={pg['library_ms']:.3f} bound_ms={pg['bound_ms']:.4f} "
-            f"({pg['bound_by']}, {pg['bytes'] / 1e6:.1f} MB) [{dev['smi']}]")
+        log(f"kernel ok {time.perf_counter() - t:.1f}s patch_gather exact (and unfold-gather) "
+            f"on (2,37,53) x 130 and " + "; ".join(gather_text(r) for r in pg["shapes"])
+            + f" [{dev['smi']}]")
         if kernels_only:
             log(f"kernels-only ok {time.perf_counter() - t_all:.1f}s")
             return 0
@@ -4407,7 +4566,6 @@ def main(argv) -> int:
             print(f"    kernel {ms:9.3f} ms  x{count:<6d} {name[:90]}", flush=True)
 
         t = time.perf_counter()
-        torch.cuda.reset_peak_memory_stats()
         rd = phase_reid(main_run["fx"].detector, main_run["frames"], steady["frames"],
                         main_run["reader"], "cuda", chunk=chunk, seed=seed)
         rchecks, remb = rd["checks"], rd["emb"]
@@ -4417,8 +4575,7 @@ def main(argv) -> int:
             f"{rchecks['tracks']} tracks, camera error {rchecks['camera_err_px']:.3f} px, launches "
             f"{rd['launches']}, {remb['valid']} valid embeddings: norm err {remb['norm_err']:.2e}, "
             f"vs plain gather {remb['plain_err']:.2e}; on the first chunk's own inputs "
-            f"embed_boxes {remb['embed_ms']:.3f} ms, patch gather {remb['gather_ms']:.4f} ms "
-            f"(bound {remb['gather_bound_ms']:.4f} ms, {remb['gather_bytes'] / 1e6:.1f} MB); "
+            f"embed_boxes {remb['embed_ms']:.3f} ms, {hwc_text(remb['gather'])}; "
             f"one more chunk {rd['timed_ms']:.1f} ms with "
             f"ReID against the steady median {steady['median_ms']:.1f} ms without (camera error "
             f"{rd['timed_camera_err_px']:.3f} px); the same {len(rd['turns']['reid'])} held chunks "
@@ -4426,11 +4583,12 @@ def main(argv) -> int:
             f"{[round(m, 1) for m in rd['turns']['plain']]} ms, with "
             f"{[round(m, 1) for m in rd['turns']['reid']]} ms, median difference "
             f"{rd['turn_diff_ms']:.1f} ms; learned head chunk {rd['head_ms']:.1f} ms "
-            f"(first, embed_boxes {rd['head_emb']['embed_ms']:.3f} ms), "
+            f"(first, embed_boxes {rd['head_emb']['embed_ms']:.3f} ms, "
+            f"{hwc_text(rd['head_emb']['gather'])}), "
             f"{rd['head_checks']['rows']} rows, norm err {rd['head_emb']['norm_err']:.2e}, vs "
             f"plain gather {rd['head_emb']['plain_err']:.2e}, max |head - projection| "
-            f"{rd['head_vs_projection']:.3f}; peak mem "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{dev['smi']}]")
+            f"{rd['head_vs_projection']:.3f}; the extract run's peak mem "
+            f"{rd['peak_gib']:.2f} GiB [{dev['smi']}]")
 
         t = time.perf_counter()
         cli = phase_cli(main_run["fx"].detector, main_run["frames"], main_run["reader"], "cuda",
@@ -4519,12 +4677,24 @@ def main(argv) -> int:
                      {"shape": lk_k["gray_shape"], "ms": lk_k["fast"]["ms"],
                       "bound_ms": lk_k["fast_bound_ms"]}, render_launches["fast_score"],
                      tr["launches"]["fast_score"], ft["a"]["launches"]["fast_score"]),
+        # the ReID path launches the HWC entry: its numbers on the chunk's own
+        # inputs lead; the float gather's (describe's) shapes follow
         kernel_entry("patch_gather", PATCH_SOURCE, PATCH_REPLACES,
-                     rd["launches"]["patch_gather"], pg, sq["c_launches"]["patch_gather"],
+                     rd["launches"]["patch_gather"],
+                     {**remb["gather"], "max_abs_err": max(pg["max_abs_err"],
+                                                           remb["gather"]["max_abs_err"])},
+                     sq["c_launches"]["patch_gather"],
                      lk["b"]["launches"]["patch_gather"],
-                     {"shape": lk_k["planes_shape"] + (lk_k["corners"],), "ms": lk_k["gather_ms"],
-                      "bound_ms": lk_k["gather_bound_ms"]}, render_launches["patch_gather"],
-                     tr["launches"]["patch_gather"], ft["a"]["launches"]["patch_gather"]),
+                     {"shape": lk_k["gather"]["shape"] + (lk_k["gather"]["corners"],),
+                      "ms": lk_k["gather"]["ms"], "bound_ms": lk_k["gather"]["bound_ms"]},
+                     render_launches["patch_gather"], tr["launches"]["patch_gather"],
+                     ft["a"]["launches"]["patch_gather"],
+                     shapes=[{k: r.get(k) for k in GATHER_KEYS} for r in pg["shapes"]],
+                     hwc={name: {k: g.get(k) for k in HWC_KEYS}
+                          for name, g in (("reid", remb["gather"]),
+                                          ("reid_head", rd["head_emb"]["gather"]),
+                                          ("sequential", sq["kernels"]["gather"]),
+                                          ("lockstep", lk_k["gather"]))}),
     ], "multi": multi_entry(mu)}
     print(json.dumps(kernels), flush=True)
     print(dev["smi"], flush=True)

@@ -42,7 +42,7 @@ from geotrax_tpu_torch._device import resolve_device
 from geotrax_tpu_torch.ops import features, prng
 from geotrax_tpu_torch.ops.clahe import clahe
 from geotrax_tpu_torch.ops.homography import adjugate3, normalize_h
-from geotrax_tpu_torch.ops.patches import PATCH, patches32
+from geotrax_tpu_torch.ops.patches import PATCH, patches32_hwc
 from geotrax_tpu_torch.ops.ransac import ransac_fit, sample_indices, sample_weights
 from geotrax_tpu_torch.ops.resize import resize_u8_linear
 from geotrax_tpu_torch.ops.sift import match_l2
@@ -70,40 +70,32 @@ def _projection_on(din: int, dout: int, device: torch.device) -> torch.Tensor:
 
 def embed_boxes(frames_u8: torch.Tensor, boxes_xywh: torch.Tensor, emb_dim: int = EMB_DIM,
                 pooled: Optional[torch.Tensor] = None, head_params: Optional[dict] = None,
-                gather: Callable = patches32) -> torch.Tensor:
+                gather: Callable = patches32_hwc) -> torch.Tensor:
     """(C,H,W,3) uint8 + (C,M,4) full-res cxcywh -> (C,M,emb_dim) L2-normed
     appearance embeddings: a 32x32 RGB patch at each box centre on the
     0.5x-pooled image, 4x4-averaged per channel and projected through a
     fixed orthonormal matrix, or fed to the learned head ``head_params``
-    (track/reid.py). ``pooled`` is an existing (C,H/2,W/2,3) half-resolution
-    image (the shared resize) used instead of 2x2-pooling the frames.
+    (track/reid.py). ``pooled`` is an existing (C,H/2,W/2,3) uint8
+    half-resolution image (the shared resize) used instead of 2x2-pooling
+    the frames.
 
-    The patches of every channel of every frame come from one ``gather``
-    call on the (3*C, H/2, W/2) channel planes: the CUDA kernel on the card
-    (``ops/patches.py``); ``gather`` is replaceable only so that a check can
-    run the plain version on the same inputs."""
+    The patches (or their 4x4 means) of every channel of every frame come
+    from one ``gather`` call on the uint8 image itself: the CUDA kernel on
+    the card (``ops/patches.py:patches32_hwc``), which pools the frames where
+    it reads them; ``gather`` is replaceable only so that a check can run
+    the plain version on the same inputs."""
     c, h, w = frames_u8.shape[:3]
     h2, w2 = h // 2, w // 2
-    if pooled is None:
-        # trim to even dims first, as the reference does for odd H/W
-        f = frames_u8[:, :h2 * 2, :w2 * 2].to(torch.float32)
-        pooled = 0.25 * (f[:, 0::2, 0::2] + f[:, 0::2, 1::2] + f[:, 1::2, 0::2] + f[:, 1::2, 1::2])
-    else:
-        pooled = pooled.to(torch.float32)
     half = PATCH // 2
     # the int32 cast truncates toward zero, as the reference's astype does
     x0 = torch.clamp((boxes_xywh[..., 0] * 0.5).to(torch.int32) - half, 0, w2 - PATCH)
     y0 = torch.clamp((boxes_xywh[..., 1] * 0.5).to(torch.int32) - half, 0, h2 - PATCH)
     m = x0.shape[1]
-    planes = pooled.permute(0, 3, 1, 2).reshape(c * 3, h2, w2).contiguous()
-    corners_x = x0[:, None, :].expand(c, 3, m).reshape(c * 3, m)
-    corners_y = y0[:, None, :].expand(c, 3, m).reshape(c * 3, m)
-    patches = gather(planes, corners_x, corners_y).reshape(c, 3, m, PATCH, PATCH)
-    if head_params is not None:
-        nchw = patches.permute(0, 2, 1, 3, 4).reshape(c * m, 3, PATCH, PATCH)
-        return reid._embed_nchw(head_params, nchw).reshape(c, m, -1)
-    pooled8 = patches.reshape(c, 3, m, 8, 4, 8, 4).mean(dim=(4, 6))      # (C,3,M,8,8)
-    flat = pooled8.permute(0, 2, 1, 3, 4).reshape(c, m, 3 * 64)          # (C,M,192)
+    image = frames_u8 if pooled is None else pooled
+    got = gather(image.contiguous(), x0, y0, pool2=pooled is None, mean4=head_params is None)
+    if head_params is not None:                                          # (C,M,3,32,32)
+        return reid._embed_nchw(head_params, got.reshape(c * m, 3, PATCH, PATCH)).reshape(c, m, -1)
+    flat = got.reshape(c, m, 3 * 64)                                     # (C,M,3,8,8)
     emb = flat @ _projection_on(flat.shape[-1], emb_dim, flat.device)
     return emb / torch.clamp_min(torch.linalg.vector_norm(emb, dim=-1, keepdim=True), 1e-12)
 

@@ -196,9 +196,12 @@ def seeded_corners(b, h, w, k, seed):
 
 
 @pytest.mark.gpu
-# (12, 1080, 1920) x 1000: the lockstep step's ReID planes (4 frames, max_det corners)
+# (1, 1080, 1920) x 2000: describe's plane; (3 | 12 | 96, 1080, 1920) x 1000: a frame's,
+# the lockstep step's and a chunk's channel planes (max_det corners); (2, 37, 53):
+# 4W is not a multiple of 16 bytes, so the register path
 @pytest.mark.parametrize("shape,k", [((96, 1080, 1920), 1000), ((2, 37, 53), 130), ((1, 32, 32), 3),
-                                     ((12, 1080, 1920), 1000)])
+                                     ((12, 1080, 1920), 1000), ((3, 1080, 1920), 1000),
+                                     ((1, 1080, 1920), 2000)])
 def test_patch_gather_equals_plain_on_card(shape, k):
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(k)
@@ -222,6 +225,18 @@ def test_patch_gather_equals_plain_on_card(shape, k):
 
 
 @pytest.mark.gpu
+# 36 columns: TMA; 37: 4W is not a multiple of 16 bytes, the register path
+@pytest.mark.parametrize("w", [36, 37])
+def test_patch_gather_takes_more_planes_than_a_grid_row(w):
+    """The flat grid has no 65535-plane cap (a grid y dimension would have one)."""
+    _need_card()
+    planes = torch.rand((70000, 32, w), device="cuda") * 255.0
+    x0, y0 = seeded_corners(70000, 32, w, 2, seed=1)
+    torch.testing.assert_close(patches.patches32(planes, x0, y0),
+                               patches.patches32_torch(planes, x0, y0), rtol=0, atol=0)
+
+
+@pytest.mark.gpu
 def test_patch_wrapper_rejects_what_the_kernel_does_not_take():
     _need_card()
     planes = torch.zeros((2, 40, 64), device="cuda")
@@ -234,6 +249,51 @@ def test_patch_wrapper_rejects_what_the_kernel_does_not_take():
         patches.patches32(planes[:, :31], x0, x0)
     with pytest.raises(ValueError):
         patches.patches32(planes, x0.cpu(), x0.cpu())
+
+
+def seeded_image(c, h, w, seed):
+    return torch.from_numpy(np.random.default_rng(seed).integers(0, 256, (c, h, w, 3))
+                            .astype(np.uint8)).cuda()
+
+
+@pytest.mark.gpu
+# (32, 1080, 1920): a chunk's shared half-resolution image; (1 | 4, 2160, 3840): the
+# frames of the sequential loop and of a lockstep step, pooled in the kernel; (2, 75, 107):
+# 3W is not a multiple of 16 bytes (the register path), H and W odd
+@pytest.mark.parametrize("shape,k,pool2", [((32, 1080, 1920), 1000, False),
+                                           ((1, 2160, 3840), 1000, True),
+                                           ((4, 2160, 3840), 1000, True),
+                                           ((2, 75, 107), 130, False), ((2, 75, 107), 130, True)])
+@pytest.mark.parametrize("mean4", [False, True])
+def test_hwc_gather_equals_plain_on_card(shape, k, pool2, mean4):
+    _need_card()
+    image = seeded_image(*shape, seed=k + pool2)
+    f = 2 if pool2 else 1
+    x0, y0 = seeded_corners(shape[0], shape[1] // f, shape[2] // f, k, seed=k)
+    before = patches.patches32.launches
+    out = patches.patches32_hwc(image, x0, y0, pool2, mean4)
+    torch.cuda.synchronize()
+    assert patches.patches32.launches == before + 1
+    assert out.shape == (shape[0], k, 3) + ((8, 8) if mean4 else (32, 32))
+    torch.testing.assert_close(out, patches.patches32_hwc_torch(image, x0, y0, pool2, mean4),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_hwc_wrapper_rejects_what_the_kernel_does_not_take():
+    _need_card()
+    image = seeded_image(2, 80, 96, seed=0)
+    x0 = torch.zeros((2, 5), dtype=torch.int32, device="cuda")
+    before = patches.patches32.launches
+    with pytest.raises(TypeError):
+        patches.patches32_hwc(image.float(), x0, x0, False, True)
+    with pytest.raises(ValueError):
+        patches.patches32_hwc(image.transpose(1, 2), x0, x0, False, True)
+    with pytest.raises(ValueError):
+        patches.patches32_hwc(image, x0.cpu(), x0.cpu(), False, True)
+    with pytest.raises(ValueError):
+        patches.patches32_hwc(image[:, :62], x0, x0, True, True)  # 31 pooled rows
+    assert patches.patches32.launches == before
 
 
 @pytest.mark.gpu

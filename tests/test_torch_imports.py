@@ -17,6 +17,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "geotrax_tpu_torch"
 REFUSED = ("jax", "jaxlib", "flax", "optax", "yaml", "cv2", "pandas", "tqdm", "PIL", "geotrax_tpu")
@@ -54,10 +56,13 @@ kern = chip_smoke.phase_kernel("cpu", check_shape=(2, 40, 60), odd_shape=(2, 37,
                                time_shape=(32, 1080, 1920))
 assert kern["max_abs_err"] == 0.0 and kern["bound_by"] == "bytes", kern
 assert abs(kern["bound_ms"] - 2 * 4 * 32 * 1080 * 1920 / 3.35e12 * 1e3) < 1e-9
-pg = chip_smoke.phase_patches("cpu", check_shape=(6, 40, 70), k=20)
-assert pg["max_abs_err"] == 0.0 and pg["bound_by"] == "bytes" and pg["ms"] is None, pg
+pg = chip_smoke.phase_patches("cpu", shapes=(((1, 40, 70), 30), ((6, 40, 70), 20)))
+assert pg["max_abs_err"] == 0.0 and [r["shape"] for r in pg["shapes"]] == [(1, 40, 70),
+                                                                          (6, 40, 70)], pg
+last = pg["shapes"][-1]
+assert last["bound_by"] == "bytes" and "ms" not in last, last
 # every patch written once; the corner patches overlap, so fewer pixels are read
-assert 4 * 6 * 20 * (1024 + 2) < pg["bytes"] < 4 * 6 * 20 * (2 * 1024 + 2), pg
+assert 4 * 6 * 20 * (1024 + 2) < last["bytes"] < 4 * 6 * 20 * (2 * 1024 + 2), last
 # at this size the random detector's one box masks about half of the frame,
 # so few features remain and the camera check gets a wide limit
 run = chip_smoke.phase_main("cpu", width=512, height=288, n_frames=6, chunk=4, variant="n",
@@ -75,6 +80,11 @@ assert rd["stats"]["chunks"] == 2 and rd["checks"]["rows"] > 0, rd["checks"]
 assert rd["launches"] == {"fast_score": 0, "patch_gather": 0}, rd["launches"]
 assert rd["emb"]["valid"] > 0 and rd["emb"]["plain_err"] == 0.0, rd["emb"]
 assert rd["head_emb"]["plain_err"] == 0.0 and rd["head_vs_projection"] > 0.1, rd
+# the chunk's own HWC gathers: the shared resize's uint8 image, means for the
+# projection and patches for the head
+g, gh = rd["emb"]["gather"], rd["head_emb"]["gather"]
+assert g["shape"] == gh["shape"] == (4, 144, 256, 3) and g["corners"] == gh["corners"], g
+assert (g["pool2"], g["mean4"], gh["mean4"]) == (False, True, False) and "ms" not in g, (g, gh)
 assert rd["timed_camera_err_px"] < 10.0 and rd["head_checks"]["rows"] > 0, rd
 assert len(rd["turns"]["plain"]) == len(rd["turns"]["reid"]) == 2, rd["turns"]
 ''' + EPILOGUE
@@ -180,6 +190,35 @@ def test_smoke_patch_bound_reads_each_covered_pixel_once():
     ms, bound_by, moved = chip_smoke.patch_bound_ms(planes, x0, y0)
     assert bound_by == "bytes"
     assert moved == 4 * (8 * 1024 + covered + 2 * 8)
+    assert ms == moved / chip_smoke.HBM_BYTES_PER_S * 1e3
+
+
+@pytest.mark.parametrize("pool2", [False, True])
+@pytest.mark.parametrize("mean4", [False, True])
+def test_smoke_hwc_bound_reads_each_covered_byte_once(pool2, mean4):
+    """The HWC gather's bound counts every patch (or its means) written and
+    every uint8 byte under some patch, once: with ``pool2`` the 2x2 image
+    pixels of each covered pooled pixel."""
+    import numpy as np
+    import torch
+
+    import chip_smoke
+
+    f = 2 if pool2 else 1
+    # with pool2 the odd row and column are trimmed away
+    image = torch.zeros((2, 64 * f + f - 1, 80 * f + f - 1, 3), dtype=torch.uint8)
+    x0 = torch.tensor([[0, 0, 10, -5], [48, 70, 48, 30]], dtype=torch.int32)
+    y0 = torch.tensor([[0, 0, 5, -9], [32, 40, 0, 16]], dtype=torch.int32)
+    covered = 0
+    for b in range(2):
+        mask = np.zeros((64, 80), bool)
+        for x, y in zip(x0[b].tolist(), y0[b].tolist()):
+            x, y = min(max(x, 0), 80 - 32), min(max(y, 0), 64 - 32)
+            mask[y:y + 32, x:x + 32] = True
+        covered += int(mask.sum())
+    ms, bound_by, moved = chip_smoke.hwc_bound_ms(image, x0, y0, pool2, mean4)
+    assert bound_by == "bytes"
+    assert moved == 3 * f * f * covered + 4 * 8 * 3 * (64 if mean4 else 1024) + 8 * 8
     assert ms == moved / chip_smoke.HBM_BYTES_PER_S * 1e3
 
 

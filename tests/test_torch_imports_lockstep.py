@@ -27,7 +27,8 @@ assert b["launches"] == {"fast_score": 0, "patch_gather": 0}, b["launches"]
 assert len(b["runs"]["lockstep"]) == len(b["runs"]["serial"]) == 1
 assert lk["emb_norm_err"] < 1e-5 and lk["emb_rows"] == 4 * 4 * 64 - 64, lk["emb_rows"]
 assert lk["kernels"]["gray_shape"] == (4, 216, 384), lk["kernels"]
-assert lk["kernels"]["planes_shape"] == (12, 216, 384) and lk["kernels"]["corners"] == 64
+g = lk["kernels"]["gather"]
+assert g["shape"] == (4, 432, 768, 3) and g["corners"] == 64 and g["pool2"] and g["mean4"], g
 assert lk["d_calls_0"] == {"lockstep": 1, "per_file": 0}, lk["d_calls_0"]
 assert lk["d_calls_1"] == {"lockstep": 0, "per_file": 0}, lk["d_calls_1"]
 assert "lockstep ok" in chip_smoke.lockstep_line(lk, 1.0, "cpu")

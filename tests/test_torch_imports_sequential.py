@@ -24,7 +24,8 @@ assert sq["c"]["stats"]["frames"] == 6 and sq["c_detections_frame0"] == sq["vehi
 assert sq["c_launches"] == {"fast_score": 0, "patch_gather": 0}, sq["c_launches"]
 assert sq["c_card_vs_cpu"]["score_err"] == 0.0 and sq["c_flops"] > 1e10, sq
 assert sq["kernels"]["gray_shape"] == (1, 216, 384), sq["kernels"]
-assert sq["kernels"]["planes_shape"] == (3, 216, 384) and sq["kernels"]["corners"] == 1000
+g = sq["kernels"]["gather"]
+assert g["shape"] == (1, 432, 768, 3) and g["corners"] == 1000 and g["pool2"] and g["mean4"], g
 assert "sequential ok" in chip_smoke.sequential_line(sq, 1.0, "cpu")
 ''' + EPILOGUE
 

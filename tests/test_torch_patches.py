@@ -1,9 +1,12 @@
-"""The port's patch gather against the JAX package: ``patches32_torch`` (the
-plain version of ``csrc/patch_gather.cu``) equals ``features.patches32``
-(the XLA gather in CLIP mode) exactly, on corners that are already clipped
-and on corners anywhere (out of range, at every edge), and equals the Pallas
-kernel ``pallas_patches.extract_patches`` in interpret mode on clipped
-corners (the only corners that kernel takes)."""
+"""The port's patch gathers against the JAX package: ``patches32_torch`` (the
+plain version of ``csrc/patch_gather.cu``'s float gather) equals
+``features.patches32`` (the XLA gather in CLIP mode) exactly, on corners that
+are already clipped and on corners anywhere (out of range, at every edge),
+and equals the Pallas kernel ``pallas_patches.extract_patches`` in interpret
+mode on clipped corners (the only corners that kernel takes);
+``patches32_hwc_torch`` (the plain version of its uint8 HWC entry) equals the
+reference embedding's route (2x2 pool, a ``patches32`` per channel, the 4x4
+means) exactly in all four modes."""
 
 import jax
 import jax.numpy as jnp
@@ -113,3 +116,66 @@ def test_a_failing_build_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed for patch_gather.cu"):
         _cuda.build("patch_gather")
     assert not list((tmp_path / "build").glob("*.so"))
+
+
+def _image(c, h, w, seed):
+    return np.random.default_rng(seed).integers(0, 256, (c, h, w, 3)).astype(np.uint8)
+
+
+def _jax_hwc(image, x0, y0, pool2, mean4):
+    """The reference's route (geotrax_tpu/pipeline/device_pipeline.py:
+    embed_boxes): the 2x2-pooled frames or the image as float32, one
+    ``jax.vmap(patches32)`` per channel, then its reshape-mean; stacked as
+    (C,M,3,...)."""
+    img = jnp.asarray(image)
+    if pool2:
+        h2, w2 = image.shape[1] // 2, image.shape[2] // 2
+        f = img[:, :h2 * 2, :w2 * 2].astype(jnp.float32)
+        pooled = 0.25 * (f[:, 0::2, 0::2] + f[:, 0::2, 1::2] + f[:, 1::2, 0::2] + f[:, 1::2, 1::2])
+    else:
+        pooled = img.astype(jnp.float32)
+    chans = [jax.vmap(jax_patches32)(pooled[..., ch], jnp.asarray(x0), jnp.asarray(y0))
+             for ch in range(3)]
+    if mean4:
+        chans = [p.reshape(p.shape[:2] + (8, 4, 8, 4)).mean(axis=(3, 5)) for p in chans]
+    return np.asarray(jnp.stack(chans, axis=2))
+
+
+# (C,H,W) and M; odd H and W (the 2x2 pool trims them), an image exactly one
+# (pooled) patch large, and M=0
+HWC_CASES = [((2, 75, 107), 9), ((3, 97, 131), 17), ((1, 64, 64), 5), ((2, 70, 96), 0)]
+
+
+@pytest.mark.parametrize("pool2", [False, True])
+@pytest.mark.parametrize("mean4", [False, True])
+@pytest.mark.parametrize("shape,m", HWC_CASES)
+def test_hwc_plain_equals_reference_route(shape, m, pool2, mean4):
+    image = _image(*shape, seed=sum(shape) + m)
+    f = 2 if pool2 else 1
+    hp, wp = shape[1] // f, shape[2] // f
+    anywhere = [a[:, :m] for a in _anywhere(shape[0], hp, wp, max(m, 8), seed=m)]
+    for x0, y0 in (_clipped(shape[0], hp, wp, m, seed=m), anywhere):
+        ours = patches.patches32_hwc_torch(torch.from_numpy(image), torch.from_numpy(x0),
+                                           torch.from_numpy(y0), pool2, mean4).numpy()
+        assert ours.shape == (shape[0], m, 3) + ((8, 8) if mean4 else (32, 32))
+        np.testing.assert_array_equal(ours, _jax_hwc(image, x0, y0, pool2, mean4))
+
+
+def test_hwc_wrapper_on_cpu_runs_the_plain_version_and_checks_its_inputs():
+    image = torch.from_numpy(_image(2, 70, 96, seed=3))
+    x0, y0 = (torch.from_numpy(a) for a in _anywhere(2, 35, 48, 10, seed=3))
+    before = patches.patches32.launches
+    got = patches.patches32_hwc(image, x0, y0, True, False)
+    assert patches.patches32.launches == before  # no kernel on the CPU
+    np.testing.assert_array_equal(got.numpy(), patches.patches32_hwc_torch(image, x0, y0, True,
+                                                                           False).numpy())
+    with pytest.raises(TypeError):  # the image is never widened to float32 first
+        patches.patches32_hwc(image.float(), x0, y0, True, False)
+    with pytest.raises(TypeError):
+        patches.patches32_hwc(image, x0.float(), y0.float(), True, False)
+    with pytest.raises(ValueError):  # (C,H,W,3) only
+        patches.patches32_hwc(image[..., :2], x0, y0, True, False)
+    with pytest.raises(ValueError):  # (C,M) corners for C images
+        patches.patches32_hwc(image, x0[:1], y0[:1], True, False)
+    with pytest.raises(ValueError):  # 35 pooled rows hold a patch, 31 do not
+        patches.patches32_hwc(image[:, :62], x0, y0, True, False)

@@ -1,9 +1,9 @@
 """The port's appearance embedding against the JAX package: ``embed_boxes``
 (projection path, with and without a shared half-resolution image, and with
-a learned head), ``_emb_projection``, and the ReID head of track/reid.py
-read from the reference's own checkpoint format. Embeddings agree within
-1e-5 (projection) and 1e-4 (conv head: float32 convolutions summed in
-another order)."""
+a learned head), what it hands its uint8 gather, ``_emb_projection``, and
+the ReID head of track/reid.py read from the reference's own checkpoint
+format. Embeddings agree within 1e-5 (projection) and 1e-4 (conv head:
+float32 convolutions summed in another order)."""
 
 import logging
 
@@ -15,6 +15,7 @@ import torch
 
 from geotrax_tpu.pipeline import device_pipeline as jdp
 from geotrax_tpu.track import reid as jreid
+from geotrax_tpu_torch.ops.patches import patches32_hwc
 from geotrax_tpu_torch.pipeline import device_pipeline as tdp
 from geotrax_tpu_torch.track import reid as treid
 
@@ -174,3 +175,36 @@ def test_embed_boxes_separates_colors():
     red1, blue1 = emb[1, 0], emb[1, 1]
     assert red0 @ red1 > 0.99 and blue0 @ blue1 > 0.99
     assert red0 @ blue0 < red0 @ red1 - 0.05
+
+
+@pytest.mark.parametrize("with_pooled", [False, True])
+@pytest.mark.parametrize("with_head", [False, True])
+def test_embed_boxes_gathers_the_uint8_image_once(with_pooled, with_head, jax_head_file):
+    """``embed_boxes`` hands its gather the uint8 image itself (the frames,
+    pooled in the gather, or the shared half-resolution image), with no
+    float32 copy, and the (C,M) corners once: one call, the 4x4 means for
+    the projection, the NCHW patches for the head; the result equals the
+    reference's."""
+    params, path = jax_head_file
+    frames, boxes = _frames_and_boxes(2, 97, 131, 7, seed=21)
+    pooled = (np.random.default_rng(22).integers(0, 256, (2, 48, 65, 3)).astype(np.uint8)
+              if with_pooled else None)
+    head = treid.load_head(path) if with_head else None
+    calls = []
+
+    def recording(image, x0, y0, pool2, mean4):
+        calls.append((image, x0, pool2, mean4))
+        return patches32_hwc(image, x0, y0, pool2, mean4)
+
+    ours = tdp.embed_boxes(torch.from_numpy(frames), torch.from_numpy(boxes),
+                           pooled=None if pooled is None else torch.from_numpy(pooled),
+                           head_params=head, gather=recording).numpy()
+    assert len(calls) == 1
+    image, x0, pool2, mean4 = calls[0]
+    assert image.dtype == torch.uint8 and x0.shape == (2, 7) and x0.dtype == torch.int32
+    np.testing.assert_array_equal(image.numpy(), frames if pooled is None else pooled)
+    assert (pool2, mean4) == (pooled is None, head is None)
+    ref = np.asarray(jdp.embed_boxes(jnp.asarray(frames), jnp.asarray(boxes),
+                                     pooled=None if pooled is None else jnp.asarray(pooled),
+                                     head_params=params if with_head else None))
+    np.testing.assert_allclose(ours, ref, rtol=0, atol=HEAD_ATOL if with_head else EMB_ATOL)
