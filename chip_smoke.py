@@ -8,6 +8,7 @@
     python3 chip_smoke.py --train-only     # phases 0, 1 and 14 only, no result line
     python3 chip_smoke.py --features-only  # phases 0, 1 and 15 only, no result line
     python3 chip_smoke.py --multi-only     # phases 0, 1 and 16 only, no result line
+    python3 chip_smoke.py --tools-only     # phases 0, 1 and 17 only, no result line
 
 Phases, one ``[smoke] <phase> ok <seconds>s ...`` line each; a failing phase
 ends the run with a non-zero exit and no result line:
@@ -221,6 +222,26 @@ ends the run with a non-zero exit and no result line:
                held as (b), (d) over the cards, and ``batch
                --parallel-videos 4 --devices <cards>`` through the lockstep
                equal to ``--devices 1``; else a line says (e) did not run
+ 17 tools      the port's tools as users run them (``python -m
+               geotrax_tpu_torch.tools.<name>``'s main): (a) annotate_frames
+               on TOOLS_IMAGES seeded 3840x2160 PNGs with 36 vehicles each,
+               YOLOv8s nc=4 at the preset's imgsz 1920 (seeded, class biases
+               calibrated as in the main phase on the first image, saved as
+               .npz),
+               without and with --augment, on the card and on the CPU: every
+               label line with a partner on the other device (class equal,
+               box within 1e-3 px, score within 1e-5, both plus the printed
+               digits) unless its score sits at ``conf``; masked images
+               written; the tool's detection ms per image; (b)
+               benchmark_ortho_matching --synthetic-ortho 15000 at 250k
+               features with rsift and orb (trials cut from 2 to 1; widths
+               not cut): corner error, inliers, seconds and peak memory per
+               registration, the rsift one within 3 px with 50 inliers; the
+               FAST launches of the orb registration (through fast_detect),
+               and the kernel exact against its plain version on the grays
+               that path gave it; (c) where FFmpeg's libraries exist,
+               merge_videos_and_logs and recut_video_and_log on two small
+               clips, else one line saying the video tools did not run
 Then a JSON line describing each kernel, the card's nvidia-smi line, and as
 the last line {"ok": true, "device": {...}}. ``--kernels-only`` serves to
 time the kernels of two checkouts in one call: copy this script into the
@@ -228,7 +249,8 @@ other checkout and run it there too. ``--georef-only`` runs phases 0, 1 and
 10, ``--lockstep-only`` phases 0, 1 and 12 with its own calibrated detector,
 ``--render-only`` phases 0, 1 and 13, ``--train-only`` phases 0, 1 and 14,
 ``--features-only`` phases 0, 1 and 15 with its own georef assets,
-``--multi-only`` phases 0, 1 and 16 (no result line).
+``--multi-only`` phases 0, 1 and 16, ``--tools-only`` phases 0, 1 and 17
+(no result line).
 """
 
 from __future__ import annotations
@@ -1769,7 +1791,22 @@ def check_geo_csv(path: Path, tracks: np.ndarray, fw: int, fh: int, margin: floa
         header = fh_.readline().strip().split(",")
     if header != GEO_COLUMNS:
         raise AssertionError(f"georeferenced CSV columns {header}")
+    t = time.perf_counter()
     cols = table.read_csv(path)
+    read_s = [time.perf_counter() - t]
+    # the same read with the float cells through float() (correctly rounded,
+    # not pandas' values), the cost of matching pandas; then the port's again
+    parse_floats = table.parse_floats
+    table.parse_floats = lambda cells: np.array([float(c) for c in cells])
+    try:
+        t = time.perf_counter()
+        table.read_csv(path)
+        float_s = time.perf_counter() - t
+    finally:
+        table.parse_floats = parse_floats
+    t = time.perf_counter()
+    table.read_csv(path)
+    read_s.append(time.perf_counter() - t)
     n = len(cols["Vehicle_ID"])
     if not n > 0.5 * len(tracks):
         raise AssertionError(f"{n} rows of {len(tracks)} tracked rows")
@@ -1792,7 +1829,8 @@ def check_geo_csv(path: Path, tracks: np.ndarray, fw: int, fh: int, margin: floa
         raise AssertionError(f"sections/lanes: {wrong} of {checked} checked rows differ "
                              f"({assigned} of {n} rows assigned)")
     return {"rows": n, "checked": checked, "assigned": assigned,
-            "tracks": int(len(np.unique(cols["Vehicle_ID"])))}
+            "tracks": int(len(np.unique(cols["Vehicle_ID"]))), "read_s": read_s,
+            "float_read_s": float_s, "bytes": path.stat().st_size}
 
 
 def phase_georef(device: str = "cuda", size: int = GEO_ORTHO_PX, fw: int = 3840, fh: int = 2160,
@@ -4119,6 +4157,251 @@ def phase_features(device: str = "cuda", geo: dict | None = None, width: int = 3
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the tools layer (python -m geotrax_tpu_torch.tools.*)
+# ---------------------------------------------------------------------------
+
+TOOLS_IMAGES = 2        # 4K PNGs annotate_frames labels in each run
+TOOLS_TRIALS = 1        # --synthetic-ortho trials (the tool's default is 2)
+TOOLS_DETECTORS = ("rsift", "orb")
+# the detector's float32 card-against-CPU tolerance (tests/test_torch_gpu.py)
+TOOLS_BOX_TOL_PX, TOOLS_SCORE_TOL = 1e-3, 1e-5
+TOOLS_ERR_PX, TOOLS_INLIERS = 3.0, 50  # the rsift registration, as in the georef phase
+
+
+def label_rows(folder: Path) -> dict:
+    """{image stem: (N, 6) class, cx, cy, w, h, score} of a label folder."""
+    return {p.stem: np.array([[float(v) for v in line.split()]
+                              for line in p.read_text().splitlines()]).reshape(-1, 6)
+            for p in sorted(folder.glob("*.txt"))}
+
+
+def compare_labels(card: dict, cpu: dict, width: int, height: int, conf: float) -> dict:
+    """The card's label lines against the CPU's: every line has a partner on
+    the other side with its class, a box within TOOLS_BOX_TOL_PX and a score
+    within TOOLS_SCORE_TOL (each plus the printed digits' rounding), except a
+    line whose score is that close to ``conf`` (it may fall either side)."""
+    if card.keys() != cpu.keys():
+        raise AssertionError(f"label files differ: {sorted(card)} vs {sorted(cpu)}")
+    scale = np.array([width, height, width, height], np.float64)
+    box_tol = TOOLS_BOX_TOL_PX + 1e-6 * width   # 6 printed decimals
+    score_tol = TOOLS_SCORE_TOL + 1e-4          # 4 printed decimals
+    res = {"lines": sum(len(v) for v in card.values()),
+           "cpu_lines": sum(len(v) for v in cpu.values()),
+           "box_px": 0.0, "score": 0.0, "at_threshold": 0}
+    for name in cpu:
+        for a, b in ((card[name], cpu[name]), (cpu[name], card[name])):
+            for row in a:
+                d = (np.abs(b[:, 1:5] - row[1:5]) * scale).max(1) if len(b) else np.array([np.inf])
+                j = int(np.argmin(d))
+                if d[j] > box_tol or b[j, 0] != row[0]:
+                    if row[5] - conf <= score_tol:
+                        res["at_threshold"] += 1
+                        continue
+                    raise AssertionError(f"{name}: line {row.tolist()} has no partner on the "
+                                         f"other device (nearest {d[j]:.4g} px)")
+                res["box_px"] = max(res["box_px"], float(d[j]))
+                res["score"] = max(res["score"], abs(float(b[j, 5] - row[5])))
+    if res["score"] > score_tol:
+        raise AssertionError(f"label scores differ by {res['score']}")
+    return res
+
+
+def fast_recorder(seen: dict):
+    """A ``fast_score_map`` for ops/features.py that keeps the first gray of
+    each shape it is given and runs the kernel wrapper (whose count rises)."""
+    def record(gray, threshold=20.0):
+        key = (tuple(gray.shape), float(threshold))
+        if key not in seen:  # cloned once per shape, not on every call
+            seen[key] = gray.clone()
+        return fast.fast_score_map(gray, threshold)
+    return record
+
+
+def phase_tools(device: str = "cuda", width: int = 3840, height: int = 2160,
+                n_images: int = TOOLS_IMAGES, variant: str = "s", imgsz=None,
+                ortho_px: int = GEO_ORTHO_PX, max_features: int = 250000,
+                frame_size=(3840, 2160), trials: int = TOOLS_TRIALS, seed: int = 0,
+                vehicles: int = VEHICLES_PER_4K_FRAME) -> dict:
+    """The tools that reach the card, as users run them (see the module's
+    docstring, phase 17); the CPU rehearsal passes small sizes."""
+    from geotrax_tpu_torch.io import native
+    from geotrax_tpu_torch.io.png import write_png
+    from geotrax_tpu_torch.models.convert import save_npz
+    from geotrax_tpu_torch.tools import annotate_frames, benchmark_ortho_matching
+    from geotrax_tpu_torch.train.data import load_image
+    from geotrax_tpu_torch.utils.logging_utils import setup_logger
+
+    dev = resolve_device(device)
+    cuda = dev.type == "cuda"
+    config = smoke_config(imgsz or port_cfg.load_config()["ultralytics"]["imgsz"])
+    detect_cfg = config["ultralytics"]
+    res = {"size": (width, height), "images": n_images, "imgsz": detect_cfg["imgsz"],
+           "variant": variant}
+    logger = setup_logger("smoke.tools", dry_run=True)
+    logger.setLevel(logging.WARNING)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        # (a) annotate_frames on seeded 4K PNGs with a calibrated detector
+        t = time.perf_counter()
+        reader = smoke_reader(width, height, seed, n_images,
+                              boxes=vehicle_boxes(width, height, vehicles, seed))
+        images = tmp / "data" / "images"
+        images.mkdir(parents=True)
+        for i, frame in make_frames(reader):
+            write_png(images / f"f{i}.png", frame)
+        spec = yolov8.ModelSpec(variant=variant, nc=4)
+        model = yolov8.init_params(torch.Generator().manual_seed(seed), spec, device=device)
+        detector = Detector(model, detect_cfg, device=device)
+        res["calibrated"] = calibrate_class_bias(detector, load_image(images / "f0.png"),
+                                                 vehicles_per_frame(width, height))
+        ckpt = tmp / "yolov8s_nc4.npz"
+        save_npz(ckpt, detector.model, class_names={0: "car", 1: "bus", 2: "truck",
+                                                    3: "motorcycle"})
+        res["a_write_s"] = time.perf_counter() - t
+        runs = {}
+        for augment in (False, True):
+            for side, where in (("card", device), ("cpu", "cpu")):
+                out = tmp / f"labels_{side}_{augment}"
+                argv = [str(images), "-m", str(ckpt), "-a", str(out), "--imgsz",
+                        str(detect_cfg["imgsz"]), "--save-conf", "--save-masked", "-q",
+                        "-lp", str(tmp / "logs"), "--device", where] + (
+                            ["--augment"] if augment else [])
+                t = time.perf_counter()
+                if annotate_frames.main(argv) != 0:
+                    raise AssertionError(f"annotate_frames {argv} failed")
+                runs[side] = {"s": time.perf_counter() - t, "labels": label_rows(out),
+                              "masked": len(list((out / "masked").glob("*.png")))}
+            card, cpu = runs["card"], runs["cpu"]
+            if card["masked"] != n_images:
+                raise AssertionError(f"{card['masked']} masked images for {n_images}")
+            key = "augment" if augment else "plain"
+            res[key] = {"card_s": card["s"], "cpu_s": cpu["s"],
+                        **compare_labels(card["labels"], cpu["labels"], width, height,
+                                         detector.conf)}
+            if res[key]["lines"] == 0:
+                raise AssertionError(f"annotate_frames ({key}) wrote no label line")
+        # ms per image of the tool's detection step (the hflip merge included)
+        det = Detector(ckpt, detect_cfg, device=device)
+        frames = [load_image(p) for p in sorted(images.glob("*.png"))]
+        for augment in (False, True):
+            times = []
+            for _ in range(3):
+                for img in frames:
+                    if cuda:
+                        torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    annotate_frames.detect_image(det, img, augment, det.iou)
+                    if cuda:
+                        torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t) * 1e3)
+            res["augment" if augment else "plain"]["ms_per_image"] = float(np.median(times[1:]))
+        del det, detector, model
+
+        # (b) benchmark_ortho_matching --synthetic-ortho at the reference regime
+        args = benchmark_ortho_matching.parse_cli_args(
+            ["--synthetic-ortho", str(ortho_px), "--trials", str(trials), "--max-features",
+             str(max_features), "--detectors", *TOOLS_DETECTORS, "--device", device])
+        seen: dict = {}
+        original = features.fast_score_map
+        features.fast_score_map = fast_recorder(seen)
+        reset_launches()
+        t = time.perf_counter()
+        try:
+            rows = benchmark_ortho_matching.synthetic_ortho_rows(args, logger, dev,
+                                                                 frame_size=frame_size)
+        finally:
+            features.fast_score_map = original
+        res["b"] = {"rows": rows, "s": time.perf_counter() - t, "launches": launches(),
+                    "ortho_px": ortho_px, "max_features": max_features, "trials": trials}
+        sift_rows = [r for r in rows if r["detector"] == "rsift"]
+        for r in sift_rows:
+            if r["err"] > TOOLS_ERR_PX or r["inliers"] < TOOLS_INLIERS:
+                raise AssertionError(f"rsift registration: {r}")
+        if cuda and res["b"]["launches"]["fast_score"] == 0:
+            raise AssertionError("the orb registration launched no FAST kernel")
+        # FAST exact on the orb path's own grays
+        grays = []
+        for (shape, thr), gray in seen.items():
+            plain = fast.fast_score_map_torch(gray, thr)
+            if not torch.equal(fast.fast_score_map(gray, thr), plain):
+                raise AssertionError(f"FAST kernel != plain on the orb path's gray {shape}")
+            grays.append(shape)
+        if not grays:
+            raise AssertionError("the orb registration computed no FAST score map")
+        res["b"]["grays"] = grays
+        if cuda:  # the kernel timed on the path's largest gray (the ortho's)
+            (_, thr), gray = max(seen.items(), key=lambda kv: kv[1].numel())
+            res["b"]["fast"] = {"shape": tuple(gray.shape), **time_fast(gray, 10, thr)}
+        del seen
+
+        # (c) the video tools need FFmpeg's libraries for the port's remuxer
+        probe = native.probe()
+        res["c"] = {"probe": probe["found"], "ran": probe["ok"]}
+        if probe["ok"]:
+            res["c"].update(video_tools(tmp / "video"))
+    return res
+
+
+def video_tools(root: Path) -> dict:
+    """merge_videos_and_logs and recut_video_and_log on two small clips of
+    the port's encoder (where FFmpeg exists): frame counts checked."""
+    from geotrax_tpu_torch.io.video import VideoReader, VideoWriter, keyframe_indices
+    from geotrax_tpu_torch.tools import merge_videos_and_logs, recut_video_and_log
+
+    session = root / "RAW" / "S1"
+    session.mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    base = rng.integers(0, 255, (96, 160, 3), np.uint8)
+    for part, n in ((1, 30), (2, 20)):
+        w = VideoWriter(session / f"DJI_000{part}.mp4", 30.0, 160, 96)
+        for i in range(n):
+            f = base.copy()
+            f[30:50, (4 * i) % 130:(4 * i) % 130 + 24] = 255
+            w.write(f)
+        w.close()
+    quiet = ["-q", "-lp", str(root / "logs")]
+    if merge_videos_and_logs.main([str(root / "RAW"), "--video-ext", ".mp4", *quiet]) != 0:
+        raise AssertionError("merge_videos_and_logs failed")
+    merged = session / "0_merged.mp4"
+    keys = keyframe_indices(merged)
+    if recut_video_and_log.main([str(merged), "-s", "3", "-e", "40", "-o",
+                                 str(root / "cut.mp4"), *quiet]) != 0:
+        raise AssertionError("recut_video_and_log failed")
+    counts = {"merged": sum(1 for _ in VideoReader(merged)),
+              "cut": sum(1 for _ in VideoReader(root / "cut.mp4")), "keyframes": len(keys)}
+    if counts["merged"] != 50:
+        raise AssertionError(f"merged {counts['merged']} frames of 50")
+    return counts
+
+
+def tools_line(tl: dict, seconds: float, smi: str) -> str:
+    w, h = tl["size"]
+    a = "; ".join(
+        f"{k}: {tl[k]['lines']} lines (CPU {tl[k]['cpu_lines']}), box within "
+        f"{tl[k]['box_px']:.2e} px, score within {tl[k]['score']:.1e}, {tl[k]['at_threshold']} "
+        f"at the threshold, {tl[k]['ms_per_image']:.1f} ms per image (the tool's run "
+        f"{tl[k]['card_s']:.1f}s, on the CPU {tl[k]['cpu_s']:.1f}s)" for k in ("plain", "augment"))
+    b = tl["b"]
+    rows = "; ".join(
+        f"{r['name']} {r['detector']}: corner error {r['err']:.3f} px, {r['inliers']} inliers of "
+        f"{r['matches']} matches, {r['wall_s']:.2f}s"
+        + (f", peak {r['peak_gib']:.2f} GiB" if r["peak_gib"] is not None else "")
+        for r in b["rows"])
+    c = tl["c"]
+    c_text = (f"(c) merge_videos_and_logs and recut_video_and_log ran: {c['merged']} frames "
+              f"merged, {c['cut']} cut, {c['keyframes']} keyframes" if c["ran"] else
+              f"(c) the video tools did not run: this machine lacks libav ({c['probe']})")
+    return (f"tools ok {seconds:.1f}s (a) annotate_frames YOLOv8{tl['variant']} nc=4 imgsz "
+            f"{tl['imgsz']} on {tl['images']} PNGs {w}x{h} ({tl['calibrated']} detections "
+            f"calibrated on the first), card against CPU: {a}; (b) benchmark_ortho_matching "
+            f"--synthetic-ortho {b['ortho_px']} --max-features {b['max_features']} --trials "
+            f"{b['trials']} (cut from 2): {rows}; FAST launches {b['launches']['fast_score']}, "
+            f"exact on the path's grays {b['grays']}"
+            + (f", on {b['fast']['shape']} {fast_line(b['fast'])}" if "fast" in b else "")
+            + f"; {b['s']:.1f}s; {c_text} [{smi}]")
+
+
 def features_line(ft: dict, seconds: float, smi: str) -> str:
     a, b, c = ft["a"], ft["b"], ft["c"]
     steps = ", ".join(f"{n} {v:.2f}" for n, v in a["ms"].items())
@@ -4359,7 +4642,10 @@ def georef_line(geo: dict, seconds: float, smi: str) -> str:
         f"{geo['matches']} matches, corner error master->ortho {geo['master_err_px']:.3f} px, "
         f"reference->ortho {geo['ref_err_px']:.3f} px; CSV {geo['csv']['rows']} rows / "
         f"{geo['csv']['tracks']} tracks, lanes and sections equal on {geo['csv']['checked']} "
-        f"rows, rerun within {geo['rerun_px']:.2e} px; device steps alone (CUDA events): ortho features "
+        f"rows, rerun within {geo['rerun_px']:.2e} px; read_csv of it "
+        f"({geo['csv']['bytes']} bytes, host) {geo['csv']['read_s'][0]:.3f}s and "
+        f"{geo['csv']['read_s'][1]:.3f}s, with float() for the float cells "
+        f"{geo['csv']['float_read_s']:.3f}s; device steps alone (CUDA events): ortho features "
         f"{geo['ortho_ms']:.1f} ms, frame features {geo['frame_ms']:.1f} ms, match_l2 "
         f"{ka}x{kb} {geo['match_ms']:.1f} ms (float32 bound {geo['match_bound_ms']:.1f} ms), "
         f"RANSAC {geo['ransac_hypotheses']} hypotheses {geo['ransac_ms']:.1f} ms "
@@ -4441,6 +4727,7 @@ def main(argv) -> int:
     train_only = "--train-only" in argv
     features_only = "--features-only" in argv
     multi_only = "--multi-only" in argv
+    tools_only = "--tools-only" in argv
     t_all = time.perf_counter()
     width, height, chunk, seed = 3840, 2160, 32, 0
     n_main = 2 * chunk
@@ -4495,6 +4782,12 @@ def main(argv) -> int:
             mu = phase_multi("cuda")
             log(multi_line(mu, time.perf_counter() - t, dev["smi"]))
             log(f"multi-only ok {time.perf_counter() - t_all:.1f}s")
+            return 0
+        if tools_only:
+            t = time.perf_counter()
+            tl = phase_tools("cuda")
+            log(tools_line(tl, time.perf_counter() - t, dev["smi"]))
+            log(f"tools-only ok {time.perf_counter() - t_all:.1f}s")
             return 0
         if features_only:  # its own georef assets, at the georef phase's size
             t = time.perf_counter()
@@ -4662,6 +4955,10 @@ def main(argv) -> int:
         mu = phase_multi("cuda")
         log(multi_line(mu, time.perf_counter() - t, dev["smi"]))
 
+        t = time.perf_counter()
+        tl = phase_tools("cuda")
+        log(tools_line(tl, time.perf_counter() - t, dev["smi"]))
+
     except Exception as exc:  # noqa: BLE001 — every phase failure ends the run
         import traceback
 
@@ -4676,7 +4973,8 @@ def main(argv) -> int:
                      sq["c_launches"]["fast_score"], lk["b"]["launches"]["fast_score"],
                      {"shape": lk_k["gray_shape"], "ms": lk_k["fast"]["ms"],
                       "bound_ms": lk_k["fast_bound_ms"]}, render_launches["fast_score"],
-                     tr["launches"]["fast_score"], ft["a"]["launches"]["fast_score"]),
+                     tr["launches"]["fast_score"], ft["a"]["launches"]["fast_score"],
+                     launches_tools=tl["b"]["launches"]["fast_score"]),
         # the ReID path launches the HWC entry: its numbers on the chunk's own
         # inputs lead; the float gather's (describe's) shapes follow
         kernel_entry("patch_gather", PATCH_SOURCE, PATCH_REPLACES,
@@ -4689,6 +4987,7 @@ def main(argv) -> int:
                       "ms": lk_k["gather"]["ms"], "bound_ms": lk_k["gather"]["bound_ms"]},
                      render_launches["patch_gather"], tr["launches"]["patch_gather"],
                      ft["a"]["launches"]["patch_gather"],
+                     launches_tools=tl["b"]["launches"]["patch_gather"],
                      shapes=[{k: r.get(k) for k in GATHER_KEYS} for r in pg["shapes"]],
                      hwc={name: {k: g.get(k) for k in HWC_KEYS}
                           for name, g in (("reid", remb["gather"]),

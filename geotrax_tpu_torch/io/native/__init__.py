@@ -1,6 +1,8 @@
-"""The port's native video decoder and encoder: ``decode.cpp`` and
-``encode.cpp`` (its copy of the reference's MPEG-4 writer), each built with
-``g++`` at first use and bound with ``ctypes``; ``build_plain`` builds the
+"""The port's native video decoder, encoder and remuxer: ``decode.cpp``,
+``encode.cpp`` (its copy of the reference's MPEG-4 writer) and
+``remux.cpp`` (stream-copy concatenation and cut, and the container check
+of the data-prep tools), each built with ``g++`` at first use and bound
+with ``ctypes``; ``build_plain`` builds the
 sources that need no library beyond C++'s own (``tiff.cpp`` for
 ``io/tiff.py``, ``lapjv.cpp`` for ``ops/assignment.py``).
 
@@ -27,6 +29,7 @@ import numpy as np
 
 SOURCE = Path(__file__).resolve().parent / "decode.cpp"
 ENCODER_SOURCE = Path(__file__).resolve().parent / "encode.cpp"
+REMUX_SOURCE = Path(__file__).resolve().parent / "remux.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "native"
 CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
 PACKAGES = ("libavformat", "libavcodec", "libavutil", "libswscale")
@@ -35,6 +38,7 @@ BUILD_TIMEOUT_S = 300
 
 _lib = None
 _enc_lib = None
+_remux_lib = None
 
 
 def _multiarch_include() -> Path | None:
@@ -76,7 +80,7 @@ def library_path(flags, source: Path = SOURCE) -> Path:
 
 
 def build(source: Path = SOURCE) -> Path:
-    """Compile ``source`` (``decode.cpp`` or ``encode.cpp``) unless its
+    """Compile ``source`` (``decode.cpp``, ``encode.cpp`` or ``remux.cpp``) unless its
     library exists; return its path. Raises ``RuntimeError`` when the
     toolchain or FFmpeg is missing."""
     found = probe()
@@ -146,6 +150,9 @@ def load_library() -> ctypes.CDLL:
     lib.gtx_scan_pts.restype = ctypes.c_long
     lib.gtx_scan_pts.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64),
                                  ctypes.POINTER(ctypes.c_int), ctypes.c_long]
+    lib.gtx_keyframe_indices.restype = ctypes.c_long
+    lib.gtx_keyframe_indices.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_long),
+                                         ctypes.c_long]
     _lib = lib
     return lib
 
@@ -255,3 +262,66 @@ def native_frames_segment(path: str, seg_pts: np.ndarray, first_index: int,
             served += 1
     finally:
         lib.gtx_close(handle)
+
+
+def load_remux_library() -> ctypes.CDLL | None:
+    """The remux library, built if needed; None when it cannot be built or
+    loaded (the tools then decode and re-encode, as the reference's do)."""
+    global _remux_lib
+    if _remux_lib is not None:
+        return _remux_lib
+    try:
+        lib = ctypes.CDLL(str(build(REMUX_SOURCE)))
+    except (OSError, RuntimeError):
+        return None
+    lib.gtx_remux_concat.restype = ctypes.c_int
+    lib.gtx_remux_concat.argtypes = [ctypes.POINTER(ctypes.c_char_p), ctypes.c_int,
+                                     ctypes.c_char_p]
+    lib.gtx_validate.restype = ctypes.c_int
+    lib.gtx_validate.argtypes = [ctypes.c_char_p]
+    lib.gtx_remux_cut.restype = ctypes.c_int
+    lib.gtx_remux_cut.argtypes = [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int64,
+                                  ctypes.c_int64]
+    _remux_lib = lib
+    return lib
+
+
+def remux_concat(inputs, output) -> bool:
+    """Concatenate videos by stream copy (no re-encode) into ``output``;
+    False when the library is unavailable or the remux failed (the caller
+    decodes and re-encodes)."""
+    lib = load_remux_library()
+    if lib is None:
+        return False
+    arr = (ctypes.c_char_p * len(inputs))(*[str(p).encode() for p in inputs])
+    return lib.gtx_remux_concat(arr, len(inputs), str(output).encode()) == 0
+
+
+def remux_cut_frames(path, output, start_frame: int, end_frame: int) -> bool:
+    """Stream-copy the display frames [start_frame, end_frame] (inclusive)
+    into ``output`` without re-encoding. ``start_frame`` must be a keyframe
+    (``io.video.keyframe_indices``) or the head of the clip does not decode,
+    the contract of ``ffmpeg -ss .. -c copy``. False when the library or the
+    stream's pts map is unavailable, or the range is outside the video (the
+    caller decodes and re-encodes)."""
+    lib = load_remux_library()
+    if lib is None:
+        return False
+    scan = scan_frame_pts(str(path))
+    if scan is None:
+        return False
+    pts, _keys = scan
+    if not 0 <= start_frame <= end_frame < len(pts):
+        return False
+    return lib.gtx_remux_cut(str(path).encode(), str(output).encode(), int(pts[start_frame]),
+                             int(pts[end_frame])) == 0
+
+
+def validate_video(path) -> bool | None:
+    """``ffprobe -v error``'s check: True when the container opens, has a
+    video stream and every packet reads; None when the library is
+    unavailable (the caller cannot check)."""
+    lib = load_remux_library()
+    if lib is None:
+        return None
+    return lib.gtx_validate(str(path).encode()) == 0

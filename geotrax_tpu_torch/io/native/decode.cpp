@@ -1,6 +1,6 @@
 // Native video decoder of geotrax_tpu_torch (the port's copy of
-// geotrax_tpu/io/native/decode.cpp: the sequential decoder and the
-// GOP-parallel extension).
+// geotrax_tpu/io/native/decode.cpp: the sequential decoder, the keyframe
+// scan and the GOP-parallel extension).
 //
 // Deterministic decoding on libavformat/libavcodec with swscale conversion
 // to packed RGB24, driven from Python through ctypes
@@ -20,6 +20,7 @@
 //   int    gtx_read_frame(void*, uint8_t* rgb_out)  // 0 ok, 1 EOF, <0 error
 //   int    gtx_read_frame_pts(void*, uint8_t* rgb_out, int64_t* pts_out)
 //   void   gtx_close(void*)
+//   long   gtx_keyframe_indices(const char* path, long* out, long max_out)
 //   long   gtx_scan_pts(const char* path, int64_t* pts_out, int* key_out,
 //                       long max_out)  // frames, -2 without pts, -1 error
 
@@ -229,6 +230,55 @@ int gtx_read_frame_pts(void* h, uint8_t* rgb_out, int64_t* pts_out) {
 }
 
 void gtx_close(void* h) { destroy(static_cast<Decoder*>(h)); }
+
+// Keyframe scan: walk the packets (no decoding) and record the display
+// index of every packet flagged AV_PKT_FLAG_KEY. Packets arrive in decode
+// order, which differs from display order when the stream has B-frames, so
+// the indices come from sorting the packets' pts, and only when every
+// packet has one: mixing dts (decode order) into a list of pts can rank a
+// B-frame ahead of the keyframe before it. Without pts on every packet the
+// arrival order stands (exact for streams without B-frames, as DJI's). The
+// cut tools snap cut starts to these indices. Returns the number of
+// keyframes written to out (at most max_out), or -1.
+long gtx_keyframe_indices(const char* path, long* out, long max_out) {
+  AVFormatContext* fmt = nullptr;
+  if (avformat_open_input(&fmt, path, nullptr, nullptr) < 0) return -1;
+  if (avformat_find_stream_info(fmt, nullptr) < 0) {
+    avformat_close_input(&fmt);
+    return -1;
+  }
+  int stream_index = av_find_best_stream(fmt, AVMEDIA_TYPE_VIDEO, -1, -1, nullptr, 0);
+  if (stream_index < 0) {
+    avformat_close_input(&fmt);
+    return -1;
+  }
+  AVPacket* pkt = av_packet_alloc();
+  std::vector<std::pair<int64_t, int>> stamps;  // (timestamp, is_key)
+  bool have_ts = true;
+  long arrival = 0;
+  while (av_read_frame(fmt, pkt) >= 0) {
+    if (pkt->stream_index == stream_index) {
+      int64_t ts = pkt->pts;
+      if (ts == AV_NOPTS_VALUE) have_ts = false;
+      stamps.emplace_back(have_ts ? ts : arrival, (pkt->flags & AV_PKT_FLAG_KEY) ? 1 : 0);
+      ++arrival;
+    }
+    av_packet_unref(pkt);
+  }
+  if (have_ts) {
+    std::stable_sort(stamps.begin(), stamps.end(),
+                     [](const std::pair<int64_t, int>& a, const std::pair<int64_t, int>& b) {
+                       return a.first < b.first;
+                     });
+  }
+  long n = 0;
+  for (long i = 0; i < static_cast<long>(stamps.size()) && n < max_out; ++i) {
+    if (stamps[i].second) out[n++] = i;
+  }
+  av_packet_free(&pkt);
+  avformat_close_input(&fmt);
+  return n;
+}
 
 // Display-order frame map for GOP-parallel decoding: pts_out[i] and
 // key_out[i] give the pts and keyframe flag of display frame i. A scan of

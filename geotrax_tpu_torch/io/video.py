@@ -7,7 +7,8 @@ The port's copy of ``geotrax_tpu/io/video.py``:
   indexing, RGB in and out.
 - 'cv2': OpenCV, imported only inside this backend's functions (the card's
   machine has no cv2), for reading, for writing when the native encoder
-  cannot be built, and for the live preview of ``visualize --show``.
+  cannot be built, for the live preview of ``visualize --show``, and for a
+  frame saved as JPEG (``write_jpeg``, the frame tools' ``-of jpg``).
 
 Frames are numpy uint8 HxWx3 in RGB order. ``VideoReader`` decodes in a
 background thread that keeps a few frames ahead of the consumer;
@@ -77,6 +78,24 @@ def probe_video(path: Path | str, backend: Optional[str] = None) -> VideoInfo:
         )
     finally:
         cap.release()
+
+
+def keyframe_indices(path: Path | str, max_count: int = 1 << 18) -> list[int]:
+    """Display indices of the video's I-frames (a scan of its packets, no
+    decoding) through the native decoder; empty when only the cv2 backend
+    exists (cv2 shows no packet flags). The cut tools snap cut starts onto
+    these. ``max_count`` (2 h of all-intra 30 fps video) bounds the list."""
+    import ctypes
+
+    from geotrax_tpu_torch.io import native
+
+    try:
+        lib = native.load_library()
+    except (OSError, RuntimeError):
+        return []
+    buf = (ctypes.c_long * max_count)()
+    n = lib.gtx_keyframe_indices(str(path).encode(), buf, max_count)
+    return [int(buf[i]) for i in range(n)] if n > 0 else []
 
 
 def _cv2_frames(path: str):
@@ -354,9 +373,11 @@ class VideoWriter:
     fourcc is mp4v, else cv2's writer (also when GEOTRAX_VIDEO_BACKEND is
     'cv2', as for reading). ``backend`` says which was taken and
     ``native_error`` why the native one was not; without either it raises
-    ``RuntimeError``. Frames are RGB uint8 of (height, width, 3)."""
+    ``RuntimeError``. Frames are RGB uint8 of (height, width, 3);
+    ``bitrate`` (bits/s, 0 for the encoder's own 4*w*h) sets the native
+    encoder's rate (the recut tools' ``--bitrate``)."""
 
-    def __init__(self, path: Path | str, fps: float, width: int, height: int):
+    def __init__(self, path: Path | str, fps: float, width: int, height: int, bitrate: int = 0):
         from geotrax_tpu_torch.utils.file_utils import determine_suffix_and_fourcc
 
         _, fourcc = determine_suffix_and_fourcc()
@@ -378,7 +399,7 @@ class VideoWriter:
                 self.native_error = str(exc)
             else:
                 handle = lib.gtx_enc_open(self.path.encode(), self.width, self.height,
-                                          float(fps), 0)  # 0: the encoder's own rate
+                                          float(fps), int(bitrate))
                 if not handle:
                     raise OSError(f"Native encoder cannot open: {self.path}")
                 self._native = (lib, handle)
@@ -421,6 +442,19 @@ class VideoWriter:
         elif self._writer is not None:
             self._writer.release()
             self._writer = None
+
+
+def write_jpeg(path: Path | str, frame_rgb: np.ndarray) -> None:
+    """Write one RGB frame as a JPEG at quality 75, Pillow's default: the
+    bytes the reference's Pillow writer gives. Needs cv2."""
+    try:
+        import cv2
+    except ImportError:
+        raise RuntimeError(f"cannot write '{path}': JPEG output needs cv2 (OpenCV), which is "
+                           "not installed; write PNG frames instead") from None
+    if not cv2.imwrite(str(path), np.ascontiguousarray(frame_rgb[..., ::-1]),
+                       [cv2.IMWRITE_JPEG_QUALITY, 75]):
+        raise OSError(f"cv2 could not write '{path}'")
 
 
 def preview(frame_rgb: np.ndarray, title: str = "geotrax-tpu") -> int:

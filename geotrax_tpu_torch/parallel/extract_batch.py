@@ -8,7 +8,9 @@ N`` runs:
     -> one batched single-level stabilization    (one FAST launch over the
        against each video's reference frame       V grays, RANSAC keyed
                                                   per video)
-    -> with ReID, one patch gather               ((3V, H/2, W/2) planes)
+    -> with ReID, one patch gather               (``patches32_hwc`` on the V
+                                                  uint8 (H, W, 3) frames, the
+                                                  2x2 pool in the kernel)
     -> one tracker step over V timelines         (``make_batch_tracker``)
 
 A video that ends drops out of the live set and the rest go on in lockstep;

@@ -82,17 +82,6 @@ def _load_one(path: Path, drone_id: str, vehicle_id_offset: int) -> dict:
     return {name: df[name] for name in AGGREGATED_COLUMNS}
 
 
-def _concat(parts: list) -> np.ndarray:
-    """One column of several files, typed as ``pd.concat`` types it:
-    integers and floats together become float64, other mixtures object."""
-    kinds = {p.dtype.kind for p in parts}
-    if len(kinds) == 1:
-        return np.concatenate(parts)
-    if kinds <= {"i", "u", "f"}:
-        return np.concatenate([p.astype(np.float64) for p in parts])
-    return np.concatenate([p.astype(object) for p in parts])
-
-
 def _sort_order(vehicle_id: np.ndarray, times: np.ndarray) -> np.ndarray:
     """Stable order by (Vehicle_ID, Local_Time), missing times last (the
     default ``sort_values`` of two columns)."""
@@ -140,7 +129,8 @@ def aggregate_results(args: argparse.Namespace, logger: logging.Logger) -> None:
 
             if not frames:
                 continue
-            merged = {name: _concat([f[name] for f in frames]) for name in AGGREGATED_COLUMNS}
+            merged = {name: table.concat_column([f[name] for f in frames])
+                      for name in AGGREGATED_COLUMNS}
             order = _sort_order(merged["Vehicle_ID"], merged["Local_Time"])
             merged = {name: col[order] for name, col in merged.items()}
             ids = merged["Vehicle_ID"]

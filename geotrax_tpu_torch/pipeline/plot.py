@@ -26,6 +26,7 @@ from pathlib import Path
 import numpy as np
 
 from geotrax_tpu_torch.io import table
+from geotrax_tpu_torch.io.table import concat
 from geotrax_tpu_torch.utils.cli_utils import DEFAULT_CFG, add_common_args
 from geotrax_tpu_torch.utils.config_utils import (backfill_args_from_config, load_config,
                                                   resolve_class_names)
@@ -101,23 +102,6 @@ def _nan(col: np.ndarray) -> np.ndarray:
     if col.dtype.kind == "O":
         return np.array([x is None or (isinstance(x, float) and math.isnan(x)) for x in col], bool)
     return np.zeros(len(col), bool)
-
-
-def concat(frames: list) -> dict:
-    """The rows of ``frames`` one after another over the union of their
-    columns (first-seen order); a column a frame lacks is NaN there, as
-    ``pd.concat(..., ignore_index=True)`` fills it."""
-    names: list = []
-    for df in frames:
-        names += [k for k in df if k not in names]
-    out = {}
-    for name in names:
-        parts = []
-        for df in frames:
-            n = len(next(iter(df.values()))) if df else 0
-            parts.append(df[name] if name in df else np.full(n, np.nan))
-        out[name] = np.concatenate(parts) if parts else np.empty(0)
-    return out
 
 
 def groups(keys: np.ndarray) -> list:
