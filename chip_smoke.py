@@ -9,6 +9,7 @@
     python3 chip_smoke.py --features-only  # phases 0, 1 and 15 only, no result line
     python3 chip_smoke.py --multi-only     # phases 0, 1 and 16 only, no result line
     python3 chip_smoke.py --tools-only     # phases 0, 1 and 17 only, no result line
+    python3 chip_smoke.py --host-tools-only  # phases 0, 1 and 18 only, no result line
 
 Phases, one ``[smoke] <phase> ok <seconds>s ...`` line each; a failing phase
 ends the run with a non-zero exit and no result line:
@@ -242,6 +243,20 @@ ends the run with a non-zero exit and no result line:
                that path gave it; (c) where FFmpeg's libraries exist,
                merge_videos_and_logs and recut_video_and_log on two small
                clips, else one line saying the video tools did not run
+ 18 host-tools the host-only tools and the device filters: (a)
+               ops/filters.py's gaussian_filter1d (sigma 14), savgol_filter
+               (15) and gradient on a seeded (4096, 1800) float32 batch of
+               tracks on the card against the CPU, with CUDA-event ms and
+               bounds; (b) subset_orthophoto --crop-size 15000
+               --scale-factor 0.5333333 on the card from a seeded 15000^2
+               tiled GeoTIFF (written by io/tiff_tiled.py): the tool's run,
+               then its host read, upload, downscale (CUDA events, against
+               its bytes bound) and download; the cutout the tool wrote,
+               read back from its PNG, equal to that downscale and a 2000^2
+               window of it equal to the same downscale on the CPU; (c) the
+               other fifteen host tools once each on seeded files: exit 0
+               and their files present (figures are skipped, with a log
+               line, where matplotlib is missing)
 Then a JSON line describing each kernel, the card's nvidia-smi line, and as
 the last line {"ok": true, "device": {...}}. ``--kernels-only`` serves to
 time the kernels of two checkouts in one call: copy this script into the
@@ -249,8 +264,8 @@ other checkout and run it there too. ``--georef-only`` runs phases 0, 1 and
 10, ``--lockstep-only`` phases 0, 1 and 12 with its own calibrated detector,
 ``--render-only`` phases 0, 1 and 13, ``--train-only`` phases 0, 1 and 14,
 ``--features-only`` phases 0, 1 and 15 with its own georef assets,
-``--multi-only`` phases 0, 1 and 16, ``--tools-only`` phases 0, 1 and 17
-(no result line).
+``--multi-only`` phases 0, 1 and 16, ``--tools-only`` phases 0, 1 and 17,
+``--host-tools-only`` phases 0, 1 and 18 (no result line).
 """
 
 from __future__ import annotations
@@ -4375,6 +4390,300 @@ def video_tools(root: Path) -> dict:
     return counts
 
 
+HOST_FILTER_SHAPE = (4096, 1800)  # a campaign's tracks x samples (one minute at 30 fps)
+HOST_MOSAIC_PX = 15000            # subset_orthophoto's default --crop-size
+HOST_SCALE = 0.5333333            # its --scale-factor as users pass it (8000 px out)
+HOST_WINDOW = 2000                # the downscale's card-against-CPU window
+
+
+def filter_bounds(shape, taps: int) -> tuple:
+    """Least time of one (..., n) float32 filter on an H100: the signal read
+    and the result written once, against one product and one sum per tap
+    and sample."""
+    n = int(np.prod(shape))
+    return bound_ms(2 * 4 * n, 2 * taps * n)
+
+
+def host_filters(device: str, shape=HOST_FILTER_SHAPE, seed: int = 0) -> dict:
+    """(a): A23's filters on a seeded batch of random-walk tracks on
+    ``device`` against the CPU, with their ms (CUDA events on the card)."""
+    from geotrax_tpu_torch.ops import filters
+
+    rng = np.random.default_rng(seed)
+    host = torch.from_numpy(np.cumsum(rng.normal(0, 1, shape), -1).astype(np.float32))
+    x = host.to(device)
+    calls = {"gaussian": (lambda t: filters.gaussian_filter1d(t, 14.0),
+                          len(filters._gaussian_weights(14.0))),
+             "savgol": (lambda t: filters.savgol_filter(t, 15), 15),
+             "gradient": (filters.gradient, 2)}
+    res = {"shape": tuple(shape)}
+    for name, (fn, taps) in calls.items():
+        got = fn(x).cpu()
+        want = fn(host)
+        err = float((got - want).abs().max())
+        if err > 2e-6 * float(want.abs().max()):
+            raise AssertionError(f"{name} on {device} differs from the CPU by {err}")
+        b_ms, b_by = filter_bounds(shape, taps)
+        res[name] = {"max_abs_err": err, "taps": taps, "bound_ms": b_ms, "bound_by": b_by,
+                     "ms": cuda_ms(lambda: fn(x), 5) if device == "cuda" else None}
+    return res
+
+
+def area_window_cpu(crop: np.ndarray, out_w: int, out_h: int, r0: int, c0: int,
+                    size: int) -> np.ndarray:
+    """Rows r0.. and columns c0.. (``size`` each) of the INTER_AREA
+    downscale of ``crop``, computed on the CPU from the input rows and
+    columns they read (the taps of ops/resize.py, offset)."""
+    from geotrax_tpu_torch.ops import resize
+
+    ix, ax = resize._area_taps(crop.shape[1], out_w)
+    iy, ay = resize._area_taps(crop.shape[0], out_h)
+    ix, ax, iy, ay = ix[c0:c0 + size], ax[c0:c0 + size], iy[r0:r0 + size], ay[r0:r0 + size]
+    x0, y0 = int(ix[ax > 0].min()), int(iy[ay > 0].min())
+    x1, y1 = int(ix.max()) + 1, int(iy.max()) + 1
+    part = torch.from_numpy(np.ascontiguousarray(crop[y0:y1, x0:x1]))
+    rows = resize._weighted_taps(part, np.where(ax > 0, ix - x0, 0), ax, dim=1)
+    out = resize._weighted_taps(rows, np.where(ay > 0, iy - y0, 0), ay, dim=0)
+    return torch.round(out).clamp(0, 255).to(torch.uint8).numpy()
+
+
+def host_subset(root: Path, device: str, px: int = HOST_MOSAIC_PX, factor: float = HOST_SCALE,
+                window: int = HOST_WINDOW, seed: int = 0) -> dict:
+    """(b): subset_orthophoto on a seeded px^2 GeoTIFF mosaic (written by
+    io/tiff_tiled.py) with a location at its centre: the tool's run, then
+    its steps timed (host read, upload, downscale by CUDA events against
+    its bytes bound, download) and the cutout the tool wrote, read back
+    from its PNG: equal to the timed downscale, and a window of it equal
+    to the CPU's."""
+    from geotrax_tpu_torch.io.image_size import image_size
+    from geotrax_tpu_torch.io.png import read_png
+    from geotrax_tpu_torch.io.tiff_tiled import write_tiled_tiff
+    from geotrax_tpu_torch.ops.resize import resize_area_u8
+    from geotrax_tpu_torch.tools import subset_orthophoto
+
+    t = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    lng0, lat0, step = 126.6, 37.4, 1e-6
+    mosaic = root / "mosaic.tif"
+    write_tiled_tiff(mosaic, rng.integers(0, 256, (px, px, 3), dtype=np.uint8), tile=256,
+                     geo=(lng0, lat0, step, step))
+    centre = px // 2 + 0.5
+    (root / "loc.json").write_text(json.dumps({"C": [lat0 - centre * step,
+                                                     lng0 + centre * step]}))
+    res = {"px": px, "factor": factor, "write_s": time.perf_counter() - t,
+           "mosaic_mb": mosaic.stat().st_size / 1e6}
+    out = root / "cutouts"
+    t = time.perf_counter()
+    rc = subset_orthophoto.main(
+        ["--orthophoto-filepath", str(mosaic), "--ortho-cutout-folder", str(out),
+         "--location-dict-filepath", str(root / "loc.json"), "--crop-size", str(px),
+         "--scale-factor", str(factor), "-q", "-lp", str(root / "logs"), "--device", device])
+    res["tool_s"] = time.perf_counter() - t
+    out_w, out_h = subset_orthophoto.output_size((px, px), factor)
+    if rc != 0 or image_size(out / "C.png") != (out_w, out_h):
+        raise AssertionError(f"subset_orthophoto exit {rc}, cutout {out / 'C.png'}")
+    if not (out / "C_center.txt").exists() or not (out / "ortho_parameters.txt").exists():
+        raise AssertionError("subset_orthophoto wrote no centre or parameter file")
+    logger = logging.getLogger("smoke.subset")
+    t = time.perf_counter()
+    crop = subset_orthophoto.MosaicSource(mosaic, logger).crop(0, 0, px, px)
+    res["read_s"] = time.perf_counter() - t
+    cuda = device == "cuda"
+    res["upload_ms"], on_dev = events_ms(lambda: torch.from_numpy(crop).to(device), device)
+    resize_area_u8(on_dev, out_w, out_h)  # the tap tables built once
+    if cuda:
+        torch.cuda.synchronize()
+    times = [events_ms(lambda: resize_area_u8(on_dev, out_w, out_h), device) for _ in range(3)]
+    res["downscale_ms"] = float(np.median([ms for ms, _ in times]))
+    res["download_ms"], small = events_ms(lambda: times[-1][1].cpu().numpy(), device)
+    res["bound_ms"], res["bound_by"] = bound_ms(crop.nbytes + small.nbytes,
+                                                 6 * 3 * (px * out_w + out_w * out_h))
+    t = time.perf_counter()
+    written = read_png(out / "C.png")
+    res["readback_s"] = time.perf_counter() - t
+    if not np.array_equal(written, small):
+        raise AssertionError("the cutout subset_orthophoto wrote differs from the timed "
+                             "downscale of the same crop")
+    r0 = c0 = (out_w - window) // 2
+    want = area_window_cpu(crop, out_w, out_h, r0, c0, window)
+    got = written[r0:r0 + window, c0:c0 + window]
+    res["window_differ"] = int((got != want).any(-1).sum())
+    if res["window_differ"]:
+        raise AssertionError(f"downscale: {res['window_differ']} pixels of the {window}^2 "
+                             "window of the written cutout differ from the CPU's")
+    res.update(out=(out_w, out_h), window=window)
+    return res
+
+
+def host_tool_runs(root: Path, device: str) -> dict:
+    """(c): each other host tool once on seeded files (written without
+    pandas, Pillow or cv2), through its main() as users run it (only
+    fix_timestamp_anomalies takes ``--device``, for the batch it would
+    start): exit 0 and its output files present. Their text goes to a
+    buffer (shown on a failure)."""
+    import io
+
+    from geotrax_tpu_torch.io import table
+    from geotrax_tpu_torch.io.png import write_png
+    from geotrax_tpu_torch.tools import (analyze_bb_ratios, check_dataset,
+                                         compare_av_detections_and_tune_filters,
+                                         compare_tracking, compute_bb_center_error,
+                                         find_cut_video_issues, find_max_annotations,
+                                         find_source_id, fix_json_annotations,
+                                         fix_timestamp_anomalies, interpolate_missing_timestamps,
+                                         viz_annotations, viz_dimension_estimation,
+                                         viz_segmentations, yolo_to_coco)
+
+    rng = np.random.default_rng(1)
+    logs = ["-lp", str(root / "logs")]
+    # labels and images
+    for split in ("images/train", "labels/train", "pre-labels"):
+        (root / "ds" / split).mkdir(parents=True)
+    for i in range(3):
+        write_png(root / "ds" / "images" / "train" / f"f{i}.png",
+                  rng.integers(0, 255, (120, 160, 3), np.uint8))
+        rows = "".join(f"{k % 4} {0.2 + 0.2 * k:.2f} 0.5 0.15 0.2\n" for k in range(i + 1))
+        (root / "ds" / "labels" / "train" / f"f{i}.txt").write_text(rows)
+        (root / "ds" / "pre-labels" / f"f{i}.txt").write_text(rows.replace(" 0.5 ", " 0.51 "))
+    # labelme JSON
+    (root / "labelme").mkdir()
+    (root / "labelme" / "a.json").write_text(json.dumps({
+        "imagePath": "x\\a.png", "imageData": "QUJD",
+        "shapes": [{"label": "car", "shape_type": "rectangle", "points": [[1, 2], [5, 6]]}]}))
+    # flight logs
+    stamps = [f"2022-10-07 10:00:{i // 30:02d}.{(i % 30) * 33:03d}" for i in range(90)]
+    table.write_csv(root / "U1.csv", {"frame": np.arange(90),
+                                      "timestamp": np.array(stamps, dtype=object)})
+    holes = np.array(stamps, dtype=object)
+    holes[[3, 4, 50]] = np.nan
+    table.write_csv(root / "gaps.csv", {"frame": np.arange(90), "timestamp": holes})
+    (root / "U1.MP4").write_bytes(b"")
+    table.write_csv(root / "anomalies.csv", {
+        "location_id": np.array(["U"], dtype=object),
+        "video_path": np.array(["U1.MP4"], dtype=object),
+        "timestamp_max_abs_diff": np.array([1.5]),
+        "timestamp_anomaly_location": np.array([stamps[40]], dtype=object),
+        "timestamp_anomaly_frame": np.array([40])})
+    # aggregated ids, trajectories, tracks
+    for drone, n in (("D3", 3), ("D10", 2)):
+        res_dir = root / "PROCESSED" / "2022-10-07" / drone / "PM5" / "results"
+        res_dir.mkdir(parents=True)
+        table.write_csv(res_dir / f"U_{drone}.csv", {"Vehicle_ID": np.arange(1, n + 1)})
+    table.write_csv(root / "speeds.csv", {"Vehicle_ID": np.array([1, 1, 2]),
+                                          "Vehicle_Speed": np.array([150.0, 160.0, 50.0]),
+                                          "Vehicle_Acceleration": np.array([1.0, 0.5, -14.0])})
+    rows = []
+    for t in range(30):
+        x = 500.0 + 50 * t
+        rows.append([t, 3, x, 500, 60, 25, x, 500, 60, 25, 0, 0.9, 60, 25])
+        rows.append([t, 4, 900, 900 + 30 * t, 20, 40, 900, 900 + 30 * t, 20, 40, 1, 0.9, 40, 20])
+    for run in ("runA", "runB"):
+        (root / run / "results").mkdir(parents=True)
+        keep = rows if run == "runA" else rows[::2]
+        np.savetxt(root / run / "results" / "V.txt", np.array(keep), fmt="%g", delimiter=",")
+    (root / "runA" / "V.yaml").write_text("video:\n  width: 3840\n  height: 2160\n")
+    frames = np.arange(60)
+    x = 170000 + 2.0 * frames
+    table.write_csv(root / "p.csv", {"Vehicle_ID": np.full(60, 7), "Frame_Number": frames,
+                                     "Local_X": x + rng.normal(0, 0.02, 60),
+                                     "Local_Y": np.full(60, 532000.0),
+                                     "Vehicle_Speed": np.full(60, 72.0)})
+    table.write_csv(root / "gt.csv", {"frame": frames, "x": x, "y": np.full(60, 532000.0),
+                                      "speed_kmh": np.full(60, 72.0)})
+    # an orthophoto and its lane quads
+    (root / "ortho" / "segmentations").mkdir(parents=True)
+    write_png(root / "ortho" / "U.png", rng.integers(0, 255, (200, 260, 3), np.uint8))
+    table.write_csv(root / "ortho" / "segmentations" / "U.csv", {
+        "section": np.array(["1_2", "3_4"], dtype=object), "lane": np.array([1, 2]),
+        "tlx": np.array([20, 150]), "tly": np.array([20, 100]), "blx": np.array([22, 140]),
+        "bly": np.array([80, 180]), "brx": np.array([52, 230]), "bry": np.array([82, 170]),
+        "trx": np.array([50, 240]), "try": np.array([18, 110])})
+
+    ds, tr = root / "ds", root / "runA" / "results" / "V.txt"
+    runs = [
+        (find_max_annotations, [str(ds / "labels")], []),
+        (interpolate_missing_timestamps, [str(root / "gaps.csv"), "-o", str(root / "filled.csv")],
+         [root / "filled.csv"]),
+        (yolo_to_coco, [str(ds), "--split", "train", "-o", str(root / "coco.json"), *logs],
+         [root / "coco.json"]),
+        (fix_json_annotations, [str(root / "labelme"), "--to-obb", "-nu", "-q", *logs],
+         [root / "labelme" / "a.json"]),
+        (find_source_id, [str(root / "PROCESSED"), "2022-10-07", "U", "PM5", "4"], []),
+        (check_dataset, [str(root / "speeds.csv"), "--no-trace"], []),
+        (compare_tracking, [str(root / "runA" / "results"), str(root / "runB" / "results"),
+                            "--plot", str(root / "cmp.pdf")], []),
+        (analyze_bb_ratios, [str(root / "runA"), "--hist"], []),
+        (compute_bb_center_error, [str(ds / "images" / "train"), "-ha", "../../labels/train",
+                                   "-pa", "../../pre-labels", "--save", "-q", *logs], []),
+        (find_cut_video_issues, [str(root / "U1.csv"), "--report", str(root / "report")],
+         [root / "report" / "flight_log_stats.csv"]),
+        (fix_timestamp_anomalies, [str(root / "anomalies.csv"), "--debug", "-q", *logs,
+                                   "--device", device], []),
+        (viz_dimension_estimation, [str(tr), "--id", "3", "--frame-size", "3840", "2160",
+                                    "--save", "-q", *logs], []),
+        (compare_av_detections_and_tune_filters,
+         [str(root / "p.csv"), "--probe", str(root / "gt.csv"), "--fps", "10", "--tune",
+          "--grid", "2", "5", "--save", "--out", str(root / "av"), "-q", *logs],
+         [root / "av" / "AV_errors_per_video.tex"]),
+        (viz_annotations, [str(ds / "images" / "train"), "-a", str(ds / "labels" / "train"),
+                           "--save", "-o", str(root / "viz"), "-q", *logs],
+         [root / "viz" / "f2.png"]),
+        (viz_segmentations, [str(root / "ortho"), "-o", str(root / "lanes")],
+         [root / "lanes" / "U.png"]),
+    ]
+    res = {}
+    for module, argv, outputs in runs:
+        name = module.__name__.rsplit(".", 1)[-1]
+        text = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(text), contextlib.redirect_stderr(text):
+            rc = module.main(argv)
+        missing = [str(p) for p in outputs if not p.exists()]
+        if rc != 0 or missing:
+            raise AssertionError(f"{name} exit {rc}, missing {missing}:\n"
+                                 f"{text.getvalue()[-2000:]}")
+        res[name] = time.perf_counter() - t
+    if json.loads((root / "labelme" / "a.json").read_text())["shapes"][0]["shape_type"] \
+            != "polygon":
+        raise AssertionError("fix_json_annotations --to-obb left the rectangle")
+    return res
+
+
+def phase_host_tools(device: str = "cuda", filter_shape=HOST_FILTER_SHAPE,
+                     mosaic_px: int = HOST_MOSAIC_PX, window: int = HOST_WINDOW) -> dict:
+    """Phase 18 (see the module's docstring); the CPU rehearsal passes
+    small sizes."""
+    dev = resolve_device(device)
+    res = {"a": host_filters(dev.type, filter_shape)}
+    with tempfile.TemporaryDirectory() as tmpdir:
+        t = time.perf_counter()
+        res["b"] = host_subset(Path(tmpdir), dev.type, px=mosaic_px, window=window)
+        res["b"]["s"] = time.perf_counter() - t
+    with tempfile.TemporaryDirectory() as tmpdir:
+        res["c"] = host_tool_runs(Path(tmpdir), dev.type)
+    return res
+
+
+def host_tools_line(ht: dict, seconds: float, smi: str) -> str:
+    a, b, c = ht["a"], ht["b"], ht["c"]
+    filt = "; ".join(
+        f"{name} ({a[name]['taps']} taps): "
+        + (f"{a[name]['ms']:.4f} ms" if a[name]["ms"] is not None else "not timed")
+        + f" against a {a[name]['bound_ms']:.4f} ms bound ({a[name]['bound_by']}), max |card - "
+          f"CPU| {a[name]['max_abs_err']:.1e}" for name in ("gaussian", "savgol", "gradient"))
+    share = b["bound_ms"] / b["downscale_ms"] if b["downscale_ms"] else float("nan")
+    return (f"host-tools ok {seconds:.1f}s (a) ops/filters.py on {a['shape']} float32 tracks: "
+            f"{filt}; (b) subset_orthophoto --crop-size {b['px']} --scale-factor {b['factor']} "
+            f"({b['mosaic_mb']:.1f} MB tiled GeoTIFF written in {b['write_s']:.1f}s) to "
+            f"{b['out'][0]}x{b['out'][1]}: the tool's run {b['tool_s']:.1f}s; host read "
+            f"{b['read_s']:.2f}s, upload {b['upload_ms']:.1f} ms, downscale "
+            f"{b['downscale_ms']:.3f} ms against a {b['bound_ms']:.4f} ms bound "
+            f"({b['bound_by']}, {100 * share:.1f} %), download {b['download_ms']:.1f} ms; the "
+            f"written cutout (read back in {b['readback_s']:.2f}s) equal to it and its "
+            f"{b['window']}^2 window equal to the CPU's; (c) {len(c)} tools exit 0 with their "
+            f"files: " + ", ".join(f"{k} {v:.2f}s" for k, v in c.items()) + f" [{smi}]")
+
+
 def tools_line(tl: dict, seconds: float, smi: str) -> str:
     w, h = tl["size"]
     a = "; ".join(
@@ -4728,6 +5037,7 @@ def main(argv) -> int:
     features_only = "--features-only" in argv
     multi_only = "--multi-only" in argv
     tools_only = "--tools-only" in argv
+    host_tools_only = "--host-tools-only" in argv
     t_all = time.perf_counter()
     width, height, chunk, seed = 3840, 2160, 32, 0
     n_main = 2 * chunk
@@ -4788,6 +5098,12 @@ def main(argv) -> int:
             tl = phase_tools("cuda")
             log(tools_line(tl, time.perf_counter() - t, dev["smi"]))
             log(f"tools-only ok {time.perf_counter() - t_all:.1f}s")
+            return 0
+        if host_tools_only:
+            t = time.perf_counter()
+            ht = phase_host_tools("cuda")
+            log(host_tools_line(ht, time.perf_counter() - t, dev["smi"]))
+            log(f"host-tools-only ok {time.perf_counter() - t_all:.1f}s")
             return 0
         if features_only:  # its own georef assets, at the georef phase's size
             t = time.perf_counter()
@@ -4958,6 +5274,10 @@ def main(argv) -> int:
         t = time.perf_counter()
         tl = phase_tools("cuda")
         log(tools_line(tl, time.perf_counter() - t, dev["smi"]))
+
+        t = time.perf_counter()
+        ht = phase_host_tools("cuda")
+        log(host_tools_line(ht, time.perf_counter() - t, dev["smi"]))
 
     except Exception as exc:  # noqa: BLE001 — every phase failure ends the run
         import traceback

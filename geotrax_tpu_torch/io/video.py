@@ -444,16 +444,17 @@ class VideoWriter:
             self._writer = None
 
 
-def write_jpeg(path: Path | str, frame_rgb: np.ndarray) -> None:
-    """Write one RGB frame as a JPEG at quality 75, Pillow's default: the
-    bytes the reference's Pillow writer gives. Needs cv2."""
+def write_jpeg(path: Path | str, frame_rgb: np.ndarray, quality: int = 75) -> None:
+    """Write one RGB frame as a JPEG at ``quality``; 75, Pillow's default,
+    gives the bytes the reference's Pillow writer gives (95 is
+    ``cv2.imwrite``'s default). Needs cv2."""
     try:
         import cv2
     except ImportError:
         raise RuntimeError(f"cannot write '{path}': JPEG output needs cv2 (OpenCV), which is "
                            "not installed; write PNG frames instead") from None
     if not cv2.imwrite(str(path), np.ascontiguousarray(frame_rgb[..., ::-1]),
-                       [cv2.IMWRITE_JPEG_QUALITY, 75]):
+                       [cv2.IMWRITE_JPEG_QUALITY, int(quality)]):
         raise OSError(f"cv2 could not write '{path}'")
 
 

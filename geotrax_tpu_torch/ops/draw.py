@@ -30,6 +30,15 @@ operations (no Python loop over pixels):
 
 Strokes and rings are not cv2's bit for bit (cv2 fills polygons in fixed
 point); tests/test_torch_draw.py states how far they are.
+
+The tools draw with cv2's default ``LINE_8`` too, which is integer
+rasterization and reproduced pixel for pixel: ``fill_poly`` (fillPoly's
+edge table), ``polylines_8`` (Bresenham lines; thick ones as cv2's
+fixed-point quads with disc caps) and ``fill_rect`` (a FILLED rectangle).
+Their labels use the fonts ``"ann<lw>"`` (``viz_annotations``: fontScale
+``max(0.35, 0.18 * lw)``, thickness ``lw // 2``) and ``"seg"``
+(``viz_segmentations``: 0.6 / 2), with ``text_baseline`` beside
+``text_size``.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ import numpy as np
 
 TABLES = Path(__file__).resolve().parent / "raster_tables.npz"
 TABLE_WIDTHS = range(1, 7)
+ANNOTATION_WIDTHS = range(1, 9)
 FIRST_CHAR, LAST_CHAR = 32, 126
 # cv2's mean coverage of a pixel whose centre lies ``e`` px beyond a
 # LINE_AA stroke's edge, at these knots, on oblique segments (printed by
@@ -136,6 +146,16 @@ def rectangle(img: np.ndarray, p1, p2, color, thickness: int = 1) -> None:
     polylines(img, [(xa, ya), (xb, ya), (xb, yb), (xa, yb)], True, color, thickness)
 
 
+def fill_rect(img: np.ndarray, p1, p2, color) -> None:
+    """cv2.rectangle(..., cv2.FILLED) with the default ``LINE_8``: the box
+    with corners ``p1`` and ``p2``, both included, clipped; no fringe."""
+    h, w = img.shape[:2]
+    xa, xb = sorted((int(p1[0]), int(p2[0])))
+    ya, yb = sorted((int(p1[1]), int(p2[1])))
+    if xb >= 0 and yb >= 0 and xa < w and ya < h:
+        img[max(ya, 0):min(yb, h - 1) + 1, max(xa, 0):min(xb, w - 1) + 1] = color
+
+
 @lru_cache(maxsize=None)
 def circle_offsets(radius: int, thickness: int) -> np.ndarray:
     """(K, 2) pixel offsets (x, y) from the centre of one ``LINE_8`` circle
@@ -201,20 +221,46 @@ def _tables() -> dict:
         return {k: data[k] for k in data.files}
 
 
+def annotation_scale(line_width: int) -> float:
+    """``viz_annotations``' label fontScale for a box line width."""
+    return max(0.35, 0.18 * line_width)
+
+
+def _font_key(font) -> tuple:
+    """(table key, scale factor) of a font: an int is the stage font of that
+    line width (outside 1..6 the width-6 glyphs scaled), ``"ann<lw>"`` the
+    annotation labels (outside 1..8 the width-8 glyphs scaled), ``"seg"``
+    the lane labels."""
+    if isinstance(font, str):
+        if font.startswith("ann"):
+            lw = int(font[3:])
+            if lw in ANNOTATION_WIDTHS:
+                return font, 1.0
+            top = ANNOTATION_WIDTHS[-1]
+            return f"ann{top}", annotation_scale(lw) / annotation_scale(top)
+        return font, 1.0
+    lw = int(font)
+    if lw in TABLE_WIDTHS:
+        return str(lw), 1.0
+    return str(TABLE_WIDTHS[-1]), max(lw, 1) / TABLE_WIDTHS[-1]
+
+
 @lru_cache(maxsize=None)
-def _font(line_width: int) -> tuple:
-    """(advances, glyphs, height) for ``line_width``: ``glyphs[i]`` is
-    (dx, dy, coverage float32) of character ``FIRST_CHAR + i``."""
+def _font(font) -> tuple:
+    """(advances, glyphs, height, baselines) of a font (see ``_font_key``):
+    ``glyphs[i]`` is (dx, dy, coverage float32) of character
+    ``FIRST_CHAR + i``; ``baselines`` is None for the stage fonts."""
     t = _tables()
-    lw = line_width if line_width in TABLE_WIDTHS else TABLE_WIDTHS[-1]
-    adv, boxes, alpha = t[f"advance_{lw}"], t[f"boxes_{lw}"], t[f"alpha_{lw}"]
-    height = int(t[f"height_{lw}"])
+    key, f = _font_key(font)
+    adv, boxes, alpha = t[f"advance_{key}"], t[f"boxes_{key}"], t[f"alpha_{key}"]
+    height = int(t[f"height_{key}"])
+    base = t.get(f"baseline_{key}")
     glyphs = []
     for dx, dy, gh, gw, off in boxes.tolist():
         glyphs.append((dx, dy, alpha[off:off + gh * gw].reshape(gh, gw).astype(np.float32) / 255))
-    if lw == line_width:
-        return adv.astype(np.int64), glyphs, height
-    f = max(line_width, 1) / lw  # outside the table: scale the width-6 glyphs
+    if f == 1.0:
+        return adv.astype(np.int64), glyphs, height, base
+    # outside the tables: scale the largest one's glyphs (an approximation)
     scaled = []
     for dx, dy, cov in glyphs:
         gh, gw = (max(int(round(s * f)), 1) if s else 0 for s in cov.shape)
@@ -222,7 +268,8 @@ def _font(line_width: int) -> tuple:
         ix = np.minimum((np.arange(gw) / f).astype(np.int64), cov.shape[1] - 1)
         scaled.append((int(round(dx * f)), int(round(dy * f)),
                        cov[iy][:, ix] if cov.size else cov))
-    return np.rint(adv * f).astype(np.int64), scaled, int(round(height * f))
+    return (np.rint(adv * f).astype(np.int64), scaled, int(round(height * f)),
+            None if base is None else np.rint(base * f).astype(np.int64))
 
 
 def _codes(text: str) -> np.ndarray:
@@ -230,18 +277,24 @@ def _codes(text: str) -> np.ndarray:
     return np.where((codes >= FIRST_CHAR) & (codes <= LAST_CHAR), codes, ord("?")) - FIRST_CHAR
 
 
-def text_size(text: str, line_width: int) -> tuple:
-    """(width, height) of ``text`` as cv2.getTextSize gives them for the
-    stage's font at ``line_width``."""
-    adv, _, height = _font(int(line_width))
+def text_size(text: str, font) -> tuple:
+    """(width, height) of ``text`` as cv2.getTextSize gives them for a font
+    (the stage's font of a line width, or a key of ``_font_key``)."""
+    adv, _, height, _ = _font(font)
     if not text:
         return 0, 0
     return int(1 + adv[_codes(text)].sum()), height
 
 
-def put_text(img: np.ndarray, text: str, org, line_width: int, color) -> None:
-    """Draw ``text`` with its baseline's left end at ``org``."""
-    adv, glyphs, _ = _font(int(line_width))
+def text_baseline(text: str, font: str) -> int:
+    """cv2.getTextSize's baseline of ``text``: its characters' largest."""
+    base = _font(font)[3]
+    return int(base[_codes(text)].max()) if text else 0
+
+
+def put_text(img: np.ndarray, text: str, org, font, color) -> None:
+    """Draw ``text`` in ``font`` with its baseline's left end at ``org``."""
+    adv, glyphs, _, _ = _font(font)
     x, y = int(org[0]), int(org[1])
     h, w = img.shape[:2]
     for code in _codes(text).tolist():
@@ -254,3 +307,254 @@ def put_text(img: np.ndarray, text: str, org, line_width: int, color) -> None:
             if cx0 < cx1 and cy0 < cy1:
                 _blend(img[cy0:cy1, cx0:cx1], cov[cy0 - gy:cy1 - gy, cx0 - gx:cx1 - gx], color)
         x += int(adv[code])
+
+
+# ---------------------------------------------------------------------------
+# LINE_8 polygons (integer rasterization, cv2's pixels)
+# ---------------------------------------------------------------------------
+
+XY_SHIFT = 16  # cv2's fixed point for thick lines
+XY_ONE = 1 << XY_SHIFT
+
+
+def _cdiv(a: int, b: int) -> int:
+    """C's integer division (toward zero)."""
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b > 0) else -q
+
+
+def _clip_line(w: int, h: int, p1: tuple, p2: tuple) -> tuple:
+    """cv2.clipLine: (visible, p1, p2) of a segment clipped to [0, w) x [0, h)."""
+    if w <= 0 or h <= 0:
+        return False, p1, p2
+    right, bottom = w - 1, h - 1
+    (x1, y1), (x2, y2) = p1, p2
+    c1 = (x1 < 0) + (x1 > right) * 2 + (y1 < 0) * 4 + (y1 > bottom) * 8
+    c2 = (x2 < 0) + (x2 > right) * 2 + (y2 < 0) * 4 + (y2 > bottom) * 8
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int(float(a - y1) * (x2 - x1) / (y2 - y1))
+            y1 = a
+            c1 = (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int(float(a - y2) * (x2 - x1) / (y2 - y1))
+            y2 = a
+            c2 = (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int(float(a - x1) * (y2 - y1) / (x2 - x1))
+                x1, c1 = a, 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int(float(a - x2) * (y2 - y1) / (x2 - x1))
+                x2, c2 = a, 0
+    return (c1 | c2) == 0, (x1, y1), (x2, y2)
+
+
+def _line8(w: int, h: int, p1: tuple, p2: tuple) -> tuple:
+    """(xs, ys) of cv2's 1-px ``LINE_8`` segment (its LineIterator, left to
+    right, after clipping): the Bresenham steps in closed form."""
+    p1, p2 = (int(p1[0]), int(p1[1])), (int(p2[0]), int(p2[1]))
+    if not (0 <= p1[0] < w and 0 <= p2[0] < w and 0 <= p1[1] < h and 0 <= p2[1] < h):
+        visible, p1, p2 = _clip_line(w, h, p1, p2)
+        if not visible:
+            return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    dx, dy = p2[0] - p1[0], p2[1] - p1[1]
+    if dx < 0:
+        dx, dy, p1 = -dx, -dy, p2
+    step = 1
+    if dy < 0:
+        dy, step = -dy, -1
+    vertical = dy > dx
+    if vertical:
+        dx, dy = dy, dx
+    major = np.arange(dx + 1)
+    minor = (2 * dy * major + dx - 1) // (2 * dx) if dx else major
+    if vertical:
+        return p1[0] + minor, p1[1] + step * major
+    return p1[0] + major, p1[1] + step * minor
+
+
+def _line2(w: int, h: int, p1: tuple, p2: tuple) -> tuple:
+    """(xs, ys) of cv2's ``Line2``: a LINE_8 segment between XY_SHIFT
+    fixed-point ends (a thick line's outline)."""
+    visible, (x1, y1), (x2, y2) = _clip_line(w << XY_SHIFT, h << XY_SHIFT, p1, p2)
+    if not visible:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    dx, dy = x2 - x1, y2 - y1
+    end = ((x2 + (XY_ONE >> 1)) >> XY_SHIFT, (y2 + (XY_ONE >> 1)) >> XY_SHIFT)
+    if abs(dx) > abs(dy):
+        if dx < 0:
+            dy = -dy
+            x1, x2, y1 = x2, x1, y2
+        n = ((x2 - x1) >> XY_SHIFT) + 1
+        y_step = _cdiv(dy << XY_SHIFT, abs(dx) | 1)
+        k = np.arange(max(n, 0), dtype=np.int64)
+        xs = ((x1 + (XY_ONE >> 1)) >> XY_SHIFT) + k
+        ys = (y1 + (XY_ONE >> 1) + k * y_step) >> XY_SHIFT
+    else:
+        if dy < 0:
+            dx = -dx
+            y1, y2, x1 = y2, y1, x2
+        n = ((y2 - y1) >> XY_SHIFT) + 1
+        x_step = _cdiv(dx << XY_SHIFT, abs(dy) | 1)
+        k = np.arange(max(n, 0), dtype=np.int64)
+        xs = (x1 + (XY_ONE >> 1) + k * x_step) >> XY_SHIFT
+        ys = ((y1 + (XY_ONE >> 1)) >> XY_SHIFT) + k
+    return np.append(xs, end[0]), np.append(ys, end[1])
+
+
+def _put(img: np.ndarray, xs, ys, color) -> None:
+    h, w = img.shape[:2]
+    inside = (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
+    img[ys[inside], xs[inside]] = color
+
+
+def _hline(img: np.ndarray, y: int, x1: int, x2: int, color) -> None:
+    """Pixels x1..x2 of row y, clipped."""
+    h, w = img.shape[:2]
+    if 0 <= y < h and x1 < w and x2 >= 0:
+        img[y, max(x1, 0):min(x2, w - 1) + 1] = color
+
+
+def _fill_convex_fixed(img: np.ndarray, v: list, color) -> None:
+    """cv2's FillConvexPoly under LINE_8 for XY_SHIFT fixed-point corners:
+    the outline by ``_line2``, then spans between the two edge chains,
+    rounded to the nearest pixel."""
+    h, w = img.shape[:2]
+    n = len(v)
+    half = XY_ONE >> 1
+    imin = min(range(n), key=lambda i: (v[i][1], i))
+    p0 = v[-1]
+    for p in v:
+        _put(img, *_line2(w, h, p0, p), color)
+        p0 = p
+    xs, ys = [p[0] for p in v], [p[1] for p in v]
+    xmin, xmax = (min(xs) + half) >> XY_SHIFT, (max(xs) + half) >> XY_SHIFT
+    ymin, ymax = (min(ys) + half) >> XY_SHIFT, (max(ys) + half) >> XY_SHIFT
+    if n < 3 or xmax < 0 or ymax < 0 or xmin >= w or ymin >= h:
+        return
+    ymax = min(ymax, h - 1)
+    chains = [{"idx": imin, "di": 1, "x": -XY_ONE, "dx": 0, "ye": ymin},
+              {"idx": imin, "di": n - 1, "x": -XY_ONE, "dx": 0, "ye": ymin}]
+    edges, y = n, ymin
+    while True:
+        for e in chains:
+            if y < e["ye"]:
+                continue
+            idx0 = e["idx"]
+            idx = (idx0 + e["di"]) % n
+            while True:
+                edges -= 1
+                if edges < 0:
+                    break
+                ty = (v[idx][1] + half) >> XY_SHIFT
+                if ty > y:
+                    e.update(ye=ty, x=v[idx0][0], idx=idx,
+                             dx=_cdiv((v[idx][0] - v[idx0][0]) * 2 + (ty - y), 2 * (ty - y)))
+                    break
+                idx0, idx = idx, (idx + e["di"]) % n
+        if edges < 0:
+            break
+        if y >= 0:
+            a, b = sorted((chains[0]["x"], chains[1]["x"]))
+            _hline(img, y, (a + half) >> XY_SHIFT, (b + half) >> XY_SHIFT, color)
+        for e in chains:
+            e["x"] += e["dx"]
+        y += 1
+        if y > ymax:
+            break
+
+
+def _disc(img: np.ndarray, cx: int, cy: int, radius: int, color) -> None:
+    """cv2's filled LINE_8 circle (its midpoint loop), a thick line's cap."""
+    err, dx, dy, plus, minus = 0, radius, 0, 1, (radius << 1) - 1
+    while dx >= dy:
+        for y, x1, x2 in ((cy - dy, cx - dx, cx + dx), (cy + dy, cx - dx, cx + dx),
+                          (cy - dx, cx - dy, cx + dy), (cy + dx, cx - dy, cx + dy)):
+            _hline(img, y, x1, x2, color)
+        dy += 1
+        err += plus
+        plus += 2
+        mask = -1 if err > 0 else 0
+        err -= minus & mask
+        dx += mask
+        minus -= mask & 2
+
+
+def _thick_line8(img: np.ndarray, p0: tuple, p1: tuple, thickness: int, caps: int,
+                 color) -> None:
+    """cv2's ThickLine under LINE_8: the segment's quad of half width
+    ``thickness / 2`` (corner offsets rounded in fixed point), and a disc
+    at each end whose bit is set in ``caps`` (1: start, 2: end)."""
+    p0 = (p0[0] << XY_SHIFT, p0[1] << XY_SHIFT)
+    p1 = (p1[0] << XY_SHIFT, p1[1] << XY_SHIFT)
+    dx = (p0[0] - p1[0]) / XY_ONE
+    dy = (p1[1] - p0[1]) / XY_ONE
+    r = dx * dx + dy * dy
+    fixed = thickness << (XY_SHIFT - 1)
+    if abs(r) > np.finfo(np.float64).eps:
+        r = (fixed + (thickness & 1) * XY_ONE * 0.5) / np.sqrt(r)
+        ox, oy = int(np.rint(dy * r)), int(np.rint(dx * r))
+        _fill_convex_fixed(img, [(p0[0] + ox, p0[1] + oy), (p0[0] - ox, p0[1] - oy),
+                                 (p1[0] - ox, p1[1] - oy), (p1[0] + ox, p1[1] + oy)], color)
+    for bit, p in ((1, p0), (2, p1)):
+        if caps & bit:
+            _disc(img, (p[0] + (XY_ONE >> 1)) >> XY_SHIFT, (p[1] + (XY_ONE >> 1)) >> XY_SHIFT,
+                  (fixed + (XY_ONE >> 1)) >> XY_SHIFT, color)
+
+
+def polylines_8(img: np.ndarray, points, closed: bool, color, thickness: int = 1) -> None:
+    """cv2.polylines with the default ``LINE_8``: 1-px Bresenham segments,
+    or thick segments (a quad and a disc at each segment's end; an open
+    line's first point gets one too). cv2's pixels, but for a thick segment
+    leaving the image, whose outline cv2 clips in fixed point otherwise."""
+    pts = [(int(x), int(y)) for x, y in np.asarray(points).reshape(-1, 2)]
+    if not pts:
+        return
+    h, w = img.shape[:2]
+    p0 = pts[-1] if closed else pts[0]
+    caps = 2 if closed else 3
+    for p in pts[0 if closed else 1:]:
+        if thickness <= 1:
+            _put(img, *_line8(w, h, p0, p), color)
+        else:
+            _thick_line8(img, p0, p, int(thickness), caps, color)
+        p0, caps = p, 2
+
+
+def fill_poly(img: np.ndarray, points, color) -> None:
+    """cv2.fillPoly of one polygon with the default ``LINE_8``: its edges as
+    1-px segments, then each row's spans between the edges crossing it (an
+    edge spans [top, bottom) rows, x in 16-bit fixed point, ceil on the
+    left, floor on the right), any polygon shape (even-odd). An edge that
+    leaves the image takes its slope from its clipped part, as cv2 does;
+    OpenCV 5 also fills a polygon's part beyond the image along the border
+    column, which this does not (tests/test_torch_draw.py)."""
+    pts = [(int(x), int(y)) for x, y in np.asarray(points).reshape(-1, 2)]
+    h, w = img.shape[:2]
+    edges = []
+    p0 = pts[-1]
+    for p in pts:
+        _put(img, *_line8(w, h, p0, p), color)
+        if p0[1] != p[1]:
+            (xa, ya), (xb, yb) = p0, p
+            if not (0 <= xa < w and 0 <= xb < w and 0 <= ya < h and 0 <= yb < h):
+                _, c0, c1 = _clip_line(w, h, p0, p)
+                if c0[1] != c1[1]:
+                    (xa, ya), (xb, yb) = c0, c1
+            slope = _cdiv((xb - xa) << XY_SHIFT, yb - ya)
+            top, bottom = sorted((p0[1], p[1]))
+            # x at the unclipped top row, along the clipped slope
+            x_top = (xa << XY_SHIFT) + (top - ya) * slope
+            edges.append((top, bottom, x_top, slope))
+        p0 = p
+    if len(edges) < 2:
+        return
+    for y in range(max(min(e[0] for e in edges), 0), min(max(e[1] for e in edges), h)):
+        xs = sorted(x + (y - y0) * dx for y0, y1, x, dx in edges if y0 <= y < y1)
+        for a, b in zip(xs[0::2], xs[1::2]):
+            _hline(img, y, (a + XY_ONE - 1) >> XY_SHIFT, b >> XY_SHIFT, color)

@@ -11,7 +11,14 @@
   rectangle outlines within a mean of 1.5 grey levels and filled ones
   within 0.25; segments at any angle within a mean of 3 levels (OpenCV 5
   fills its anti-aliased polygons in fixed point; the port's capsules
-  follow its mean coverage profiles).
+  follow its mean coverage profiles);
+- the tools' primitives: ``fill_poly``, ``polylines_8`` (thickness 1-4, open
+  and closed) and ``fill_rect`` equal cv2's ``LINE_8`` ``fillPoly``,
+  ``polylines`` and ``FILLED`` rectangle pixel for pixel for shapes inside
+  the image (convex, concave and self-crossing; a polygon leaving the
+  image differs only on the border columns); the annotation labels
+  (``ann1``-``ann8``) and the lane labels (``seg``, 0.6 / 2) have cv2's
+  sizes and baselines and are drawn within 1 grey level of it.
 """
 
 import numpy as np
@@ -133,3 +140,90 @@ def test_strokes_within_the_stated_bound_of_cv2(shape, bound):
             lambda im, p, c, t: draw.rectangle(im, (p[0], p[1]), (p[2], p[3]), c, th or t),
             200, rng)
     assert err <= bound, err
+
+
+# ---------------------------------------------------------------------------
+# The tools' LINE_8 primitives and label fonts
+# ---------------------------------------------------------------------------
+
+def _polygons(seed, n, lo=0, hi=50):
+    rng = np.random.default_rng(seed)
+    for _ in range(n):
+        yield rng.integers(lo, hi, (int(rng.integers(2, 7)), 2))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_fill_poly_equals_cv2(seed):
+    for pts in _polygons(seed, 150):
+        if len(pts) < 3:
+            continue
+        want = np.zeros((50, 60, 3), np.uint8)
+        got = want.copy()
+        cv2.fillPoly(want, [pts.astype(np.int32)], (10, 200, 30))
+        draw.fill_poly(got, pts, (10, 200, 30))
+        np.testing.assert_array_equal(got, want, err_msg=str(pts.tolist()))
+
+
+def test_fill_poly_leaving_the_image():
+    """Where a polygon leaves the image, OpenCV 5 also fills its outside
+    part along the border column; elsewhere the pixels are cv2's."""
+    for pts in _polygons(11, 300, -15, 75):
+        if len(pts) < 3:
+            continue
+        want = np.zeros((50, 60, 3), np.uint8)
+        got = want.copy()
+        cv2.fillPoly(want, [pts.astype(np.int32)], (10, 200, 30))
+        draw.fill_poly(got, pts, (10, 200, 30))
+        np.testing.assert_array_equal(got[:, 1:-1], want[:, 1:-1], err_msg=str(pts.tolist()))
+
+
+@pytest.mark.parametrize("thickness", [1, 2, 3, 4])
+def test_polylines_8_equal_cv2(thickness):
+    for i, pts in enumerate(_polygons(thickness, 120)):
+        closed = bool(i % 2)
+        want = np.zeros((50, 60, 3), np.uint8)
+        got = want.copy()
+        cv2.polylines(want, [pts.astype(np.int32)], closed, (200, 100, 5), thickness)
+        draw.polylines_8(got, pts, closed, (200, 100, 5), thickness)
+        np.testing.assert_array_equal(got, want, err_msg=f"{pts.tolist()} closed={closed}")
+
+
+def test_one_pixel_lines_clip_as_cv2():
+    for pts in _polygons(9, 200, -20, 80):
+        want = np.zeros((50, 60, 3), np.uint8)
+        got = want.copy()
+        cv2.polylines(want, [pts.astype(np.int32)], False, (9, 9, 9), 1)
+        draw.polylines_8(got, pts, False, (9, 9, 9), 1)
+        np.testing.assert_array_equal(got, want)
+
+
+def test_fill_rect_equals_cv2():
+    rng = np.random.default_rng(3)
+    for _ in range(100):
+        a, b = (tuple(int(v) for v in rng.integers(-10, 70, 2)) for _ in range(2))
+        want = np.zeros((50, 60, 3), np.uint8)
+        got = want.copy()
+        cv2.rectangle(want, a, b, (1, 2, 3), cv2.FILLED)
+        draw.fill_rect(got, a, b, (1, 2, 3))
+        np.testing.assert_array_equal(got, want)
+
+
+TOOL_FONTS = [(f"ann{lw}", max(0.35, 0.18 * lw), max(1, lw // 2), cv2.LINE_AA)
+              for lw in range(1, 9)] + [("seg", 0.6, 2, cv2.LINE_8)]
+
+
+@pytest.mark.parametrize("key,scale,thickness,line_type", TOOL_FONTS)
+def test_tool_fonts_equal_cv2(key, scale, thickness, line_type):
+    for text in list(PRINTABLE) + LABELS + ["car", "1_2/1", "motorcycle"]:
+        (w, h), base = cv2.getTextSize(text, cv2.FONT_HERSHEY_SIMPLEX, scale, thickness)
+        assert draw.text_size(text, key) == (w, h), text
+        assert draw.text_baseline(text, key) == base, text
+    rng = np.random.default_rng(len(key))
+    for text in LABELS + ["car", "1_2/1", "3_4/2"]:
+        bg = rng.integers(0, 256, (60, 420, 3)).astype(np.uint8)
+        want = bg.copy()
+        cv2.putText(want, text, (5, 40), cv2.FONT_HERSHEY_SIMPLEX, scale, (255, 255, 255),
+                    thickness, line_type)
+        got = bg.copy()
+        draw.put_text(got, text, (5, 40), key, (255, 255, 255))
+        assert np.abs(got.astype(int) - want.astype(int)).max() <= 1, text

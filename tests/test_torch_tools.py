@@ -49,7 +49,14 @@ ROOT = Path(__file__).resolve().parent.parent
 TOOLS = ROOT / "tools"
 PORT_TOOLS = ("annotate_frames", "benchmark_ortho_matching", "verify_detector_parity",
               "find_master_frames", "sample_frames", "merge_videos_and_logs",
-              "recut_video_and_log", "cut_merged_videos_and_logs")
+              "recut_video_and_log", "cut_merged_videos_and_logs",
+              # the host-only tools (tests/test_torch_tools_host.py)
+              "find_max_annotations", "interpolate_missing_timestamps", "yolo_to_coco",
+              "fix_json_annotations", "find_source_id", "check_dataset", "compare_tracking",
+              "analyze_bb_ratios", "compute_bb_center_error", "find_cut_video_issues",
+              "fix_timestamp_anomalies", "viz_dimension_estimation",
+              "compare_av_detections_and_tune_filters", "subset_orthophoto",
+              "viz_annotations", "viz_segmentations")
 REFUSED = ("jax", "jaxlib", "flax", "optax", "geotrax_tpu", "pandas", "cv2", "PIL", "yaml",
            "matplotlib")
 ENV = {**os.environ, "OMP_NUM_THREADS": "2", "JAX_PLATFORMS": "cpu"}

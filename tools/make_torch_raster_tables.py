@@ -16,7 +16,13 @@ character this script renders the character alone with ``cv2.putText``
 
 It then checks that compositing the bitmaps (``dst * (1 - a) + color * a``,
 rounded) reproduces ``cv2.putText`` of random strings within one grey
-level. It also keeps the pixel mask of ``cv2.circle`` (``LINE_8``) for
+level. The same tables, with each character's baseline (``getTextSize``'s
+baseline of a string is its characters' largest), are kept for the tools'
+fonts: ``viz_annotations``' labels at ``fontScale = max(0.35, 0.18 * lw)``
+and ``thickness = max(1, lw // 2)`` under ``LINE_AA`` for line widths
+1..8 (entries ``*_ann<lw>``), and ``viz_segmentations``' lane labels at
+0.6 / 2 under the default ``LINE_8`` (``*_seg``; OpenCV 5's TrueType text
+is anti-aliased whatever the line type). It also keeps the pixel mask of ``cv2.circle`` (``LINE_8``) for
 radii 0..CIRCLE_RADII-1 and thicknesses 1..6 about an integer centre (the
 stage's track tails and trajectory overlay; a mask does not depend on where
 the centre lies, which is checked), and writes
@@ -38,6 +44,7 @@ from pathlib import Path
 import numpy as np
 
 LINE_WIDTHS = range(1, 7)
+ANNOTATION_WIDTHS = range(1, 9)
 CIRCLE_RADII = 16
 CHARS = [chr(c) for c in range(32, 127)]
 DEFAULT_OUT = Path(__file__).resolve().parent.parent / "geotrax_tpu_torch" / "ops" / "raster_tables.npz"
@@ -47,15 +54,24 @@ def font_args(line_width: int) -> tuple:
     return line_width / 3, max(line_width - 1, 1)
 
 
-def glyph(cv2, char: str, line_width: int) -> tuple:
+def tool_fonts(cv2) -> dict:
+    """{table suffix: (fontScale, thickness, lineType)} of the tools' labels."""
+    fonts = {f"ann{lw}": (max(0.35, 0.18 * lw), max(1, lw // 2), cv2.LINE_AA)
+             for lw in ANNOTATION_WIDTHS}
+    fonts["seg"] = (0.6, 2, cv2.LINE_8)
+    return fonts
+
+
+def glyph(cv2, char: str, line_width: int, font: tuple | None = None) -> tuple:
     """(dx, dy, bitmap) of ``char`` drawn alone: the bitmap's top-left corner
-    lies at (org.x + dx, org.y + dy)."""
-    scale, thickness = font_args(line_width)
+    lies at (org.x + dx, org.y + dy). ``font`` (scale, thickness, line
+    type) replaces the stage font of ``line_width``."""
+    scale, thickness, line_type = font or (*font_args(line_width), cv2.LINE_AA)
     size = 40 * line_width
     ox, oy = size // 2, size // 2
     canvas = np.zeros((size, size, 3), np.uint8)
     cv2.putText(canvas, char, (ox, oy), cv2.FONT_HERSHEY_SIMPLEX, scale, (255, 255, 255),
-                thickness, cv2.LINE_AA)
+                thickness, line_type)
     if not (np.array_equal(canvas[..., 0], canvas[..., 1])
             and np.array_equal(canvas[..., 0], canvas[..., 2])):
         raise AssertionError(f"{char!r}: channels differ")
@@ -113,6 +129,57 @@ def stroke_profile(cv2, rng, axis_aligned: bool, lines: int = 300) -> list:
     return list(zip(knots.tolist(), (sums / np.maximum(counts, 1)).round(3).tolist()))
 
 
+def font_tables(cv2, rng, key: str, line_width: int, font: tuple, checks: int,
+                baselines: bool = False) -> dict:
+    """The arrays ``advance_<key>``, ``boxes_<key>``, ``alpha_<key>``,
+    ``height_<key>`` (and ``baseline_<key>``) of one font (scale, thickness,
+    line type), checked against cv2 on ``checks`` random strings;
+    ``line_width`` sizes the canvases."""
+    scale, thickness, line_type = font
+    sizes = [cv2.getTextSize(c, cv2.FONT_HERSHEY_SIMPLEX, scale, thickness) for c in CHARS]
+    heights = {h for (_, h), _ in sizes}
+    if len(heights) != 1:
+        raise AssertionError(f"font {key}: text heights {heights}")
+    height = heights.pop()
+    base = {c: b for c, (_, b) in zip(CHARS, sizes)}
+    table = {"advance": {c: w - 1 for c, ((w, _), _) in zip(CHARS, sizes)},
+             "glyphs": {c: glyph(cv2, c, line_width, font) for c in CHARS}}
+    worst = 0
+    for _ in range(checks):
+        text = "".join(rng.choice(CHARS, int(rng.integers(1, 30))))
+        (w, h), b = cv2.getTextSize(text, cv2.FONT_HERSHEY_SIMPLEX, scale, thickness)
+        if (w, h) != (1 + sum(table["advance"][c] for c in text), height):
+            raise AssertionError(f"font {key}: getTextSize({text!r}) = {(w, h)}")
+        if baselines and b != max(base[c] for c in text):
+            raise AssertionError(f"font {key}: baseline of {text!r} = {b}")
+        bg = rng.integers(0, 256, (20 * line_width, w + 20 * line_width, 3)).astype(np.uint8)
+        color = tuple(int(v) for v in rng.integers(0, 256, 3))
+        org = (10 * line_width, 14 * line_width)
+        ref = bg.copy()
+        cv2.putText(ref, text, org, cv2.FONT_HERSHEY_SIMPLEX, scale, color, thickness, line_type)
+        mine = composite(bg, text, org, color, table)
+        worst = max(worst, int(np.abs(mine.astype(int) - ref.astype(int)).max()))
+    if worst > 1:
+        raise AssertionError(f"font {key}: composite differs from cv2 by {worst}")
+    boxes, flat = [], []
+    offset = 0
+    for c in CHARS:
+        dx, dy, bm = table["glyphs"][c]
+        boxes.append((dx, dy, bm.shape[0], bm.shape[1], offset))
+        flat.append(bm.ravel())
+        offset += bm.size
+    arrays = {f"advance_{key}": np.array([table["advance"][c] for c in CHARS], np.int16),
+              f"boxes_{key}": np.array(boxes, np.int32),
+              f"alpha_{key}": np.concatenate(flat).astype(np.uint8),
+              f"height_{key}": np.array(height, np.int16)}
+    if baselines:
+        arrays[f"baseline_{key}"] = np.array([base[c] for c in CHARS], np.int16)
+    print(f"font {key} (scale {scale:g}, thickness {thickness}): {len(CHARS)} glyphs, "
+          f"{offset} coverage bytes, composite within {worst} grey level(s) of cv2 on "
+          f"{checks} strings")
+    return arrays
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", type=Path, default=DEFAULT_OUT, help="Output .npz path.")
@@ -124,42 +191,13 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(0)
     arrays = {"cv2_version": np.array(cv2.__version__)}
     for lw in LINE_WIDTHS:
-        scale, thickness = font_args(lw)
-        sizes = [cv2.getTextSize(c, cv2.FONT_HERSHEY_SIMPLEX, scale, thickness)[0] for c in CHARS]
-        heights = {h for _, h in sizes}
-        if len(heights) != 1:
-            raise AssertionError(f"line width {lw}: text heights {heights}")
-        table = {"advance": {c: w - 1 for c, (w, _) in zip(CHARS, sizes)},
-                 "glyphs": {c: glyph(cv2, c, lw) for c in CHARS}}
-        worst = 0
-        for _ in range(args.checks):
-            text = "".join(rng.choice(CHARS, int(rng.integers(1, 30))))
-            (w, h), _ = cv2.getTextSize(text, cv2.FONT_HERSHEY_SIMPLEX, scale, thickness)
-            if (w, h) != (1 + sum(table["advance"][c] for c in text), heights.copy().pop()):
-                raise AssertionError(f"line width {lw}: getTextSize({text!r}) = {(w, h)}")
-            bg = rng.integers(0, 256, (20 * lw, w + 20 * lw, 3)).astype(np.uint8)
-            color = tuple(int(v) for v in rng.integers(0, 256, 3))
-            org = (10 * lw, 14 * lw)
-            ref = bg.copy()
-            cv2.putText(ref, text, org, cv2.FONT_HERSHEY_SIMPLEX, scale, color, thickness,
-                        cv2.LINE_AA)
-            mine = composite(bg, text, org, color, table)
-            worst = max(worst, int(np.abs(mine.astype(int) - ref.astype(int)).max()))
-        if worst > 1:
-            raise AssertionError(f"line width {lw}: composite differs from cv2 by {worst}")
-        boxes, flat = [], []
-        offset = 0
-        for c in CHARS:
-            dx, dy, bm = table["glyphs"][c]
-            boxes.append((dx, dy, bm.shape[0], bm.shape[1], offset))
-            flat.append(bm.ravel())
-            offset += bm.size
-        arrays[f"advance_{lw}"] = np.array([table["advance"][c] for c in CHARS], np.int16)
-        arrays[f"boxes_{lw}"] = np.array(boxes, np.int32)
-        arrays[f"alpha_{lw}"] = np.concatenate(flat).astype(np.uint8)
-        arrays[f"height_{lw}"] = np.array(heights.pop(), np.int16)
-        print(f"line width {lw}: {len(CHARS)} glyphs, {offset} coverage bytes, "
-              f"composite within {worst} grey level(s) of cv2 on {args.checks} strings")
+        arrays.update(font_tables(cv2, rng, str(lw), lw, (*font_args(lw), cv2.LINE_AA),
+                                  args.checks))
+    tool_rng = np.random.default_rng(1)
+    for key, font in tool_fonts(cv2).items():
+        canvas = max(1, int(round(3 * font[0])))
+        arrays.update(font_tables(cv2, tool_rng, key, canvas, font, args.checks,
+                                  baselines=True))
     for thickness in LINE_WIDTHS:
         masks = []
         for r in range(CIRCLE_RADII):
