@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py                  # every phase; the last line is the result
     python3 chip_smoke.py --kernels-only   # phases 0-2 only, no result line
+    python3 chip_smoke.py --tracker-only   # phases 0-2 (no auction), 3-5 only, no result line
     python3 chip_smoke.py --georef-only    # phases 0, 1 and 10 only, no result line
     python3 chip_smoke.py --lockstep-only  # phases 0, 1 and 12 only, no result line
     python3 chip_smoke.py --render-only    # phases 0, 1 and 13 only, no result line
@@ -15,10 +16,10 @@ Phases, one ``[smoke] <phase> ok <seconds>s ...`` line each; a failing phase
 ends the run with a non-zero exit and no result line:
 
   0 device     the card's name and power limit (exit 1 without a card)
-  1 build      nvcc builds csrc/fast_score.cu and csrc/patch_gather.cu for
-               sm_90a and g++ the TIFF reader's io/native/tiff.cpp and the
-               exact assignment's io/native/lapjv.cpp, all at once
-               (-Xptxas -v shown)
+  1 build      nvcc builds csrc/fast_score.cu, csrc/patch_gather.cu and
+               csrc/auction.cu for sm_90a and g++ the TIFF reader's
+               io/native/tiff.cpp and the exact assignment's
+               io/native/lapjv.cpp, all at once (-Xptxas -v shown)
   2 kernel     the FAST kernel equals its plain PyTorch version exactly on a
                seeded (33,1080,1920) batch, an odd (2,37,53) batch, a
                3-pixel checkerboard and a constant image, at thresholds 20
@@ -32,7 +33,17 @@ ends the run with a non-zero exit and no result line:
                time (CUDA graphs, in turns with one PyTorch call computing
                it, an advanced index on an unfold view), its time as called,
                and its bound; for FAST also the achieved GB/s, the share of
-               the bound and the share of pixels that take its full test
+               the bound and the share of pixels that take its full test;
+               the auction kernel equals its plain version exactly on
+               masked_assignment's padded costs of seeded tracker-like
+               inputs at the default (1000, 2000) and the lockstep's (4,
+               1000, 2000), tie-heavy integer costs (256, 512), a capped (300,
+               300) with unassigned rows, odd (1, 2), (3, 7), (37, 90), a
+               max_det of 13000 against 1024 slots (1024, 14024: the state
+               exceeds shared memory) and RT-DETR's matcher (8, 36, 336);
+               each problem's rounds, the kernel's and the plain version's
+               CUDA-event ms and the bound (the bidders' rows read once per
+               round)
   3 main       the default extract configuration: YOLOv8s at imgsz 1920
                (random weights from a seeded generator, class biases set so
                that about VEHICLES_PER_4K_FRAME boxes pass ``conf``) on two
@@ -41,11 +52,19 @@ ends the run with a non-zero exit and no result line:
                entry point into its files (the post-processed 14-column
                tracks file, the transforms file, the metadata file with the
                reference's top-level keys), read back and checked; the FAST
-               launch counter must rise by 3, and every frame's homography
-               must be the camera's; then the FAST kernel exact and timed on
-               the first chunk's own gray
+               launch counter must rise by 3 and the auction's by 3 a frame,
+               every frame's homography must be the camera's, and the chunk
+               tracker runs under torch.cuda.set_sync_debug_mode("error")
+               (no torch operation of it waits for the card); then the FAST
+               kernel exact and timed on the first chunk's own gray
   4 steady     three more chunks of the same video through the same
-               extractor: ms per chunk (median, min, max), checked as above
+               extractor: ms per chunk (median, min, max), checked as above;
+               the auction kernel then exact against its plain version on
+               the 96 padded costs the first of them handed it, with their
+               rounds, both versions' ms per auction (the chunk's auctions
+               replayed in order) and the bound; the plain version never ran
+               on the card's paths (checked here, before the reference
+               phase and at the end)
   5 breakdown  one more chunk under torch.profiler, checked as above: host
                and device time per stage and the largest device items
                (device times read 0 where the profiler sees none)
@@ -53,7 +72,8 @@ ends the run with a non-zero exit and no result line:
                through the extract entry point on the main phase's frames
                (kept in host memory): files and homographies checked as in
                the main phase, the patch launch counter must rise by one per
-               chunk, the embeddings of valid detections have unit norm and,
+               chunk and the auction's by 3 a frame, the chunk tracker
+               without host reads as in the main phase, the embeddings of valid detections have unit norm and,
                on the first chunk, equal those of the plain gather on the
                card; the HWC gather on that chunk's own inputs exact and
                timed (``hwc_kernel_check``: against its bound and an unfold
@@ -79,7 +99,8 @@ ends the run with a non-zero exit and no result line:
                stabilization off with botsort (standalone GMC, checked
                against the camera's motion) and with bytetrack (no FAST
                launch); ms of both chunks, FAST launches, homographies
-               against the camera
+               against the camera; each option's chunk tracker without host
+               reads as in the main phase, the auction launched 3 times a frame
   9 sequential the sequential per-frame extract path on 16 frames of a
                drifting 3840x2160 video with 36 moving vehicles: (a) the
                reader's vehicles as oracle detections through the fused
@@ -121,7 +142,9 @@ ends the run with a non-zero exit and no result line:
  11 reference  the same port on a small oracle clip with a moving camera,
                on the card and on the CPU (plain versions), for botsort,
                botsort with ReID, deepocsort with ReID, tracktrack with
-               ReID, ocsort and fasttrack: equal track ids, close geometry
+               ReID, ocsort and fasttrack: equal track ids, close geometry;
+               the card's runs launch the auction kernel and never its plain
+               version
  12 lockstep  ``batch --parallel-videos 4`` on four drifting 3840x2160
                videos of 16, 16, 16 and 12 frames with 36 moving vehicles
                each: (a) the readers' vehicles as oracle detections,
@@ -130,7 +153,9 @@ ends the run with a non-zero exit and no result line:
                (the sequential loop), equal or the largest difference per
                column; (b) YOLOv8s imgsz 1920 (the main phase's calibrated
                detector) with ReID under the default preset through
-               extract_videos_batch: files, homographies within 2 px of each
+               extract_videos_batch (the first run's batched tracker step
+               under set_sync_debug_mode("error"); the auction launched 3
+               times a step): files, homographies within 2 px of each
                video's camera, FAST launched once per video's reference
                frame and once per later step, the gather once per step, unit
                embeddings; ms per step, frames/s in turns against the four
@@ -258,7 +283,11 @@ ends the run with a non-zero exit and no result line:
                and their files present (figures are skipped, with a log
                line, where matplotlib is missing)
 Then a JSON line describing each kernel, the card's nvidia-smi line, and as
-the last line {"ok": true, "device": {...}}. ``--kernels-only`` serves to
+the last line {"ok": true, "device": {...}}. ``--tracker-only`` runs the
+main, steady and breakdown phases alone: copied into a checkout without the
+auction kernel it times that checkout's host-driven auction (no sync check
+there), so the two trees' ``fx.tracker`` and steady chunks can be taken in
+turns in one call. ``--kernels-only`` serves to
 time the kernels of two checkouts in one call: copy this script into the
 other checkout and run it there too. ``--georef-only`` runs phases 0, 1 and
 10, ``--lockstep-only`` phases 0, 1 and 12 with its own calibrated detector,
@@ -291,7 +320,7 @@ from geotrax_tpu_torch._device import resolve_device
 from geotrax_tpu_torch.io.synthetic import SyntheticVideoReader
 from geotrax_tpu_torch.models import rtdetr_ul, yolov8
 from geotrax_tpu_torch.models.detector import Detector, OracleDetector
-from geotrax_tpu_torch.ops import fast, features, patches
+from geotrax_tpu_torch.ops import assignment, fast, features, patches
 from geotrax_tpu_torch.ops.resize import resize_u8_linear
 from geotrax_tpu_torch.pipeline import extract as port_extract
 from geotrax_tpu_torch.pipeline.device_pipeline import FusedExtractor, embed_boxes
@@ -307,6 +336,19 @@ FAST_FLOPS_PER_PIXEL = 2 + 16 * 5
 
 FAST_SOURCE = "geotrax_tpu_torch/csrc/fast_score.cu"
 FAST_REPLACES = "geotrax_tpu/ops/pallas_fast.py:36"
+AUCTION_SOURCE = "geotrax_tpu_torch/csrc/auction.cu"
+# not a Pallas site: the reference's device loop, the lax.while_loop of
+# auction_assignment
+AUCTION_REPLACES = "geotrax_tpu/ops/assignment.py:77"
+# The auction kernel and its plain version as this checkout has them (a
+# parent checkout that predates the kernel has neither: --tracker-only then
+# times its host-driven loop).
+AUCTION_KERNEL = assignment.auction_assignment
+HAS_AUCTION = hasattr(assignment, "auction_assignment_torch")
+# BYTE associations per tracker step (byte_step's three masked_assignment calls)
+AUCTIONS_PER_STEP = 3
+# botsort's match_thresh, the first association's gate
+AUCTION_THRESHOLD = 0.8
 PATCH_SOURCE = "geotrax_tpu_torch/csrc/patch_gather.cu"
 PATCH_REPLACES = "geotrax_tpu/ops/pallas_patches.py:40"
 # The ReID path's gather per 32-frame 4K chunk: 3 channel planes of each
@@ -400,13 +442,14 @@ def phase_device() -> dict:
 
 
 def phase_build() -> dict:
-    """Both kernels, each by its own nvcc, and the host libraries of the
+    """The three kernels, each by its own nvcc, and the host libraries of the
     TIFF reader and the exact assignment, each by its own g++, all started
     together; their logs (a g++ build's: the library's path)."""
     from geotrax_tpu_torch.io import native, tiff
     from geotrax_tpu_torch.ops.assignment import LAPJV_SOURCE
 
-    modules = {"fast_score": fast, "patch_gather": patches}
+    modules = {"fast_score": fast, "patch_gather": patches,
+               **({"auction": assignment} if HAS_AUCTION else {})}
     host = {"tiff.cpp": tiff.SOURCE, "lapjv.cpp": LAPJV_SOURCE}
     with ThreadPoolExecutor(len(modules) + len(host)) as pool:
         futures = {name: pool.submit(mod.build, verbose=True) for name, mod in modules.items()}
@@ -945,10 +988,11 @@ def check_outputs(stats: dict, n_frames: int, reader: SyntheticVideoReader,
 
 def phase_main(device: str = "cuda", width: int = 3840, height: int = 2160, n_frames: int = 64,
                chunk: int = 32, variant: str = "s", imgsz: int = 1920, seed: int = 0,
-               horizon=None, tol_px: float = 2.0) -> dict:
+               horizon=None, tol_px: float = 2.0, sync_check: bool = True) -> dict:
     """The port's default extract path, driven through its entry points,
     over the first ``n_frames`` of a ``horizon``-frame video (the frames are
-    made first and kept for the ReID phase; ``setup_s`` includes them)."""
+    made first and kept for the ReID phase; ``setup_s`` includes them); with
+    ``sync_check`` the chunk tracker runs under ``no_host_reads``."""
     t0 = time.perf_counter()
     horizon = horizon or n_frames
     reader = smoke_reader(width, height, seed, horizon, stop=n_frames)
@@ -956,7 +1000,9 @@ def phase_main(device: str = "cuda", width: int = 3840, height: int = 2160, n_fr
     config, fx, n_det = build_extractor(device, width, height, variant, imgsz, seed, chunk,
                                         frames[0][1])
     setup_s = time.perf_counter() - t0
-    with tempfile.TemporaryDirectory() as tmp:
+    reads = contextlib.nullcontext({"chunks": 0})
+    with tempfile.TemporaryDirectory() as tmp, (tracker_reads_checked(fx, device) if sync_check
+                                                 else reads) as checked:
         source = Path(tmp) / "V_smoke.mp4"  # the metadata goes beside it; never read
         stats = port_extract.extract(FrameList(reader.info, frames), fx, Path(tmp) / "results",
                                      source.stem, config=config, chunk=chunk, source=source,
@@ -968,20 +1014,24 @@ def phase_main(device: str = "cuda", width: int = 3840, height: int = 2160, n_fr
             raise AssertionError("the extract wrote no metadata file")
     return {"setup_s": setup_s, "stats": stats, "checks": checks, "fx": fx,
             "detections_frame0": n_det, "horizon": horizon, "frames": frames,
-            "reader": reader}
+            "reader": reader, "sync_checked_chunks": checked["chunks"]}
 
 
 def phase_steady(fx, width: int, height: int, seed: int, horizon: int, start: int,
-                 chunk: int = 32, n_chunks: int = STEADY_CHUNKS, tol_px: float = 2.0) -> dict:
+                 chunk: int = 32, n_chunks: int = STEADY_CHUNKS, tol_px: float = 2.0,
+                 kept=None) -> dict:
     """``n_chunks`` more chunks of the same video through the same
     extractor (tracker state and reference frame carried on), with the
     tracks and transforms rows checked; ms per chunk as the row emitter
     measures it (chunk step plus the copy of its outputs to the host). The
-    first chunk's frames are kept for the ReID phase."""
+    first chunk's frames are kept for the ReID phase and, given ``kept``,
+    the padded costs of its auctions are appended to it."""
     reader = smoke_reader(width, height, seed, horizon, start, start + n_chunks * chunk)
     frames = make_frames(reader)
-    tracks, transforms, stats = port_extract.track_video_fused(FrameList(reader.info, frames), fx,
-                                                               chunk=chunk)
+    with (AuctionRecorder(kept, AUCTIONS_PER_STEP * chunk) if kept is not None
+          else contextlib.nullcontext()):
+        tracks, transforms, stats = port_extract.track_video_fused(FrameList(reader.info, frames),
+                                                                   fx, chunk=chunk)
     if stats["chunks"] != n_chunks or stats["frames"] != n_chunks * chunk:
         raise AssertionError(f"steady run: {stats['chunks']} chunks, {stats['frames']} frames")
     if tracks.shape[1] != 12 or not np.isfinite(tracks).all() or len(transforms) != stats["frames"]:
@@ -991,6 +1041,270 @@ def phase_steady(fx, width: int, height: int, seed: int, horizon: int, start: in
     return {"chunk_ms": ms.tolist(), "median_ms": float(np.median(ms)), "min_ms": float(ms.min()),
             "max_ms": float(ms.max()), "camera_err_px": cam_err, "rows": int(len(tracks)),
             "frames": frames[:chunk]}
+
+
+def auction_launches() -> int:
+    """The auction kernel's launch count (0 in a checkout without it)."""
+    return getattr(AUCTION_KERNEL, "launches", 0)
+
+
+def reset_auction_counts() -> None:
+    AUCTION_KERNEL.launches = 0
+    if HAS_AUCTION:
+        assignment.auction_assignment_torch.calls = 0
+
+
+def plain_auction_calls() -> int:
+    return assignment.auction_assignment_torch.calls if HAS_AUCTION else 0
+
+
+@contextlib.contextmanager
+def no_host_reads(on_card: bool):
+    """While the block runs on the card, any torch operation that
+    synchronises with the host (a read back, a pageable copy) raises
+    (``torch.cuda.set_sync_debug_mode("error")``)."""
+    if not on_card:
+        yield
+        return
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@contextlib.contextmanager
+def tracker_reads_checked(fx, device: str):
+    """Inside the block, ``fx``'s chunk tracker runs under
+    ``no_host_reads``; yields a dict that counts the chunks so run."""
+    seen = {"chunks": 0}
+    run = fx._run_tracker
+
+    def checked(*a, **kw):
+        with no_host_reads(device == "cuda"):
+            out = run(*a, **kw)
+        seen["chunks"] += 1
+        return out
+
+    fx._run_tracker = checked
+    try:
+        yield seen
+    finally:
+        del fx._run_tracker
+
+
+class AuctionRecorder:
+    """Stands in for ``assignment.auction_assignment`` (masked_assignment
+    calls it by that name): keeps the first ``limit`` (cost, eps, max_iters)
+    it is handed, then calls the wrapper it replaced. The wrapper counts its
+    launches on the function its name resolves to, so ``launches`` passes
+    through to the wrapper's own count."""
+
+    def __init__(self, kept: list, limit: int):
+        self.original, self.kept, self.limit = assignment.auction_assignment, kept, limit
+
+    @property
+    def launches(self) -> int:
+        return self.original.launches
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        self.original.launches = value
+
+    def __call__(self, cost, eps=2e-4, max_iters=512, **kw):
+        if len(self.kept) < self.limit:
+            self.kept.append((cost, eps, max_iters))
+        return self.original(cost, eps=eps, max_iters=max_iters, **kw)
+
+    def __enter__(self):
+        assignment.auction_assignment = self
+        return self
+
+    def __exit__(self, *exc):
+        assignment.auction_assignment = self.original
+
+
+def padded_cost(cost, row_valid, col_valid, threshold: float) -> torch.Tensor:
+    """The padded cost masked_assignment hands the auction for these inputs
+    (it runs the auction once; that launch counts on no path)."""
+    kept = []
+    with AuctionRecorder(kept, 1):
+        assignment.masked_assignment(cost, row_valid, col_valid, threshold)
+    return kept[0][0]
+
+
+def tracker_inputs(lead, k: int, m: int, live: int, dets: int, seed: int, device) -> tuple:
+    """A first association's inputs at the tracker's shape: ``k`` slots of
+    which ``live`` hold tracks, ``m`` detection slots of which ``dets`` are
+    valid, vehicles of 20-120 x 20-60 px over a 4K frame; a track is its
+    detection moved by ~6 px (one in five lies elsewhere); cost 1 - IoU.
+    Returns (cost (lead, k, m), row_valid, col_valid)."""
+    from geotrax_tpu_torch.ops.boxes import iou_matrix, xywh_to_xyxy
+
+    rng = np.random.default_rng(seed)
+    shape = tuple(lead)
+    det = np.concatenate([rng.uniform(40, [3800, 2120], shape + (m, 2)),
+                          rng.uniform(20, [120, 60], shape + (m, 2))], -1).astype(np.float32)
+    trk = det[..., np.arange(k) % m, :].copy()
+    trk[..., :2] += rng.normal(0, 6, shape + (k, 2)).astype(np.float32)
+    moved = rng.uniform(size=shape + (k,)) < 0.2
+    trk[moved, :2] = rng.uniform(40, [3800, 2120], (int(moved.sum()), 2))
+    det_t, trk_t = torch.from_numpy(det).to(device), torch.from_numpy(trk).to(device)
+    cost = 1.0 - iou_matrix(xywh_to_xyxy(trk_t), xywh_to_xyxy(det_t))
+    rows = torch.arange(k, device=device).expand(shape + (k,)) < live
+    cols = torch.arange(m, device=device).expand(shape + (m,)) < dets
+    return cost.contiguous(), rows, cols
+
+
+def auction_bound_ms(stats: torch.Tensor, n: int, m: int) -> tuple:
+    """Least time of the auctions whose (rounds, bidder rows) per problem are
+    ``stats`` (..., 2): each bidder's row of ``m`` float32 costs read once in
+    every round it bids, each problem's ``n`` int64 columns written once,
+    over the card's HBM rate. Its ~5 float operations per cost read stay far
+    under the float32 rate, so bytes bound it. Returns (ms, "bytes", bytes)."""
+    problems = int(stats[..., 1].numel())
+    moved = 4 * m * int(stats[..., 1].sum()) + 8 * n * problems
+    return moved / HBM_BYTES_PER_S * 1e3, "bytes", moved
+
+
+def auction_check(name: str, cost: torch.Tensor, eps: float = 2e-4, max_iters: int = 512,
+                  reps: int = 10) -> dict:
+    """The kernel against the plain version on one (..., N, M) cost, exactly;
+    on the card also each problem's rounds, the bound, and both versions'
+    CUDA-event ms. On the CPU the wrapper runs the plain version."""
+    on_card = cost.device.type == "cuda"
+    kw = {"eps": eps, "max_iters": max_iters}
+    stats = (torch.empty(cost.shape[:-2] + (2,), dtype=torch.int64, device=cost.device)
+             if on_card else None)
+    out = assignment.auction_assignment(cost, stats=stats, **kw)
+    plain = assignment.auction_assignment_torch(cost, eps=eps, max_iters=max_iters)
+    err = float((out - plain).abs().max()) if out.numel() else 0.0
+    if not torch.equal(out, plain):
+        raise AssertionError(f"auction kernel != plain on {name} {tuple(cost.shape)}: "
+                             f"{int((out != plain).sum())} rows differ")
+    n, m = cost.shape[-2:]
+    res = {"name": name, "shape": tuple(cost.shape), "max_abs_err": err,
+           "unassigned": int((plain < 0).sum())}
+    if on_card:
+        bound, bound_by, moved = auction_bound_ms(stats, n, m)
+        state = assignment._library().auction_state_bytes(n, m)
+        res.update(rounds=stats[..., 0].flatten().tolist(), bound_ms=bound, bound_by=bound_by,
+                   bytes=moved, state_bytes=int(state),
+                   state_in_shared=state <= assignment._shared_limit(cost.device.index),
+                   ms=cuda_ms(lambda: assignment.auction_assignment(cost, **kw), reps),
+                   plain_ms=cuda_ms(lambda: assignment.auction_assignment_torch(
+                       cost, eps=eps, max_iters=max_iters), max(reps // 5, 1), warmup=1),
+                   library_ms=None)
+    return res
+
+
+def path_auctions(kept: list, reps: int = 3) -> dict:
+    """The kernel against the plain version on every auction one chunk of
+    the main path ran (``kept``: its padded costs, in order), exactly; on the
+    card the rounds of each, and per auction the mean kernel and plain ms
+    (CUDA events over the chunk's auctions replayed in order) and bound."""
+    on_card = kept[0][0].device.type == "cuda"
+    rounds, moved, matched = [], 0, 0
+    for i, (cost, eps, max_iters) in enumerate(kept):
+        stats = (torch.empty(cost.shape[:-2] + (2,), dtype=torch.int64, device=cost.device)
+                 if on_card else None)
+        out = assignment.auction_assignment(cost, eps=eps, max_iters=max_iters, stats=stats)
+        plain = assignment.auction_assignment_torch(cost, eps=eps, max_iters=max_iters)
+        if not torch.equal(out, plain):
+            raise AssertionError(f"auction kernel != plain on the path's auction {i} "
+                                 f"{tuple(cost.shape)}: {int((out != plain).sum())} rows differ")
+        # masked_assignment pads M detections with N dummy columns
+        matched += int((plain < cost.shape[-1] - cost.shape[-2]).sum()) - int((plain < 0).sum())
+        if on_card:
+            rounds += stats[..., 0].flatten().tolist()
+            moved += auction_bound_ms(stats, *cost.shape[-2:])[2]
+    count = len(kept)
+    res = {"auctions": count, "shape": tuple(kept[0][0].shape), "max_abs_err": 0.0,
+           "matched": matched}
+    if on_card:
+        res.update(
+            rounds=rounds, bytes=moved / count, bound_by="bytes", library_ms=None,
+            bound_ms=moved / count / HBM_BYTES_PER_S * 1e3,
+            ms=cuda_ms(lambda: [assignment.auction_assignment(c, eps=e, max_iters=i)
+                                for c, e, i in kept], reps, warmup=1) / count,
+            plain_ms=cuda_ms(lambda: [assignment.auction_assignment_torch(c, eps=e, max_iters=i)
+                                      for c, e, i in kept], 1, warmup=0) / count)
+    return res
+
+
+def phase_auction(device: str = "cuda", kept=None, slots: int = 1000, dets: int = 1000,
+                  big_dets: int = 13000, big_slots: int = 1024, detr=(8, 36, 300),
+                  reps: int = 10) -> dict:
+    """The auction kernel bit-equal to its plain version at the tracker's
+    default (1000, 2000) padded cost, the lockstep's (4, 1000, 2000), tie-heavy integer costs, a cap
+    that is hit, odd shapes, a user's max_det of ``big_dets`` (1024 slots:
+    the state exceeds shared memory) and RT-DETR's matcher (``detr``: images,
+    GT slots, queries); then on the auctions of the main path's chunk
+    (``kept``). ``slots``, ``dets``, ``big_*`` and ``detr`` shrink the
+    rehearsal on the CPU."""
+    dev = torch.device(device)
+    rng = np.random.default_rng(5)
+    cases = []
+    gate = AUCTION_THRESHOLD
+    default = padded_cost(*tracker_inputs((), slots, dets, int(0.8 * slots), int(0.9 * dets), 1,
+                                          dev), gate)
+    cases.append(auction_check("default", default, reps=reps))
+    del default
+    lock = padded_cost(*tracker_inputs((4,), slots, dets, int(0.8 * slots), int(0.9 * dets), 2,
+                                       dev), gate)
+    cases.append(auction_check("lockstep", lock, reps=reps))
+    del lock
+    ties = torch.from_numpy(rng.integers(0, 4, (256, 512)).astype(np.float32)).to(dev)
+    cases.append(auction_check("integer ties", ties, reps=reps))
+    contested = torch.from_numpy(rng.uniform(0, 1, (300, 300)).astype(np.float32)).to(dev)
+    cases.append(auction_check("cap hit", contested, max_iters=8, reps=reps))
+    if cases[-1]["unassigned"] == 0:
+        raise AssertionError("the capped auction assigned every row")
+    for shape in ((1, 2), (3, 7), (37, 90)):
+        odd = torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32)).to(dev)
+        cases.append(auction_check(f"odd {shape}", odd, reps=reps))
+    big = padded_cost(*tracker_inputs((), big_slots, big_dets, int(0.8 * big_slots),
+                                      int(0.9 * big_dets), 3, dev), gate)
+    cases.append(auction_check(f"max_det {big_dets}", big, reps=max(reps // 5, 1)))
+    if dev.type == "cuda" and cases[-1]["state_in_shared"]:
+        raise AssertionError(f"the state of {tuple(big.shape)} fit in shared memory")
+    del big
+    images, gts, queries = detr
+    detr_cost = torch.from_numpy(rng.uniform(-5, 10, (images, gts, queries)).astype(
+        np.float32)).to(dev)
+    gt_mask = torch.from_numpy(rng.uniform(size=(images, gts)) < 0.8).to(dev)
+    cases.append(auction_check("RT-DETR matcher", padded_cost(
+        detr_cost, gt_mask, torch.ones((images, queries), dtype=torch.bool, device=dev), 30.0),
+        reps=reps))
+    path = path_auctions(kept) if kept else None
+    return {"cases": cases, "path": path,
+            "max_abs_err": max([c["max_abs_err"] for c in cases]
+                               + ([path["max_abs_err"]] if path else []))}
+
+
+def auction_text(c: dict) -> str:
+    shape = "x".join(str(d) for d in c["shape"])
+    if "ms" not in c:
+        return f"{c['name']} {shape}"
+    rounds = c["rounds"]
+    return (f"{c['name']} {shape}: rounds {min(rounds)}-{max(rounds)}, kernel {c['ms']:.4f} ms "
+            f"(bound {c['bound_ms']:.4f}, {100 * c['bound_ms'] / c['ms']:.1f} %), plain "
+            f"{c['plain_ms']:.3f} ms" + ("" if c["state_in_shared"] else ", state in device memory"))
+
+
+def path_text(p: dict) -> str:
+    """The main path's auctions for a log line."""
+    text = f"{p['auctions']} auctions of {'x'.join(map(str, p['shape']))}, {p['matched']} matches"
+    if "ms" not in p:
+        return text
+    return (f"{text}, rounds {min(p['rounds'])}-{max(p['rounds'])} (mean "
+            f"{np.mean(p['rounds']):.2f}), per auction kernel {p['ms']:.4f} ms, plain "
+            f"{p['plain_ms']:.3f} ms, bound {p['bound_ms']:.5f} ms")
+
+
+def auction_line(au: dict, seconds: float, smi: str) -> str:
+    return (f"auction ok {seconds:.1f}s kernel == plain on "
+            + "; ".join(auction_text(c) for c in au["cases"]) + f" [{smi}]")
 
 
 REFERENCE_TRACKERS = (
@@ -1008,7 +1322,8 @@ def phase_reference(device: str = "cuda", n_frames: int = 16, chunk: int = 8,
     """The port on ``device`` against the port on the CPU (plain versions),
     on a small oracle clip with a moving camera, for each tracker of
     ``trackers`` ((name, overrides of its default block)): same track ids,
-    geometry (boxes and dimensions) within 0.05 px."""
+    geometry (boxes and dimensions) within 0.05 px; the card's runs launch
+    the auction kernel and never its plain version."""
     results = {}
     for name, overrides in trackers:
         runs = []
@@ -1023,10 +1338,16 @@ def phase_reference(device: str = "cuda", n_frames: int = 16, chunk: int = 8,
             tracker_cfg, state, step, head = port_extract.make_extract_tracker(config, device=dev)
             fx = port_extract.make_fused_extractor(config, det, tracker_cfg, state, step, 240, 320,
                                                    head, chunk=chunk, device=dev)
+            reset_auction_counts()
             with tempfile.TemporaryDirectory() as tmp:
                 stats = port_extract.extract(reader, fx, tmp, "V_ref", config=config, chunk=chunk)
                 runs.append((np.loadtxt(stats["tracks_file"], delimiter=",", ndmin=2),
                              np.loadtxt(stats["transforms_file"], delimiter=",", ndmin=2)))
+            if dev == "cuda":  # the card's run never enters the plain auction
+                card_auctions = auction_launches()
+                if plain_auction_calls() != 0 or card_auctions == 0:
+                    raise AssertionError(f"{name}: {plain_auction_calls()} plain auction calls, "
+                                         f"{card_auctions} kernel launches on the card")
         (t_dev, h_dev), (t_cpu, h_cpu) = runs
         label = name + ("+reid" if overrides.get("with_reid") else "")
         if len(t_dev) == 0 or t_dev.shape != t_cpu.shape or not np.array_equal(
@@ -1039,7 +1360,8 @@ def phase_reference(device: str = "cuda", n_frames: int = 16, chunk: int = 8,
         if box_err > 0.05 or h_err > 0.05:
             raise AssertionError(f"{label}: geometry differs: boxes {box_err} px, H {h_err}")
         results[label] = {"rows": int(len(t_dev)), "tracks": int(len(np.unique(t_dev[:, 1]))),
-                          "box_err": box_err, "h_err": h_err}
+                          "box_err": box_err, "h_err": h_err,
+                          "auction_launches": card_auctions if device == "cuda" else 0}
     return results
 
 
@@ -1122,17 +1444,19 @@ def phase_reid(detector, frames, timed_frames, reader, device: str = "cuda", img
     fx, head, seen = reid_extractor(config, detector, height, width, chunk, seed, device)
     if head is not None:
         raise AssertionError("model: auto loaded a learned head")
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, tracker_reads_checked(fx, device) as checked:
         if device == "cuda":
             torch.cuda.reset_peak_memory_stats()
         fast.fast_score_map.launches = 0
         patches.patches32.launches = 0
+        AUCTION_KERNEL.launches = 0
         stats = port_extract.extract(FrameList(info, frames), fx, tmp, "V_reid", config=config,
                                      chunk=chunk)
         sync()
         peak_gib = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else None
         launches = {"fast_score": fast.fast_score_map.launches,
                     "patch_gather": patches.patches32.launches}
+        auctions = auction_launches()
         checks = check_outputs(stats, n, reader, tol_px)
     # on the CPU (a rehearsal) the wrappers run the plain versions: no launch
     on_card = device == "cuda"
@@ -1140,6 +1464,8 @@ def phase_reid(detector, frames, timed_frames, reader, device: str = "cuda", img
                     "patch_gather": stats["chunks"] * on_card}:
         raise AssertionError(f"kernel launches on the ReID path: {launches} over "
                              f"{stats['chunks']} chunks")
+    if auctions != AUCTIONS_PER_STEP * n * on_card:
+        raise AssertionError(f"auction launched {auctions} times over {n} ReID frames")
     emb = embedding_checks(fx, seen[:chunk], frames[:chunk])
     projection = emb.pop("emb")
 
@@ -1177,6 +1503,7 @@ def phase_reid(detector, frames, timed_frames, reader, device: str = "cuda", img
     if head_vs_projection < 0.1:
         raise AssertionError("the learned head's embeddings equal the projection's")
     return {"stats": stats, "checks": checks, "launches": launches, "emb": emb,
+            "auction_launches": auctions, "sync_checked_chunks": checked["chunks"],
             "peak_gib": peak_gib, "timed_ms": tstats["chunk_s"][0] * 1e3,
             "timed_camera_err_px": timed_err,
             "timed_rows": int(len(tracks)), "turns": turns,
@@ -1368,24 +1695,30 @@ def phase_options(detector, frames, reader, device: str = "cuda", imgsz: int = 1
         det = Detector(model_path, config["ultralytics"], device=device)
         fx = build_fused(config, det, info.height, info.width, chunk, 0, device)
         fast.fast_score_map.launches = 0
+        AUCTION_KERNEL.launches = 0
         ms, hs, gmcs = [], [], []
-        for k in range(2):
-            part = frames[k * chunk:(k + 1) * chunk]
-            fids = np.asarray([i for i, _ in part]) + 1
-            stacked = np.stack([f for _, f in part])
-            t0 = time.perf_counter()
-            out = fx.process_chunk(stacked, fids, len(part))
-            hs.append(out.h.cpu().numpy())
-            gmcs.append(out.gmc.cpu().numpy())
-            ms.append((time.perf_counter() - t0) * 1e3)
+        with tracker_reads_checked(fx, device) as checked:
+            for k in range(2):
+                part = frames[k * chunk:(k + 1) * chunk]
+                fids = np.asarray([i for i, _ in part]) + 1
+                stacked = np.stack([f for _, f in part])
+                t0 = time.perf_counter()
+                out = fx.process_chunk(stacked, fids, len(part))
+                hs.append(out.h.cpu().numpy())
+                gmcs.append(out.gmc.cpu().numpy())
+                ms.append((time.perf_counter() - t0) * 1e3)
         ids = [i for i, _ in frames[:2 * chunk]]
         h, gmc = np.concatenate(hs), np.concatenate(gmcs)
         stab, use_gmc = fx.stab_on, fx.use_gmc
-        res = {"ms": ms, "launches": fast.fast_score_map.launches}
+        res = {"ms": ms, "launches": fast.fast_score_map.launches,
+               "auction_launches": auction_launches(), "sync_checked_chunks": checked["chunks"]}
         expected = (3 if stab else 2 if use_gmc else 0) * (device == "cuda")
         if res["launches"] != expected:
             raise AssertionError(f"{name}: FAST launched {res['launches']} times, "
                                  f"expected {expected}")
+        if res["auction_launches"] != AUCTIONS_PER_STEP * len(ids) * (device == "cuda"):
+            raise AssertionError(f"{name}: auction launched {res['auction_launches']} times "
+                                 f"over {len(ids)} frames")
         if stab:
             res["camera_err_px"] = check_homographies(h, ids, reader, tol_px)
         else:
@@ -2086,6 +2419,7 @@ def run_extraction_in_memory(args, frames, info, detector=None) -> dict:
 def reset_launches() -> None:
     fast.fast_score_map.launches = 0
     patches.patches32.launches = 0
+    AUCTION_KERNEL.launches = 0
 
 
 def launches() -> dict:
@@ -2248,6 +2582,9 @@ def phase_sequential(device: str = "cuda", width: int = 3840, height: int = 2160
         sync()
         if batches != [n_frames] or launches() != {"fast_score": 0, "patch_gather": 0}:
             raise AssertionError(f"rsift run: detect_batch groups {batches}, launches {launches()}")
+        res["b_auction"] = auction_launches()
+        if res["b_auction"] != AUCTIONS_PER_STEP * n_frames * (device == "cuda"):
+            raise AssertionError(f"rsift run: auction launched {res['b_auction']} times")
         res["b"] = {"stats": stats, "s": time.perf_counter() - t0, "checks": check_files(
             stats["tracks_file"], stats["transforms_file"], stats.get("metadata_file"), n_frames,
             reader, tol_px, may_lack_tracks=True)}
@@ -2271,10 +2608,13 @@ def phase_sequential(device: str = "cuda", width: int = 3840, height: int = 2160
                                          frames, info, detector=det)
         sync()
         res["c_launches"] = launches()
+        res["c_auction"] = auction_launches()
         expected = {"fast_score": n_frames * (device == "cuda"),
                     "patch_gather": n_frames * (device == "cuda")}
         if res["c_launches"] != expected:
             raise AssertionError(f"RT-DETR run: launches {res['c_launches']}, expected {expected}")
+        if res["c_auction"] != AUCTIONS_PER_STEP * n_frames * (device == "cuda"):
+            raise AssertionError(f"RT-DETR run: auction launched {res['c_auction']} times")
         res["c"] = {"stats": stats, "s": time.perf_counter() - t0, "checks": check_files(
             stats["tracks_file"], stats["transforms_file"], stats.get("metadata_file"), n_frames,
             reader, tol_px, may_lack_tracks=True)}
@@ -2551,6 +2891,18 @@ def phase_lockstep(detector=None, device: str = "cuda", width: int = 3840, heigh
             return out
 
         extract_batch.embed_boxes = kept
+        make_tracker, checked_steps = extract_batch.make_batch_tracker, []
+
+        def checked_tracker(*a, **kw):  # each step under no_host_reads
+            cfg_t, states, vstep = make_tracker(*a, **kw)
+
+            def checked(*sa, **skw):
+                with no_host_reads(device == "cuda"):
+                    out = vstep(*sa, **skw)
+                checked_steps.append(1)
+                return out
+            return cfg_t, states, checked
+
         runs = {"lockstep": [], "serial": []}
         try:
             with InMemory(videos, detector):
@@ -2560,7 +2912,13 @@ def phase_lockstep(detector=None, device: str = "cuda", width: int = 3840, heigh
                             torch.cuda.reset_peak_memory_stats()
                         reset_launches()
                         t1 = time.perf_counter()
-                        if mode == "lockstep":
+                        if mode == "lockstep" and r == 0:  # its tracker step reads nothing back
+                            extract_batch.make_batch_tracker = checked_tracker
+                            try:
+                                stats = run_lockstep(sources, cfg, model, device)
+                            finally:
+                                extract_batch.make_batch_tracker = make_tracker
+                        elif mode == "lockstep":
                             stats = run_lockstep(sources, cfg, model, device)
                         else:
                             stats = [run_extraction_in_memory(
@@ -2570,6 +2928,7 @@ def phase_lockstep(detector=None, device: str = "cuda", width: int = 3840, heigh
                         wall = time.perf_counter() - t1
                         runs[mode].append({"wall_s": wall, "fps": n_total / wall,
                                            "launches": launches(), "stats": stats,
+                                           "auction": auction_launches(),
                                            "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
                                                         if device == "cuda" else None)})
                         if mode == "lockstep" and r == 0:
@@ -2597,6 +2956,11 @@ def phase_lockstep(detector=None, device: str = "cuda", width: int = 3840, heigh
             if run["launches"] != expected:
                 raise AssertionError(f"(b) lockstep launches {run['launches']}, "
                                      f"expected {expected}")
+            if run["auction"] != AUCTIONS_PER_STEP * steps * on_card:
+                raise AssertionError(f"(b) lockstep auction launches {run['auction']} over "
+                                     f"{steps} steps")
+        if len(checked_steps) != steps:
+            raise AssertionError(f"(b) {len(checked_steps)} tracker steps checked for host reads")
         if device == "cuda":  # one more group of the first frames, under the profiler
             res["b_profile"] = lockstep_profile(sources, cfg, model, device, readers, frames,
                                                 detector, PROFILE_STEPS)
@@ -2605,6 +2969,7 @@ def phase_lockstep(detector=None, device: str = "cuda", width: int = 3840, heigh
         step_ms = sorted(s * 1e3 for s in first["step_s"][1:])
         last_ms = sorted(s * 1e3 for s in last["step_s"][1:])
         res["b"] = {"runs": runs, "launches": expected, "steps": first["steps"],
+                    "auction": runs["lockstep"][0]["auction"], "sync_checked_steps": steps,
                     "step_ms": [s * 1e3 for s in first["step_s"]],
                     "step_median_ms": step_ms[len(step_ms) // 2],
                     "last_step_ms": [s * 1e3 for s in last["step_s"]],
@@ -3398,8 +3763,10 @@ def phase_train(device: str = "cuda", width: int = 3840, height: int = 2160,
                           "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda
                           else float("nan")}
         res["launches"] = launches()
-        if res["launches"] != {"fast_score": 0, "patch_gather": 0}:
-            raise AssertionError(f"train launched a hand kernel: {res['launches']}")
+        res["auction_launches"] = auction_launches()
+        if res["launches"] != {"fast_score": 0, "patch_gather": 0} or res["auction_launches"]:
+            raise AssertionError(f"train launched a hand kernel: {res['launches']}, auction "
+                                 f"{res['auction_launches']}")
         model, spec, _ = load_model(tmp / "full" / "last.npz", device="cpu")
         n_params = 2 * sum(1 for m in model.modules() if isinstance(m, yolov8.ConvBN))
         full = check_train_run(tmp / "full", epochs, steps_per_epoch, n_params)
@@ -3934,6 +4301,7 @@ def feature_library(device: str, width: int, height: int, seed: int, k: int = FE
     runs += [feature_steps(ga, gb, device, k, levels) for _ in range(reps - 1)]
     card = runs[0]
     res = {"shape": (h, w), "k": k, "levels": levels, "launches": counted,
+           "auction_launches": auction_launches(),
            "ms": {n: float(np.median([r["ms"][n] for r in runs])) for n in card["ms"]}}
     want = {"fast_score": (1 + 2 * levels) * (device == "cuda"),
             "patch_gather": 1 * (device == "cuda")}
@@ -4328,6 +4696,7 @@ def phase_tools(device: str = "cuda", width: int = 3840, height: int = 2160,
         finally:
             features.fast_score_map = original
         res["b"] = {"rows": rows, "s": time.perf_counter() - t, "launches": launches(),
+                    "auction_launches": auction_launches(),
                     "ortho_px": ortho_px, "max_features": max_features, "trials": trials}
         sift_rows = [r for r in rows if r["detector"] == "rsift"]
         for r in sift_rows:
@@ -4963,6 +5332,15 @@ def georef_line(geo: dict, seconds: float, smi: str) -> str:
         f"{geo['orb_err_px']:.3f} px [{smi}]")
 
 
+def stage_lines(brk: dict) -> list:
+    """The breakdown phase's rows: host and device ms per ``fx.*`` stage,
+    then its largest kernels."""
+    return ([f"    stage {name:18s} host {cpu_ms:9.1f} ms  kernels {dev_ms:9.1f} ms  "
+             f"device span {span_ms:9.1f} ms" for name, cpu_ms, dev_ms, span_ms in brk["stages"]]
+            + [f"    kernel {ms:9.3f} ms  x{count:<6d} {name[:90]}"
+               for name, ms, count in brk["top"]])
+
+
 def breakdown_lines(brk: dict) -> list:
     lines = [f"    ortho level {i} {lv['shape'][0]}x{lv['shape'][1]} budget {lv['budget']}"
              f"{' banded' if lv['banded'] else ''}: resize {lv['resize_ms']:.1f} ms (bound "
@@ -4984,6 +5362,8 @@ def gather_text(r: dict) -> str:
 
 
 GATHER_KEYS = ("shape", "corners", "ms", "eager_ms", "library_ms", "plain_ms", "bound_ms")
+AUCTION_KEYS = ("name", "shape", "rounds", "ms", "plain_ms", "bound_ms", "state_in_shared",
+                "unassigned")
 HWC_KEYS = ("shape", "corners", "pool2", "mean4", "ms", "eager_ms", "library_ms", "plain_ms",
             "bound_ms", "kernel_gib")
 
@@ -5038,6 +5418,7 @@ def main(argv) -> int:
     multi_only = "--multi-only" in argv
     tools_only = "--tools-only" in argv
     host_tools_only = "--host-tools-only" in argv
+    tracker_only = "--tracker-only" in argv
     t_all = time.perf_counter()
     width, height, chunk, seed = 3840, 2160, 32, 0
     n_main = 2 * chunk
@@ -5064,6 +5445,25 @@ def main(argv) -> int:
         log(f"kernel ok {time.perf_counter() - t:.1f}s patch_gather exact (and unfold-gather) "
             f"on (2,37,53) x 130 and " + "; ".join(gather_text(r) for r in pg["shapes"])
             + f" [{dev['smi']}]")
+        if tracker_only:
+            t = time.perf_counter()
+            run = phase_main("cuda", width, height, n_main, chunk, seed=seed, horizon=horizon,
+                             sync_check=HAS_AUCTION)
+            steady = phase_steady(run["fx"], width, height, seed, horizon, n_main, chunk)
+            brk = breakdown(run["fx"], width, height, seed, horizon,
+                            n_main + STEADY_CHUNKS * chunk, chunk)
+            log(f"tracker ok {time.perf_counter() - t:.1f}s auction kernel "
+                f"{'yes' if HAS_AUCTION else 'no'}: main ms/chunk "
+                f"{[round(x * 1e3, 1) for x in run['stats']['chunk_s']]}, steady ms/chunk "
+                f"{[round(m, 1) for m in steady['chunk_ms']]}, median {steady['median_ms']:.1f}; "
+                f"breakdown wall {brk['wall_ms']:.1f} ms, device busy "
+                f"{brk['device_busy_ms']:.1f} ms [{dev['smi']}]")
+            print("\n".join(stage_lines(brk)), flush=True)
+            log(f"tracker-only ok {time.perf_counter() - t_all:.1f}s")
+            return 0
+        t = time.perf_counter()
+        au = phase_auction("cuda")
+        log(auction_line(au, time.perf_counter() - t, dev["smi"]))
         if kernels_only:
             log(f"kernels-only ok {time.perf_counter() - t_all:.1f}s")
             return 0
@@ -5123,14 +5523,19 @@ def main(argv) -> int:
         torch.cuda.reset_peak_memory_stats()
         fast.fast_score_map.launches = 0
         patches.patches32.launches = 0
+        reset_auction_counts()
         main_run = phase_main("cuda", width, height, n_main, chunk, seed=seed, horizon=horizon)
         main_launches = fast.fast_score_map.launches
+        main_auctions = auction_launches()
         stats, checks = main_run["stats"], main_run["checks"]
         expected = stats["chunks"] + 1  # one per chunk + the reference frame
         if main_launches != expected or patches.patches32.launches != 0:
             raise AssertionError(f"FAST kernel launched {main_launches} times on the main path, "
                                  f"expected {expected}; patch gather "
                                  f"{patches.patches32.launches} times, expected 0")
+        if main_auctions != AUCTIONS_PER_STEP * n_main or main_run["sync_checked_chunks"] != 2:
+            raise AssertionError(f"auction launched {main_auctions} times over {n_main} frames; "
+                                 f"{main_run['sync_checked_chunks']} chunks checked for host reads")
         chunk_ms = [round(s * 1e3, 1) for s in stats["chunk_s"]]
         log(f"main ok {time.perf_counter() - t:.1f}s YOLOv8s imgsz 1920, 2x{chunk} frames "
             f"{width}x{height}: setup {main_run['setup_s']:.1f}s, ms/chunk {chunk_ms}, "
@@ -5141,7 +5546,9 @@ def main(argv) -> int:
             f"({checks['tracks_with_dims']} with dimensions), metadata keys "
             f"{checks['metadata_keys']}, "
             f"matches >= {checks['min_matches']}, inliers >= {checks['min_inliers']}, "
-            f"camera error {checks['camera_err_px']:.3f} px, fast launches {main_launches}, peak mem "
+            f"camera error {checks['camera_err_px']:.3f} px, fast launches {main_launches}, "
+            f"auction launches {main_auctions}, chunk tracker without host reads "
+            f"(set_sync_debug_mode error) on {main_run['sync_checked_chunks']} chunks, peak mem "
             f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{dev['smi']}]")
 
         t = time.perf_counter()
@@ -5152,15 +5559,31 @@ def main(argv) -> int:
 
         t = time.perf_counter()
         fast.fast_score_map.launches = 0
-        steady = phase_steady(main_run["fx"], width, height, seed, horizon, n_main, chunk)
+        AUCTION_KERNEL.launches = 0
+        kept = []
+        steady = phase_steady(main_run["fx"], width, height, seed, horizon, n_main, chunk,
+                              kept=kept)
+        steady_auctions = auction_launches()
         if fast.fast_score_map.launches != STEADY_CHUNKS:
             raise AssertionError(f"FAST kernel launched {fast.fast_score_map.launches} times "
                                  f"over {STEADY_CHUNKS} steady chunks")
+        if steady_auctions != AUCTIONS_PER_STEP * STEADY_CHUNKS * chunk or plain_auction_calls():
+            raise AssertionError(f"auction launched {steady_auctions} times over "
+                                 f"{STEADY_CHUNKS} steady chunks; the plain version ran "
+                                 f"{plain_auction_calls()} times on the card's path")
         log(f"steady ok {time.perf_counter() - t:.1f}s {STEADY_CHUNKS} more {chunk}-frame chunks: "
             f"ms/chunk {[round(m, 1) for m in steady['chunk_ms']]}, median "
             f"{steady['median_ms']:.1f} ms = {chunk / steady['median_ms'] * 1e3:.2f} frames/s "
             f"(min {steady['min_ms']:.1f}, max {steady['max_ms']:.1f}), camera error "
-            f"{steady['camera_err_px']:.3f} px, {steady['rows']} rows [{dev['smi']}]")
+            f"{steady['camera_err_px']:.3f} px, {steady['rows']} rows, auction launches "
+            f"{steady_auctions} [{dev['smi']}]")
+
+        t = time.perf_counter()
+        au["path"] = path_auctions(kept)
+        del kept
+        log(f"auction-path ok {time.perf_counter() - t:.1f}s kernel == plain on the first steady "
+            f"chunk's auctions: {path_text(au['path'])} [{dev['smi']}]")
+        reset_auction_counts()  # the comparisons' plain calls
 
         t = time.perf_counter()
         brk = breakdown(main_run["fx"], width, height, seed, horizon,
@@ -5168,11 +5591,7 @@ def main(argv) -> int:
         log(f"breakdown ok {time.perf_counter() - t:.1f}s one more {chunk}-frame chunk under the "
             f"profiler: wall {brk['wall_ms']:.1f} ms, device busy {brk['device_busy_ms']:.1f} ms "
             f"[{dev['smi']}]")
-        for name, cpu_ms, dev_ms, span_ms in brk["stages"]:
-            print(f"    stage {name:18s} host {cpu_ms:9.1f} ms  kernels {dev_ms:9.1f} ms  "
-                  f"device span {span_ms:9.1f} ms", flush=True)
-        for name, ms, count in brk["top"]:
-            print(f"    kernel {ms:9.3f} ms  x{count:<6d} {name[:90]}", flush=True)
+        print("\n".join(stage_lines(brk)), flush=True)
 
         t = time.perf_counter()
         rd = phase_reid(main_run["fx"].detector, main_run["frames"], steady["frames"],
@@ -5182,7 +5601,8 @@ def main(argv) -> int:
             f"2x{chunk} frames {width}x{height}: ms/chunk "
             f"{[round(s * 1e3, 1) for s in rd['stats']['chunk_s']]}, {rchecks['rows']} rows / "
             f"{rchecks['tracks']} tracks, camera error {rchecks['camera_err_px']:.3f} px, launches "
-            f"{rd['launches']}, {remb['valid']} valid embeddings: norm err {remb['norm_err']:.2e}, "
+            f"{rd['launches']}, auction launches {rd['auction_launches']} (no host read in "
+            f"{rd['sync_checked_chunks']} chunk trackers), {remb['valid']} valid embeddings: norm err {remb['norm_err']:.2e}, "
             f"vs plain gather {remb['plain_err']:.2e}; on the first chunk's own inputs "
             f"embed_boxes {remb['embed_ms']:.3f} ms, {hwc_text(remb['gather'])}; "
             f"one more chunk {rd['timed_ms']:.1f} ms with "
@@ -5225,7 +5645,9 @@ def main(argv) -> int:
                              "cuda", chunk=chunk)
         log(f"options ok {time.perf_counter() - t:.1f}s fresh extractor per option, 2x{chunk} "
             f"frames {width}x{height}: " + "; ".join(
-                f"{k}: ms {[round(m, 1) for m in v['ms']]}, fast launches {v['launches']}"
+                f"{k}: ms {[round(m, 1) for m in v['ms']]}, fast launches {v['launches']}, "
+                f"auction launches {v['auction_launches']} (no host read in "
+                f"{v['sync_checked_chunks']} chunk trackers)"
                 + (f", camera error {v['camera_err_px']:.3f} px" if "camera_err_px" in v else "")
                 + (f", GMC error {v['gmc_err_px']:.3f} px" if "gmc_err_px" in v else "")
                 for k, v in opts.items())
@@ -5244,12 +5666,17 @@ def main(argv) -> int:
         ft = phase_features("cuda", geo.pop("kept"))
         log(features_line(ft, time.perf_counter() - t, dev["smi"]))
 
+        if plain_auction_calls():
+            raise AssertionError(f"the plain auction ran {plain_auction_calls()} times on the "
+                                 "card's paths")
         t = time.perf_counter()
         ref = phase_reference("cuda")
         log(f"reference ok {time.perf_counter() - t:.1f}s cuda vs cpu on 320x240 oracle clip, ids "
             f"equal: " + "; ".join(f"{k} {v['rows']} rows/{v['tracks']} tracks box err "
-                                    f"{v['box_err']:.2e} px H err {v['h_err']:.2e}"
+                                    f"{v['box_err']:.2e} px H err {v['h_err']:.2e}, auction "
+                                    f"launches {v['auction_launches']}"
                                     for k, v in ref.items()))
+        reset_auction_counts()  # the CPU runs' plain calls
 
         t = time.perf_counter()
         lk = phase_lockstep(main_run["fx"].detector, "cuda")
@@ -5259,7 +5686,7 @@ def main(argv) -> int:
         t = time.perf_counter()
         reset_launches()
         rn = phase_render("cuda")
-        render_launches = launches()
+        render_launches = {**launches(), "auction": auction_launches()}
         log(render_line(rn, time.perf_counter() - t, dev["smi"])
             + f", launches {render_launches}")
 
@@ -5278,6 +5705,9 @@ def main(argv) -> int:
         t = time.perf_counter()
         ht = phase_host_tools("cuda")
         log(host_tools_line(ht, time.perf_counter() - t, dev["smi"]))
+        if plain_auction_calls():
+            raise AssertionError(f"the plain auction ran {plain_auction_calls()} times on the "
+                                 "card's paths")
 
     except Exception as exc:  # noqa: BLE001 — every phase failure ends the run
         import traceback
@@ -5288,6 +5718,7 @@ def main(argv) -> int:
 
     log(f"all phases ok {time.perf_counter() - t_all:.1f}s")
     lk_k = lk["kernels"]
+    lock_case = next(c for c in au["cases"] if c["name"] == "lockstep")
     kernels = {"kernels": [
         kernel_entry("fast_score", FAST_SOURCE, FAST_REPLACES, main_launches, kern,
                      sq["c_launches"]["fast_score"], lk["b"]["launches"]["fast_score"],
@@ -5314,6 +5745,19 @@ def main(argv) -> int:
                                           ("reid_head", rd["head_emb"]["gather"]),
                                           ("sequential", sq["kernels"]["gather"]),
                                           ("lockstep", lk_k["gather"]))}),
+        # the first steady chunk's own auctions lead (per auction); the seeded
+        # shapes follow, the lockstep's (4, 1000, 2000) among them
+        kernel_entry("auction", AUCTION_SOURCE, AUCTION_REPLACES, main_auctions, au["path"],
+                     sq["c_auction"], lk["b"]["auction"],
+                     {k: lock_case[k] for k in ("shape", "ms", "bound_ms")},
+                     render_launches["auction"], tr["auction_launches"],
+                     ft["a"]["auction_launches"], launches_tools=tl["b"]["auction_launches"],
+                     launches_steady=steady_auctions, launches_reid=rd["auction_launches"],
+                     launches_sequential_rsift=sq["b_auction"],
+                     launches_options={k: v["auction_launches"] for k, v in opts.items()},
+                     launches_reference={k: v["auction_launches"] for k, v in ref.items()},
+                     rounds=au["path"]["rounds"], plain_calls_on_card_paths=0,
+                     shapes=[{k: c.get(k) for k in AUCTION_KEYS} for c in au["cases"]]),
     ], "multi": multi_entry(mu)}
     print(json.dumps(kernels), flush=True)
     print(dev["smi"], flush=True)

@@ -4,41 +4,53 @@ Counterpart of ``geotrax_tpu/ops/assignment.py``. ``auction_assignment``
 and ``masked_assignment`` are a single-phase Jacobi forward auction from
 zero prices over a cost matrix padded with a private dummy column per row,
 so rows never compete for dummies and gated tracking matrices converge in a
-few vectorized rounds. ``lapjv_exact`` is the exact min-cost assignment on
-the host, by the port's Jonker-Volgenant solver (``io/native/lapjv.cpp``,
-built with g++ at first use); where it cannot be built it raises, it does
-not fall back to another solver.
+few vectorized rounds. On a CUDA tensor ``auction_assignment`` launches
+``csrc/auction.cu``, which runs every round of every problem of the batch in
+one launch, as the reference's ``lax.while_loop`` runs on the device; on a
+CPU tensor it runs ``auction_assignment_torch``, the plain version, which
+the kernel equals bit for bit. ``lapjv_exact`` is the exact min-cost
+assignment on the host, by the port's Jonker-Volgenant solver
+(``io/native/lapjv.cpp``, built with g++ at first use); where it cannot be
+built it raises, it does not fall back to another solver.
 """
 
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
 
+from geotrax_tpu_torch import _cuda
+
 LAPJV_SOURCE = Path(__file__).resolve().parents[1] / "io" / "native" / "lapjv.cpp"
 _lap_lib = None
+KERNEL = "auction"
 
-# Auction rounds between two host reads of "every row assigned?": the JAX
-# reference tests it on the device every round (lax.while_loop); here each
-# test is a device->host sync. A round after convergence changes nothing
-# (no row bids), and max_iters is a multiple of this, so the result is the
-# reference's.
+# Auction rounds between two host reads of "every row assigned?" in the
+# plain version: the JAX reference tests it on the device every round
+# (lax.while_loop), as the kernel does; here each test is a device->host
+# sync. A round after convergence changes nothing (no row bids), and
+# max_iters is a multiple of this, so the result is the reference's.
 AUCTION_ROUNDS_PER_CHECK = 8
 
 
-def auction_assignment(cost: torch.Tensor, eps: float = 2e-4, max_iters: int = 512) -> torch.Tensor:
-    """Min-cost assignment of (..., N, M) cost rows to distinct columns, N <= M,
-    for each leading (video) index.
+def auction_assignment_torch(cost: torch.Tensor, eps: float = 2e-4,
+                             max_iters: int = 512) -> torch.Tensor:
+    """Plain PyTorch auction: min-cost assignment of (..., N, M) cost rows to
+    distinct columns, N <= M, for each leading (video) index.
 
     Jacobi forward auction (every unassigned row bids at once) from zero
     prices; optimal within N*eps. Returns (..., N) int64 column per row; rows
     still unassigned at the iteration cap return -1. A batch of problems
     runs until every one has converged: a converged problem makes no bid
     in later rounds, so its prices and owners stay put and each result is
-    the one it has alone."""
+    the one it has alone. ``auction_assignment_torch.calls`` counts its
+    calls."""
+    auction_assignment_torch.calls += 1
     n, m = cost.shape[-2:]
     lead = cost.shape[:-2]
     dev = cost.device
@@ -81,6 +93,96 @@ def auction_assignment(cost: torch.Tensor, eps: float = 2e-4, max_iters: int = 5
         if not bool((assigned < 0).any()):
             break
     return assigned
+
+
+auction_assignment_torch.calls = 0
+
+
+@lru_cache(maxsize=1)
+def _library() -> ctypes.CDLL:
+    """``csrc/auction.cu``'s library (built and loaded once), its entry
+    points typed."""
+    lib = _cuda.load(KERNEL)
+    lib.auction.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                            ctypes.c_size_t, ctypes.c_void_p, ctypes.c_void_p]
+    lib.auction.restype = ctypes.c_int
+    lib.auction_state_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.auction_state_bytes.restype = ctypes.c_size_t
+    lib.auction_shared_limit.argtypes = [ctypes.c_int]
+    lib.auction_shared_limit.restype = ctypes.c_int
+    return lib
+
+
+@lru_cache(maxsize=None)
+def _shared_limit(device_index: int) -> int:
+    return _library().auction_shared_limit(device_index)
+
+
+def build(verbose: bool = False) -> tuple:
+    """Compile the kernel (see ``_cuda.build``); returns (path, log)."""
+    return _cuda.build(KERNEL, verbose=verbose)
+
+
+def auction_assignment(cost: torch.Tensor, eps: float = 2e-4, max_iters: int = 512, *,
+                       stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Min-cost assignment of (..., N, M) cost rows to distinct columns, N <= M,
+    for each leading (video) index; returns (..., N) int64 columns, -1 for
+    rows still unassigned after ``max_iters`` rounds.
+
+    A CPU tensor runs ``auction_assignment_torch``. A CUDA tensor launches
+    the kernel once for the whole batch, or raises: it takes contiguous
+    float32 costs with N <= M. Each problem's state lives in shared memory
+    where it fits, else in device memory allocated here. ``stats``, a
+    contiguous (..., 2) int64 CUDA tensor, receives each problem's rounds
+    and its bidder rows summed over the rounds. ``auction_assignment.launches`` counts the
+    kernel launches."""
+    if cost.device.type == "cpu":
+        if stats is not None:
+            raise ValueError("auction_assignment: stats are counted by the kernel only")
+        return auction_assignment_torch(cost, eps=eps, max_iters=max_iters)
+    if cost.device.type != "cuda":
+        raise ValueError(f"auction_assignment: unsupported device {cost.device}")
+    if cost.dtype != torch.float32:
+        raise TypeError(f"auction_assignment: the kernel takes float32, got {cost.dtype}")
+    if cost.dim() < 2:
+        raise ValueError(f"auction_assignment: the kernel takes (..., N, M), got {tuple(cost.shape)}")
+    if not cost.is_contiguous():
+        raise ValueError("auction_assignment: the kernel takes a contiguous tensor")
+    n, m = cost.shape[-2:]
+    lead = cost.shape[:-2]
+    b = int(np.prod(lead, dtype=np.int64))
+    if n > m:
+        raise ValueError(f"auction_assignment: the kernel takes N <= M, got N={n}, M={m}")
+    if stats is not None and (stats.device != cost.device or stats.dtype != torch.int64
+                              or tuple(stats.shape) != tuple(lead) + (2,)
+                              or not stats.is_contiguous()):
+        raise ValueError(f"auction_assignment: stats must be a contiguous {tuple(lead) + (2,)} "
+                         f"int64 tensor on {cost.device}")
+    out = torch.empty(lead + (n,), dtype=torch.int64, device=cost.device)
+    if b == 0 or n == 0:
+        return out
+    if b > 2 ** 31 - 1:
+        raise ValueError(f"auction_assignment: batch {b} exceeds the launch grid")
+    lib = _library()
+    state = lib.auction_state_bytes(n, m)
+    scratch, stride = None, 0
+    if state > _shared_limit(cost.device.index):
+        stride = -(-state // 256) * 256
+        scratch = torch.empty((b * stride,), dtype=torch.uint8, device=cost.device)
+    with torch.cuda.device(cost.device):
+        stream = torch.cuda.current_stream(cost.device).cuda_stream
+        rc = lib.auction(cost.data_ptr(), out.data_ptr(), b, n, m, float(eps), int(max_iters),
+                         None if scratch is None else scratch.data_ptr(), stride,
+                         None if stats is None else stats.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"auction kernel launch failed with CUDA error {rc} "
+                           f"(state {state} B per problem)")
+    auction_assignment.launches += 1
+    return out
+
+
+auction_assignment.launches = 0
 
 
 def masked_assignment(cost: torch.Tensor, row_valid: torch.Tensor, col_valid: torch.Tensor,

@@ -260,16 +260,18 @@ class FusedExtractor:
                                     device=h_ds.device)
         return inv_scale @ h_ds @ scale
 
-    def _run_tracker(self, det, gmc, fids, n_valid: int, det_emb=None) -> FrameOutput:
+    def _run_tracker(self, det, gmc, fids_t, n_valid: int, det_emb=None) -> FrameOutput:
         """The tracker over the chunk's frames in order (frames past
-        ``n_valid`` are padding: state unchanged, no valid output)."""
+        ``n_valid`` are padding: state unchanged, no valid output). Each
+        step gets its frame id as a tensor on the device (``fids_t[t]``), so
+        botsort's and bytetrack's steps read nothing back to the host."""
         state = self.state
         outs = []
-        for t in range(len(fids)):
+        for t in range(fids_t.shape[0]):
             if t < n_valid:
                 state, out = self.tracker_step(
                     state, det["boxes_xywh"][t], det["scores"][t], det["classes"][t],
-                    det["valid"][t], fids[t], gmc[t] if self.use_gmc else None,
+                    det["valid"][t], fids_t[t], gmc[t] if self.use_gmc else None,
                     det_emb[t] if det_emb is not None else None,
                 )
             else:
@@ -323,7 +325,7 @@ class FusedExtractor:
             gmc = self._standalone_gmc(frames_u8, det_boxes, det_valid, fids)
 
         with record_function("fx.tracker"):
-            outs = self._run_tracker(det, gmc, fids, n_valid, det_emb)
+            outs = self._run_tracker(det, gmc, fids_t, n_valid, det_emb)
 
         box_stab = _transform_boxes_h(h, outs.box_xywh)
         self._h_prev = h[-1]

@@ -182,9 +182,19 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x[torch.arange(idx.shape[0], device=idx.device)[:, None], idx]
 
 
+def _frame_tensor(frame_id, device) -> torch.Tensor:
+    """``frame_id`` as a 0-dim int32 tensor on ``device``: a tensor is cast
+    where it lies (the chunk step's ids are already on the device), a Python
+    int is filled there, so neither reads the card back."""
+    if isinstance(frame_id, torch.Tensor):
+        return frame_id.to(device=device, dtype=torch.int32)
+    return torch.full((), int(frame_id), dtype=torch.int32, device=device)
+
+
 def _apply_matches(state: TrackerState, cfg: TrackerConfig, det_boxes, det_scores,
                    det_cls, row_col, matched, frame_id, det_emb=None) -> TrackerState:
     """KF-update every matched slot with its assigned detection."""
+    frame_id = _frame_tensor(frame_id, state.status.device)
     safe_col = torch.clamp(row_col, 0, det_boxes.shape[-2] - 1)
     boxes = _take(det_boxes, safe_col)
     meas = kalman.measurement_from_xywh(boxes, fmt=cfg.kf_fmt)
@@ -192,7 +202,7 @@ def _apply_matches(state: TrackerState, cfg: TrackerConfig, det_boxes, det_score
     m = matched
     shifted_hist = torch.cat([state.obs_hist[..., 1:, :], boxes[..., None, :]], dim=-2)
     shifted_frames = torch.cat(
-        [state.hist_frame[..., 1:], torch.full_like(state.hist_frame[..., :1], frame_id)], dim=-1
+        [state.hist_frame[..., 1:], frame_id.expand(state.hist_frame[..., :1].shape)], dim=-1
     )
     new_emb = state.emb
     if cfg.with_reid and det_emb is not None:
@@ -219,7 +229,9 @@ def _spawn_new(state: TrackerState, cfg: TrackerConfig, det_boxes, det_scores,
                det_cls, spawn_mask, frame_id, det_emb=None) -> TrackerState:
     """Allocate empty slots for new tracks, preserving detection order for ID
     sequencing: each empty slot computes its rank among empty slots and
-    gathers the same-ranked spawning detection."""
+    gathers the same-ranked spawning detection. A track born on frame 1 is
+    TRACKED at once, later ones TENTATIVE, chosen on the device."""
+    frame_id = _frame_tensor(frame_id, state.status.device)
     k = cfg.max_tracks
     m = det_boxes.shape[-2]
     lead = det_boxes.shape[:-2]  # () for one timeline, (V,) for a video axis
@@ -240,7 +252,7 @@ def _spawn_new(state: TrackerState, cfg: TrackerConfig, det_boxes, det_scores,
     init = kalman.initiate(meas, fmt=cfg.kf_fmt)
     new_ids = state.next_id[..., None] + slot_rank.to(torch.int32)
 
-    status_new = TRACKED if frame_id == 1 else TENTATIVE
+    status_new = torch.where(frame_id == 1, TRACKED, TENTATIVE).to(state.status.dtype)
     hist_new = torch.cat(
         [torch.zeros(lead + (k, HIST - 1, 4), dtype=boxes_new.dtype, device=dev),
          boxes_new[..., None, :]],
@@ -261,12 +273,12 @@ def _spawn_new(state: TrackerState, cfg: TrackerConfig, det_boxes, det_scores,
         emb=emb_new,
         kf_mean=pick(init.mean, state.kf_mean),
         kf_cov=pick(init.cov, state.kf_cov),
-        status=pick(torch.full_like(state.status, status_new), state.status),
+        status=pick(status_new.expand_as(state.status), state.status),
         track_id=pick(new_ids, state.track_id),
         score=pick(_take(det_scores, safe_det), state.score),
         cls=pick(_take(det_cls, safe_det).to(state.cls.dtype), state.cls),
-        last_frame=pick(torch.full_like(state.last_frame, frame_id), state.last_frame),
-        start_frame=pick(torch.full_like(state.start_frame, frame_id), state.start_frame),
+        last_frame=pick(frame_id.expand_as(state.last_frame), state.last_frame),
+        start_frame=pick(frame_id.expand_as(state.start_frame), state.start_frame),
         hits=pick(torch.ones_like(state.hits), state.hits),
         obs_box=pick(boxes_new, state.obs_box),
         obs_hist=pick(hist_new, state.obs_hist),
@@ -368,7 +380,7 @@ def byte_associate(state: TrackerState, cfg: TrackerConfig, det_boxes, det_score
     return state._replace(status=torch.where(expired, EMPTY, state.status))
 
 
-def frame_output(state: TrackerState, cfg: TrackerConfig, frame_id: int) -> FrameOutput:
+def frame_output(state: TrackerState, cfg: TrackerConfig, frame_id) -> FrameOutput:
     """Every slot's output; valid where the track is tracked and matched in
     this frame."""
     return FrameOutput(
@@ -381,10 +393,13 @@ def frame_output(state: TrackerState, cfg: TrackerConfig, frame_id: int) -> Fram
 
 
 def byte_step(state: TrackerState, det_boxes, det_scores, det_cls, det_valid,
-              frame_id: int, cfg: TrackerConfig, gmc_h=None, det_emb=None):
+              frame_id, cfg: TrackerConfig, gmc_h=None, det_emb=None):
     """One tracker frame: predict -> associate -> emit active tracks.
-    ``frame_id`` is a Python int (the host knows every frame id)."""
-    frame_id = int(frame_id)
+    ``frame_id`` is a 0-dim integer tensor (the chunk step's ids, on the
+    device) or a Python int; like the reference's step, this one reads
+    nothing back to the host: its branches are device selects and its three
+    auctions run on the device."""
+    frame_id = _frame_tensor(frame_id, state.status.device)
     state = predict_stage(state, cfg, gmc_h)
     state = byte_associate(state, cfg, det_boxes, det_scores, det_cls, det_valid,
                            frame_id, det_emb)

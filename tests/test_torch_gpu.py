@@ -6,6 +6,8 @@ card. They import neither JAX nor the JAX package, so on the card's machine
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import tempfile
+
 import numpy as np
 import pytest
 import torch
@@ -855,3 +857,113 @@ def test_detection_over_two_devices_on_card_bit_equal():
     spread = make_tiled_detector(model, spec, devices=[dev, dev], **tkw)(frame)
     for k in plain:
         torch.testing.assert_close(spread[k], plain[k], rtol=0, atol=0, msg=k)
+
+
+def _auction_cost(case):
+    """(cost, max_iters) of one of the smoke's auction shapes, made from a
+    seed: masked_assignment's padded costs of tracker-like inputs (the
+    default 1000 slots against 1000 detections, the lockstep's four, a
+    max_det of 13000 against 1024 slots, whose state exceeds shared memory),
+    tie-heavy integer costs, a cap that is hit, odd shapes, RT-DETR's
+    matcher."""
+    import chip_smoke
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    if case in ("default", "lockstep", "max_det 13000"):
+        lead, k, m, seed = {"default": ((), 1000, 1000, 1), "lockstep": ((4,), 1000, 1000, 2),
+                            "max_det 13000": ((), 1024, 13000, 3)}[case]
+        inputs = chip_smoke.tracker_inputs(lead, k, m, int(0.8 * k), int(0.9 * m), seed, dev)
+        return chip_smoke.padded_cost(*inputs, chip_smoke.AUCTION_THRESHOLD), 512
+    if case == "RT-DETR matcher":
+        cost = torch.from_numpy(rng.uniform(-5, 10, (8, 36, 300)).astype(np.float32)).to(dev)
+        gt = torch.from_numpy(rng.uniform(size=(8, 36)) < 0.8).to(dev)
+        return chip_smoke.padded_cost(cost, gt, torch.ones((8, 300), dtype=torch.bool,
+                                                           device=dev), 30.0), 512
+    if case == "integer ties":
+        return torch.from_numpy(rng.integers(0, 4, (256, 512)).astype(np.float32)).to(dev), 512
+    if case == "cap hit":
+        return torch.from_numpy(rng.uniform(0, 1, (300, 300)).astype(np.float32)).to(dev), 8
+    shape = tuple(int(x) for x in case.split()[1].split("x"))
+    return torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32)).to(dev), 512
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["default", "lockstep", "max_det 13000", "RT-DETR matcher",
+                                  "integer ties", "cap hit", "odd 1x2", "odd 3x7", "odd 37x90"])
+def test_auction_kernel_equals_plain_on_card(case):
+    """csrc/auction.cu against auction_assignment_torch at the smoke's
+    shapes, bit for bit (max_det 13000 keeps its state in device memory);
+    one launch per call, and its statistics (rounds, bidder rows) in range."""
+    _need_card()
+    from geotrax_tpu_torch.ops import assignment
+
+    cost, max_iters = _auction_cost(case)
+    stats = torch.empty(cost.shape[:-2] + (2,), dtype=torch.int64, device="cuda")
+    before = assignment.auction_assignment.launches
+    out = assignment.auction_assignment(cost, max_iters=max_iters, stats=stats)
+    torch.cuda.synchronize()
+    assert assignment.auction_assignment.launches == before + 1
+    plain = assignment.auction_assignment_torch(cost, max_iters=max_iters)
+    torch.testing.assert_close(out, plain, rtol=0, atol=0)
+    rounds, bids = stats[..., 0], stats[..., 1]
+    n = cost.shape[-2]
+    assert bool((rounds >= 1).all()) and bool((rounds <= max_iters).all())
+    assert bool((bids >= n).all()) and bool((bids <= rounds * n).all())
+    if case == "cap hit":
+        assert bool((plain < 0).any()) and bool((rounds == max_iters).all())
+
+
+@pytest.mark.gpu
+def test_auction_wrapper_rejects_what_the_kernel_does_not_take():
+    _need_card()
+    from geotrax_tpu_torch.ops import assignment
+
+    c = torch.rand((6, 10), device="cuda")
+    with pytest.raises(TypeError):
+        assignment.auction_assignment(c.double())
+    with pytest.raises(ValueError):
+        assignment.auction_assignment(torch.rand((10, 6), device="cuda").t())  # not contiguous
+    with pytest.raises(ValueError):
+        assignment.auction_assignment(c.t().contiguous())  # N > M
+    with pytest.raises(ValueError):
+        assignment.auction_assignment(c[0])
+    with pytest.raises(ValueError):
+        assignment.auction_assignment(c, stats=torch.empty((3,), dtype=torch.int64,
+                                                           device="cuda"))
+    assert assignment.auction_assignment(torch.rand((3, 0, 7), device="cuda")).shape == (3, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,overrides", [("botsort", {}), ("botsort", {"with_reid": True}),
+                                            ("bytetrack", {})])
+def test_chunk_tracker_reads_nothing_back_on_card(name, overrides):
+    """The fused chunk step's tracker (botsort with GMC, with ReID, and
+    bytetrack) runs under torch.cuda.set_sync_debug_mode("error"): no torch
+    operation of it waits for the card; the auction kernel launches three
+    times a frame and its plain version never."""
+    _need_card()
+    import chip_smoke
+    from geotrax_tpu_torch import cfg as port_cfg
+    from geotrax_tpu_torch.io.synthetic import SyntheticVideoReader
+    from geotrax_tpu_torch.models.detector import OracleDetector
+    from geotrax_tpu_torch.ops import assignment
+    from geotrax_tpu_torch.pipeline import extract as port_extract
+
+    reader = SyntheticVideoReader(width=320, height=240, n_frames=12,
+                                  camera=(0.5, -0.3, 0.2, 1.002))
+    det = OracleDetector(lambda i: [list(b) + [0.9, i % 2] for b in reader.boxes_at(i)],
+                         device="cuda")
+    config = port_cfg.load_config()
+    config["tracker"]["active"] = name
+    config["tracker"][name].update(overrides)
+    tracker_cfg, state, step, head = port_extract.make_extract_tracker(config, device="cuda")
+    fx = port_extract.make_fused_extractor(config, det, tracker_cfg, state, step, 240, 320,
+                                           head, chunk=4, device="cuda")
+    chip_smoke.reset_auction_counts()
+    with tempfile.TemporaryDirectory() as tmp, chip_smoke.tracker_reads_checked(fx, "cuda") as seen:
+        stats = port_extract.extract(reader, fx, tmp, "V_sync", config=config, chunk=4)
+    torch.cuda.synchronize()
+    assert seen["chunks"] == 3 and stats["chunks"] == 3
+    assert assignment.auction_assignment.launches == 3 * 12
+    assert assignment.auction_assignment_torch.calls == 0
