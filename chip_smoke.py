@@ -3,6 +3,8 @@
     python3 chip_smoke.py                  # every phase; the last line is the result
     python3 chip_smoke.py --kernels-only   # phases 0-2 only, no result line
     python3 chip_smoke.py --tracker-only   # phases 0-2 (no auction), 3-5 only, no result line
+    python3 chip_smoke.py --auction-only [--against DIR]  # phases 0, 1, the auction's and the
+                                           # auctions of the first steady chunk only, no result line
     python3 chip_smoke.py --georef-only    # phases 0, 1 and 10 only, no result line
     python3 chip_smoke.py --lockstep-only  # phases 0, 1 and 12 only, no result line
     python3 chip_smoke.py --render-only    # phases 0, 1 and 13 only, no result line
@@ -40,10 +42,15 @@ ends the run with a non-zero exit and no result line:
                1000, 2000), tie-heavy integer costs (256, 512), a capped (300,
                300) with unassigned rows, odd (1, 2), (3, 7), (37, 90), a
                max_det of 13000 against 1024 slots (1024, 14024: the state
-               exceeds shared memory) and RT-DETR's matcher (8, 36, 336);
-               each problem's rounds, the kernel's and the plain version's
-               CUDA-event ms and the bound (the bidders' rows read once per
-               round)
+               fits the cluster's shared memory), a max_det of 60000
+               (1024, 61024: the state exceeds it and lives in device
+               memory) and RT-DETR's matcher (8, 36, 336); each problem's
+               rounds, the kernel's device ms (one call captured in a CUDA
+               graph and replayed: the capture is checked too) and its ms
+               as called (CUDA events around back-to-back calls, median of
+               five), the plain version's CUDA-event ms, the bound (the
+               bidders' rows read once per round) and its share, the
+               cluster size and where the state lives
   3 main       the default extract configuration: YOLOv8s at imgsz 1920
                (random weights from a seeded generator, class biases set so
                that about VEHICLES_PER_4K_FRAME boxes pass ``conf``) on two
@@ -61,12 +68,17 @@ ends the run with a non-zero exit and no result line:
                extractor: ms per chunk (median, min, max), checked as above;
                the auction kernel then exact against its plain version on
                the 96 padded costs the first of them handed it, with their
-               rounds, both versions' ms per auction (the chunk's auctions
-               replayed in order) and the bound; the plain version never ran
+               rounds, per auction the kernel's device ms (the chunk's
+               auctions captured in order in one CUDA graph and replayed),
+               its ms as called and the plain version's (the chunk's
+               auctions called in order), the bound, the cluster size and
+               where the state lives; the plain version never ran
                on the card's paths (checked here, before the reference
                phase and at the end)
   5 breakdown  one more chunk under torch.profiler, checked as above: host
-               and device time per stage and the largest device items
+               and device time per stage, the auction's kernels' device
+               time and launches (launched through ctypes, so no stage's
+               kernel time counts them), and the largest device items
                (device times read 0 where the profiler sees none)
   6 reid       the same configuration with tracker.botsort.with_reid: true,
                through the extract entry point on the main phase's frames
@@ -287,7 +299,13 @@ the last line {"ok": true, "device": {...}}. ``--tracker-only`` runs the
 main, steady and breakdown phases alone: copied into a checkout without the
 auction kernel it times that checkout's host-driven auction (no sync check
 there), so the two trees' ``fx.tracker`` and steady chunks can be taken in
-turns in one call. ``--kernels-only`` serves to
+turns in one call. ``--auction-only`` runs phases 0 and 1, the auction
+phase's cases, and the main path up to its first steady chunk for that
+chunk's own auctions; with ``--against DIR`` (another checkout, such as the
+parent's unpacked by ``git archive``) that checkout's auction wrapper and
+kernel (built from DIR's ``csrc/auction.cu``) are timed in turns with this
+one's at every case and on the chunk's auctions: device ms, ms as called,
+host microseconds a call. ``--kernels-only`` serves to
 time the kernels of two checkouts in one call: copy this script into the
 other checkout and run it there too. ``--georef-only`` runs phases 0, 1 and
 10, ``--lockstep-only`` phases 0, 1 and 12 with its own calibrated detector,
@@ -636,14 +654,28 @@ def graph_ms(fn, reps: int = 20, replays: int = 3) -> float:
     return start.elapsed_time(end) / (replays * reps)
 
 
-def in_turns(calls: dict, reps: int) -> dict:
-    """Graph-timed ms of each call, taken twice in mirrored order (a, b, ...,
-    ..., b, a); returns name -> mean of the two."""
+def in_turns(calls: dict, reps: int, timer=graph_ms) -> dict:
+    """``timer``'s ms of each call (by default graph-timed), taken twice in
+    mirrored order (a, b, ..., ..., b, a); returns name -> mean of the two."""
     names = list(calls)
     ms = {name: [] for name in names}
     for name in names + names[::-1]:
-        ms[name].append(graph_ms(calls[name], reps))
+        ms[name].append(timer(calls[name], reps))
     return {name: sum(v) / 2 for name, v in ms.items()}
+
+
+def host_us(fn, reps: int) -> float:
+    """Host microseconds of one call of ``fn``: the host clock around
+    ``reps`` calls issued without waiting for the card (its queue absorbs
+    them), after the card has finished earlier work."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    spent = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return spent / reps * 1e6
 
 
 def time_gather(planes: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor, reps: int) -> dict:
@@ -1167,11 +1199,55 @@ def auction_bound_ms(stats: torch.Tensor, n: int, m: int) -> tuple:
     return moved / HBM_BYTES_PER_S * 1e3, "bytes", moved
 
 
+def older_auction(root: Path):
+    """The auction wrapper module of another checkout at ``root`` (one with
+    the earlier one-block kernel, say), loaded under another name, its kernel
+    built by nvcc with this checkout's flags from that checkout's
+    ``csrc/auction.cu`` into build/torch_kernels/."""
+    import ctypes
+    import hashlib
+    import importlib.util
+    import types
+
+    from geotrax_tpu_torch import _cuda
+
+    src = root / "geotrax_tpu_torch" / "csrc" / "auction.cu"
+    lib = _cuda.BUILD_DIR / f"libauction-older-{hashlib.sha1(src.read_bytes()).hexdigest()[:12]}.so"
+    if not lib.exists():
+        _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        proc = subprocess.run([_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-o", str(lib), str(src)],
+                              capture_output=True, text=True, timeout=_cuda.BUILD_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
+    spec = importlib.util.spec_from_file_location(
+        "older_assignment", root / "geotrax_tpu_torch" / "ops" / "assignment.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    module._cuda = types.SimpleNamespace(load=lambda name: ctypes.CDLL(str(lib)))
+    return module
+
+
+def auction_layout(cost: torch.Tensor) -> dict:
+    """Blocks per problem and where the state lives for this cost on the
+    card (a checkout of the one-block kernel: 1 block, state in shared
+    memory where it fits)."""
+    if hasattr(assignment, "plan_of"):
+        plan = assignment.plan_of(cost)
+        return {"cluster": plan.cluster, "state_in_shared": plan.shared}
+    state = assignment._library().auction_state_bytes(*cost.shape[-2:])
+    return {"cluster": 1, "state_in_shared": state <= assignment._shared_limit(cost.device.index)}
+
+
 def auction_check(name: str, cost: torch.Tensor, eps: float = 2e-4, max_iters: int = 512,
-                  reps: int = 10) -> dict:
+                  reps: int = 10, older=None) -> dict:
     """The kernel against the plain version on one (..., N, M) cost, exactly;
-    on the card also each problem's rounds, the bound, and both versions'
-    CUDA-event ms. On the CPU the wrapper runs the plain version."""
+    on the card also each problem's rounds, the bound, the launch layout,
+    the kernel's device ms (``graph_ms``: one call captured in a CUDA graph
+    and replayed, which also shows the call can be captured) and its ms as
+    called (``called_ms``), and the plain version's CUDA-event ms. With
+    ``older`` (another checkout's assignment module) its kernel is timed in
+    turns with this one's (``auction_turns``). On the CPU the wrapper runs
+    the plain version."""
     on_card = cost.device.type == "cuda"
     kw = {"eps": eps, "max_iters": max_iters}
     stats = (torch.empty(cost.shape[:-2] + (2,), dtype=torch.int64, device=cost.device)
@@ -1187,22 +1263,47 @@ def auction_check(name: str, cost: torch.Tensor, eps: float = 2e-4, max_iters: i
            "unassigned": int((plain < 0).sum())}
     if on_card:
         bound, bound_by, moved = auction_bound_ms(stats, n, m)
-        state = assignment._library().auction_state_bytes(n, m)
+        call = lambda: assignment.auction_assignment(cost, **kw)  # noqa: E731
         res.update(rounds=stats[..., 0].flatten().tolist(), bound_ms=bound, bound_by=bound_by,
-                   bytes=moved, state_bytes=int(state),
-                   state_in_shared=state <= assignment._shared_limit(cost.device.index),
-                   ms=cuda_ms(lambda: assignment.auction_assignment(cost, **kw), reps),
+                   bytes=moved, **auction_layout(cost), ms=graph_ms(call, reps),
+                   eager_ms=called_ms(call, reps),
                    plain_ms=cuda_ms(lambda: assignment.auction_assignment_torch(
                        cost, eps=eps, max_iters=max_iters), max(reps // 5, 1), warmup=1),
                    library_ms=None)
+        if older is not None:
+            res["turns"] = auction_turns(older, [(cost, eps, max_iters)], reps)
     return res
 
 
-def path_auctions(kept: list, reps: int = 3) -> dict:
+def auction_turns(older, costs: list, reps: int) -> dict:
+    """``older``'s auction (another checkout's wrapper and kernel) and this
+    checkout's on the same (cost, eps, max_iters) list, in turns (older,
+    new, new, older): per auction the device ms (CUDA-graph replay), the ms
+    as called (CUDA events around back-to-back calls, median of five) and
+    the wrappers' host microseconds a call; both answers equal."""
+    def calls(fn):
+        return lambda: [fn(c, eps=e, max_iters=i) for c, e, i in costs]
+
+    fns = {"older": calls(older.auction_assignment), "new": calls(assignment.auction_assignment)}
+    for c, e, i in costs:
+        if not torch.equal(older.auction_assignment(c, eps=e, max_iters=i),
+                           assignment.auction_assignment(c, eps=e, max_iters=i)):
+            raise AssertionError(f"the older auction kernel disagrees on {tuple(c.shape)}")
+    count = len(costs)
+    reps = max(reps // count, 1)
+    return {key: {k: v / count for k, v in in_turns(fns, reps, timer).items()}
+            for key, timer in (("ms", graph_ms), ("eager_ms", called_ms),
+                               ("host_us", host_us))}
+
+
+def path_auctions(kept: list, reps: int = 3, older=None) -> dict:
     """The kernel against the plain version on every auction one chunk of
     the main path ran (``kept``: its padded costs, in order), exactly; on the
-    card the rounds of each, and per auction the mean kernel and plain ms
-    (CUDA events over the chunk's auctions replayed in order) and bound."""
+    card the rounds of each, and per auction the mean kernel device ms (the
+    chunk's auctions captured in order in one CUDA graph and replayed), ms as
+    called (CUDA events around the chunk's auctions called in order), plain
+    ms and bound; with ``older``, that checkout's kernel in turns with this
+    one's (``auction_turns``)."""
     on_card = kept[0][0].device.type == "cuda"
     rounds, moved, matched = [], 0, 0
     for i, (cost, eps, max_iters) in enumerate(kept):
@@ -1222,64 +1323,85 @@ def path_auctions(kept: list, reps: int = 3) -> dict:
     res = {"auctions": count, "shape": tuple(kept[0][0].shape), "max_abs_err": 0.0,
            "matched": matched}
     if on_card:
+        chunk = lambda: [assignment.auction_assignment(c, eps=e, max_iters=i)  # noqa: E731
+                         for c, e, i in kept]
         res.update(
             rounds=rounds, bytes=moved / count, bound_by="bytes", library_ms=None,
-            bound_ms=moved / count / HBM_BYTES_PER_S * 1e3,
-            ms=cuda_ms(lambda: [assignment.auction_assignment(c, eps=e, max_iters=i)
-                                for c, e, i in kept], reps, warmup=1) / count,
+            bound_ms=moved / count / HBM_BYTES_PER_S * 1e3, **auction_layout(kept[0][0]),
+            ms=graph_ms(chunk, reps, replays=2) / count,
+            eager_ms=cuda_ms(chunk, reps, warmup=1) / count,
             plain_ms=cuda_ms(lambda: [assignment.auction_assignment_torch(c, eps=e, max_iters=i)
                                       for c, e, i in kept], 1, warmup=0) / count)
+        if older is not None:
+            res["turns"] = auction_turns(older, kept, reps * count)
     return res
 
 
 def phase_auction(device: str = "cuda", kept=None, slots: int = 1000, dets: int = 1000,
-                  big_dets: int = 13000, big_slots: int = 1024, detr=(8, 36, 300),
-                  reps: int = 10) -> dict:
+                  big_dets: int = 13000, big_slots: int = 1024, huge_dets: int = 60000,
+                  detr=(8, 36, 300), reps: int = 10, older=None) -> dict:
     """The auction kernel bit-equal to its plain version at the tracker's
-    default (1000, 2000) padded cost, the lockstep's (4, 1000, 2000), tie-heavy integer costs, a cap
-    that is hit, odd shapes, a user's max_det of ``big_dets`` (1024 slots:
-    the state exceeds shared memory) and RT-DETR's matcher (``detr``: images,
-    GT slots, queries); then on the auctions of the main path's chunk
-    (``kept``). ``slots``, ``dets``, ``big_*`` and ``detr`` shrink the
-    rehearsal on the CPU."""
+    default (1000, 2000) padded cost, the lockstep's (4, 1000, 2000),
+    tie-heavy integer costs, a cap that is hit, odd shapes, a user's max_det
+    of ``big_dets`` (1024 slots: the state in the cluster's shared memory),
+    a max_det of ``huge_dets`` (1024 slots: the state exceeds it and lives in
+    device memory) and RT-DETR's matcher (``detr``: images, GT slots,
+    queries); then on the auctions of the main path's chunk (``kept``).
+    ``older`` (another checkout's assignment module) times its kernel in
+    turns with this one's at each case. ``slots``, ``dets``, ``big_*``,
+    ``huge_dets`` and ``detr`` shrink the rehearsal on the CPU."""
     dev = torch.device(device)
     rng = np.random.default_rng(5)
     cases = []
     gate = AUCTION_THRESHOLD
+    check = lambda *a, **kw: auction_check(*a, older=older, **kw)  # noqa: E731
     default = padded_cost(*tracker_inputs((), slots, dets, int(0.8 * slots), int(0.9 * dets), 1,
                                           dev), gate)
-    cases.append(auction_check("default", default, reps=reps))
+    cases.append(check("default", default, reps=reps))
     del default
     lock = padded_cost(*tracker_inputs((4,), slots, dets, int(0.8 * slots), int(0.9 * dets), 2,
                                        dev), gate)
-    cases.append(auction_check("lockstep", lock, reps=reps))
+    cases.append(check("lockstep", lock, reps=reps))
     del lock
     ties = torch.from_numpy(rng.integers(0, 4, (256, 512)).astype(np.float32)).to(dev)
-    cases.append(auction_check("integer ties", ties, reps=reps))
+    cases.append(check("integer ties", ties, reps=reps))
     contested = torch.from_numpy(rng.uniform(0, 1, (300, 300)).astype(np.float32)).to(dev)
-    cases.append(auction_check("cap hit", contested, max_iters=8, reps=reps))
+    cases.append(check("cap hit", contested, max_iters=8, reps=reps))
     if cases[-1]["unassigned"] == 0:
         raise AssertionError("the capped auction assigned every row")
     for shape in ((1, 2), (3, 7), (37, 90)):
         odd = torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32)).to(dev)
-        cases.append(auction_check(f"odd {shape}", odd, reps=reps))
+        cases.append(check(f"odd {shape}", odd, reps=reps))
     big = padded_cost(*tracker_inputs((), big_slots, big_dets, int(0.8 * big_slots),
                                       int(0.9 * big_dets), 3, dev), gate)
-    cases.append(auction_check(f"max_det {big_dets}", big, reps=max(reps // 5, 1)))
-    if dev.type == "cuda" and cases[-1]["state_in_shared"]:
-        raise AssertionError(f"the state of {tuple(big.shape)} fit in shared memory")
+    cases.append(check(f"max_det {big_dets}", big, reps=max(reps // 5, 1)))
+    if dev.type == "cuda" and not cases[-1]["state_in_shared"]:
+        raise AssertionError(f"the state of {tuple(big.shape)} did not fit in shared memory")
     del big
+    huge = padded_cost(*tracker_inputs((), big_slots, huge_dets, int(0.8 * big_slots),
+                                       int(0.9 * huge_dets), 4, dev), gate)
+    cases.append(check(f"max_det {huge_dets}", huge, reps=max(reps // 5, 1)))
+    if dev.type == "cuda" and cases[-1]["state_in_shared"]:
+        raise AssertionError(f"the state of {tuple(huge.shape)} fit in shared memory")
+    del huge
     images, gts, queries = detr
     detr_cost = torch.from_numpy(rng.uniform(-5, 10, (images, gts, queries)).astype(
         np.float32)).to(dev)
     gt_mask = torch.from_numpy(rng.uniform(size=(images, gts)) < 0.8).to(dev)
-    cases.append(auction_check("RT-DETR matcher", padded_cost(
+    cases.append(check("RT-DETR matcher", padded_cost(
         detr_cost, gt_mask, torch.ones((images, queries), dtype=torch.bool, device=dev), 30.0),
         reps=reps))
-    path = path_auctions(kept) if kept else None
+    path = path_auctions(kept, older=older) if kept else None
     return {"cases": cases, "path": path,
             "max_abs_err": max([c["max_abs_err"] for c in cases]
                                + ([path["max_abs_err"]] if path else []))}
+
+
+def turns_text(t: dict) -> str:
+    """An ``auction_turns`` result for a log line."""
+    return (f" [in turns: device {t['ms']['older']:.4f} older / {t['ms']['new']:.4f} ms, as "
+            f"called {t['eager_ms']['older']:.4f} / {t['eager_ms']['new']:.4f} ms, host "
+            f"{t['host_us']['older']:.1f} / {t['host_us']['new']:.1f} us a call]")
 
 
 def auction_text(c: dict) -> str:
@@ -1288,8 +1410,10 @@ def auction_text(c: dict) -> str:
         return f"{c['name']} {shape}"
     rounds = c["rounds"]
     return (f"{c['name']} {shape}: rounds {min(rounds)}-{max(rounds)}, kernel {c['ms']:.4f} ms "
-            f"(bound {c['bound_ms']:.4f}, {100 * c['bound_ms'] / c['ms']:.1f} %), plain "
-            f"{c['plain_ms']:.3f} ms" + ("" if c["state_in_shared"] else ", state in device memory"))
+            f"device (bound {c['bound_ms']:.5f}, {100 * c['bound_ms'] / c['ms']:.1f} %), "
+            f"{c['eager_ms']:.4f} as called, plain {c['plain_ms']:.3f} ms, cluster "
+            f"{c['cluster']}, state in {'shared' if c['state_in_shared'] else 'device'} memory"
+            + (turns_text(c["turns"]) if "turns" in c else ""))
 
 
 def path_text(p: dict) -> str:
@@ -1298,8 +1422,11 @@ def path_text(p: dict) -> str:
     if "ms" not in p:
         return text
     return (f"{text}, rounds {min(p['rounds'])}-{max(p['rounds'])} (mean "
-            f"{np.mean(p['rounds']):.2f}), per auction kernel {p['ms']:.4f} ms, plain "
-            f"{p['plain_ms']:.3f} ms, bound {p['bound_ms']:.5f} ms")
+            f"{np.mean(p['rounds']):.2f}), per auction kernel {p['ms']:.4f} ms device (bound "
+            f"{p['bound_ms']:.5f} ms, {100 * p['bound_ms'] / p['ms']:.1f} %), {p['eager_ms']:.4f} "
+            f"as called, plain {p['plain_ms']:.3f} ms, cluster {p['cluster']}, state in "
+            f"{'shared' if p['state_in_shared'] else 'device'} memory"
+            + (turns_text(p["turns"]) if "turns" in p else ""))
 
 
 def auction_line(au: dict, seconds: float, smi: str) -> str:
@@ -1756,9 +1883,17 @@ def breakdown(fx, width: int, height: int, seed: int, horizon: int, start: int,
     return {"wall_ms": wall_ms, **profile_ranges(prof, "fx.", top)}
 
 
+# The auction's kernels by name (csrc/auction.cu; an older checkout's
+# one-block kernel too). They are launched through ctypes, outside any torch
+# operator, so a range's device time does not count them: they are summed
+# by name instead.
+AUCTION_KERNEL_NAMES = ("first_round", "later_rounds", "auction_kernel")
+
+
 def profile_ranges(prof, prefix: str, top: int = 12) -> dict:
     """Host and device ms of each ``prefix`` range of a torch.profiler run,
-    the device's busy ms and its largest kernels."""
+    the device's busy ms, its largest kernels, and the auction's kernels
+    (device ms, launches)."""
     from torch.profiler import DeviceType
 
     events = prof.key_averages()
@@ -1776,9 +1911,11 @@ def profile_ranges(prof, prefix: str, top: int = 12) -> dict:
     kernels = sorted(((device_us(e, "self_device_time_total"), e.key, e.count) for e in events
                       if e.device_type == DeviceType.CUDA and not e.key.startswith(prefix)),
                      reverse=True)
+    auction = [(us, n) for us, k, n in kernels if any(a in k for a in AUCTION_KERNEL_NAMES)]
     return {"device_busy_ms": sum(k[0] for k in kernels) / 1e3,
             "stages": stages,
-            "top": [(k, us / 1e3, n) for us, k, n in kernels[:top]]}
+            "top": [(k, us / 1e3, n) for us, k, n in kernels[:top]],
+            "auction": (sum(us for us, _ in auction) / 1e3, sum(n for _, n in auction))}
 
 
 # --------------------------------------------------------------------------
@@ -4118,6 +4255,8 @@ def phase_multi(device: str = "cuda", width: int = 3840, height: int = 2160,
     cards = torch.cuda.device_count() if cuda else int(cards or 1)
     res = {"size": (width, height), "imgsz": imgsz, "batch": batch, "steps": steps,
            "counts": counts, "cards": cards}
+    if cuda:  # the ranks below share this card: leave them the blocks this process caches
+        torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmpdir:
         tmp = Path(tmpdir)
         data = tmp / "data"
@@ -5255,6 +5394,9 @@ def lockstep_profile_lines(prof: dict) -> list:
              f"device busy {prof['device_busy_ms']:.1f} ms"]
     lines += [f"    stage {name:16s} host {cpu / n:8.1f} ms/step  kernels {dev / n:8.1f} ms/step  "
               f"device span {span / n:8.1f} ms/step" for name, cpu, dev, span in prof["stages"]]
+    if "auction" in prof:
+        lines.append(f"    auction kernels {prof['auction'][0] / n:8.3f} ms/step  "
+                     f"x{prof['auction'][1]} (inside lock.tracker, not in its kernels column)")
     lines += [f"    kernel {ms:9.3f} ms  x{count:<6d} {name[:90]}" for name, ms, count in
               prof["top"][:8]]
     return lines
@@ -5334,9 +5476,13 @@ def georef_line(geo: dict, seconds: float, smi: str) -> str:
 
 def stage_lines(brk: dict) -> list:
     """The breakdown phase's rows: host and device ms per ``fx.*`` stage,
-    then its largest kernels."""
+    the auction's kernels (inside fx.tracker, but not in its kernels column),
+    then the largest kernels."""
+    auction_ms, launches = brk["auction"]
     return ([f"    stage {name:18s} host {cpu_ms:9.1f} ms  kernels {dev_ms:9.1f} ms  "
              f"device span {span_ms:9.1f} ms" for name, cpu_ms, dev_ms, span_ms in brk["stages"]]
+            + [f"    auction kernels {auction_ms:9.3f} ms  x{launches} (launched through ctypes "
+               f"inside fx.tracker, not in its kernels column)"]
             + [f"    kernel {ms:9.3f} ms  x{count:<6d} {name[:90]}"
                for name, ms, count in brk["top"]])
 
@@ -5362,8 +5508,8 @@ def gather_text(r: dict) -> str:
 
 
 GATHER_KEYS = ("shape", "corners", "ms", "eager_ms", "library_ms", "plain_ms", "bound_ms")
-AUCTION_KEYS = ("name", "shape", "rounds", "ms", "plain_ms", "bound_ms", "state_in_shared",
-                "unassigned")
+AUCTION_KEYS = ("name", "shape", "rounds", "ms", "eager_ms", "plain_ms", "bound_ms", "cluster",
+                "state_in_shared", "unassigned")
 HWC_KEYS = ("shape", "corners", "pool2", "mean4", "ms", "eager_ms", "library_ms", "plain_ms",
             "bound_ms", "kernel_gib")
 
@@ -5419,6 +5565,9 @@ def main(argv) -> int:
     tools_only = "--tools-only" in argv
     host_tools_only = "--host-tools-only" in argv
     tracker_only = "--tracker-only" in argv
+    auction_only = "--auction-only" in argv
+    older = (older_auction(Path(argv[argv.index("--against") + 1]).resolve())
+             if "--against" in argv else None)
     t_all = time.perf_counter()
     width, height, chunk, seed = 3840, 2160, 32, 0
     n_main = 2 * chunk
@@ -5436,6 +5585,19 @@ def main(argv) -> int:
                 print(f"    {name}: {line}", flush=True)
 
         t = time.perf_counter()
+        if auction_only:  # phases 0, 1, the auction's and its path's only
+            au = phase_auction("cuda", older=older)
+            log(auction_line(au, time.perf_counter() - t, dev["smi"]))
+            t = time.perf_counter()
+            run = phase_main("cuda", width, height, n_main, chunk, seed=seed, horizon=horizon)
+            kept = []
+            phase_steady(run["fx"], width, height, seed, horizon, n_main, chunk, n_chunks=1,
+                         kept=kept)
+            path = path_auctions(kept, older=older)
+            log(f"auction-path ok {time.perf_counter() - t:.1f}s kernel == plain on the first "
+                f"steady chunk's auctions: {path_text(path)} [{dev['smi']}]")
+            log(f"auction-only ok {time.perf_counter() - t_all:.1f}s")
+            return 0
         kern = phase_kernel("cuda")
         log(f"kernel ok {time.perf_counter() - t:.1f}s fast_score exact on textured (33,1080,1920), "
             f"(2,37,53), a checkerboard and a constant image at t=20,7; seeded (32,1080,1920): "
@@ -5462,7 +5624,7 @@ def main(argv) -> int:
             log(f"tracker-only ok {time.perf_counter() - t_all:.1f}s")
             return 0
         t = time.perf_counter()
-        au = phase_auction("cuda")
+        au = phase_auction("cuda", older=older)
         log(auction_line(au, time.perf_counter() - t, dev["smi"]))
         if kernels_only:
             log(f"kernels-only ok {time.perf_counter() - t_all:.1f}s")
@@ -5757,6 +5919,7 @@ def main(argv) -> int:
                      launches_options={k: v["auction_launches"] for k, v in opts.items()},
                      launches_reference={k: v["auction_launches"] for k, v in ref.items()},
                      rounds=au["path"]["rounds"], plain_calls_on_card_paths=0,
+                     eager_ms=au["path"]["eager_ms"], cluster=au["path"]["cluster"],
                      shapes=[{k: c.get(k) for k in AUCTION_KEYS} for c in au["cases"]]),
     ], "multi": multi_entry(mu)}
     print(json.dumps(kernels), flush=True)

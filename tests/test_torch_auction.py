@@ -112,6 +112,98 @@ def test_wrapper_routes_and_refusals_on_the_cpu():
         ta.auction_assignment(cost.to("meta"))
 
 
+# An H100's 132 SMs and the opt-in shared memory of a block (227 KB) less
+# phase B's static arrays: the numbers the card reports to the plan.
+H100_SMS = 132
+H100_SHARED = 232448 - 512
+
+
+def every_cluster(cluster, shared):
+    return 1
+
+
+@pytest.mark.parametrize("n,m,cluster", [(1000, 2000, 16), (1024, 14024, 16), (36, 336, 1),
+                                         (37, 90, 1), (1, 2, 1), (300, 300, 8), (64, 61024, 1)])
+def test_region_bytes_hold_a_blocks_state(n, m, cluster):
+    """One block's state: a count from each block (16 blocks at most), every
+    price (padded to 4 columns), a key and an owner per owned column, two ints
+    a row owned, rounded up to 16 bytes; the blocks together own every row and
+    column."""
+    cols, rows = -(-m // cluster), -(-n // cluster)
+    raw = 4 * 16 + 4 * (-(-m // 4) * 4) + cols * (8 + 4) + rows * (4 + 4)
+    got = ta.region_bytes(n, m, cluster)
+    assert got % 16 == 0 and raw <= got < raw + 16
+    assert cols * cluster >= m and rows * cluster >= n
+
+
+@pytest.mark.parametrize("shape,split,cluster,shared", [
+    ((1, 1000, 2000), 4, 16, True),     # the tracker's padded cost
+    ((4, 1000, 2000), 1, 16, True),     # the lockstep's four videos
+    ((1, 1024, 14024), 4, 16, True),    # max_det 13000: on chip under the cluster
+    ((1, 1024, 61024), 4, 16, False),   # max_det 60000: prices past shared memory
+    ((8, 36, 336), 1, 1, True),         # RT-DETR's matcher
+    ((1, 256, 512), 2, 16, True),      # tie-heavy integer costs
+    ((1, 300, 300), 1, 16, True),      # the capped contest
+    ((1, 64, 1000), 2, 1, True),       # the most rows one block takes
+    ((1, 65, 1000), 2, 16, True),
+    ((1, 3, 7), 1, 1, True),
+])
+def test_launch_plan_at_the_smoke_shapes(shape, split, cluster, shared):
+    b, n, m = shape
+    plan = ta.launch_plan(b, n, m, H100_SMS, H100_SHARED, every_cluster)
+    assert (plan.split, plan.cluster, plan.shared) == (split, cluster, shared)
+    assert (plan.cols, plan.rows) == (-(-m // cluster), -(-n // cluster))
+    assert plan.stride == ta.region_bytes(n, m, cluster)
+    bids = -(-8 * b * n // 256) * 256
+    assert plan.work == bids + (0 if shared else b * cluster * plan.stride)
+    if shared:
+        assert plan.stride <= H100_SHARED
+
+
+def test_launch_plan_takes_the_sizes_the_card_launches():
+    """A cluster size the card cannot hold is passed over: first larger ones
+    (smaller shares of the columns), then smaller ones; device memory takes
+    the largest launchable size up to the wanted one (1 block up to 64 rows,
+    else 16)."""
+    seen = []
+
+    def upto(limit):
+        def clusters(cluster, shared):
+            seen.append((cluster, shared))
+            return int(cluster <= limit)
+        return clusters
+
+    plan = ta.launch_plan(1, 1000, 2000, H100_SMS, H100_SHARED, upto(8))
+    assert (plan.cluster, plan.shared) == (8, True)
+    assert [c for c, _ in seen] == [16, 8]
+    seen.clear()
+    plan = ta.launch_plan(1, 200, 2000, H100_SMS, H100_SHARED, upto(2))
+    assert (plan.cluster, plan.shared) == (2, True)
+    assert [c for c, _ in seen] == [16, 8, 4, 2]
+    seen.clear()
+    plan = ta.launch_plan(1, 40, 60000, H100_SMS, H100_SHARED, upto(16))
+    assert (plan.cluster, plan.shared) == (1, False)    # a replica of 60000 prices fits no block
+    assert seen == [(1, 0)]
+    seen.clear()
+    plan = ta.launch_plan(1, 1024, 61024, H100_SMS, H100_SHARED, upto(4))
+    assert (plan.cluster, plan.shared) == (4, False)
+    assert seen[-3:] == [(16, 0), (8, 0), (4, 0)]
+    with pytest.raises(RuntimeError, match="no cluster"):
+        ta.launch_plan(1, 10, 20, H100_SMS, H100_SHARED, lambda c, s: 0)
+
+
+@pytest.mark.parametrize("rows,m,split", [(1000, 2000, 4), (4000, 2000, 1), (288, 336, 1),
+                                          (1, 2, 1), (1, 100000, 8), (100, 1000, 2),
+                                          (2112, 8192, 1), (2111, 8192, 2)])
+def test_first_round_split(rows, m, split):
+    """Warps per row in the first round: enough warps for 16 an SM, a power of
+    two up to 8, each over 256 columns at least."""
+    got = ta.first_round_split(rows, m, H100_SMS)
+    assert got == split
+    assert got & (got - 1) == 0 and 1 <= got <= ta.FIRST_ROUND_WARPS
+    assert got == 1 or m // got >= ta.COLS_PER_WARP
+
+
 PARAMS = {"track_high_thresh": 0.25, "track_low_thresh": 0.1, "new_track_thresh": 0.25,
           "track_buffer": 30, "match_thresh": 0.8, "fuse_score": True,
           "gmc_method": "sparseOptFlow"}

@@ -863,7 +863,7 @@ def _auction_cost(case):
     """(cost, max_iters) of one of the smoke's auction shapes, made from a
     seed: masked_assignment's padded costs of tracker-like inputs (the
     default 1000 slots against 1000 detections, the lockstep's four, a
-    max_det of 13000 against 1024 slots, whose state exceeds shared memory),
+    max_det of 13000 against 1024 slots),
     tie-heavy integer costs, a cap that is hit, odd shapes, RT-DETR's
     matcher."""
     import chip_smoke
@@ -893,7 +893,7 @@ def _auction_cost(case):
                                   "integer ties", "cap hit", "odd 1x2", "odd 3x7", "odd 37x90"])
 def test_auction_kernel_equals_plain_on_card(case):
     """csrc/auction.cu against auction_assignment_torch at the smoke's
-    shapes, bit for bit (max_det 13000 keeps its state in device memory);
+    shapes, bit for bit (max_det 13000's state in the cluster's shared memory);
     one launch per call, and its statistics (rounds, bidder rows) in range."""
     _need_card()
     from geotrax_tpu_torch.ops import assignment
@@ -912,6 +912,111 @@ def test_auction_kernel_equals_plain_on_card(case):
     assert bool((bids >= n).all()) and bool((bids <= rounds * n).all())
     if case == "cap hit":
         assert bool((plain < 0).any()) and bool((rounds == max_iters).all())
+
+
+def _cluster_cost(case):
+    """A (..., N, M) cost, made from a seed, that drives one part of the
+    cluster design: later rounds with more bidders than the cluster has warps
+    (uniform costs, many first-round collisions) or fewer (each row has its
+    own cheap column but 40 rows share 10), N not a multiple of a block's
+    rows, M not a multiple of 4, a base not 16-byte aligned, a batch of 4,
+    and a state past shared memory (60000 columns of prices, 64 rows that
+    want the same 8 columns, so several rounds run there)."""
+    rng = np.random.default_rng(23)
+    if case == "more bidders than warps":
+        cost = rng.uniform(0, 1, (1000, 1000))
+    elif case == "fewer bidders than warps":
+        cost = rng.uniform(0.5, 1.0, (1000, 2000))
+        cost[np.arange(1000), np.arange(1000)] = 0.0
+        cost[np.arange(40), np.arange(40)] = 0.9
+        cost[np.arange(40), np.arange(40) // 4] = 0.0
+    elif case == "N not a multiple of a block's rows":
+        cost = rng.uniform(0, 1, (1001, 2000))
+    elif case == "M not a multiple of 4":
+        cost = rng.uniform(0, 1, (1000, 2003))
+    elif case == "base not 16-byte aligned":
+        flat = torch.from_numpy(rng.uniform(0, 1, 1000 * 2000 + 1).astype(np.float32)).cuda()
+        return flat[1:].view(1000, 2000)
+    elif case == "batch of 4":
+        cost = rng.uniform(0, 1, (4, 500, 1000))
+    else:  # state in device memory
+        cost = rng.uniform(0, 1, (256, 60000))
+        cost[:64, :8] = 0.0
+    return torch.from_numpy(cost.astype(np.float32)).cuda()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["more bidders than warps", "fewer bidders than warps",
+                                  "N not a multiple of a block's rows", "M not a multiple of 4",
+                                  "base not 16-byte aligned", "batch of 4",
+                                  "state in device memory"])
+def test_auction_cluster_cases_equal_plain_on_card(case):
+    """The two kernels (first round over the card, later rounds in a cluster
+    per problem) bit-equal to auction_assignment_torch where each part of the
+    design is driven; one wrapper call per auction."""
+    _need_card()
+    from geotrax_tpu_torch.ops import assignment
+
+    cost = _cluster_cost(case)
+    plan = assignment.plan_of(cost)
+    n = cost.shape[-2]
+    warps = plan.cluster * 16
+    second = int((assignment.auction_assignment_torch(cost, max_iters=1) < 0).sum())
+    if case == "more bidders than warps":
+        assert second > warps, (second, plan)
+    if case == "fewer bidders than warps":
+        assert 0 < second < warps, (second, plan)
+    if case == "N not a multiple of a block's rows":
+        assert n % plan.rows != 0 and plan.cluster > 1, plan
+    if case == "base not 16-byte aligned":
+        assert cost.data_ptr() % 16 != 0 and cost.is_contiguous()
+    assert plan.shared == (case != "state in device memory"), plan
+    stats = torch.empty(cost.shape[:-2] + (2,), dtype=torch.int64, device="cuda")
+    before = assignment.auction_assignment.launches
+    out = assignment.auction_assignment(cost, stats=stats)
+    torch.cuda.synchronize()
+    assert assignment.auction_assignment.launches == before + 1
+    torch.testing.assert_close(out, assignment.auction_assignment_torch(cost), rtol=0, atol=0)
+    assert int(stats[..., 0].max()) >= (2 if second else 1)
+    assert bool((stats[..., 1] >= n).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["default", "integer ties", "state in device memory"])
+def test_auction_call_captured_in_a_cuda_graph_replays(case):
+    """One call captured in a CUDA graph and replayed twice gives the eager
+    call's answer each time; with other costs copied into the captured input
+    a replay gives their answer: the kernels reset their own keys and
+    counters, and the wrapper reads nothing back."""
+    _need_card()
+    from geotrax_tpu_torch.ops import assignment
+
+    if case == "default":
+        cost, _ = _auction_cost("default")
+        other, _ = _auction_cost("lockstep")
+        other = other[0].contiguous()
+    elif case == "integer ties":  # 21 rounds
+        cost, _ = _auction_cost(case)
+        other = (3.0 - cost).contiguous()
+    else:
+        cost = _cluster_cost(case)
+        other = torch.flip(cost, (1,)).contiguous()
+    eager = assignment.auction_assignment(cost)
+    expected_other = assignment.auction_assignment(other)
+    held = cost.clone()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = assignment.auction_assignment(held)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(captured, eager, rtol=0, atol=0)
+    held.copy_(other)
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(captured, expected_other, rtol=0, atol=0)
+    torch.testing.assert_close(eager, assignment.auction_assignment_torch(cost), rtol=0, atol=0)
 
 
 @pytest.mark.gpu

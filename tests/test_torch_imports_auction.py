@@ -14,13 +14,14 @@ from test_torch_imports import EPILOGUE, PRELUDE, ROOT
 
 AUCTION_GUARD = PRELUDE + r'''
 au = chip_smoke.phase_auction("cpu", slots=40, dets=40, big_slots=24, big_dets=60,
-                              detr=(2, 5, 30))
+                              huge_dets=90, detr=(2, 5, 30))
 names = [c["name"] for c in au["cases"]]
 assert names[:2] == ["default", "lockstep"], names
-assert len(names) == 9 and au["max_abs_err"] == 0.0 and au["path"] is None, au
+assert len(names) == 10 and au["max_abs_err"] == 0.0 and au["path"] is None, au
 shapes = {c["name"]: c["shape"] for c in au["cases"]}
 assert shapes["default"] == (40, 80) and shapes["lockstep"] == (4, 40, 80), shapes
-assert shapes["max_det 60"] == (24, 84) and shapes["RT-DETR matcher"] == (2, 5, 35), shapes
+assert shapes["max_det 60"] == (24, 84) and shapes["max_det 90"] == (24, 114), shapes
+assert shapes["RT-DETR matcher"] == (2, 5, 35), shapes
 assert next(c for c in au["cases"] if c["name"] == "cap hit")["unassigned"] > 0
 assert "ms" not in au["cases"][0]
 line = chip_smoke.auction_line(au, 1.0, "cpu")
