@@ -5,6 +5,8 @@
     python3 chip_smoke.py --tracker-only   # phases 0-2 (no auction), 3-5 only, no result line
     python3 chip_smoke.py --auction-only [--against DIR]  # phases 0, 1, the auction's and the
                                            # auctions of the first steady chunk only, no result line
+    python3 chip_smoke.py --nms-only [--against DIR]  # phases 0, 1, the NMS's and the main path's
+                                           # NMS (and fx.detect in turns with DIR's), no result line
     python3 chip_smoke.py --georef-only    # phases 0, 1 and 10 only, no result line
     python3 chip_smoke.py --lockstep-only  # phases 0, 1 and 12 only, no result line
     python3 chip_smoke.py --render-only    # phases 0, 1 and 13 only, no result line
@@ -18,8 +20,8 @@ Phases, one ``[smoke] <phase> ok <seconds>s ...`` line each; a failing phase
 ends the run with a non-zero exit and no result line:
 
   0 device     the card's name and power limit (exit 1 without a card)
-  1 build      nvcc builds csrc/fast_score.cu, csrc/patch_gather.cu and
-               csrc/auction.cu for sm_90a and g++ the TIFF reader's
+  1 build      nvcc builds csrc/fast_score.cu, csrc/patch_gather.cu,
+               csrc/auction.cu and csrc/nms.cu for sm_90a and g++ the TIFF reader's
                io/native/tiff.cpp and the exact assignment's
                io/native/lapjv.cpp, all at once (-Xptxas -v shown)
   2 kernel     the FAST kernel equals its plain PyTorch version exactly on a
@@ -50,7 +52,18 @@ ends the run with a non-zero exit and no result line:
                as called (CUDA events around back-to-back calls, median of
                five), the plain version's CUDA-event ms, the bound (the
                bidders' rows read once per round) and its share, the
-               cluster size and where the state lives
+               cluster size and where the state lives; the NMS kernel equals
+               nms_torch exactly (keep indices and valid flags) on seeded
+               detector-like candidates at the default chunk's (32, 2000)
+               with max_det 1000, the lockstep's (4, 2000), one frame's (1,
+               2000), training's evaluate ((8, 1024), max_det 300, per
+               class, every candidate alive), a chain of 2000 boxes and odd
+               counts (1, 3, 37) with fewer candidates than slots; per case
+               the kernel's device ms (CUDA-graph replay), the whole call's
+               (sort, gathers, kernel) device ms and ms as called, the plain
+               version's CUDA-event ms, torchvision's batched_nms where it
+               is installed, and the bound (the alive pairs' IoUs or the
+               bytes)
   3 main       the default extract configuration: YOLOv8s at imgsz 1920
                (random weights from a seeded generator, class biases set so
                that about VEHICLES_PER_4K_FRAME boxes pass ``conf``) on two
@@ -60,12 +73,18 @@ ends the run with a non-zero exit and no result line:
                tracks file, the transforms file, the metadata file with the
                reference's top-level keys), read back and checked; the FAST
                launch counter must rise by 3 and the auction's by 3 a frame,
-               every frame's homography must be the camera's, and the chunk
+               every frame's homography must be the camera's, the NMS
+               kernel's by one a chunk (its plain version never), the chunk
                tracker runs under torch.cuda.set_sync_debug_mode("error")
-               (no torch operation of it waits for the card); then the FAST
-               kernel exact and timed on the first chunk's own gray
+               (no torch operation of it waits for the card) and so does the
+               whole chunk step of the chunk after the first (detection,
+               NMS, features, RANSAC, tracker); then the FAST kernel exact
+               and timed on the first chunk's own gray
   4 steady     three more chunks of the same video through the same
-               extractor: ms per chunk (median, min, max), checked as above;
+               extractor: ms per chunk (median, min, max), checked as above,
+               every chunk step whole under set_sync_debug_mode("error");
+               the NMS kernel exact against its plain version on the
+               candidates of the first of them, timed as in phase 2;
                the auction kernel then exact against its plain version on
                the 96 padded costs the first of them handed it, with their
                rounds, per auction the kernel's device ms (the chunk's
@@ -79,7 +98,10 @@ ends the run with a non-zero exit and no result line:
                and device time per stage, the auction's kernels' device
                time and launches (launched through ctypes, so no stage's
                kernel time counts them), and the largest device items
-               (device times read 0 where the profiler sees none)
+               (device times read 0 where the profiler sees none); then one
+               chunk with the plain nms (the parent's host-driven loop) and
+               one with the kernel, each under the profiler: fx.detect's
+               host and kernel ms, the NMS kernel's, the peak memory
   6 reid       the same configuration with tracker.botsort.with_reid: true,
                through the extract entry point on the main phase's frames
                (kept in host memory): files and homographies checked as in
@@ -305,7 +327,13 @@ chunk's own auctions; with ``--against DIR`` (another checkout, such as the
 parent's unpacked by ``git archive``) that checkout's auction wrapper and
 kernel (built from DIR's ``csrc/auction.cu``) are timed in turns with this
 one's at every case and on the chunk's auctions: device ms, ms as called,
-host microseconds a call. ``--kernels-only`` serves to
+host microseconds a call. ``--nms-only`` runs phases 0 and 1, the NMS
+cases and the main path up to its first steady chunk for that chunk's own
+candidates; with ``--against DIR`` that checkout's nms wrapper (its kernel
+built from DIR's ``csrc/nms.cu`` where it has one; the parent's is the
+host-driven loop) is timed in turns with this one's at every case, and the
+chunk step with each in the detector: fx.detect's host and kernel ms, peak
+memory, and three steady chunks' ms. ``--kernels-only`` serves to
 time the kernels of two checkouts in one call: copy this script into the
 other checkout and run it there too. ``--georef-only`` runs phases 0, 1 and
 10, ``--lockstep-only`` phases 0, 1 and 12 with its own calibrated detector,
@@ -327,6 +355,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -339,6 +368,7 @@ from geotrax_tpu_torch.io.synthetic import SyntheticVideoReader
 from geotrax_tpu_torch.models import rtdetr_ul, yolov8
 from geotrax_tpu_torch.models.detector import Detector, OracleDetector
 from geotrax_tpu_torch.ops import assignment, fast, features, patches
+from geotrax_tpu_torch.ops import nms as nms_ops
 from geotrax_tpu_torch.ops.resize import resize_u8_linear
 from geotrax_tpu_torch.pipeline import extract as port_extract
 from geotrax_tpu_torch.pipeline.device_pipeline import FusedExtractor, embed_boxes
@@ -367,6 +397,22 @@ HAS_AUCTION = hasattr(assignment, "auction_assignment_torch")
 AUCTIONS_PER_STEP = 3
 # botsort's match_thresh, the first association's gate
 AUCTION_THRESHOLD = 0.8
+NMS_SOURCE = "geotrax_tpu_torch/csrc/nms.cu"
+# not a Pallas site: the reference's device loop, the lax.while_loop of nms
+NMS_REPLACES = "geotrax_tpu/ops/nms.py:81"
+# The NMS wrapper and its plain version as this checkout has them (a parent
+# checkout that predates the kernel has only the host-driven loop).
+NMS_KERNEL = nms_ops.nms
+HAS_NMS = hasattr(nms_ops, "nms_torch")
+NMS_LAUNCHER = getattr(nms_ops, "nms_sorted", None)
+# The default preset's ultralytics.iou and max_det
+NMS_IOU = 0.7
+NMS_MAX_DET = 1000
+# Float operations of one IoU of two alive candidates as the kernel needs
+# them (4 max/min, 2 subtractions, 2 clamps, the product, the union's add
+# and subtract, + eps, the division, the comparison) and of one box's area
+NMS_PAIR_FLOPS = 14
+NMS_BOX_FLOPS = 5
 PATCH_SOURCE = "geotrax_tpu_torch/csrc/patch_gather.cu"
 PATCH_REPLACES = "geotrax_tpu/ops/pallas_patches.py:40"
 # The ReID path's gather per 32-frame 4K chunk: 3 channel planes of each
@@ -460,14 +506,15 @@ def phase_device() -> dict:
 
 
 def phase_build() -> dict:
-    """The three kernels, each by its own nvcc, and the host libraries of the
+    """The four kernels, each by its own nvcc, and the host libraries of the
     TIFF reader and the exact assignment, each by its own g++, all started
     together; their logs (a g++ build's: the library's path)."""
     from geotrax_tpu_torch.io import native, tiff
     from geotrax_tpu_torch.ops.assignment import LAPJV_SOURCE
 
     modules = {"fast_score": fast, "patch_gather": patches,
-               **({"auction": assignment} if HAS_AUCTION else {})}
+               **({"auction": assignment} if HAS_AUCTION else {}),
+               **({"nms": nms_ops} if HAS_NMS else {})}
     host = {"tiff.cpp": tiff.SOURCE, "lapjv.cpp": LAPJV_SOURCE}
     with ThreadPoolExecutor(len(modules) + len(host)) as pool:
         futures = {name: pool.submit(mod.build, verbose=True) for name, mod in modules.items()}
@@ -1024,7 +1071,8 @@ def phase_main(device: str = "cuda", width: int = 3840, height: int = 2160, n_fr
     """The port's default extract path, driven through its entry points,
     over the first ``n_frames`` of a ``horizon``-frame video (the frames are
     made first and kept for the ReID phase; ``setup_s`` includes them); with
-    ``sync_check`` the chunk tracker runs under ``no_host_reads``."""
+    ``sync_check`` the chunk tracker, and the whole step of every chunk
+    after the first, runs under ``no_host_reads``."""
     t0 = time.perf_counter()
     horizon = horizon or n_frames
     reader = smoke_reader(width, height, seed, horizon, stop=n_frames)
@@ -1032,9 +1080,10 @@ def phase_main(device: str = "cuda", width: int = 3840, height: int = 2160, n_fr
     config, fx, n_det = build_extractor(device, width, height, variant, imgsz, seed, chunk,
                                         frames[0][1])
     setup_s = time.perf_counter() - t0
-    reads = contextlib.nullcontext({"chunks": 0})
-    with tempfile.TemporaryDirectory() as tmp, (tracker_reads_checked(fx, device) if sync_check
-                                                 else reads) as checked:
+    nms_before = nms_launches()  # the calibration detected once
+    reads = contextlib.nullcontext({"chunks": 0, "steps": 0})
+    with tempfile.TemporaryDirectory() as tmp, (tracker_reads_checked(fx, device, HAS_NMS)
+                                                 if sync_check else reads) as checked:
         source = Path(tmp) / "V_smoke.mp4"  # the metadata goes beside it; never read
         stats = port_extract.extract(FrameList(reader.info, frames), fx, Path(tmp) / "results",
                                      source.stem, config=config, chunk=chunk, source=source,
@@ -1046,22 +1095,30 @@ def phase_main(device: str = "cuda", width: int = 3840, height: int = 2160, n_fr
             raise AssertionError("the extract wrote no metadata file")
     return {"setup_s": setup_s, "stats": stats, "checks": checks, "fx": fx,
             "detections_frame0": n_det, "horizon": horizon, "frames": frames,
-            "reader": reader, "sync_checked_chunks": checked["chunks"]}
+            "reader": reader, "sync_checked_chunks": checked["chunks"],
+            "sync_checked_steps": checked["steps"], "nms_launches": nms_launches() - nms_before}
 
 
 def phase_steady(fx, width: int, height: int, seed: int, horizon: int, start: int,
                  chunk: int = 32, n_chunks: int = STEADY_CHUNKS, tol_px: float = 2.0,
-                 kept=None) -> dict:
+                 kept=None, nms_kept=None, sync_check: bool = True) -> dict:
     """``n_chunks`` more chunks of the same video through the same
     extractor (tracker state and reference frame carried on), with the
     tracks and transforms rows checked; ms per chunk as the row emitter
     measures it (chunk step plus the copy of its outputs to the host). The
-    first chunk's frames are kept for the ReID phase and, given ``kept``,
-    the padded costs of its auctions are appended to it."""
+    first chunk's frames are kept for the ReID phase; given ``kept``, the
+    padded costs of its auctions are appended to it, and given
+    ``nms_kept``, the arguments of its NMS call. With ``sync_check`` every
+    chunk step runs under ``no_host_reads`` (``sync_checked_steps``)."""
     reader = smoke_reader(width, height, seed, horizon, start, start + n_chunks * chunk)
     frames = make_frames(reader)
+    on_card = fx.device.type == "cuda"
     with (AuctionRecorder(kept, AUCTIONS_PER_STEP * chunk) if kept is not None
-          else contextlib.nullcontext()):
+          else contextlib.nullcontext()), \
+            (nms_swapped(NMS_KERNEL, nms_kept) if nms_kept is not None
+             else contextlib.nullcontext()), \
+            (tracker_reads_checked(fx, "cuda" if on_card else "cpu", HAS_NMS) if sync_check
+             else contextlib.nullcontext({"steps": 0})) as checked:
         tracks, transforms, stats = port_extract.track_video_fused(FrameList(reader.info, frames),
                                                                    fx, chunk=chunk)
     if stats["chunks"] != n_chunks or stats["frames"] != n_chunks * chunk:
@@ -1072,7 +1129,7 @@ def phase_steady(fx, width: int, height: int, seed: int, horizon: int, start: in
     ms = np.asarray(stats["chunk_s"]) * 1e3
     return {"chunk_ms": ms.tolist(), "median_ms": float(np.median(ms)), "min_ms": float(ms.min()),
             "max_ms": float(ms.max()), "camera_err_px": cam_err, "rows": int(len(tracks)),
-            "frames": frames[:chunk]}
+            "frames": frames[:chunk], "sync_checked_steps": checked["steps"]}
 
 
 def auction_launches() -> int:
@@ -1094,23 +1151,28 @@ def plain_auction_calls() -> int:
 def no_host_reads(on_card: bool):
     """While the block runs on the card, any torch operation that
     synchronises with the host (a read back, a pageable copy) raises
-    (``torch.cuda.set_sync_debug_mode("error")``)."""
+    (``torch.cuda.set_sync_debug_mode("error")``); the mode it found is
+    restored after it, so blocks nest."""
     if not on_card:
         yield
         return
+    previous = torch.cuda.get_sync_debug_mode()
     torch.cuda.set_sync_debug_mode("error")
     try:
         yield
     finally:
-        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.set_sync_debug_mode(previous)
 
 
 @contextlib.contextmanager
-def tracker_reads_checked(fx, device: str):
+def tracker_reads_checked(fx, device: str, whole_step: bool = False):
     """Inside the block, ``fx``'s chunk tracker runs under
-    ``no_host_reads``; yields a dict that counts the chunks so run."""
-    seen = {"chunks": 0}
-    run = fx._run_tracker
+    ``no_host_reads``; with ``whole_step`` so does the whole chunk step of
+    every chunk after the video's first (whose frames are on the card and
+    whose constants were made by the first). Yields a dict that counts the
+    chunk trackers and the whole steps so run."""
+    seen = {"chunks": 0, "steps": 0}
+    run, step = fx._run_tracker, fx._chunk_impl
 
     def checked(*a, **kw):
         with no_host_reads(device == "cuda"):
@@ -1118,11 +1180,23 @@ def tracker_reads_checked(fx, device: str):
         seen["chunks"] += 1
         return out
 
+    def checked_step(frames, fids, n_valid, first):
+        if first:
+            return step(frames, fids, n_valid, first)
+        with no_host_reads(device == "cuda"):
+            out = step(frames, fids, n_valid, first)
+        seen["steps"] += 1
+        return out
+
     fx._run_tracker = checked
+    if whole_step:
+        fx._chunk_impl = checked_step
     try:
         yield seen
     finally:
         del fx._run_tracker
+        if whole_step:
+            del fx._chunk_impl
 
 
 class AuctionRecorder:
@@ -1199,32 +1273,39 @@ def auction_bound_ms(stats: torch.Tensor, n: int, m: int) -> tuple:
     return moved / HBM_BYTES_PER_S * 1e3, "bytes", moved
 
 
-def older_auction(root: Path):
-    """The auction wrapper module of another checkout at ``root`` (one with
-    the earlier one-block kernel, say), loaded under another name, its kernel
-    built by nvcc with this checkout's flags from that checkout's
-    ``csrc/auction.cu`` into build/torch_kernels/."""
+def older_module(root: Path, module: str, kernel: str):
+    """The wrapper module ``ops/<module>.py`` of another checkout at ``root``
+    (the parent's, say), loaded under another name; where that checkout has
+    ``csrc/<kernel>.cu``, its kernel is built by nvcc with this checkout's
+    flags into build/torch_kernels/ and the module loads that library."""
     import ctypes
     import hashlib
     import importlib.util
-    import types
 
     from geotrax_tpu_torch import _cuda
 
-    src = root / "geotrax_tpu_torch" / "csrc" / "auction.cu"
-    lib = _cuda.BUILD_DIR / f"libauction-older-{hashlib.sha1(src.read_bytes()).hexdigest()[:12]}.so"
+    spec = importlib.util.spec_from_file_location(
+        f"older_{module}", root / "geotrax_tpu_torch" / "ops" / f"{module}.py")
+    loaded = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(loaded)
+    src = root / "geotrax_tpu_torch" / "csrc" / f"{kernel}.cu"
+    if not src.exists():
+        return loaded
+    lib = _cuda.BUILD_DIR / f"lib{kernel}-older-{hashlib.sha1(src.read_bytes()).hexdigest()[:12]}.so"
     if not lib.exists():
         _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         proc = subprocess.run([_cuda.nvcc_path(), *_cuda.NVCC_FLAGS, "-o", str(lib), str(src)],
                               capture_output=True, text=True, timeout=_cuda.BUILD_TIMEOUT_S)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
-    spec = importlib.util.spec_from_file_location(
-        "older_assignment", root / "geotrax_tpu_torch" / "ops" / "assignment.py")
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    module._cuda = types.SimpleNamespace(load=lambda name: ctypes.CDLL(str(lib)))
-    return module
+    loaded._cuda = types.SimpleNamespace(load=lambda name: ctypes.CDLL(str(lib)))
+    return loaded
+
+
+def older_auction(root: Path):
+    """The auction wrapper of another checkout (one with the earlier
+    one-block kernel, say) and its kernel (``older_module``)."""
+    return older_module(root, "assignment", "auction")
 
 
 def auction_layout(cost: torch.Tensor) -> dict:
@@ -1432,6 +1513,308 @@ def path_text(p: dict) -> str:
 def auction_line(au: dict, seconds: float, smi: str) -> str:
     return (f"auction ok {seconds:.1f}s kernel == plain on "
             + "; ".join(auction_text(c) for c in au["cases"]) + f" [{smi}]")
+
+
+# --------------------------------------------------------------------------
+# NMS (csrc/nms.cu)
+# --------------------------------------------------------------------------
+
+def nms_launches() -> int:
+    """The NMS kernel's launch count, kept by the function that launches it
+    (0 in a checkout without it)."""
+    return getattr(NMS_LAUNCHER, "launches", 0)
+
+
+def reset_nms_counts() -> None:
+    if HAS_NMS:
+        NMS_LAUNCHER.launches = 0
+        nms_ops.nms_torch.calls = 0
+
+
+def plain_nms_calls() -> int:
+    return nms_ops.nms_torch.calls if HAS_NMS else 0
+
+
+@contextlib.contextmanager
+def nms_swapped(fn, kept: list | None = None, limit: int = 1):
+    """Inside the block the detector's post-processing, which calls
+    ``nms_ops.nms`` by that name, calls ``fn``; with ``kept``, the arguments
+    of its first ``limit`` calls are appended there."""
+    def call(boxes, scores, iou_threshold, max_det, class_ids=None, agnostic=True):
+        if kept is not None and len(kept) < limit:
+            kept.append((boxes, scores, iou_threshold, max_det, class_ids, agnostic))
+        return fn(boxes, scores, iou_threshold, max_det, class_ids=class_ids, agnostic=agnostic)
+
+    saved = nms_ops.nms
+    nms_ops.nms = call
+    try:
+        yield
+    finally:
+        nms_ops.nms = saved
+
+
+def nms_candidates(b: int, n: int, objects: int, per_object: int, seed: int, device,
+                   classes: int = 0, conf: float = 0.25, width: int = 3840,
+                   height: int = 2160) -> tuple:
+    """Seeded detector-like NMS inputs: ``objects`` vehicles of 20-120 x
+    20-60 px over a 4K frame, each seen by ``per_object`` anchors (centre
+    jittered by 3 px, size by 10 %) scoring in [conf, 1); the other
+    candidates score 0 (absent); all in a random order. With ``classes``
+    each anchor takes its vehicle's class in 0..classes-1, or another one in
+    five cases. Returns (boxes (b, n, 4) xyxy float32, scores (b, n), class
+    ids (b, n) int32 or None) on ``device``."""
+    rng = np.random.default_rng(seed)
+    alive = min(objects * per_object, n)
+    owner = np.arange(alive) // per_object
+    centre = rng.uniform([60, 30], [width - 60, height - 30], (b, objects, 2))
+    size = rng.uniform([20, 20], [120, 60], (b, objects, 2))
+    cxy = np.concatenate([centre[:, owner] + rng.normal(0, 3, (b, alive, 2)),
+                          rng.uniform([0, 0], [width, height], (b, n - alive, 2))], 1)
+    wh = np.concatenate([size[:, owner] * rng.uniform(0.9, 1.1, (b, alive, 2)),
+                         rng.uniform(20, 60, (b, n - alive, 2))], 1)
+    boxes = np.concatenate([cxy - wh / 2, cxy + wh / 2], -1).astype(np.float32)
+    scores = np.zeros((b, n), np.float32)
+    scores[:, :alive] = rng.uniform(conf, 1.0, (b, alive))
+    perm = rng.permutation(n)
+    cls = None
+    if classes:
+        own = np.concatenate([rng.integers(0, classes, (b, objects))[:, owner],
+                              rng.integers(0, classes, (b, n - alive))], 1)
+        cls = np.where(rng.uniform(size=(b, n)) < 0.2, rng.integers(0, classes, (b, n)), own)
+        cls = torch.from_numpy(np.ascontiguousarray(cls[:, perm], np.int32)).to(device)
+    return (torch.from_numpy(np.ascontiguousarray(boxes[:, perm])).to(device),
+            torch.from_numpy(np.ascontiguousarray(scores[:, perm])).to(device), cls)
+
+
+def nms_chain(n: int, device, step: float = 12.0, width: float = 100.0,
+              height: float = 40.0) -> tuple:
+    """A bumper-to-bumper row of ``n`` boxes in score order: each overlaps
+    the next at IoU 88/112 (over NMS_IOU) and the one after at 76/124
+    (under), so greedy NMS keeps every other box and the reference's fixed
+    point takes about n rounds. Returns (boxes (1, n, 4), scores (1, n), None)."""
+    x = np.arange(n, dtype=np.float32) * np.float32(step)
+    boxes = np.stack([x, np.zeros_like(x), x + np.float32(width),
+                      np.full_like(x, height)], -1)[None]
+    scores = np.linspace(1.0, 0.5, n, dtype=np.float32)[None]
+    return torch.from_numpy(boxes).to(device), torch.from_numpy(scores).to(device), None
+
+
+def nms_bound_ms(scores: torch.Tensor, order: torch.Tensor, keep: torch.Tensor,
+                 valid: torch.Tensor) -> tuple:
+    """Least time on an H100 of one greedy NMS over (B, N) candidates with
+    (B, N) ``order`` (descending score) that keeps (B, max_det) ``keep`` /
+    ``valid`` (this run's answer). An image whose slots all fill needs its
+    candidates up to its last kept one, any other its alive ones (``a``).
+    Of the K kept, each is tested against every earlier kept one, and each
+    of the other ``a - K`` at least against one: NMS_PAIR_FLOPS float
+    operations an IoU, NMS_BOX_FLOPS a needed box, at the float32 rate.
+    Bytes: the sorted scores up to the first absent one (4 B each), the
+    needed boxes (16 B), the kept candidates' order (8 B) and the slots
+    written (9 B). Returns (ms, "bytes" | "operations", bytes, operations)."""
+    b, n = scores.shape
+    max_det = keep.shape[1]
+    alive = (scores > 0).sum(dim=-1).long()
+    kept = valid.sum(dim=-1).long()
+    rank = torch.empty_like(order).scatter_(1, order, torch.arange(n, device=order.device)
+                                            .expand(b, n).contiguous())
+    last = (torch.where(valid, rank.gather(1, keep), -1).amax(dim=-1) if max_det
+            else torch.zeros_like(alive))
+    full = (kept == max_det) & (kept > 0)
+    needed = torch.where(full, last + 1, alive).double()
+    kept = kept.double()
+    ops = float(((kept * (kept - 1) / 2 + needed - kept) * NMS_PAIR_FLOPS
+                 + needed * NMS_BOX_FLOPS).sum())
+    scores_read = torch.where(full, needed, torch.clamp_max(needed + 1, n))
+    moved = int((4 * scores_read + 16 * needed + 8 * kept).sum()) + b * 9 * max_det
+    return (*bound_ms(moved, ops), moved, ops)
+
+
+def library_nms_ms(boxes, scores, classes, agnostic: bool, iou: float, reps: int):
+    """CUDA-event ms of torchvision's batched_nms over the alive candidates
+    of every image (the images, and classes where ``agnostic`` is False, as
+    its groups), or None where torchvision is not installed. A yardstick: it
+    keeps the same boxes but neither sorts into slots nor caps at max_det."""
+    try:
+        from torchvision.ops import batched_nms
+    except ImportError:
+        return None
+    b, n = scores.shape
+    group = torch.arange(b, device=scores.device)[:, None].expand(b, n)
+    if not agnostic and classes is not None:
+        group = group * (int(classes.max()) + 1) + classes
+    alive = scores > 0
+    flat = (boxes[alive], scores[alive], group[alive])
+    return cuda_ms(lambda: batched_nms(*flat, iou), reps)
+
+
+def nms_turns(older, cases: list, reps: int) -> dict:
+    """``older``'s nms (another checkout's wrapper) and this checkout's on the
+    same calls (``cases``: (boxes, scores, iou, max_det, class_ids,
+    agnostic)), in turns (older, new, new, older): ms as called per call
+    (CUDA events around back-to-back calls, median of five; an older
+    host-driven loop cannot be captured in a CUDA graph); both answers equal."""
+    def calls(fn):
+        return lambda: [fn(bx, sc, t, m, class_ids=c, agnostic=a) for bx, sc, t, m, c, a in cases]
+
+    fns = {"older": calls(older.nms), "new": calls(NMS_KERNEL)}
+    for bx, sc, t, m, c, a in cases:
+        ok, ov = older.nms(bx, sc, t, m, class_ids=c, agnostic=a)
+        nk, nv = NMS_KERNEL(bx, sc, t, m, class_ids=c, agnostic=a)
+        if not (torch.equal(ok, nk) and torch.equal(ov, nv)):
+            raise AssertionError(f"the older nms disagrees on {tuple(sc.shape)}")
+    return {k: v / len(cases) for k, v in in_turns(fns, reps, called_ms).items()}
+
+
+def nms_check(name: str, boxes: torch.Tensor, scores: torch.Tensor, classes=None,
+              agnostic: bool = True, max_det: int = NMS_MAX_DET, iou: float = NMS_IOU,
+              reps: int = 10, older=None) -> dict:
+    """The kernel's (keep_indices, valid) against the plain version's on one
+    (B, N) batch of candidates, exactly; the alive and kept counts; on the
+    card also the bound, the kernel's device ms on the sorted candidates
+    (``graph_ms``: calls captured in a CUDA graph and replayed, which also
+    shows a call can be captured), the whole call's (sort, gathers, kernel)
+    device ms and ms as called (``called_ms``), the plain version's
+    CUDA-event ms and torchvision's batched_nms's (``library_nms_ms``). With
+    ``older`` (another checkout's nms module), its call and this one's in
+    turns (``nms_turns``). On the CPU the wrapper runs the plain version."""
+    kw = {"class_ids": classes, "agnostic": agnostic}
+    keep, valid = nms_ops.nms(boxes, scores, iou, max_det, **kw)
+    plain_keep, plain_valid = nms_ops.nms_torch(boxes, scores, iou, max_det, **kw)
+    if not (torch.equal(keep, plain_keep) and torch.equal(valid, plain_valid)):
+        raise AssertionError(f"nms kernel != plain on {name} {tuple(scores.shape)}: "
+                             f"{int((keep != plain_keep).sum())} indices and "
+                             f"{int((valid != plain_valid).sum())} valid flags differ")
+    res = {"name": name, "shape": tuple(scores.shape), "max_det": max_det, "agnostic": agnostic,
+           "max_abs_err": 0.0, "alive": int((scores > 0).sum()), "kept": int(plain_valid.sum())}
+    if scores.device.type == "cuda":
+        order, boxes_sorted, scores_sorted = nms_ops.sorted_candidates(boxes, scores, classes,
+                                                                       agnostic)
+        bound, bound_by, moved, ops = nms_bound_ms(scores, order, plain_keep, plain_valid)
+        kernel = lambda: nms_ops.nms_sorted(boxes_sorted, scores_sorted, order, iou,  # noqa: E731
+                                            max_det)
+        whole = lambda: nms_ops.nms(boxes, scores, iou, max_det, **kw)  # noqa: E731
+        res.update(bound_ms=bound, bound_by=bound_by, bytes=moved, flops=ops,
+                   ms=graph_ms(kernel, reps), whole_ms=graph_ms(whole, reps),
+                   eager_ms=called_ms(whole, reps),
+                   plain_ms=cuda_ms(lambda: nms_ops.nms_torch(boxes, scores, iou, max_det, **kw),
+                                    max(reps // 5, 1), warmup=1),
+                   library_ms=library_nms_ms(boxes, scores, classes, agnostic, iou, reps))
+        if older is not None:
+            res["turns"] = nms_turns(older, [(boxes, scores, iou, max_det, classes, agnostic)],
+                                     reps)
+    return res
+
+
+def path_nms(kept: list, reps: int = 10, older=None) -> dict:
+    """``nms_check`` on the first call the main path's detector made in a
+    chunk (``kept``: its arguments, as ``nms_swapped`` keeps them)."""
+    boxes, scores, iou, max_det, classes, agnostic = kept[0]
+    return nms_check("path", boxes, scores, classes, agnostic, max_det, iou, reps, older)
+
+
+def phase_nms(device: str = "cuda", b: int = 32, n: int = 2000, lock_b: int = 4,
+              objects: int = 250, evaluate=(8, 1024, 300), chain: int = 2000,
+              odd=(1, 3, 37), reps: int = 10, older=None) -> dict:
+    """The NMS kernel bit-equal to its plain version on seeded detector-like
+    candidates at each detecting path's shape: the default chunk's (32,
+    2000) with max_det 1000, one frame's (1, 2000), the lockstep's (4,
+    2000) (``objects`` vehicles, 4 anchors each, alive), training's
+    ``evaluate`` ((8, 1024), max_det 300, classes, agnostic=False, every
+    candidate alive from conf 0.001), a bumper-to-bumper chain of ``chain``
+    boxes (a fixed point about as deep as the chain) and odd counts with
+    fewer candidates than slots. ``older`` (another checkout's nms module)
+    is timed in turns with this one's at each case. The sizes shrink the
+    rehearsal on the CPU."""
+    dev = torch.device(device)
+    check = lambda *a, **kw: nms_check(*a, **{"reps": reps, "older": older, **kw})  # noqa: E731
+    cases = [check("chunk", *nms_candidates(b, n, objects, 4, 1, dev)),
+             check("lockstep", *nms_candidates(lock_b, n, objects, 4, 2, dev)),
+             check("frame", *nms_candidates(1, n, objects, 4, 3, dev))]
+    eb, en, emax = evaluate
+    cases.append(check("evaluate", *nms_candidates(eb, en, en // 4, 4, 4, dev, classes=4,
+                                                    conf=0.001), agnostic=False, max_det=emax))
+    cases.append(check(f"chain {chain}", *nms_chain(chain, dev), max_det=chain // 2,
+                       reps=max(reps // 5, 1)))
+    if cases[-1]["kept"] != (chain + 1) // 2:
+        raise AssertionError(f"the chain kept {cases[-1]['kept']} of {chain} boxes")
+    for k in odd:
+        cases.append(check(f"odd {k}", *nms_candidates(1, k, max(k // 3, 1), 3, 10 + k, dev,
+                                                       classes=2),
+                           agnostic=False, max_det=2 * k + 3))
+    return {"cases": cases, "path": None, "max_abs_err": 0.0}
+
+
+def nms_text(c: dict) -> str:
+    """One NMS case for a log line."""
+    text = (f"{c['name']} {'x'.join(map(str, c['shape']))} max_det {c['max_det']}"
+            f"{'' if c['agnostic'] else ' per class'}: {c['alive']} alive, {c['kept']} kept")
+    if "ms" not in c:
+        return text
+    lib = "none" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
+    text += (f", kernel {c['ms']:.4f} ms device (bound {c['bound_ms']:.5f} by {c['bound_by']}, "
+             f"{100 * c['bound_ms'] / c['ms']:.1f} %), whole call {c['whole_ms']:.4f} device / "
+             f"{c['eager_ms']:.4f} as called, plain {c['plain_ms']:.3f}, library {lib}")
+    if "turns" in c:
+        text += (f" [in turns as called: older {c['turns']['older']:.4f} / new "
+                 f"{c['turns']['new']:.4f} ms]")
+    return text
+
+
+def nms_line(nm: dict, seconds: float, smi: str) -> str:
+    return (f"nms ok {seconds:.1f}s kernel == plain on "
+            + "; ".join(nms_text(c) for c in nm["cases"]) + f" [{smi}]")
+
+
+def detect_turns(fx, older, width: int, height: int, seed: int, horizon: int, start: int,
+                 chunk: int = 32, steady_chunks: int = STEADY_CHUNKS,
+                 turns=("older", "new", "new", "older"), warm: bool = True) -> dict:
+    """The chunk step with ``older``'s nms (another checkout's wrapper, or
+    the plain version, which is the parent's loop) and with this
+    checkout's in the detector's post-processing, in ``turns``, after one
+    chunk that warms the profiler where ``warm``: one chunk of the video
+    each under torch.profiler (``breakdown``): the fx.detect range's host
+    and kernel ms, the NMS kernel's device ms (launched through ctypes, so
+    no range holds it), the chunk's wall and device-busy ms, its peak
+    memory and its peak above the memory held before it (GiB); then
+    ``steady_chunks`` chunks without the profiler through
+    ``track_video_fused`` (the same frames in every turn, the tracker's
+    state carried on): their ms per chunk and median."""
+    if steady_chunks:
+        reader = smoke_reader(width, height, seed, horizon, start, start + steady_chunks * chunk)
+        frames = make_frames(reader)
+    if warm:
+        breakdown(fx, width, height, seed, horizon, start, chunk)
+    runs = {"older": [], "new": []}
+    for which in turns:
+        with nms_swapped(older.nms if which == "older" else NMS_KERNEL):
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            brk = breakdown(fx, width, height, seed, horizon, start, chunk)
+            peak = torch.cuda.max_memory_allocated()
+            chunk_ms = [x * 1e3 for x in port_extract.track_video_fused(
+                FrameList(reader.info, frames), fx, chunk=chunk)[2]["chunk_s"]] \
+                if steady_chunks else [float("nan")]
+        stage = {name: (host, dev) for name, host, dev, _ in brk["stages"]}
+        runs[which].append({"detect_host_ms": stage["fx.detect"][0],
+                            "detect_kernel_ms": stage["fx.detect"][1],
+                            "nms_kernel_ms": brk["nms"][0], "wall_ms": brk["wall_ms"],
+                            "device_busy_ms": brk["device_busy_ms"], "peak_gib": peak / 2**30,
+                            "peak_above_gib": (peak - held) / 2**30, "chunk_ms": chunk_ms,
+                            "median_ms": float(np.median(chunk_ms))})
+    return runs
+
+
+def detect_turns_text(runs: dict) -> str:
+    def one(r):
+        return (f"fx.detect host {r['detect_host_ms']:.1f} / kernels {r['detect_kernel_ms']:.1f} "
+                f"+ nms kernel {r['nms_kernel_ms']:.3f} ms, wall {r['wall_ms']:.1f}, device busy "
+                f"{r['device_busy_ms']:.1f}, peak {r['peak_gib']:.2f} GiB "
+                f"(+{r['peak_above_gib']:.2f})"
+                + (f"; steady ms/chunk {[round(m, 1) for m in r['chunk_ms']]}, median "
+                   f"{r['median_ms']:.1f}" if np.isfinite(r["median_ms"]) else ""))
+    return "; ".join(f"{which} {i + 1}: {one(r)}" for which in ("older", "new")
+                     for i, r in enumerate(runs[which]))
 
 
 REFERENCE_TRACKERS = (
@@ -1888,12 +2271,20 @@ def breakdown(fx, width: int, height: int, seed: int, horizon: int, start: int,
 # operator, so a range's device time does not count them: they are summed
 # by name instead.
 AUCTION_KERNEL_NAMES = ("first_round", "later_rounds", "auction_kernel")
+# csrc/nms.cu's kernel, launched through ctypes in the detector's
+# post-processing (inside fx.detect), summed by name as well
+NMS_KERNEL_NAMES = ("nms_kernel",)
+# The CUDA runtime and driver calls that launch a kernel, as the profiler
+# names them on the host
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                     "cuLaunchKernelEx")
 
 
 def profile_ranges(prof, prefix: str, top: int = 12) -> dict:
     """Host and device ms of each ``prefix`` range of a torch.profiler run,
-    the device's busy ms, its largest kernels, and the auction's kernels
-    (device ms, launches)."""
+    the device's busy ms, its largest kernels, the auction's and the NMS
+    kernel's (device ms, launches), the kernel launches the host made and
+    its longest items by self time."""
     from torch.profiler import DeviceType
 
     events = prof.key_averages()
@@ -1911,11 +2302,22 @@ def profile_ranges(prof, prefix: str, top: int = 12) -> dict:
     kernels = sorted(((device_us(e, "self_device_time_total"), e.key, e.count) for e in events
                       if e.device_type == DeviceType.CUDA and not e.key.startswith(prefix)),
                      reverse=True)
-    auction = [(us, n) for us, k, n in kernels if any(a in k for a in AUCTION_KERNEL_NAMES)]
+    def named(names):
+        found = [(us, n) for us, k, n in kernels if any(a in k for a in names)]
+        return sum(us for us, _ in found) / 1e3, sum(n for _, n in found)
+
+    # the host's side: kernel launches through the CUDA runtime (torch's and
+    # the ctypes kernels' alike), and the items that held the host longest
+    # (a full launch queue shows as "Command Buffer Full")
+    host = sorted(((e.self_cpu_time_total, e.key, e.count) for e in events
+                   if e.device_type == DeviceType.CPU and not e.key.startswith(prefix)),
+                  reverse=True)
+    launches = sum(n for _, k, n in host if k in HOST_LAUNCH_CALLS)
     return {"device_busy_ms": sum(k[0] for k in kernels) / 1e3,
             "stages": stages,
             "top": [(k, us / 1e3, n) for us, k, n in kernels[:top]],
-            "auction": (sum(us for us, _ in auction) / 1e3, sum(n for _, n in auction))}
+            "auction": named(AUCTION_KERNEL_NAMES), "nms": named(NMS_KERNEL_NAMES),
+            "launches": launches, "host_top": [(k, us / 1e3, n) for us, k, n in host[:6]]}
 
 
 # --------------------------------------------------------------------------
@@ -5476,15 +5878,22 @@ def georef_line(geo: dict, seconds: float, smi: str) -> str:
 
 def stage_lines(brk: dict) -> list:
     """The breakdown phase's rows: host and device ms per ``fx.*`` stage,
-    the auction's kernels (inside fx.tracker, but not in its kernels column),
-    then the largest kernels."""
+    the auction's kernels (inside fx.tracker, but not in its kernels column)
+    and the NMS kernel (inside fx.detect, likewise), the largest kernels,
+    then the chunk's kernel launches and its longest host items."""
     auction_ms, launches = brk["auction"]
+    nms_ms, nms_count = brk.get("nms", (0.0, 0))
     return ([f"    stage {name:18s} host {cpu_ms:9.1f} ms  kernels {dev_ms:9.1f} ms  "
              f"device span {span_ms:9.1f} ms" for name, cpu_ms, dev_ms, span_ms in brk["stages"]]
             + [f"    auction kernels {auction_ms:9.3f} ms  x{launches} (launched through ctypes "
-               f"inside fx.tracker, not in its kernels column)"]
+               f"inside fx.tracker, not in its kernels column)",
+               f"    nms kernel {nms_ms:9.3f} ms  x{nms_count} (launched through ctypes inside "
+               f"fx.detect, not in its kernels column)"]
             + [f"    kernel {ms:9.3f} ms  x{count:<6d} {name[:90]}"
-               for name, ms, count in brk["top"]])
+               for name, ms, count in brk["top"]]
+            + [f"    host {brk.get('launches', 0)} kernel launches; longest host items (self ms): "
+               + ", ".join(f"{name[:40]} {ms:.1f} x{count}"
+                           for name, ms, count in brk.get("host_top", []))])
 
 
 def breakdown_lines(brk: dict) -> list:
@@ -5510,6 +5919,8 @@ def gather_text(r: dict) -> str:
 GATHER_KEYS = ("shape", "corners", "ms", "eager_ms", "library_ms", "plain_ms", "bound_ms")
 AUCTION_KEYS = ("name", "shape", "rounds", "ms", "eager_ms", "plain_ms", "bound_ms", "cluster",
                 "state_in_shared", "unassigned")
+NMS_KEYS = ("name", "shape", "max_det", "agnostic", "alive", "kept", "ms", "whole_ms", "eager_ms",
+            "plain_ms", "library_ms", "bound_ms", "bound_by")
 HWC_KEYS = ("shape", "corners", "pool2", "mean4", "ms", "eager_ms", "library_ms", "plain_ms",
             "bound_ms", "kernel_gib")
 
@@ -5566,8 +5977,10 @@ def main(argv) -> int:
     host_tools_only = "--host-tools-only" in argv
     tracker_only = "--tracker-only" in argv
     auction_only = "--auction-only" in argv
-    older = (older_auction(Path(argv[argv.index("--against") + 1]).resolve())
-             if "--against" in argv else None)
+    nms_only = "--nms-only" in argv
+    against = Path(argv[argv.index("--against") + 1]).resolve() if "--against" in argv else None
+    older = older_auction(against) if against and not nms_only else None
+    older_nms = older_module(against, "nms", "nms") if against and nms_only else None
     t_all = time.perf_counter()
     width, height, chunk, seed = 3840, 2160, 32, 0
     n_main = 2 * chunk
@@ -5598,6 +6011,32 @@ def main(argv) -> int:
                 f"steady chunk's auctions: {path_text(path)} [{dev['smi']}]")
             log(f"auction-only ok {time.perf_counter() - t_all:.1f}s")
             return 0
+        if nms_only:  # phases 0, 1, the NMS's, and the main path with its own NMS
+            nm = phase_nms("cuda", older=older_nms)
+            log(nms_line(nm, time.perf_counter() - t, dev["smi"]))
+            t = time.perf_counter()
+            reset_nms_counts()
+            run = phase_main("cuda", width, height, n_main, chunk, seed=seed, horizon=horizon)
+            kept = []
+            steady = phase_steady(run["fx"], width, height, seed, horizon, n_main, chunk,
+                                  n_chunks=1, nms_kept=kept)
+            if run["nms_launches"] != run["stats"]["chunks"] or plain_nms_calls():
+                raise AssertionError(f"nms kernel launched {run['nms_launches']} times over "
+                                     f"{run['stats']['chunks']} chunks, plain version "
+                                     f"{plain_nms_calls()} times")
+            path = path_nms(kept, older=older_nms)
+            log(f"nms-path ok {time.perf_counter() - t:.1f}s kernel == plain on the first steady "
+                f"chunk's candidates: {nms_text(path)}; whole chunk steps without host reads: "
+                f"{run['sync_checked_steps']} main, {steady['sync_checked_steps']} steady "
+                f"[{dev['smi']}]")
+            if older_nms is not None:
+                t = time.perf_counter()
+                runs = detect_turns(run["fx"], older_nms, width, height, seed, horizon,
+                                    n_main + chunk, chunk)
+                log(f"nms-detect ok {time.perf_counter() - t:.1f}s the chunk step with the older "
+                    f"and this checkout's nms in turns: {detect_turns_text(runs)} [{dev['smi']}]")
+            log(f"nms-only ok {time.perf_counter() - t_all:.1f}s")
+            return 0
         kern = phase_kernel("cuda")
         log(f"kernel ok {time.perf_counter() - t:.1f}s fast_score exact on textured (33,1080,1920), "
             f"(2,37,53), a checkerboard and a constant image at t=20,7; seeded (32,1080,1920): "
@@ -5611,7 +6050,8 @@ def main(argv) -> int:
             t = time.perf_counter()
             run = phase_main("cuda", width, height, n_main, chunk, seed=seed, horizon=horizon,
                              sync_check=HAS_AUCTION)
-            steady = phase_steady(run["fx"], width, height, seed, horizon, n_main, chunk)
+            steady = phase_steady(run["fx"], width, height, seed, horizon, n_main, chunk,
+                                  sync_check=HAS_AUCTION)
             brk = breakdown(run["fx"], width, height, seed, horizon,
                             n_main + STEADY_CHUNKS * chunk, chunk)
             log(f"tracker ok {time.perf_counter() - t:.1f}s auction kernel "
@@ -5626,6 +6066,10 @@ def main(argv) -> int:
         t = time.perf_counter()
         au = phase_auction("cuda", older=older)
         log(auction_line(au, time.perf_counter() - t, dev["smi"]))
+        if HAS_NMS:
+            t = time.perf_counter()
+            nm = phase_nms("cuda")
+            log(nms_line(nm, time.perf_counter() - t, dev["smi"]))
         if kernels_only:
             log(f"kernels-only ok {time.perf_counter() - t_all:.1f}s")
             return 0
@@ -5686,9 +6130,11 @@ def main(argv) -> int:
         fast.fast_score_map.launches = 0
         patches.patches32.launches = 0
         reset_auction_counts()
+        reset_nms_counts()
         main_run = phase_main("cuda", width, height, n_main, chunk, seed=seed, horizon=horizon)
         main_launches = fast.fast_score_map.launches
         main_auctions = auction_launches()
+        main_nms = main_run["nms_launches"]
         stats, checks = main_run["stats"], main_run["checks"]
         expected = stats["chunks"] + 1  # one per chunk + the reference frame
         if main_launches != expected or patches.patches32.launches != 0:
@@ -5698,6 +6144,12 @@ def main(argv) -> int:
         if main_auctions != AUCTIONS_PER_STEP * n_main or main_run["sync_checked_chunks"] != 2:
             raise AssertionError(f"auction launched {main_auctions} times over {n_main} frames; "
                                  f"{main_run['sync_checked_chunks']} chunks checked for host reads")
+        if main_nms != stats["chunks"] or main_run["sync_checked_steps"] != 1 \
+                or plain_nms_calls():
+            raise AssertionError(f"nms kernel launched {main_nms} times over {stats['chunks']} "
+                                 f"chunks (plain version {plain_nms_calls()} times); "
+                                 f"{main_run['sync_checked_steps']} whole chunk steps checked "
+                                 f"for host reads")
         chunk_ms = [round(s * 1e3, 1) for s in stats["chunk_s"]]
         log(f"main ok {time.perf_counter() - t:.1f}s YOLOv8s imgsz 1920, 2x{chunk} frames "
             f"{width}x{height}: setup {main_run['setup_s']:.1f}s, ms/chunk {chunk_ms}, "
@@ -5709,8 +6161,9 @@ def main(argv) -> int:
             f"{checks['metadata_keys']}, "
             f"matches >= {checks['min_matches']}, inliers >= {checks['min_inliers']}, "
             f"camera error {checks['camera_err_px']:.3f} px, fast launches {main_launches}, "
-            f"auction launches {main_auctions}, chunk tracker without host reads "
-            f"(set_sync_debug_mode error) on {main_run['sync_checked_chunks']} chunks, peak mem "
+            f"auction launches {main_auctions}, nms launches {main_nms}, chunk tracker without "
+            f"host reads (set_sync_debug_mode error) on {main_run['sync_checked_chunks']} chunks "
+            f"and the whole chunk step on {main_run['sync_checked_steps']}, peak mem "
             f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{dev['smi']}]")
 
         t = time.perf_counter()
@@ -5722,10 +6175,18 @@ def main(argv) -> int:
         t = time.perf_counter()
         fast.fast_score_map.launches = 0
         AUCTION_KERNEL.launches = 0
-        kept = []
+        reset_nms_counts()
+        kept, nms_kept = [], []
         steady = phase_steady(main_run["fx"], width, height, seed, horizon, n_main, chunk,
-                              kept=kept)
+                              kept=kept, nms_kept=nms_kept)
         steady_auctions = auction_launches()
+        steady_nms = nms_launches()
+        if steady_nms != STEADY_CHUNKS or steady["sync_checked_steps"] != STEADY_CHUNKS \
+                or plain_nms_calls():
+            raise AssertionError(f"nms kernel launched {steady_nms} times over {STEADY_CHUNKS} "
+                                 f"steady chunks (plain version {plain_nms_calls()} times); "
+                                 f"{steady['sync_checked_steps']} whole chunk steps checked "
+                                 f"for host reads")
         if fast.fast_score_map.launches != STEADY_CHUNKS:
             raise AssertionError(f"FAST kernel launched {fast.fast_score_map.launches} times "
                                  f"over {STEADY_CHUNKS} steady chunks")
@@ -5738,7 +6199,8 @@ def main(argv) -> int:
             f"{steady['median_ms']:.1f} ms = {chunk / steady['median_ms'] * 1e3:.2f} frames/s "
             f"(min {steady['min_ms']:.1f}, max {steady['max_ms']:.1f}), camera error "
             f"{steady['camera_err_px']:.3f} px, {steady['rows']} rows, auction launches "
-            f"{steady_auctions} [{dev['smi']}]")
+            f"{steady_auctions}, nms launches {steady_nms}, every chunk step without host reads "
+            f"(set_sync_debug_mode error) [{dev['smi']}]")
 
         t = time.perf_counter()
         au["path"] = path_auctions(kept)
@@ -5746,6 +6208,13 @@ def main(argv) -> int:
         log(f"auction-path ok {time.perf_counter() - t:.1f}s kernel == plain on the first steady "
             f"chunk's auctions: {path_text(au['path'])} [{dev['smi']}]")
         reset_auction_counts()  # the comparisons' plain calls
+
+        t = time.perf_counter()
+        nm["path"] = path_nms(nms_kept)
+        del nms_kept
+        log(f"nms-path ok {time.perf_counter() - t:.1f}s kernel == plain on the first steady "
+            f"chunk's candidates: {nms_text(nm['path'])} [{dev['smi']}]")
+        reset_nms_counts()
 
         t = time.perf_counter()
         brk = breakdown(main_run["fx"], width, height, seed, horizon,
@@ -5756,8 +6225,17 @@ def main(argv) -> int:
         print("\n".join(stage_lines(brk)), flush=True)
 
         t = time.perf_counter()
+        detect = detect_turns(main_run["fx"], types.SimpleNamespace(nms=nms_ops.nms_torch), width,
+                              height, seed, horizon, n_main + STEADY_CHUNKS * chunk, chunk,
+                              steady_chunks=0, turns=("older", "new"), warm=False)
+        log(f"nms-detect ok {time.perf_counter() - t:.1f}s the chunk step with the plain nms (the "
+            f"parent's loop) and the kernel in turns: {detect_turns_text(detect)} [{dev['smi']}]")
+        reset_nms_counts()  # the plain version's calls
+
+        t = time.perf_counter()
         rd = phase_reid(main_run["fx"].detector, main_run["frames"], steady["frames"],
                         main_run["reader"], "cuda", chunk=chunk, seed=seed)
+        reid_nms = nms_launches()
         rchecks, remb = rd["checks"], rd["emb"]
         log(f"reid ok {time.perf_counter() - t:.1f}s botsort with_reid, YOLOv8s imgsz 1920, "
             f"2x{chunk} frames {width}x{height}: ms/chunk "
@@ -5782,8 +6260,10 @@ def main(argv) -> int:
             f"{rd['peak_gib']:.2f} GiB [{dev['smi']}]")
 
         t = time.perf_counter()
+        NMS_LAUNCHER.launches = 0
         cli = phase_cli(main_run["fx"].detector, main_run["frames"], main_run["reader"], "cuda",
                         chunk=chunk, turn_frames=main_run["frames"] + steady["frames"])
+        cli_nms = nms_launches()
         print("decode: " + (f"native decoder built; {cli['decode_fps']:.1f} frames/s decoding "
                             f"the {n_main}-frame {width}x{height} .y4m alone" if cli["probe"]["ok"]
                             else f"unavailable ({cli['probe']['found']}); run_extraction read "
@@ -5803,8 +6283,10 @@ def main(argv) -> int:
 
         t = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
+        NMS_LAUNCHER.launches = 0
         opts = phase_options(main_run["fx"].detector, main_run["frames"], main_run["reader"],
                              "cuda", chunk=chunk)
+        options_nms = nms_launches()
         log(f"options ok {time.perf_counter() - t:.1f}s fresh extractor per option, 2x{chunk} "
             f"frames {width}x{height}: " + "; ".join(
                 f"{k}: ms {[round(m, 1) for m in v['ms']]}, fast launches {v['launches']}, "
@@ -5816,7 +6298,9 @@ def main(argv) -> int:
             + f"; peak mem {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{dev['smi']}]")
 
         t = time.perf_counter()
+        NMS_LAUNCHER.launches = 0
         sq = phase_sequential("cuda")
+        sequential_nms = nms_launches()
         log(sequential_line(sq, time.perf_counter() - t, dev["smi"]))
 
         t = time.perf_counter()
@@ -5825,7 +6309,9 @@ def main(argv) -> int:
         print("\n".join(breakdown_lines(geo["ortho_breakdown"])), flush=True)
 
         t = time.perf_counter()
+        NMS_LAUNCHER.launches = 0
         ft = phase_features("cuda", geo.pop("kept"))
+        features_nms = nms_launches()
         log(features_line(ft, time.perf_counter() - t, dev["smi"]))
 
         if plain_auction_calls():
@@ -5841,27 +6327,40 @@ def main(argv) -> int:
         reset_auction_counts()  # the CPU runs' plain calls
 
         t = time.perf_counter()
+        NMS_LAUNCHER.launches = 0
         lk = phase_lockstep(main_run["fx"].detector, "cuda")
+        lockstep_nms = nms_launches()
         log(lockstep_line(lk, time.perf_counter() - t, dev["smi"]))
         print("\n".join(lockstep_profile_lines(lk["b_profile"])), flush=True)
 
         t = time.perf_counter()
         reset_launches()
+        NMS_LAUNCHER.launches = 0
         rn = phase_render("cuda")
+        render_nms = nms_launches()
         render_launches = {**launches(), "auction": auction_launches()}
         log(render_line(rn, time.perf_counter() - t, dev["smi"])
             + f", launches {render_launches}")
 
         t = time.perf_counter()
+        NMS_LAUNCHER.launches = 0
         tr = phase_train("cuda")
+        train_nms = nms_launches()
         log(train_line(tr, time.perf_counter() - t, dev["smi"]))
 
         t = time.perf_counter()
+        NMS_LAUNCHER.launches = 0
         mu = phase_multi("cuda")
+        multi_nms = nms_launches()
         log(multi_line(mu, time.perf_counter() - t, dev["smi"]))
 
         t = time.perf_counter()
+        if plain_nms_calls():
+            raise AssertionError(f"the plain nms ran {plain_nms_calls()} times on the card's "
+                                 "paths")
+        NMS_LAUNCHER.launches = 0
         tl = phase_tools("cuda")
+        tools_nms = nms_launches()
         log(tools_line(tl, time.perf_counter() - t, dev["smi"]))
 
         t = time.perf_counter()
@@ -5881,6 +6380,7 @@ def main(argv) -> int:
     log(f"all phases ok {time.perf_counter() - t_all:.1f}s")
     lk_k = lk["kernels"]
     lock_case = next(c for c in au["cases"] if c["name"] == "lockstep")
+    nms_lock = next(c for c in nm["cases"] if c["name"] == "lockstep")
     kernels = {"kernels": [
         kernel_entry("fast_score", FAST_SOURCE, FAST_REPLACES, main_launches, kern,
                      sq["c_launches"]["fast_score"], lk["b"]["launches"]["fast_score"],
@@ -5921,6 +6421,21 @@ def main(argv) -> int:
                      rounds=au["path"]["rounds"], plain_calls_on_card_paths=0,
                      eager_ms=au["path"]["eager_ms"], cluster=au["path"]["cluster"],
                      shapes=[{k: c.get(k) for k in AUCTION_KEYS} for c in au["cases"]]),
+        # the first steady chunk's own candidates lead; the seeded shapes follow
+        kernel_entry("nms", NMS_SOURCE, NMS_REPLACES, main_nms, nm["path"], sequential_nms,
+                     lockstep_nms, {k: nms_lock[k] for k in ("shape", "ms", "bound_ms")},
+                     render_nms, train_nms, features_nms, launches_tools=tools_nms,
+                     launches_steady=steady_nms, launches_reid=reid_nms, launches_cli=cli_nms,
+                     launches_options=options_nms, launches_multi=multi_nms,
+                     plain_calls_on_card_paths=0, eager_ms=nm["path"]["eager_ms"],
+                     whole_ms=nm["path"]["whole_ms"], alive=nm["path"]["alive"],
+                     kept=nm["path"]["kept"], sync_checked_steps=main_run["sync_checked_steps"]
+                     + steady["sync_checked_steps"],
+                     detect_turns={which: [{k: r[k] for k in ("detect_host_ms",
+                                                               "detect_kernel_ms",
+                                                               "nms_kernel_ms", "peak_gib")}
+                                           for r in rs] for which, rs in detect.items()},
+                     shapes=[{k: c.get(k) for k in NMS_KEYS} for c in nm["cases"]]),
     ], "multi": multi_entry(mu)}
     print(json.dumps(kernels), flush=True)
     print(dev["smi"], flush=True)

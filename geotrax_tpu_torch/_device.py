@@ -24,3 +24,14 @@ def resolve_device(device="cuda") -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def to_device(array, device) -> torch.Tensor:
+    """A host array (or list) as a tensor on ``device``. On a CUDA device the
+    copy goes through pinned memory without blocking the host: it is
+    ordered on the current stream, and the pinned buffer is not reused
+    before it is done. Elsewhere it is ``torch.as_tensor(array).to(device)``."""
+    tensor = torch.as_tensor(array)
+    if torch.device(device).type != "cuda":
+        return tensor.to(device)
+    return tensor.pin_memory().to(device, non_blocking=True)

@@ -422,6 +422,15 @@ def _gaussian_blur_bf16(gray: torch.Tensor, sigma: float = 2.0) -> torch.Tensor:
     return _tap_sum(gray.to(torch.bfloat16), _blur_taps_bf16(float(sigma)))
 
 
+@lru_cache(maxsize=8)
+def _grid_offsets(device: str) -> tuple:
+    """The (16,) row and column offsets of describe_grid's 4x4 grid on
+    ``device`` (made once: a chunk step copies nothing from the host)."""
+    dy, dx = np.meshgrid(_GRID_OFFS, _GRID_OFFS, indexing="ij")
+    return (torch.as_tensor(dy.reshape(-1), device=device),
+            torch.as_tensor(dx.reshape(-1), device=device))
+
+
 def describe_grid(gray: torch.Tensor, kps: Keypoints) -> torch.Tensor:
     """64-D float descriptors (..., K, 64) for same-scale matching.
 
@@ -441,9 +450,7 @@ def describe_grid(gray: torch.Tensor, kps: Keypoints) -> torch.Tensor:
     s4 = _gaussian_blur_bf16(s2, sigma=2.0)
     planes = torch.stack([s2, gx, gy, s4], dim=-1)  # (B,H,W,4) bf16
 
-    dy, dx = np.meshgrid(_GRID_OFFS, _GRID_OFFS, indexing="ij")
-    dy = torch.as_tensor(dy.reshape(-1), device=dev)
-    dx = torch.as_tensor(dx.reshape(-1), device=dev)
+    dy, dx = _grid_offsets(str(dev))
     ky = torch.clamp(kps.xy[..., 1].to(torch.int64)[..., None] + dy, 0, h - 1)
     kx = torch.clamp(kps.xy[..., 0].to(torch.int64)[..., None] + dx, 0, w - 1)
     bidx = torch.arange(b, device=dev)[:, None, None]

@@ -5,45 +5,77 @@ caller supplies a fixed candidate count and ``max_det`` output slots; empty
 slots carry index 0 and ``valid=False``. Both functions take one image's
 arrays or a batch of them (a leading axis), which is how the fused chunk
 step runs them: one call for all frames of a chunk.
+
+On a CUDA tensor ``nms`` sorts the candidates with torch operations and
+launches ``csrc/nms.cu``, which runs the reference's greedy loop (a
+``lax.while_loop`` on the device) for every image of the batch on the card,
+computing each IoU as it needs it, and reads nothing back; on a CPU tensor
+it runs ``nms_torch``, the plain version, which the kernel equals bit for
+bit.
 """
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
+from functools import lru_cache
+
 import torch
 
+from geotrax_tpu_torch import _cuda
 from geotrax_tpu_torch.ops.boxes import iou_matrix, xywh_to_xyxy
 from geotrax_tpu_torch.ops.topk import exact_top_k
 
-# Greedy rounds run between two host reads of the convergence flag: the JAX
-# reference tests it on the device every round (lax.while_loop); here each
-# test is a device->host sync, so it is taken once per block of rounds.
-# Rounds past the fixed point change nothing, so the result is the same.
+KERNEL = "nms"
+
+# Greedy rounds run between two host reads of the convergence flag in the
+# plain version: the JAX reference tests it on the device every round
+# (lax.while_loop), as the kernel does; here each test is a device->host
+# sync, so it is taken once per block of rounds. Rounds past the fixed point
+# change nothing, so the result is the same.
 NMS_ROUNDS_PER_CHECK = 4
 
+# The kernel keeps a bit per candidate in shared memory (csrc/nms.cu).
+MAX_CANDIDATES = 1 << 18
 
-def nms(boxes_xyxy: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
-        max_det: int, class_ids: torch.Tensor | None = None, agnostic: bool = True):
-    """Greedy NMS over (N,4) boxes and (N,) scores, or a batch (B,N,4)/(B,N).
 
-    Returns (keep_indices (...,max_det), valid_mask (...,max_det)); invalid
-    slots hold index 0 with valid=False. Scores <= 0 are absent candidates.
-    """
-    single = scores.dim() == 1
-    if single:
-        boxes_xyxy, scores = boxes_xyxy[None], scores[None]
-        class_ids = None if class_ids is None else class_ids[None]
-    dev = scores.device
+def sorted_candidates(boxes_xyxy: torch.Tensor, scores: torch.Tensor,
+                      class_ids: torch.Tensor | None, agnostic: bool) -> tuple:
+    """(B, N) candidates in descending score order (stable): returns (order
+    (B, N) int64, the boxes in that order with the per-class coordinate
+    offset where ``agnostic`` is False (B, N, 4), the scores in that order)."""
     b, n = scores.shape
     order = torch.argsort(-scores, dim=-1, stable=True)
     boxes_sorted = torch.gather(boxes_xyxy, 1, order[..., None].expand(b, n, 4))
     scores_sorted = torch.gather(scores, 1, order)
-
-    offset_boxes = boxes_sorted
     if not agnostic and class_ids is not None:
         # per-class coordinate offset: boxes of different classes never overlap
         span = (boxes_sorted.amax(dim=(1, 2)) - boxes_sorted.amin(dim=(1, 2))) + 1.0
         cls_sorted = torch.gather(class_ids, 1, order).to(boxes_sorted.dtype)
-        offset_boxes = boxes_sorted + (cls_sorted * span[:, None])[..., None]
+        boxes_sorted = boxes_sorted + (cls_sorted * span[:, None])[..., None]
+    return order, boxes_sorted, scores_sorted
+
+
+def _batched(boxes_xyxy, scores, class_ids):
+    """One image's arrays as a batch of one; (single, boxes, scores, class_ids)."""
+    if scores.dim() == 1:
+        return (True, boxes_xyxy[None], scores[None],
+                None if class_ids is None else class_ids[None])
+    return False, boxes_xyxy, scores, class_ids
+
+
+def nms_torch(boxes_xyxy: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
+              max_det: int, class_ids: torch.Tensor | None = None, agnostic: bool = True):
+    """Plain PyTorch greedy NMS (the CPU route and the kernel's oracle), with
+    ``nms``'s arguments and results. The fixed point runs as (B, N, N)
+    tensor rounds over the IoU matrix, its convergence flag read by the
+    host every NMS_ROUNDS_PER_CHECK rounds. ``nms_torch.calls`` counts its
+    calls."""
+    nms_torch.calls += 1
+    single, boxes_xyxy, scores, class_ids = _batched(boxes_xyxy, scores, class_ids)
+    dev = scores.device
+    b, n = scores.shape
+    order, offset_boxes, scores_sorted = sorted_candidates(boxes_xyxy, scores, class_ids, agnostic)
 
     iou = iou_matrix(offset_boxes, offset_boxes)
     positions = torch.arange(n, device=dev)
@@ -80,6 +112,113 @@ def nms(boxes_xyxy: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
     if single:
         return keep_indices[0], valid[0]
     return keep_indices, valid
+
+
+nms_torch.calls = 0
+
+
+@lru_cache(maxsize=1)
+def _library() -> ctypes.CDLL:
+    """``csrc/nms.cu``'s library (built and loaded once), its entry point typed."""
+    lib = _cuda.load(KERNEL)
+    lib.nms.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                        ctypes.c_void_p, ctypes.c_void_p]
+    lib.nms.restype = ctypes.c_int
+    return lib
+
+
+def build(verbose: bool = False) -> tuple:
+    """Compile the kernel (see ``_cuda.build``); returns (path, log)."""
+    return _cuda.build(KERNEL, verbose=verbose)
+
+
+def nms_sorted(boxes_sorted: torch.Tensor, scores_sorted: torch.Tensor, order: torch.Tensor,
+               iou_threshold: float, max_det: int) -> tuple:
+    """The kernel's call: greedy NMS of (B, N) CUDA candidates already in
+    descending score order (``sorted_candidates``' outputs: contiguous
+    float32 (B, N, 4) corner boxes and (B, N) scores, (B, N) int64
+    ``order``); a candidate with score <= 0 neither survives nor
+    suppresses. Returns (keep_indices (B, max_det) int64: ``order`` at the
+    first ``max_det`` kept positions in score order, 0 after them; valid
+    (B, max_det) bool). One launch on the current stream for the whole batch,
+    nothing read back, so it can be captured in a CUDA graph; it counts on
+    ``nms_sorted.launches``."""
+    if boxes_sorted.device.type != "cuda":
+        raise ValueError(f"nms kernel: the candidates must be on a CUDA device, got "
+                         f"{boxes_sorted.device}")
+    if boxes_sorted.dtype != torch.float32 or scores_sorted.dtype != torch.float32:
+        raise ValueError(f"nms kernel: takes float32 boxes and scores, got {boxes_sorted.dtype} "
+                         f"and {scores_sorted.dtype}")
+    if order.dtype != torch.int64:
+        raise ValueError(f"nms kernel: takes an int64 order, got {order.dtype}")
+    if scores_sorted.dim() != 2 or tuple(boxes_sorted.shape) != tuple(scores_sorted.shape) + (4,) \
+            or order.shape != scores_sorted.shape:
+        raise ValueError(f"nms kernel: takes (B, N, 4) boxes with (B, N) scores and order, got "
+                         f"{tuple(boxes_sorted.shape)}, {tuple(scores_sorted.shape)} and "
+                         f"{tuple(order.shape)}")
+    if any(t.device != boxes_sorted.device for t in (scores_sorted, order)):
+        raise ValueError("nms kernel: boxes, scores and order must be on one device")
+    if not (boxes_sorted.is_contiguous() and scores_sorted.is_contiguous()
+            and order.is_contiguous()):
+        raise ValueError("nms kernel: takes contiguous tensors")
+    if boxes_sorted.data_ptr() % 16:
+        raise ValueError("nms kernel: takes boxes that start on a 16-byte boundary")
+    b, n = scores_sorted.shape
+    if n > MAX_CANDIDATES:
+        raise ValueError(f"nms kernel: takes at most {MAX_CANDIDATES} candidates, got {n}")
+    if max_det < 0 or b > 2 ** 31 - 1:
+        raise ValueError(f"nms kernel: max_det {max_det} and batch {b} out of range")
+    dev = boxes_sorted.device
+    keep = torch.empty((b, max_det), dtype=torch.int64, device=dev)
+    valid = torch.empty((b, max_det), dtype=torch.bool, device=dev)
+    if b == 0 or max_det == 0:
+        return keep, valid
+    if n == 0:
+        return keep.zero_(), valid.zero_()
+    index = dev.index
+    with (contextlib.nullcontext() if torch.cuda.current_device() == index
+          else torch.cuda.device(index)):
+        rc = _library().nms(boxes_sorted.data_ptr(), scores_sorted.data_ptr(), order.data_ptr(),
+                            b, n, iou_threshold, max_det, keep.data_ptr(), valid.data_ptr(),
+                            torch.cuda.current_stream(index).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"nms kernel launch failed with CUDA error {rc} (B={b}, N={n})")
+    nms_sorted.launches += 1
+    return keep, valid
+
+
+nms_sorted.launches = 0
+
+
+def nms(boxes_xyxy: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
+        max_det: int, class_ids: torch.Tensor | None = None, agnostic: bool = True):
+    """Greedy NMS over (N,4) boxes and (N,) scores, or a batch (B,N,4)/(B,N).
+
+    Returns (keep_indices (...,max_det), valid_mask (...,max_det)); invalid
+    slots hold index 0 with valid=False. Scores <= 0 are absent candidates.
+    A CPU tensor runs ``nms_torch``; a CUDA tensor sorts the candidates
+    with torch operations and runs the kernel (``nms_sorted``), which takes
+    float32 boxes and scores and raises on anything else."""
+    if scores.device.type == "cpu":
+        return nms_torch(boxes_xyxy, scores, iou_threshold, max_det, class_ids=class_ids,
+                         agnostic=agnostic)
+    if scores.device.type != "cuda":
+        raise ValueError(f"nms: unsupported device {scores.device}")
+    single, boxes_xyxy, scores, class_ids = _batched(boxes_xyxy, scores, class_ids)
+    if scores.dim() != 2 or tuple(boxes_xyxy.shape) != tuple(scores.shape) + (4,):
+        raise ValueError(f"nms kernel: takes (B, N, 4) boxes with (B, N) scores, got "
+                         f"{tuple(boxes_xyxy.shape)} and {tuple(scores.shape)}")
+    order, boxes_sorted, scores_sorted = sorted_candidates(boxes_xyxy, scores, class_ids,
+                                                           agnostic)
+    # the sort and the gathers keep their inputs' strides
+    keep_indices, valid = nms_sorted(boxes_sorted.contiguous(), scores_sorted.contiguous(),
+                                     order.contiguous(), iou_threshold, max_det)
+    if single:
+        return keep_indices[0], valid[0]
+    return keep_indices, valid
+
+
 
 
 def postprocess_detections(boxes_xywh: torch.Tensor, class_scores: torch.Tensor,

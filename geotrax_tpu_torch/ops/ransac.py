@@ -22,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from geotrax_tpu_torch._device import to_device
 from geotrax_tpu_torch.ops import prng
 from geotrax_tpu_torch.ops.homography import (
     fit_affine,
@@ -99,9 +100,10 @@ def sample_indices(keys, num_hypotheses: int, sample_size: int,
     """(B, H, S) random correspondence indices for (B, N) weights, frame
     ``b`` drawing ``uniform(keys[b], (H, S))`` (``ops/prng.py``) as the
     reference's ``_sample_indices`` does. The uniforms are made on the host
-    and move to the weights' device in one copy."""
+    and move to the weights' device in one copy, which does not wait for
+    the card."""
     u = prng.uniform(np.asarray(keys, np.uint32), (num_hypotheses, sample_size))
-    return indices_from_uniform(torch.from_numpy(u).to(weights.device), weights)
+    return indices_from_uniform(to_device(u, weights.device), weights)
 
 
 def _gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -155,13 +157,17 @@ def ransac_fit(src: torch.Tensor, dst: torch.Tensor, valid: torch.Tensor,
         return torch.clamp_min(1.0 - (e / threshold) ** 2, 0.0).sum(dim=-1)
 
     # Local optimization: IRLS refit on soft inliers of the incumbent model.
+    # With fewer soft inliers than a minimal sample the weighted system has
+    # no unique solution (the reference's refit is then whichever vector of
+    # the null space rounding picks), so the incumbent stays.
     h = h_best
     for _ in range(refine_iters):
         err = reprojection_error(h, src, dst)
         err = torch.where(torch.isfinite(err), err, inf)
         w = torch.where(valid, torch.clamp_min(1.0 - (err / threshold) ** 2, 0.0), 0.0)
         h_new = fit_fn(src, dst, weights=w)
-        better = score_of(h_new) >= score_of(h)
+        posed = (w > 0).sum(dim=-1) >= sample_size
+        better = posed & (score_of(h_new) >= score_of(h))
         h = torch.where(better[:, None, None], h_new, h)
     h_final = normalize_h(h)
 

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from geotrax_tpu_torch._device import resolve_device
+from geotrax_tpu_torch._device import resolve_device, to_device
 from geotrax_tpu_torch.ops import features, prng
 from geotrax_tpu_torch.ops.clahe import clahe
 from geotrax_tpu_torch.ops.homography import adjugate3, normalize_h
@@ -61,6 +61,14 @@ def _emb_projection(din: int, dout: int) -> np.ndarray:
     m = rng.normal(0.0, 1.0, (din, dout))
     q, _ = np.linalg.qr(m)
     return q.astype(np.float32)
+
+
+@lru_cache(maxsize=8)
+def _scale_pair(s: float, device: str) -> tuple:
+    """(S, S^-1) for the feature-space ratio ``s`` on ``device``, made once."""
+    return (torch.as_tensor(np.diag([s, s, 1.0]), dtype=torch.float32, device=device),
+            torch.as_tensor(np.diag([1.0 / s, 1.0 / s, 1.0]), dtype=torch.float32,
+                            device=device))
 
 
 @lru_cache(maxsize=4)
@@ -254,10 +262,7 @@ class FusedExtractor:
 
     def _unscale(self, h_ds):
         """Undo feature-space downsampling: H_full = S^-1 H_ds S."""
-        s = self._ratio()
-        scale = torch.as_tensor(np.diag([s, s, 1.0]), dtype=torch.float32, device=h_ds.device)
-        inv_scale = torch.as_tensor(np.diag([1.0 / s, 1.0 / s, 1.0]), dtype=torch.float32,
-                                    device=h_ds.device)
+        scale, inv_scale = _scale_pair(self._ratio(), str(h_ds.device))
         return inv_scale @ h_ds @ scale
 
     def _run_tracker(self, det, gmc, fids_t, n_valid: int, det_emb=None) -> FrameOutput:
@@ -291,7 +296,7 @@ class FusedExtractor:
     def _chunk_impl(self, frames_u8, fids, n_valid: int, first: bool):
         c = frames_u8.shape[0]
         dev = frames_u8.device
-        fids_t = torch.as_tensor(fids, device=dev)
+        fids_t = to_device(fids, dev)
         resized = None
         with record_function("fx.detect"):
             if self._detect_resized is not None:

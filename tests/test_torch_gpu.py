@@ -1072,3 +1072,294 @@ def test_chunk_tracker_reads_nothing_back_on_card(name, overrides):
     assert seen["chunks"] == 3 and stats["chunks"] == 3
     assert assignment.auction_assignment.launches == 3 * 12
     assert assignment.auction_assignment_torch.calls == 0
+
+
+# The NMS kernel's cases: (batch, candidates, vehicles, max_det, classes) of
+# chip_smoke.nms_candidates (4 anchors a vehicle), or a chain of boxes.
+NMS_CASES = {
+    "chunk (32, 2000)": (32, 2000, 250, 1000, 0),   # the default chunk, max_det 1000
+    "lockstep (4, 2000)": (4, 2000, 250, 1000, 0),
+    "frame (1, 2000)": (1, 2000, 250, 1000, 0),
+    "evaluate (8, 1024)": (8, 1024, 256, 300, 4),   # per class, every candidate alive
+    "chain of 2000": None,
+    "odd 1": (1, 1, 1, 5, 2),
+    "odd 3": (1, 3, 1, 9, 2),
+    "odd 37": (1, 37, 12, 77, 2),
+}
+
+
+def _nms_inputs(case):
+    """(boxes, scores, class ids or None, max_det, agnostic) of a case, on the card."""
+    import chip_smoke
+
+    if NMS_CASES[case] is None:
+        boxes, scores, _ = chip_smoke.nms_chain(2000, "cuda")
+        return boxes, scores, None, 1000, True
+    b, n, objects, max_det, classes = NMS_CASES[case]
+    boxes, scores, cls = chip_smoke.nms_candidates(b, n, objects, 4, 20 + n, "cuda",
+                                                   classes=classes,
+                                                   conf=0.001 if classes == 4 else 0.25)
+    return boxes, scores, cls, max_det, not classes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(NMS_CASES))
+def test_nms_kernel_equals_plain_on_card(case):
+    """csrc/nms.cu (through ``nms``: one launch) gives nms_torch's
+    (keep_indices, valid) bit for bit at every detecting path's shape, on a
+    chain as deep as its 2000 boxes, and with fewer candidates than slots."""
+    _need_card()
+    from geotrax_tpu_torch.ops import nms as nms_ops
+
+    boxes, scores, cls, max_det, agnostic = _nms_inputs(case)
+    before = nms_ops.nms_sorted.launches
+    keep, valid = nms_ops.nms(boxes, scores, 0.7, max_det, class_ids=cls, agnostic=agnostic)
+    torch.cuda.synchronize()
+    assert nms_ops.nms_sorted.launches == before + 1
+    plain_keep, plain_valid = nms_ops.nms_torch(boxes, scores, 0.7, max_det, class_ids=cls,
+                                                agnostic=agnostic)
+    torch.testing.assert_close(valid, plain_valid, rtol=0, atol=0)
+    torch.testing.assert_close(keep, plain_keep, rtol=0, atol=0)
+    if case == "chain of 2000":
+        assert int(valid.sum()) == 1000
+        torch.testing.assert_close(keep[0], torch.arange(0, 2000, 2, device="cuda"), rtol=0,
+                                   atol=0)
+    if case == "evaluate (8, 1024)":
+        assert bool((scores > 0).all())
+
+
+@pytest.mark.gpu
+def test_nms_single_image_and_threshold_bits_on_card():
+    """One image's (N, 4) / (N,) arguments, and thresholds that sit on an
+    IoU's float32 value (the threshold is compared in float32, as torch
+    compares it), equal the plain version."""
+    _need_card()
+    import chip_smoke
+    from geotrax_tpu_torch.ops import nms as nms_ops
+    from geotrax_tpu_torch.ops.boxes import iou_matrix
+
+    boxes, scores, _ = chip_smoke.nms_candidates(1, 500, 80, 4, 3, "cuda")
+    iou = iou_matrix(boxes[0], boxes[0])
+    exact = float(iou[iou > 0.3].min())  # an IoU the data holds exactly
+    for t in (0.7, 0.45, exact, float(np.nextafter(np.float32(exact), np.float32(0)))):
+        keep, valid = nms_ops.nms(boxes[0], scores[0], t, 300)
+        plain_keep, plain_valid = nms_ops.nms_torch(boxes[0], scores[0], t, 300)
+        assert keep.shape == (300,)
+        torch.testing.assert_close(valid, plain_valid, rtol=0, atol=0)
+        torch.testing.assert_close(keep, plain_keep, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_nms_takes_strided_candidates_on_card():
+    """Candidates in another memory order (a column-major batch, as numpy's
+    fancy indexing makes them) and class ids as int64 give the plain
+    version's answer: the wrapper hands the kernel contiguous copies."""
+    _need_card()
+    from geotrax_tpu_torch.ops import nms as nms_ops
+
+    boxes, scores, cls, max_det, _ = _nms_inputs("evaluate (8, 1024)")
+    boxes_t = boxes.permute(2, 1, 0).contiguous().permute(2, 1, 0)
+    scores_t = scores.t().contiguous().t()
+    assert not boxes_t.is_contiguous() and not scores_t.is_contiguous()
+    keep, valid = nms_ops.nms(boxes_t, scores_t, 0.7, max_det, class_ids=cls.long(),
+                              agnostic=False)
+    plain_keep, plain_valid = nms_ops.nms_torch(boxes, scores, 0.7, max_det, class_ids=cls,
+                                                agnostic=False)
+    torch.testing.assert_close(valid, plain_valid, rtol=0, atol=0)
+    torch.testing.assert_close(keep, plain_keep, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_nms_call_captured_in_a_cuda_graph_replays():
+    """One call captured in a CUDA graph and replayed gives the eager
+    answer, and with other candidates copied into the captured inputs
+    their answer: the call reads nothing back."""
+    _need_card()
+    from geotrax_tpu_torch.ops import nms as nms_ops
+
+    boxes, scores, _, max_det, _ = _nms_inputs("chunk (32, 2000)")
+    other_boxes, other_scores, _, _, _ = _nms_inputs("lockstep (4, 2000)")
+    other_boxes, other_scores = other_boxes.repeat(8, 1, 1), other_scores.repeat(8, 1)
+    eager = nms_ops.nms(boxes, scores, 0.7, max_det)
+    expected = nms_ops.nms(other_boxes, other_scores, 0.7, max_det)
+    held_boxes, held_scores = boxes.clone(), scores.clone()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = nms_ops.nms(held_boxes, held_scores, 0.7, max_det)
+    graph.replay()
+    torch.cuda.synchronize()
+    for got, want in zip(captured, eager):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    held_boxes.copy_(other_boxes)
+    held_scores.copy_(other_scores)
+    graph.replay()
+    torch.cuda.synchronize()
+    for got, want in zip(captured, expected):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_nms_wrapper_rejects_what_the_kernel_does_not_take():
+    """Types, shapes, layouts and sizes the kernel does not take raise a
+    ValueError that names them, before any launch; nothing falls back to
+    the plain version."""
+    _need_card()
+    from geotrax_tpu_torch.ops import nms as nms_ops
+
+    boxes, scores, _ = torch.rand((2, 50, 4), device="cuda"), torch.rand((2, 50), device="cuda"), None
+    order, sb, ss = nms_ops.sorted_candidates(boxes, scores, None, True)
+    launches, calls = nms_ops.nms_sorted.launches, nms_ops.nms_torch.calls
+    with pytest.raises(ValueError, match="float32"):
+        nms_ops.nms(boxes.double(), scores.double(), 0.7, 10)
+    with pytest.raises(ValueError, match="float32"):
+        nms_ops.nms(boxes.half(), scores, 0.7, 10)
+    with pytest.raises(ValueError, match=r"\(B, N, 4\)"):
+        nms_ops.nms(boxes[..., :3], scores, 0.7, 10)
+    with pytest.raises(ValueError, match="int64 order"):
+        nms_ops.nms_sorted(sb, ss, order.int(), 0.7, 10)
+    with pytest.raises(ValueError, match="contiguous"):
+        nms_ops.nms_sorted(sb.transpose(0, 1).contiguous().transpose(0, 1), ss, order, 0.7, 10)
+    with pytest.raises(ValueError, match="16-byte"):
+        flat = torch.empty(2 * 50 * 4 + 1, device="cuda")
+        nms_ops.nms_sorted(flat[1:].view(2, 50, 4), ss, order, 0.7, 10)
+    big = nms_ops.MAX_CANDIDATES + 1
+    with pytest.raises(ValueError, match="at most"):
+        nms_ops.nms_sorted(torch.zeros((1, big, 4), device="cuda"),
+                           torch.zeros((1, big), device="cuda"),
+                           torch.zeros((1, big), dtype=torch.int64, device="cuda"), 0.7, 10)
+    assert nms_ops.nms_sorted.launches == launches and nms_ops.nms_torch.calls == calls
+    keep, valid = nms_ops.nms(torch.zeros((3, 0, 4), device="cuda"),
+                              torch.zeros((3, 0), device="cuda"), 0.7, 4)
+    assert keep.shape == (3, 4) and not valid.any() and not keep.any()
+
+
+@pytest.mark.gpu
+def test_nms_failing_build_raises(tmp_path, monkeypatch):
+    """A kernel source that does not compile makes ``nms`` on the card raise
+    nvcc's error; it does not run the plain version instead."""
+    _need_card()
+    from geotrax_tpu_torch.ops import nms as nms_ops
+
+    (tmp_path / "nms.cu").write_text("this is not CUDA C++\n")
+    monkeypatch.setattr(_cuda, "CSRC", tmp_path)
+    monkeypatch.setattr(_cuda, "BUILD_DIR", tmp_path / "build")
+    nms_ops._library.cache_clear()
+    calls = nms_ops.nms_torch.calls
+    try:
+        with pytest.raises(RuntimeError, match="nvcc failed for nms.cu"):
+            nms_ops.nms(torch.rand((1, 8, 4), device="cuda"), torch.rand((1, 8), device="cuda"),
+                        0.7, 4)
+    finally:
+        nms_ops._library.cache_clear()
+    assert nms_ops.nms_torch.calls == calls
+
+
+@pytest.mark.gpu
+def test_smallest_eigenvector_on_card_equals_eigh_and_reads_nothing_back():
+    """RANSAC refinement's eigensolver on the card (inverse iteration, run
+    under set_sync_debug_mode("error")) gives the CPU eigh's smallest
+    eigenvectors up to their sign: on systems with a near null vector, and
+    on systems whose second eigenvalue is 2e-7 of the trace and whose
+    smallest is a rounding of either sign (to eigh's own accuracy, 1e-16 of
+    the trace over the gap)."""
+    _need_card()
+    from geotrax_tpu_torch.ops import homography
+
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(rng.normal(0, 1, (32, 200, 9)))
+    a[..., 8] = a[..., :8].sum(dim=-1) * 0.5 + rng.normal(0, 1e-4, (32, 200))  # a near null vector
+    q = torch.linalg.qr(torch.from_numpy(rng.normal(0, 1, (8, 9, 9))))[0]
+    spectrum = torch.tensor([0.0, 2e-7, 1e-5, 1e-4, 1e-3, 1e-2, 0.1, 0.3, 0.6], dtype=torch.float64)
+    spectrum = spectrum.repeat(8, 1)
+    spectrum[:, 0] = torch.from_numpy(rng.uniform(-1e-9, 1e-9, 8))
+    systems = [(a.transpose(-1, -2) @ a, 1e-10), ((q * spectrum[:, None, :]) @ q.mT, 1e-16 / 2e-7)]
+    for m, atol in systems:
+        on_card = m.cuda()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            v = homography.smallest_eigenvector(on_card)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        e = torch.linalg.eigh(m)[1][..., :, 0]
+        v = v.cpu()
+        sign = torch.sign((e * v).sum(dim=-1, keepdim=True))
+        torch.testing.assert_close(v * sign, e, rtol=0, atol=atol)
+
+
+def _degenerate_correspondences(name, n=60):
+    """Correspondences whose RANSAC refinement system is underdetermined or
+    NaN (tests/test_torch_ransac.py holds the CPU's results to the
+    reference): (src, dst, valid, (64, 4) hypothesis indices)."""
+    from geotrax_tpu_torch.ops import prng
+    from geotrax_tpu_torch.ops import ransac
+
+    rng = np.random.default_rng(11)
+    src = rng.uniform(0, 400, (n, 2))
+    h = np.array([[1.01, 0.03, -2.0], [-0.03, 1.0, 1.5], [1e-5, -2e-5, 1.0]])
+    p = np.c_[src, np.ones(n)] @ h.T
+    dst = p[:, :2] / p[:, 2:] + rng.normal(0, 0.3, (n, 2))
+    valid, idx = np.ones(n, bool), None
+    if name == "three soft inliers":  # the one hypothesis fits 0-3, and 3 is not valid
+        dst[4:] = rng.uniform(0, 400, (n - 4, 2))
+        valid[3] = False
+        idx = np.tile(np.arange(4), (64, 1))
+    elif name == "every sample degenerate":  # three valid points: every draw repeats one
+        valid[3:] = False
+    else:
+        dst[30:] = rng.uniform(0, 400, (n - 30, 2))
+        src[5] = np.nan
+    src, dst = src.astype(np.float32), dst.astype(np.float32)
+    if idx is None:
+        idx = ransac.sample_indices(np.asarray(prng.fold_in(prng.PRNGKey(0), 3))[None], 64, 4,
+                                    ransac.sample_weights(torch.from_numpy(valid)[None]))[0]
+    return torch.from_numpy(src), torch.from_numpy(dst), torch.from_numpy(valid), \
+        torch.as_tensor(idx).long()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["three soft inliers", "every sample degenerate",
+                                  "nan correspondence"])
+def test_ransac_degenerate_inputs_on_card_equal_the_cpu(name):
+    """ransac_fit where the refinement's weighted system has fewer soft
+    inliers than a minimal sample, or is NaN: on the card (under
+    set_sync_debug_mode("error")) the CPU's homography (1e-4 relative) and
+    inlier mask."""
+    _need_card()
+    from geotrax_tpu_torch.ops import ransac
+
+    args = _degenerate_correspondences(name)
+    cpu = ransac.ransac_fit(*args[:3], 2.0, num_hypotheses=64, sample_idx=args[3])
+    on_card = [t.cuda() for t in args]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        card = ransac.ransac_fit(*on_card[:3], 2.0, num_hypotheses=64, sample_idx=on_card[3])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    h = card.h_matrix.cpu().double()
+    torch.testing.assert_close(h, cpu.h_matrix.double(), rtol=1e-4,
+                               atol=1e-4 * float(cpu.h_matrix.abs().max()))
+    assert torch.equal(card.inliers.cpu(), cpu.inliers)
+    if name == "three soft inliers":
+        assert int(cpu.num_inliers) == 3
+
+
+@pytest.mark.gpu
+def test_steady_chunk_steps_read_nothing_back_on_card():
+    """The default extract path (YOLOv8n at imgsz 640 on 1280x720 frames,
+    stabilization, botsort): every chunk step after the video's first
+    runs whole under set_sync_debug_mode("error") (the smoke's
+    tracker_reads_checked), the NMS kernel launches once a chunk and its
+    plain version never."""
+    _need_card()
+    import chip_smoke
+
+    chip_smoke.reset_nms_counts()
+    run = chip_smoke.phase_main("cuda", width=1280, height=720, n_frames=12, chunk=4,
+                                variant="n", imgsz=640, horizon=20, tol_px=10.0)
+    steady = chip_smoke.phase_steady(run["fx"], 1280, 720, 0, 20, 12, chunk=4, n_chunks=2,
+                                     tol_px=10.0)
+    assert run["sync_checked_steps"] == 2 and steady["sync_checked_steps"] == 2
+    assert run["nms_launches"] == 3 and chip_smoke.plain_nms_calls() == 0

@@ -111,3 +111,78 @@ def test_ransac_batched_and_generator():
     twice = tr.ransac_fit(src[0], dst[0], valid[0], 2.0, key=prng.fold_in(prng.PRNGKey(0), 9),
                           num_hypotheses=256)
     torch.testing.assert_close(again.h_matrix, twice.h_matrix, rtol=0, atol=0)
+
+
+def degenerate_case(name, n=60):
+    """Correspondences on which the refinement's weighted system is
+    underdetermined or NaN: (src, dst, valid, (64, 4) hypothesis indices).
+    ``three soft inliers``: every hypothesis is the exact fit of points 0-3,
+    of which 3 is not valid and the rest of dst is noise; ``every sample
+    degenerate``: three valid points, so every draw repeats one; ``nan
+    correspondence``: a valid point's src is NaN, half the points inliers."""
+    src, dst, valid, _ = correspondences(11, n=n, outliers=0.0)
+    rng = np.random.default_rng(12)
+    idx = None
+    if name == "three soft inliers":
+        dst[4:] = rng.uniform(0, 400, (n - 4, 2))
+        valid[:] = True
+        valid[3] = False
+        idx = np.tile(np.arange(4), (64, 1))
+    elif name == "every sample degenerate":
+        valid[:] = False
+        valid[:3] = True
+    else:
+        valid[:] = True
+        dst[30:] = rng.uniform(0, 400, (n - 30, 2))
+        src[5] = np.nan
+    if idx is None:
+        idx = tr.sample_indices(np.asarray(prng.fold_in(prng.PRNGKey(0), 3))[None], 64, 4,
+                                tr.sample_weights(torch.from_numpy(valid)[None]))[0].numpy()
+    return src, dst, valid, idx
+
+
+@pytest.mark.parametrize("name", ["three soft inliers", "every sample degenerate",
+                                  "nan correspondence"])
+def test_ransac_degenerate_refit_does_not_depend_on_rounding(name):
+    """With fewer soft inliers than a minimal sample the refinement keeps
+    the incumbent hypothesis (the weighted system's eigenvector is then any
+    vector of its null space), so the result is the same on the
+    correspondences in another order, whose sums round differently as
+    another device's do; and a NaN correspondence raises nothing."""
+    src, dst, valid, idx = degenerate_case(name)
+    perm = np.random.default_rng(5).permutation(len(src))
+
+    def fit(order):
+        return tr.ransac_fit(torch.from_numpy(src[order]), torch.from_numpy(dst[order]),
+                             torch.from_numpy(valid[order]), 2.0, num_hypotheses=64,
+                             sample_idx=torch.from_numpy(np.argsort(order)[idx]).long())
+
+    one, other = fit(np.arange(len(src))), fit(perm)
+    h_close(other.h_matrix.numpy(), one.h_matrix.numpy())
+    np.testing.assert_array_equal(other.inliers.numpy(), one.inliers.numpy()[perm])
+    if name == "three soft inliers":
+        assert int(one.num_inliers) == 3
+        minimal = th.normalize_h(th.fit_homography_minimal(torch.from_numpy(src[:4]),
+                                                           torch.from_numpy(dst[:4])))
+        h_close(one.h_matrix.numpy(), minimal.numpy())
+    elif name == "every sample degenerate":
+        assert int(one.num_inliers) <= 3
+    else:
+        assert int(one.num_inliers) >= 15 and torch.isfinite(one.h_matrix).all()
+
+
+def test_ransac_nan_correspondence_equals_the_reference():
+    """A NaN correspondence (valid) makes every refit NaN, which the
+    reference and the port both turn down: the same homography and inliers
+    from JAX's draws."""
+    src, dst, valid, _ = degenerate_case("nan correspondence")
+    key = jax.random.fold_in(jax.random.PRNGKey(0), 7)
+    weights = jnp.asarray(valid, jnp.float32) / valid.sum()
+    idx = np.array(jr._sample_indices(key, 256, 4, len(src), weights))
+    ref = jr.ransac_fit(jnp.asarray(src), jnp.asarray(dst), jnp.asarray(valid), 2.0, key,
+                        num_hypotheses=256)
+    ours = tr.ransac_fit(torch.from_numpy(src), torch.from_numpy(dst), torch.from_numpy(valid),
+                         2.0, num_hypotheses=256, sample_idx=torch.from_numpy(idx).long())
+    h_close(ours.h_matrix.numpy(), ref.h_matrix)
+    np.testing.assert_array_equal(ours.inliers.numpy(), np.asarray(ref.inliers))
+    assert int(ours.num_inliers) == int(ref.num_inliers) >= 15
