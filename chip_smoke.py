@@ -53,17 +53,22 @@ ends the run with a non-zero exit and no result line:
                five), the plain version's CUDA-event ms, the bound (the
                bidders' rows read once per round) and its share, the
                cluster size and where the state lives; the NMS kernel equals
-               nms_torch exactly (keep indices and valid flags) on seeded
-               detector-like candidates at the default chunk's (32, 2000)
-               with max_det 1000, the lockstep's (4, 2000), one frame's (1,
-               2000), training's evaluate ((8, 1024), max_det 300, per
-               class, every candidate alive), a chain of 2000 boxes and odd
-               counts (1, 3, 37) with fewer candidates than slots; per case
-               the kernel's device ms (CUDA-graph replay), the whole call's
-               (sort, gathers, kernel) device ms and ms as called, the plain
-               version's CUDA-event ms, torchvision's batched_nms where it
-               is installed, and the bound (the alive pairs' IoUs or the
-               bytes)
+               nms_torch exactly (keep indices and valid flags), and the fused
+               post-processing after the top-K (postprocess_topk) equals
+               postprocess_topk_torch, on seeded detector-like candidates at
+               the default chunk's (32, 2000) with max_det 1000, the
+               lockstep's (4, 2000), one frame's (1, 2000), training's
+               evaluate ((8, 1024), max_det 300, per class, every candidate
+               alive), a chain of 2000 boxes and odd counts (1, 3, 37) with
+               fewer candidates than slots; per case the cluster size, the
+               fused call's device ms (CUDA-graph replay), ms as called and
+               launches, the kernel's device ms, nms (sort, gathers, kernel)
+               as called, the post-processing after the top-K as the parent
+               ran it (device ms, as called, launches), the plain version's
+               CUDA-event ms, torchvision's batched_nms where it is
+               installed, and the bounds (what the answer needs: IoUs or
+               bytes); the kernel at every cluster size on the chunk and the
+               frame
   3 main       the default extract configuration: YOLOv8s at imgsz 1920
                (random weights from a seeded generator, class biases set so
                that about VEHICLES_PER_4K_FRAME boxes pass ``conf``) on two
@@ -83,8 +88,9 @@ ends the run with a non-zero exit and no result line:
   4 steady     three more chunks of the same video through the same
                extractor: ms per chunk (median, min, max), checked as above,
                every chunk step whole under set_sync_debug_mode("error");
-               the NMS kernel exact against its plain version on the
-               candidates of the first of them, timed as in phase 2;
+               the fused post-processing and the NMS kernel exact against
+               their plain versions on what the first of them handed the
+               post-processing after its top-K, timed as in phase 2;
                the auction kernel then exact against its plain version on
                the 96 padded costs the first of them handed it, with their
                rounds, per auction the kernel's device ms (the chunk's
@@ -329,11 +335,13 @@ kernel (built from DIR's ``csrc/auction.cu``) are timed in turns with this
 one's at every case and on the chunk's auctions: device ms, ms as called,
 host microseconds a call. ``--nms-only`` runs phases 0 and 1, the NMS
 cases and the main path up to its first steady chunk for that chunk's own
-candidates; with ``--against DIR`` that checkout's nms wrapper (its kernel
-built from DIR's ``csrc/nms.cu`` where it has one; the parent's is the
-host-driven loop) is timed in turns with this one's at every case, and the
-chunk step with each in the detector: fx.detect's host and kernel ms, peak
-memory, and three steady chunks' ms. ``--kernels-only`` serves to
+candidates; with ``--against DIR`` that checkout's nms module (its kernel
+built from DIR's ``csrc/nms.cu``; one without the fused entry, such as the
+parent's) is timed in turns with this one at every case: its kernel against
+this one's, its post-processing after the top-K (gathers, its sorting
+``nms``, gathers) against the fused call; and the chunk step with each in
+the detector: fx.detect's host and kernel ms, peak memory, and three steady
+chunks' ms. ``--kernels-only`` serves to
 time the kernels of two checkouts in one call: copy this script into the
 other checkout and run it there too. ``--georef-only`` runs phases 0, 1 and
 10, ``--lockstep-only`` phases 0, 1 and 12 with its own calibrated detector,
@@ -401,10 +409,14 @@ NMS_SOURCE = "geotrax_tpu_torch/csrc/nms.cu"
 # not a Pallas site: the reference's device loop, the lax.while_loop of nms
 NMS_REPLACES = "geotrax_tpu/ops/nms.py:81"
 # The NMS wrapper and its plain version as this checkout has them (a parent
-# checkout that predates the kernel has only the host-driven loop).
+# checkout that predates the kernel has only the host-driven loop), and the
+# functions that launch csrc/nms.cu's kernels, each counting its launches
+# (the fused post-processing after the top-K, on the detector's path, and
+# the kernel's call on sorted candidates, under ``nms``).
 NMS_KERNEL = nms_ops.nms
 HAS_NMS = hasattr(nms_ops, "nms_torch")
-NMS_LAUNCHER = getattr(nms_ops, "nms_sorted", None)
+NMS_LAUNCHERS = tuple(f for f in (getattr(nms_ops, "postprocess_topk", None),
+                                  getattr(nms_ops, "nms_sorted", None)) if hasattr(f, "launches"))
 # The default preset's ultralytics.iou and max_det
 NMS_IOU = 0.7
 NMS_MAX_DET = 1000
@@ -413,6 +425,15 @@ NMS_MAX_DET = 1000
 # and subtract, + eps, the division, the comparison) and of one box's area
 NMS_PAIR_FLOPS = 14
 NMS_BOX_FLOPS = 5
+# The fused post-processing's float operations beside NMS's: a candidate's
+# corners (two halvings, four sums) and, per class, its share of the span
+# (max and min over its four corners) and, where NMS compares it, its offset
+# (a product, four sums)
+TOPK_BOX_FLOPS = 6
+TOPK_SPAN_FLOPS = 8
+TOPK_OFFSET_FLOPS = 5
+# The cluster sizes the NMS phase times its kernel at
+CLUSTER_SWEEP = (1, 2, 4, 8, 16)
 PATCH_SOURCE = "geotrax_tpu_torch/csrc/patch_gather.cu"
 PATCH_REPLACES = "geotrax_tpu/ops/pallas_patches.py:40"
 # The ReID path's gather per 32-frame 4K chunk: 3 channel planes of each
@@ -1108,14 +1129,15 @@ def phase_steady(fx, width: int, height: int, seed: int, horizon: int, start: in
     measures it (chunk step plus the copy of its outputs to the host). The
     first chunk's frames are kept for the ReID phase; given ``kept``, the
     padded costs of its auctions are appended to it, and given
-    ``nms_kept``, the arguments of its NMS call. With ``sync_check`` every
-    chunk step runs under ``no_host_reads`` (``sync_checked_steps``)."""
+    ``nms_kept``, the arguments of its post-processing after the top-K
+    (``TopkSwap``). With ``sync_check`` every chunk step runs under
+    ``no_host_reads`` (``sync_checked_steps``)."""
     reader = smoke_reader(width, height, seed, horizon, start, start + n_chunks * chunk)
     frames = make_frames(reader)
     on_card = fx.device.type == "cuda"
     with (AuctionRecorder(kept, AUCTIONS_PER_STEP * chunk) if kept is not None
           else contextlib.nullcontext()), \
-            (nms_swapped(NMS_KERNEL, nms_kept) if nms_kept is not None
+            (TopkSwap(nms_ops.postprocess_topk, nms_kept) if nms_kept is not None
              else contextlib.nullcontext()), \
             (tracker_reads_checked(fx, "cuda" if on_card else "cpu", HAS_NMS) if sync_check
              else contextlib.nullcontext({"steps": 0})) as checked:
@@ -1520,37 +1542,78 @@ def auction_line(au: dict, seconds: float, smi: str) -> str:
 # --------------------------------------------------------------------------
 
 def nms_launches() -> int:
-    """The NMS kernel's launch count, kept by the function that launches it
-    (0 in a checkout without it)."""
-    return getattr(NMS_LAUNCHER, "launches", 0)
+    """Launches of csrc/nms.cu's kernels, kept by the functions that launch
+    them (0 in a checkout without them)."""
+    return sum(f.launches for f in NMS_LAUNCHERS)
+
+
+def reset_nms_launches() -> None:
+    for f in NMS_LAUNCHERS:
+        f.launches = 0
 
 
 def reset_nms_counts() -> None:
+    reset_nms_launches()
     if HAS_NMS:
-        NMS_LAUNCHER.launches = 0
         nms_ops.nms_torch.calls = 0
 
 
 def plain_nms_calls() -> int:
+    """Calls of the plain NMS (every plain post-processing runs it)."""
     return nms_ops.nms_torch.calls if HAS_NMS else 0
 
 
-@contextlib.contextmanager
-def nms_swapped(fn, kept: list | None = None, limit: int = 1):
-    """Inside the block the detector's post-processing, which calls
-    ``nms_ops.nms`` by that name, calls ``fn``; with ``kept``, the arguments
-    of its first ``limit`` calls are appended there."""
-    def call(boxes, scores, iou_threshold, max_det, class_ids=None, agnostic=True):
-        if kept is not None and len(kept) < limit:
-            kept.append((boxes, scores, iou_threshold, max_det, class_ids, agnostic))
-        return fn(boxes, scores, iou_threshold, max_det, class_ids=class_ids, agnostic=agnostic)
+class TopkSwap:
+    """Stands in for ``nms_ops.postprocess_topk`` (postprocess_detections
+    calls it by that name after its top-K): keeps the arguments of the first
+    ``limit`` calls in ``kept`` (where given), then calls ``fn``. The wrapper
+    counts its launches on the function its name resolves to, so
+    ``launches`` passes through to the wrapper's own count."""
 
-    saved = nms_ops.nms
-    nms_ops.nms = call
-    try:
-        yield
-    finally:
-        nms_ops.nms = saved
+    def __init__(self, fn, kept: list | None = None, limit: int = 1):
+        self.original, self.fn, self.kept, self.limit = nms_ops.postprocess_topk, fn, kept, limit
+
+    @property
+    def launches(self) -> int:
+        return self.original.launches
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        self.original.launches = value
+
+    def __call__(self, boxes_xywh, classes, top_scores, top_idx, iou_threshold, max_det,
+                 agnostic=True):
+        args = (boxes_xywh, classes, top_scores, top_idx, iou_threshold, max_det, agnostic)
+        if self.kept is not None and len(self.kept) < self.limit:
+            self.kept.append(args)
+        return self.fn(*args)
+
+    def __enter__(self):
+        nms_ops.postprocess_topk = self
+        return self
+
+    def __exit__(self, *exc):
+        nms_ops.postprocess_topk = self.original
+
+
+def older_topk(older):
+    """The post-processing after the top-K as ``older`` (another checkout's
+    nms module, one without the fused entry, such as the parent's) runs it:
+    the candidates' gathers and corners, its ``nms`` (a sort, gathers and
+    its kernel), the detections' gathers."""
+    def call(boxes_xywh, classes, top_scores, top_idx, iou_threshold, max_det, agnostic=True):
+        b, k = top_scores.shape
+        cand_boxes = torch.gather(boxes_xywh, 1, top_idx[..., None].expand(b, k, 4))
+        cand_classes = torch.gather(classes, 1, top_idx)
+        keep, valid = older.nms(older.xywh_to_xyxy(cand_boxes), top_scores, iou_threshold,
+                                max_det, class_ids=cand_classes, agnostic=agnostic)
+        boxes = torch.gather(cand_boxes, 1, keep[..., None].expand(b, max_det, 4))
+        return {"boxes_xywh": torch.where(valid[..., None], boxes, 0.0),
+                "scores": torch.where(valid, torch.gather(top_scores, 1, keep), 0.0),
+                "classes": torch.where(valid, torch.gather(cand_classes, 1, keep), -1),
+                "valid": valid}
+
+    return call
 
 
 def nms_candidates(b: int, n: int, objects: int, per_object: int, seed: int, device,
@@ -1599,18 +1662,28 @@ def nms_chain(n: int, device, step: float = 12.0, width: float = 100.0,
     return torch.from_numpy(boxes).to(device), torch.from_numpy(scores).to(device), None
 
 
-def nms_bound_ms(scores: torch.Tensor, order: torch.Tensor, keep: torch.Tensor,
-                 valid: torch.Tensor) -> tuple:
-    """Least time on an H100 of one greedy NMS over (B, N) candidates with
-    (B, N) ``order`` (descending score) that keeps (B, max_det) ``keep`` /
-    ``valid`` (this run's answer). An image whose slots all fill needs its
-    candidates up to its last kept one, any other its alive ones (``a``).
-    Of the K kept, each is tested against every earlier kept one, and each
-    of the other ``a - K`` at least against one: NMS_PAIR_FLOPS float
-    operations an IoU, NMS_BOX_FLOPS a needed box, at the float32 rate.
-    Bytes: the sorted scores up to the first absent one (4 B each), the
-    needed boxes (16 B), the kept candidates' order (8 B) and the slots
-    written (9 B). Returns (ms, "bytes" | "operations", bytes, operations)."""
+def topk_inputs(boxes: torch.Tensor, scores: torch.Tensor, classes, max_det: int) -> tuple:
+    """The fused entry's inputs for NMS candidates as postprocess_detections
+    makes them: the candidates as anchors (xywh boxes, int32 classes, 0
+    where none are given) and exact_top_k of their scores with its K."""
+    from geotrax_tpu_torch.ops.boxes import xyxy_to_xywh
+    from geotrax_tpu_torch.ops.topk import exact_top_k
+
+    b, n = scores.shape
+    top_scores, top_idx = exact_top_k(scores, min(max(2 * max_det, 1024), n))
+    cls = torch.zeros((b, n), dtype=torch.int32, device=scores.device) if classes is None \
+        else classes.to(torch.int32)
+    return xyxy_to_xywh(boxes).contiguous(), cls, top_scores, top_idx
+
+
+def nms_needed(scores: torch.Tensor, order: torch.Tensor, keep: torch.Tensor,
+               valid: torch.Tensor) -> tuple:
+    """What one greedy NMS over (B, N) candidates with (B, N) ``order``
+    (descending score) that keeps (B, max_det) ``keep`` / ``valid`` (this
+    run's answer) needs of each image, as (B,) float64: the candidates (up to
+    the last kept one where the slots all fill, else the alive ones), the
+    kept ones and the scores read (the needed ones and the first absent
+    one)."""
     b, n = scores.shape
     max_det = keep.shape[1]
     alive = (scores > 0).sum(dim=-1).long()
@@ -1621,11 +1694,51 @@ def nms_bound_ms(scores: torch.Tensor, order: torch.Tensor, keep: torch.Tensor,
             else torch.zeros_like(alive))
     full = (kept == max_det) & (kept > 0)
     needed = torch.where(full, last + 1, alive).double()
-    kept = kept.double()
+    return needed, kept.double(), torch.where(full, needed, torch.clamp_max(needed + 1, n))
+
+
+def nms_bound_ms(scores: torch.Tensor, order: torch.Tensor, keep: torch.Tensor,
+                 valid: torch.Tensor) -> tuple:
+    """Least time on an H100 of one greedy NMS over (B, N) candidates with
+    (B, N) ``order`` (descending score) that keeps (B, max_det) ``keep`` /
+    ``valid`` (this run's answer), from what it needs (``nms_needed``). Of
+    the K kept, each is tested against every earlier kept one, and each of
+    the other needed ones at least against one: NMS_PAIR_FLOPS float
+    operations an IoU, NMS_BOX_FLOPS a needed box, at the float32 rate.
+    Bytes: the scores read (4 B each), the needed boxes (16 B), the kept
+    candidates' order (8 B) and the slots written (9 B). Returns (ms,
+    "bytes" | "operations", bytes, operations)."""
+    needed, kept, scores_read = nms_needed(scores, order, keep, valid)
     ops = float(((kept * (kept - 1) / 2 + needed - kept) * NMS_PAIR_FLOPS
                  + needed * NMS_BOX_FLOPS).sum())
-    scores_read = torch.where(full, needed, torch.clamp_max(needed + 1, n))
-    moved = int((4 * scores_read + 16 * needed + 8 * kept).sum()) + b * 9 * max_det
+    moved = int((4 * scores_read + 16 * needed + 8 * kept).sum()) + keep.numel() * 9
+    return (*bound_ms(moved, ops), moved, ops)
+
+
+def topk_bound_ms(scores: torch.Tensor, order: torch.Tensor, keep: torch.Tensor,
+                  valid: torch.Tensor, agnostic: bool) -> tuple:
+    """Least time on an H100 of the post-processing after the top-K
+    (``postprocess_topk``) over (B, K) candidates whose NMS answer is
+    ``keep`` / ``valid``: ``nms_bound_ms``'s IoUs, areas and scores read;
+    for each needed candidate its anchor index (8 B) and xywh box (16 B)
+    read and its corners formed (TOPK_BOX_FLOPS), for each kept one its
+    class (4 B) read; the slots written (16 + 4 + 4 + 1 B). Where
+    ``agnostic`` is False the span needs every candidate's box: all K
+    indices and boxes read (24 B), each one's corners and max / min
+    (TOPK_BOX_FLOPS + TOPK_SPAN_FLOPS); only the needed ones' classes (4 B)
+    and offsets (TOPK_OFFSET_FLOPS). Returns (ms, "bytes" | "operations",
+    bytes, operations)."""
+    needed, kept, scores_read = nms_needed(scores, order, keep, valid)
+    ops = float(((kept * (kept - 1) / 2 + needed - kept) * NMS_PAIR_FLOPS
+                 + needed * NMS_BOX_FLOPS).sum())
+    moved = int((4 * scores_read).sum()) + keep.numel() * 25
+    if agnostic:
+        ops += float((needed * TOPK_BOX_FLOPS).sum())
+        moved += int(((8 + 16) * needed + 4 * kept).sum())
+    else:
+        ops += scores.numel() * (TOPK_BOX_FLOPS + TOPK_SPAN_FLOPS) \
+            + float((needed * TOPK_OFFSET_FLOPS).sum())
+        moved += scores.numel() * (8 + 16) + int((4 * needed).sum())
     return (*bound_ms(moved, ops), moved, ops)
 
 
@@ -1647,36 +1760,62 @@ def library_nms_ms(boxes, scores, classes, agnostic: bool, iou: float, reps: int
     return cuda_ms(lambda: batched_nms(*flat, iou), reps)
 
 
-def nms_turns(older, cases: list, reps: int) -> dict:
-    """``older``'s nms (another checkout's wrapper) and this checkout's on the
-    same calls (``cases``: (boxes, scores, iou, max_det, class_ids,
-    agnostic)), in turns (older, new, new, older): ms as called per call
-    (CUDA events around back-to-back calls, median of five; an older
-    host-driven loop cannot be captured in a CUDA graph); both answers equal."""
-    def calls(fn):
-        return lambda: [fn(bx, sc, t, m, class_ids=c, agnostic=a) for bx, sc, t, m, c, a in cases]
+def call_launches(fn) -> int:
+    """Kernel launches (HOST_LAUNCH_CALLS, torch's and the ctypes kernels'
+    alike) that one call of ``fn`` makes, by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
 
-    fns = {"older": calls(older.nms), "new": calls(NMS_KERNEL)}
-    for bx, sc, t, m, c, a in cases:
-        ok, ov = older.nms(bx, sc, t, m, class_ids=c, agnostic=a)
-        nk, nv = NMS_KERNEL(bx, sc, t, m, class_ids=c, agnostic=a)
-        if not (torch.equal(ok, nk) and torch.equal(ov, nv)):
-            raise AssertionError(f"the older nms disagrees on {tuple(sc.shape)}")
-    return {k: v / len(cases) for k, v in in_turns(fns, reps, called_ms).items()}
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.key in HOST_LAUNCH_CALLS)
+
+
+def topk_equal(got: dict, want: dict) -> bool:
+    """Two post-processings' detections equal bit for bit (NaN where NaN)."""
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    return all(torch.equal(bits(got[k]), bits(want[k]))
+               for k in ("boxes_xywh", "scores", "classes", "valid"))
+
+
+@contextlib.contextmanager
+def cluster_forced(size: int):
+    """The NMS kernel launched with ``size`` blocks an image in the block,
+    whatever ``cluster_size`` would choose."""
+    chosen = nms_ops._cluster
+    nms_ops._cluster = lambda index, b, n: size
+    try:
+        yield
+    finally:
+        nms_ops._cluster = chosen
 
 
 def nms_check(name: str, boxes: torch.Tensor, scores: torch.Tensor, classes=None,
               agnostic: bool = True, max_det: int = NMS_MAX_DET, iou: float = NMS_IOU,
-              reps: int = 10, older=None) -> dict:
-    """The kernel's (keep_indices, valid) against the plain version's on one
-    (B, N) batch of candidates, exactly; the alive and kept counts; on the
-    card also the bound, the kernel's device ms on the sorted candidates
-    (``graph_ms``: calls captured in a CUDA graph and replayed, which also
-    shows a call can be captured), the whole call's (sort, gathers, kernel)
-    device ms and ms as called (``called_ms``), the plain version's
-    CUDA-event ms and torchvision's batched_nms's (``library_nms_ms``). With
-    ``older`` (another checkout's nms module), its call and this one's in
-    turns (``nms_turns``). On the CPU the wrapper runs the plain version."""
+              reps: int = 10, older=None, sweep: bool = False, args=None) -> dict:
+    """On one (B, N) batch of candidates, exactly: the NMS kernel's
+    (keep_indices, valid) through ``nms`` against the plain version's, and
+    the fused post-processing's detections (``postprocess_topk`` on
+    ``args``, by default ``topk_inputs``: the candidates as the top-K of
+    anchors) against ``postprocess_topk_torch``'s; the alive and kept
+    counts. On the card also the cluster size taken; for the fused call (the
+    kernel the detector launches) its device ms (``graph_ms``: calls
+    captured in a CUDA graph and replayed, which also shows it can be
+    captured), its ms as called (``called_ms``), its launches, the plain
+    version's CUDA-event ms and the bound (``topk_bound_ms``); for the NMS
+    kernel (``nms_sorted`` on sorted candidates) its device ms and bound
+    (``nms_bound_ms``), and ``nms`` (sort, gathers, kernel) as called; for
+    the post-processing as the parent ran it (``older_topk`` of this
+    checkout's nms) its device ms, ms as called and launches; torchvision's
+    batched_nms where installed. With ``older`` (another checkout's nms
+    module), its NMS kernel and this one's, and its post-processing and the
+    fused call, in turns (``in_turns``). With ``sweep``, the NMS kernel
+    bit-equal and its device ms at each cluster size of CLUSTER_SWEEP. On
+    the CPU the wrappers run the plain versions."""
     kw = {"class_ids": classes, "agnostic": agnostic}
     keep, valid = nms_ops.nms(boxes, scores, iou, max_det, **kw)
     plain_keep, plain_valid = nms_ops.nms_torch(boxes, scores, iou, max_det, **kw)
@@ -1684,52 +1823,90 @@ def nms_check(name: str, boxes: torch.Tensor, scores: torch.Tensor, classes=None
         raise AssertionError(f"nms kernel != plain on {name} {tuple(scores.shape)}: "
                              f"{int((keep != plain_keep).sum())} indices and "
                              f"{int((valid != plain_valid).sum())} valid flags differ")
+    args = args or (*topk_inputs(boxes, scores, classes, max_det), iou, max_det, agnostic)
+    if not topk_equal(nms_ops.postprocess_topk(*args), nms_ops.postprocess_topk_torch(*args)):
+        raise AssertionError(f"postprocess_topk kernel != plain on {name} {tuple(scores.shape)}")
     res = {"name": name, "shape": tuple(scores.shape), "max_det": max_det, "agnostic": agnostic,
            "max_abs_err": 0.0, "alive": int((scores > 0).sum()), "kept": int(plain_valid.sum())}
-    if scores.device.type == "cuda":
-        order, boxes_sorted, scores_sorted = nms_ops.sorted_candidates(boxes, scores, classes,
-                                                                       agnostic)
-        bound, bound_by, moved, ops = nms_bound_ms(scores, order, plain_keep, plain_valid)
-        kernel = lambda: nms_ops.nms_sorted(boxes_sorted, scores_sorted, order, iou,  # noqa: E731
-                                            max_det)
-        whole = lambda: nms_ops.nms(boxes, scores, iou, max_det, **kw)  # noqa: E731
-        res.update(bound_ms=bound, bound_by=bound_by, bytes=moved, flops=ops,
-                   ms=graph_ms(kernel, reps), whole_ms=graph_ms(whole, reps),
-                   eager_ms=called_ms(whole, reps),
-                   plain_ms=cuda_ms(lambda: nms_ops.nms_torch(boxes, scores, iou, max_det, **kw),
-                                    max(reps // 5, 1), warmup=1),
-                   library_ms=library_nms_ms(boxes, scores, classes, agnostic, iou, reps))
-        if older is not None:
-            res["turns"] = nms_turns(older, [(boxes, scores, iou, max_det, classes, agnostic)],
-                                     reps)
+    if scores.device.type != "cuda":
+        return res
+    order, boxes_sorted, scores_sorted = nms_ops.sorted_candidates(boxes, scores, classes,
+                                                                   agnostic)
+    nms_bound, nms_by, _, _ = nms_bound_ms(scores, order, plain_keep, plain_valid)
+    bound, bound_by, moved, ops = topk_bound_ms(scores, order, plain_keep, plain_valid, agnostic)
+    kernel = lambda: nms_ops.nms_sorted(boxes_sorted, scores_sorted, order, iou,  # noqa: E731
+                                        max_det)
+    whole = lambda: nms_ops.nms(boxes, scores, iou, max_det, **kw)  # noqa: E731
+    fused = lambda: nms_ops.postprocess_topk(*args)  # noqa: E731
+    chain = lambda: older_topk(nms_ops)(*args)  # noqa: E731
+    res.update(cluster=nms_ops._cluster(scores.device.index, *scores.shape),
+               bound_ms=bound, bound_by=bound_by, bytes=moved, flops=ops,
+               ms=graph_ms(fused, reps), eager_ms=called_ms(fused, reps),
+               launches=call_launches(fused),
+               plain_ms=cuda_ms(lambda: nms_ops.postprocess_topk_torch(*args),
+                                max(reps // 5, 1), warmup=1),
+               nms_ms=graph_ms(kernel, reps), nms_bound_ms=nms_bound, nms_bound_by=nms_by,
+               nms_eager_ms=called_ms(whole, reps),
+               chain_ms=graph_ms(chain, reps), chain_eager_ms=called_ms(chain, reps),
+               chain_launches=call_launches(chain),
+               library_ms=library_nms_ms(boxes, scores, classes, agnostic, iou, reps))
+    if sweep:
+        res["sweep"] = {}
+        for c in CLUSTER_SWEEP:
+            with cluster_forced(c):
+                got_keep, got_valid = kernel()
+                if not (torch.equal(got_keep, plain_keep) and torch.equal(got_valid, plain_valid)):
+                    raise AssertionError(f"nms kernel != plain on {name} at cluster {c}")
+                res["sweep"][c] = graph_ms(kernel, reps)
+    if older is not None:
+        old_chain = older_topk(older)
+        if not topk_equal(old_chain(*args), nms_ops.postprocess_topk(*args)):
+            raise AssertionError(f"the older post-processing disagrees on {name}")
+        res["turns"] = {
+            "kernel": in_turns({"older": lambda: older.nms_sorted(boxes_sorted, scores_sorted,
+                                                                  order, iou, max_det),
+                                "new": kernel}, reps),
+            "whole": in_turns({"older": lambda: old_chain(*args), "new": fused}, reps),
+            "called": in_turns({"older": lambda: old_chain(*args), "new": fused}, reps,
+                               called_ms)}
     return res
 
 
 def path_nms(kept: list, reps: int = 10, older=None) -> dict:
-    """``nms_check`` on the first call the main path's detector made in a
-    chunk (``kept``: its arguments, as ``nms_swapped`` keeps them)."""
-    boxes, scores, iou, max_det, classes, agnostic = kept[0]
-    return nms_check("path", boxes, scores, classes, agnostic, max_det, iou, reps, older)
+    """``nms_check`` on the first post-processing the main path's detector
+    ran in a chunk (``kept``: the arguments of its ``postprocess_topk``
+    call, as ``TopkSwap`` keeps them): the fused call on those arguments,
+    the NMS kernel on its candidates (the corners of the top-K's boxes, its
+    scores and classes)."""
+    from geotrax_tpu_torch.ops.boxes import xywh_to_xyxy
+
+    boxes_xywh, classes, top_scores, top_idx, iou, max_det, agnostic = kept[0]
+    b, k = top_scores.shape
+    cand = torch.gather(boxes_xywh, 1, top_idx[..., None].expand(b, k, 4))
+    return nms_check("path", xywh_to_xyxy(cand).contiguous(), top_scores.contiguous(),
+                     torch.gather(classes, 1, top_idx), agnostic, max_det, iou, reps, older,
+                     args=kept[0])
 
 
 def phase_nms(device: str = "cuda", b: int = 32, n: int = 2000, lock_b: int = 4,
               objects: int = 250, evaluate=(8, 1024, 300), chain: int = 2000,
               odd=(1, 3, 37), reps: int = 10, older=None) -> dict:
-    """The NMS kernel bit-equal to its plain version on seeded detector-like
-    candidates at each detecting path's shape: the default chunk's (32,
-    2000) with max_det 1000, one frame's (1, 2000), the lockstep's (4,
-    2000) (``objects`` vehicles, 4 anchors each, alive), training's
-    ``evaluate`` ((8, 1024), max_det 300, classes, agnostic=False, every
-    candidate alive from conf 0.001), a bumper-to-bumper chain of ``chain``
-    boxes (a fixed point about as deep as the chain) and odd counts with
-    fewer candidates than slots. ``older`` (another checkout's nms module)
-    is timed in turns with this one's at each case. The sizes shrink the
-    rehearsal on the CPU."""
+    """The NMS kernel and the fused post-processing bit-equal to their plain
+    versions on seeded detector-like candidates at each detecting path's
+    shape: the default chunk's (32, 2000) with max_det 1000, one frame's (1,
+    2000), the lockstep's (4, 2000) (``objects`` vehicles, 4 anchors each,
+    alive), training's ``evaluate`` ((8, 1024), max_det 300, classes,
+    agnostic=False, every candidate alive from conf 0.001), a
+    bumper-to-bumper chain of ``chain`` boxes (a fixed point about as deep
+    as the chain) and odd counts with fewer candidates than slots; the
+    chunk's and the frame's at every cluster size. ``older`` (another
+    checkout's nms module) is timed in turns with this one at each case. The
+    sizes shrink the rehearsal on the CPU."""
     dev = torch.device(device)
     check = lambda *a, **kw: nms_check(*a, **{"reps": reps, "older": older, **kw})  # noqa: E731
-    cases = [check("chunk", *nms_candidates(b, n, objects, 4, 1, dev)),
+    cases = [check("chunk", *nms_candidates(b, n, objects, 4, 1, dev), sweep=True),
              check("lockstep", *nms_candidates(lock_b, n, objects, 4, 2, dev)),
-             check("frame", *nms_candidates(1, n, objects, 4, 3, dev))]
+             check("frame", *nms_candidates(1, n, objects, 4, 3, dev), sweep=True)]
     eb, en, emax = evaluate
     cases.append(check("evaluate", *nms_candidates(eb, en, en // 4, 4, 4, dev, classes=4,
                                                     conf=0.001), agnostic=False, max_det=emax))
@@ -1751,13 +1928,44 @@ def nms_text(c: dict) -> str:
     if "ms" not in c:
         return text
     lib = "none" if c["library_ms"] is None else f"{c['library_ms']:.4f}"
-    text += (f", kernel {c['ms']:.4f} ms device (bound {c['bound_ms']:.5f} by {c['bound_by']}, "
-             f"{100 * c['bound_ms'] / c['ms']:.1f} %), whole call {c['whole_ms']:.4f} device / "
-             f"{c['eager_ms']:.4f} as called, plain {c['plain_ms']:.3f}, library {lib}")
+    text += (f", cluster {c['cluster']}; fused {c['ms']:.4f} ms device (bound "
+             f"{c['bound_ms']:.5f} by {c['bound_by']}, {100 * c['bound_ms'] / c['ms']:.1f} %), "
+             f"{c['eager_ms']:.4f} as called, {c['launches']} launches; nms kernel "
+             f"{c['nms_ms']:.4f} device (bound {c['nms_bound_ms']:.5f} by {c['nms_bound_by']}, "
+             f"{100 * c['nms_bound_ms'] / c['nms_ms']:.1f} %), nms as called "
+             f"{c['nms_eager_ms']:.4f}; after the top-K as before {c['chain_ms']:.4f} device / "
+             f"{c['chain_eager_ms']:.4f} as called, {c['chain_launches']} launches; plain "
+             f"{c['plain_ms']:.3f}, library {lib}")
+    if "sweep" in c:
+        text += " [nms kernel by cluster size: " + ", ".join(
+            f"{k}: {v:.4f}" for k, v in c["sweep"].items()) + "]"
     if "turns" in c:
-        text += (f" [in turns as called: older {c['turns']['older']:.4f} / new "
-                 f"{c['turns']['new']:.4f} ms]")
+        tr = c["turns"]
+        text += (f" [in turns: nms kernel older {tr['kernel']['older']:.4f} / new "
+                 f"{tr['kernel']['new']:.4f} device; after the top-K older "
+                 f"{tr['whole']['older']:.4f} / new {tr['whole']['new']:.4f} device, older "
+                 f"{tr['called']['older']:.4f} / new {tr['called']['new']:.4f} as called]")
     return text
+
+
+# The NMS phase's shapes (batch, candidates) and the main path's (a 32-frame
+# chunk's top-K of 2000)
+NMS_SHAPES = ((32, 2000), (4, 2000), (1, 2000), (8, 1024), (1, 2000), (1, 1), (1, 3), (1, 37))
+
+
+def nms_plan_text(device: int = 0) -> str:
+    """The NMS kernel's launch at each of NMS_SHAPES on cuda:``device``:
+    the clusters of each size the card holds at once (for 2000 candidates),
+    the cluster size ``cluster_size`` chooses and each block's dynamic
+    shared memory."""
+    lib, limit = nms_ops._library(), nms_ops._shared_limit(device)
+    held = {c: lib.nms_max_clusters(c, nms_ops.shared_bytes(2000, c)) for c in CLUSTER_SWEEP}
+    plans = []
+    for b, n in dict.fromkeys(NMS_SHAPES):
+        c = nms_ops._cluster(device, b, n)
+        plans.append(f"({b}, {n}) cluster {c} x {nms_ops.shared_bytes(n, c)} B")
+    return (f"{limit} B of shared memory a block; clusters held at once by size {held}; "
+            f"chosen per shape: " + ", ".join(plans))
 
 
 def nms_line(nm: dict, seconds: float, smi: str) -> str:
@@ -1768,13 +1976,13 @@ def nms_line(nm: dict, seconds: float, smi: str) -> str:
 def detect_turns(fx, older, width: int, height: int, seed: int, horizon: int, start: int,
                  chunk: int = 32, steady_chunks: int = STEADY_CHUNKS,
                  turns=("older", "new", "new", "older"), warm: bool = True) -> dict:
-    """The chunk step with ``older``'s nms (another checkout's wrapper, or
-    the plain version, which is the parent's loop) and with this
-    checkout's in the detector's post-processing, in ``turns``, after one
-    chunk that warms the profiler where ``warm``: one chunk of the video
-    each under torch.profiler (``breakdown``): the fx.detect range's host
-    and kernel ms, the NMS kernel's device ms (launched through ctypes, so
-    no range holds it), the chunk's wall and device-busy ms, its peak
+    """The chunk step with ``older`` (a post-processing after the top-K: an
+    older checkout's, ``older_topk``, or the plain version) and with this
+    checkout's fused call in the detector's post-processing, in ``turns``,
+    after one chunk that warms the profiler where ``warm``: one chunk of the
+    video each under torch.profiler (``breakdown``): the fx.detect range's
+    host and kernel ms, the NMS kernels' device ms (launched through ctypes,
+    so no range holds them), the chunk's wall and device-busy ms, its peak
     memory and its peak above the memory held before it (GiB); then
     ``steady_chunks`` chunks without the profiler through
     ``track_video_fused`` (the same frames in every turn, the tracker's
@@ -1786,7 +1994,7 @@ def detect_turns(fx, older, width: int, height: int, seed: int, horizon: int, st
         breakdown(fx, width, height, seed, horizon, start, chunk)
     runs = {"older": [], "new": []}
     for which in turns:
-        with nms_swapped(older.nms if which == "older" else NMS_KERNEL):
+        with TopkSwap(older if which == "older" else nms_ops.postprocess_topk):
             torch.cuda.synchronize()
             held = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
@@ -5919,8 +6127,9 @@ def gather_text(r: dict) -> str:
 GATHER_KEYS = ("shape", "corners", "ms", "eager_ms", "library_ms", "plain_ms", "bound_ms")
 AUCTION_KEYS = ("name", "shape", "rounds", "ms", "eager_ms", "plain_ms", "bound_ms", "cluster",
                 "state_in_shared", "unassigned")
-NMS_KEYS = ("name", "shape", "max_det", "agnostic", "alive", "kept", "ms", "whole_ms", "eager_ms",
-            "plain_ms", "library_ms", "bound_ms", "bound_by")
+NMS_KEYS = ("name", "shape", "max_det", "agnostic", "alive", "kept", "cluster", "ms", "eager_ms",
+            "launches", "plain_ms", "library_ms", "bound_ms", "bound_by", "nms_ms", "nms_bound_ms",
+            "chain_ms", "chain_eager_ms", "chain_launches", "sweep")
 HWC_KEYS = ("shape", "corners", "pool2", "mean4", "ms", "eager_ms", "library_ms", "plain_ms",
             "bound_ms", "kernel_gib")
 
@@ -5996,6 +6205,8 @@ def main(argv) -> int:
         for name, build_log in build_logs.items():
             for line in build_log.strip().splitlines():
                 print(f"    {name}: {line}", flush=True)
+        if NMS_LAUNCHERS:
+            print(f"    nms: {nms_plan_text()}", flush=True)
 
         t = time.perf_counter()
         if auction_only:  # phases 0, 1, the auction's and its path's only
@@ -6031,10 +6242,11 @@ def main(argv) -> int:
                 f"[{dev['smi']}]")
             if older_nms is not None:
                 t = time.perf_counter()
-                runs = detect_turns(run["fx"], older_nms, width, height, seed, horizon,
-                                    n_main + chunk, chunk)
+                runs = detect_turns(run["fx"], older_topk(older_nms), width, height, seed,
+                                    horizon, n_main + chunk, chunk)
                 log(f"nms-detect ok {time.perf_counter() - t:.1f}s the chunk step with the older "
-                    f"and this checkout's nms in turns: {detect_turns_text(runs)} [{dev['smi']}]")
+                    f"checkout's post-processing after the top-K and this one's in turns: "
+                    f"{detect_turns_text(runs)} [{dev['smi']}]")
             log(f"nms-only ok {time.perf_counter() - t_all:.1f}s")
             return 0
         kern = phase_kernel("cuda")
@@ -6225,11 +6437,12 @@ def main(argv) -> int:
         print("\n".join(stage_lines(brk)), flush=True)
 
         t = time.perf_counter()
-        detect = detect_turns(main_run["fx"], types.SimpleNamespace(nms=nms_ops.nms_torch), width,
+        detect = detect_turns(main_run["fx"], nms_ops.postprocess_topk_torch, width,
                               height, seed, horizon, n_main + STEADY_CHUNKS * chunk, chunk,
                               steady_chunks=0, turns=("older", "new"), warm=False)
-        log(f"nms-detect ok {time.perf_counter() - t:.1f}s the chunk step with the plain nms (the "
-            f"parent's loop) and the kernel in turns: {detect_turns_text(detect)} [{dev['smi']}]")
+        log(f"nms-detect ok {time.perf_counter() - t:.1f}s the chunk step with the plain "
+            f"post-processing after the top-K (a host-driven loop) and the fused kernel in turns: "
+            f"{detect_turns_text(detect)} [{dev['smi']}]")
         reset_nms_counts()  # the plain version's calls
 
         t = time.perf_counter()
@@ -6260,7 +6473,7 @@ def main(argv) -> int:
             f"{rd['peak_gib']:.2f} GiB [{dev['smi']}]")
 
         t = time.perf_counter()
-        NMS_LAUNCHER.launches = 0
+        reset_nms_launches()
         cli = phase_cli(main_run["fx"].detector, main_run["frames"], main_run["reader"], "cuda",
                         chunk=chunk, turn_frames=main_run["frames"] + steady["frames"])
         cli_nms = nms_launches()
@@ -6283,7 +6496,7 @@ def main(argv) -> int:
 
         t = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
-        NMS_LAUNCHER.launches = 0
+        reset_nms_launches()
         opts = phase_options(main_run["fx"].detector, main_run["frames"], main_run["reader"],
                              "cuda", chunk=chunk)
         options_nms = nms_launches()
@@ -6298,7 +6511,7 @@ def main(argv) -> int:
             + f"; peak mem {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB [{dev['smi']}]")
 
         t = time.perf_counter()
-        NMS_LAUNCHER.launches = 0
+        reset_nms_launches()
         sq = phase_sequential("cuda")
         sequential_nms = nms_launches()
         log(sequential_line(sq, time.perf_counter() - t, dev["smi"]))
@@ -6309,7 +6522,7 @@ def main(argv) -> int:
         print("\n".join(breakdown_lines(geo["ortho_breakdown"])), flush=True)
 
         t = time.perf_counter()
-        NMS_LAUNCHER.launches = 0
+        reset_nms_launches()
         ft = phase_features("cuda", geo.pop("kept"))
         features_nms = nms_launches()
         log(features_line(ft, time.perf_counter() - t, dev["smi"]))
@@ -6327,7 +6540,7 @@ def main(argv) -> int:
         reset_auction_counts()  # the CPU runs' plain calls
 
         t = time.perf_counter()
-        NMS_LAUNCHER.launches = 0
+        reset_nms_launches()
         lk = phase_lockstep(main_run["fx"].detector, "cuda")
         lockstep_nms = nms_launches()
         log(lockstep_line(lk, time.perf_counter() - t, dev["smi"]))
@@ -6335,7 +6548,7 @@ def main(argv) -> int:
 
         t = time.perf_counter()
         reset_launches()
-        NMS_LAUNCHER.launches = 0
+        reset_nms_launches()
         rn = phase_render("cuda")
         render_nms = nms_launches()
         render_launches = {**launches(), "auction": auction_launches()}
@@ -6343,13 +6556,13 @@ def main(argv) -> int:
             + f", launches {render_launches}")
 
         t = time.perf_counter()
-        NMS_LAUNCHER.launches = 0
+        reset_nms_launches()
         tr = phase_train("cuda")
         train_nms = nms_launches()
         log(train_line(tr, time.perf_counter() - t, dev["smi"]))
 
         t = time.perf_counter()
-        NMS_LAUNCHER.launches = 0
+        reset_nms_launches()
         mu = phase_multi("cuda")
         multi_nms = nms_launches()
         log(multi_line(mu, time.perf_counter() - t, dev["smi"]))
@@ -6358,7 +6571,7 @@ def main(argv) -> int:
         if plain_nms_calls():
             raise AssertionError(f"the plain nms ran {plain_nms_calls()} times on the card's "
                                  "paths")
-        NMS_LAUNCHER.launches = 0
+        reset_nms_launches()
         tl = phase_tools("cuda")
         tools_nms = nms_launches()
         log(tools_line(tl, time.perf_counter() - t, dev["smi"]))
@@ -6428,7 +6641,10 @@ def main(argv) -> int:
                      launches_steady=steady_nms, launches_reid=reid_nms, launches_cli=cli_nms,
                      launches_options=options_nms, launches_multi=multi_nms,
                      plain_calls_on_card_paths=0, eager_ms=nm["path"]["eager_ms"],
-                     whole_ms=nm["path"]["whole_ms"], alive=nm["path"]["alive"],
+                     cluster=nm["path"]["cluster"],
+                     launches_per_call=nm["path"]["launches"],
+                     nms_sorted_ms=nm["path"]["nms_ms"], chain_ms=nm["path"]["chain_ms"],
+                     chain_launches=nm["path"]["chain_launches"], alive=nm["path"]["alive"],
                      kept=nm["path"]["kept"], sync_checked_steps=main_run["sync_checked_steps"]
                      + steady["sync_checked_steps"],
                      detect_turns={which: [{k: r[k] for k in ("detect_host_ms",

@@ -1234,6 +1234,241 @@ def test_nms_wrapper_rejects_what_the_kernel_does_not_take():
     assert keep.shape == (3, 4) and not valid.any() and not keep.any()
 
 
+# The fused post-processing's cases: the NMS kernel's, and the chunk's
+# candidates with fewer slots than they keep.
+TOPK_CASES = list(NMS_CASES) + ["max_det under the kept (32, 2000)"]
+
+
+def _topk_inputs(case):
+    """(postprocess_topk's arguments, its plain version's answer) of a case."""
+    import chip_smoke
+    from geotrax_tpu_torch.ops import nms as nms_ops
+
+    max_det_cut = case == TOPK_CASES[-1]
+    boxes, scores, cls, max_det, agnostic = _nms_inputs("chunk (32, 2000)" if max_det_cut
+                                                        else case)
+    if max_det_cut:
+        max_det = 100
+    args = (*chip_smoke.topk_inputs(boxes, scores, cls, max_det), 0.7, max_det, agnostic)
+    return args, nms_ops.postprocess_topk_torch(*args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", TOPK_CASES)
+def test_postprocess_topk_equals_plain_on_card(case):
+    """The fused post-processing (csrc/nms.cu's nms_topk: gathers, corners,
+    the per-class offset, NMS, the detections; one launch) gives the plain
+    chain's detections bit for bit at every detecting path's shape, on a
+    chain of 2000, with fewer candidates than slots and with more kept
+    candidates than slots."""
+    _need_card()
+    import chip_smoke
+    from geotrax_tpu_torch.ops import nms as nms_ops
+
+    args, plain = _topk_inputs(case)
+    before, sorted_before = nms_ops.postprocess_topk.launches, nms_ops.nms_sorted.launches
+    out = nms_ops.postprocess_topk(*args)
+    torch.cuda.synchronize()
+    assert nms_ops.postprocess_topk.launches == before + 1
+    assert nms_ops.nms_sorted.launches == sorted_before
+    assert chip_smoke.topk_equal(out, plain)
+    kept = int(plain["valid"].sum(dim=-1).max())
+    if case == TOPK_CASES[-1]:
+        assert kept == 100 and bool(plain["valid"].all())
+    assert out["classes"].dtype == torch.int32 and bool((out["classes"][~out["valid"]] == -1).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("agnostic", [True, False])
+def test_postprocess_detections_one_launch_on_card_equals_the_cpu(agnostic):
+    """postprocess_detections on the card (a batch of head outputs with a
+    class mask) launches the fused kernel once and nothing else of
+    csrc/nms.cu, runs no plain version, and gives the CPU's detections bit
+    for bit."""
+    _need_card()
+    import chip_smoke
+    from geotrax_tpu_torch.ops import nms as nms_ops
+
+    rng = np.random.default_rng(5)
+    boxes, _, _ = chip_smoke.nms_candidates(4, 8400, 600, 4, 5, "cpu")
+    xywh = torch.cat([(boxes[..., :2] + boxes[..., 2:]) / 2, boxes[..., 2:] - boxes[..., :2]], -1)
+    probs = torch.from_numpy((rng.uniform(0, 1, (4, 8400, 4)) ** 6).astype(np.float32))
+    mask = torch.tensor([True, True, False, True])
+    cpu = nms_ops.postprocess_detections(xywh, probs, 0.25, 0.7, 300, mask, agnostic=agnostic)
+    launches, sorted_launches = nms_ops.postprocess_topk.launches, nms_ops.nms_sorted.launches
+    calls = nms_ops.nms_torch.calls
+    card = nms_ops.postprocess_detections(xywh.cuda(), probs.cuda(), 0.25, 0.7, 300, mask.cuda(),
+                                          agnostic=agnostic)
+    torch.cuda.synchronize()
+    assert nms_ops.postprocess_topk.launches == launches + 1
+    assert nms_ops.nms_sorted.launches == sorted_launches and nms_ops.nms_torch.calls == calls
+    assert int(cpu["valid"].sum()) > 100
+    assert chip_smoke.topk_equal({k: v.cpu() for k, v in card.items()}, cpu)
+
+
+# The CPU tests' odd post-processing cases (tests/test_torch_nms.py:topk_case),
+# made here without JAX: tied scores, and NaN and infinite box coordinates.
+ODD_TOPK_CASES = ["tied scores", "nan and inf boxes"]
+
+
+def _odd_topk_inputs(case, agnostic):
+    """postprocess_topk's arguments of an odd case on the card: two images
+    of 1500 seeded anchors in four classes, max_det 1000 (K = 1500)."""
+    import chip_smoke
+
+    boxes, scores, cls = chip_smoke.nms_candidates(2, 1500, 120, 4, 21, "cpu", classes=4)
+    if case == "tied scores":
+        rng = np.random.default_rng(3)
+        scores = torch.from_numpy(rng.choice(np.float32([0.0, 0.3, 0.5, 0.5, 0.9]), (2, 1500)))
+    xywh, cls, top_scores, top_idx = chip_smoke.topk_inputs(boxes, scores, cls, 1000)
+    if case == "nan and inf boxes":
+        xywh = xywh.clone()
+        xywh[0, top_idx[0, 3], 0] = float("nan")  # a kept candidate's centre
+        xywh[0, top_idx[0, 10], 2] = float("inf")  # another's width
+        xywh[1, top_idx[1, 5], 1] = float("-inf")
+    return (*(t.cuda() for t in (xywh, cls, top_scores, top_idx)), 0.7, 1000, agnostic)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("agnostic", [True, False])
+@pytest.mark.parametrize("case", ODD_TOPK_CASES)
+def test_postprocess_topk_and_nms_equal_plain_on_odd_inputs_on_card(case, agnostic):
+    """On tied scores and on NaN and infinite box coordinates (which make
+    the per-class span NaN or infinite), the fused post-processing gives
+    the plain chain's detections bit for bit, and the NMS kernel (``nms``
+    on the candidates' corners) nms_torch's answer."""
+    _need_card()
+    import chip_smoke
+    from geotrax_tpu_torch.ops import nms as nms_ops
+    from geotrax_tpu_torch.ops.boxes import xywh_to_xyxy
+
+    args = _odd_topk_inputs(case, agnostic)
+    out = nms_ops.postprocess_topk(*args)
+    plain = nms_ops.postprocess_topk_torch(*args)
+    assert chip_smoke.topk_equal(out, plain)
+    assert bool(plain["valid"].any())
+    if case == "nan and inf boxes":
+        assert bool(torch.isnan(plain["boxes_xywh"]).any())
+    xywh, cls, top_scores, top_idx = args[:4]
+    b, k = top_scores.shape
+    corners = xywh_to_xyxy(torch.gather(xywh, 1, top_idx[..., None].expand(b, k, 4)))
+    kw = {"class_ids": torch.gather(cls, 1, top_idx), "agnostic": agnostic}
+    keep, valid = nms_ops.nms(corners.contiguous(), top_scores.contiguous(), 0.7, 1000, **kw)
+    plain_keep, plain_valid = nms_ops.nms_torch(corners, top_scores, 0.7, 1000, **kw)
+    torch.testing.assert_close(valid, plain_valid, rtol=0, atol=0)
+    torch.testing.assert_close(keep, plain_keep, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_postprocess_topk_replays_from_a_cuda_graph():
+    """One fused call captured in a CUDA graph and replayed gives the eager
+    answer, and with other inputs copied into the captured ones theirs: the
+    call reads nothing back."""
+    _need_card()
+    import chip_smoke
+    from geotrax_tpu_torch.ops import nms as nms_ops
+
+    args, plain = _topk_inputs("chunk (32, 2000)")
+    held = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+    nms_ops.postprocess_topk(*held)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = nms_ops.postprocess_topk(*held)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert chip_smoke.topk_equal(captured, plain)
+    boxes, scores, _ = chip_smoke.nms_candidates(32, 2000, 250, 4, 77, "cuda")
+    other = chip_smoke.topk_inputs(boxes, scores, None, 1000)
+    for dst, src in zip(held[:4], other):
+        dst.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert chip_smoke.topk_equal(captured, nms_ops.postprocess_topk_torch(*other, 0.7, 1000, True))
+
+
+@pytest.mark.gpu
+def test_postprocess_topk_takes_strided_inputs_on_card():
+    """Boxes in another memory order (copied by the wrapper), the top-K as
+    exact_top_k leaves it (a slice of a longer sort, read with its stride)
+    and per-class offsets give the plain chain's detections."""
+    _need_card()
+    import chip_smoke
+    from geotrax_tpu_torch.ops import nms as nms_ops
+    from geotrax_tpu_torch.ops.topk import exact_top_k
+
+    boxes, scores, cls, max_det, _ = _nms_inputs("evaluate (8, 1024)")
+    xywh, cls, _, _ = chip_smoke.topk_inputs(boxes, scores, cls, max_det)
+    top_scores, top_idx = exact_top_k(scores, 700)
+    assert not top_scores.is_contiguous() and not top_idx.is_contiguous()
+    xywh_t = xywh.permute(2, 1, 0).contiguous().permute(2, 1, 0)
+    cls_t = cls.t().contiguous().t()
+    assert not xywh_t.is_contiguous() and not cls_t.is_contiguous()
+    out = nms_ops.postprocess_topk(xywh_t, cls_t, top_scores, top_idx, 0.7, max_det, False)
+    plain = nms_ops.postprocess_topk_torch(xywh, cls, top_scores.contiguous(),
+                                           top_idx.contiguous(), 0.7, max_det, False)
+    assert chip_smoke.topk_equal(out, plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["chunk (32, 2000)", "frame (1, 2000)", "chain of 2000",
+                                  "odd 37"])
+def test_nms_sorted_equals_plain_at_every_cluster_size(case):
+    """nms_sorted (the kernel on sorted candidates, ``nms``'s call) equals
+    nms_torch at every cluster size from one block an image to 16."""
+    _need_card()
+    import chip_smoke
+    from geotrax_tpu_torch.ops import nms as nms_ops
+
+    boxes, scores, cls, max_det, agnostic = _nms_inputs(case)
+    order, sb, ss = nms_ops.sorted_candidates(boxes, scores, cls, agnostic)
+    plain_keep, plain_valid = nms_ops.nms_torch(boxes, scores, 0.7, max_det, class_ids=cls,
+                                                agnostic=agnostic)
+    for cluster in (1, 2, 4, 8, 16):
+        with chip_smoke.cluster_forced(cluster):
+            keep, valid = nms_ops.nms_sorted(sb.contiguous(), ss.contiguous(),
+                                             order.contiguous(), 0.7, max_det)
+        torch.testing.assert_close(valid, plain_valid, rtol=0, atol=0)
+        torch.testing.assert_close(keep, plain_keep, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_postprocess_topk_rejects_what_the_kernel_does_not_take():
+    """float64 and bfloat16 boxes or scores, other index and class types
+    and mismatched shapes raise a ValueError before any launch; a cluster
+    too small for the candidates is refused by the library and raises its
+    CUDA error; nothing falls back to the plain version."""
+    _need_card()
+    import chip_smoke
+    from geotrax_tpu_torch.ops import nms as nms_ops
+
+    args, _ = _topk_inputs("lockstep (4, 2000)")
+    xywh, cls, top_scores, top_idx = args[:4]
+    launches, calls = nms_ops.postprocess_topk.launches, nms_ops.postprocess_topk_torch.calls
+    bad = [((xywh.double(), cls, top_scores, top_idx), "float32"),
+           ((xywh, cls, top_scores.to(torch.bfloat16), top_idx), "float32"),
+           ((xywh, cls.long(), top_scores, top_idx), "int32 classes"),
+           ((xywh, cls, top_scores, top_idx.int()), "int64 indices"),
+           ((xywh[..., :3], cls, top_scores, top_idx), r"\(B, A, 4\)"),
+           ((xywh, cls, top_scores[:2], top_idx[:2]), r"\(B, A, 4\)"),
+           ((xywh, cls, top_scores, top_idx[:, :5]), r"\(B, A, 4\)")]
+    for tensors, match in bad:
+        with pytest.raises(ValueError, match=match):
+            nms_ops.postprocess_topk(*tensors, 0.7, 1000, True)
+    big = nms_ops.MAX_CANDIDATES // 4
+    sorted_launches = nms_ops.nms_sorted.launches
+    with chip_smoke.cluster_forced(1), pytest.raises(RuntimeError, match="CUDA error 1 "):
+        nms_ops.nms_sorted(torch.zeros((1, big, 4), device="cuda"),
+                           torch.zeros((1, big), device="cuda"),
+                           torch.zeros((1, big), dtype=torch.int64, device="cuda"), 0.7, 10)
+    assert nms_ops.nms_sorted.launches == sorted_launches
+    assert nms_ops.postprocess_topk.launches == launches
+    assert nms_ops.postprocess_topk_torch.calls == calls
+    out = nms_ops.postprocess_topk(xywh, cls, top_scores[:, :0], top_idx[:, :0], 0.7, 6, True)
+    assert not out["valid"].any() and bool((out["classes"] == -1).all())
+    assert not out["boxes_xywh"].any() and not out["scores"].any()
+
+
 @pytest.mark.gpu
 def test_nms_failing_build_raises(tmp_path, monkeypatch):
     """A kernel source that does not compile makes ``nms`` on the card raise

@@ -180,6 +180,171 @@ def test_cpu_route_is_the_plain_version_and_loads_no_library(monkeypatch):
     assert tnms.nms_torch.calls == before_calls + 1
 
 
+def reference_top_k(xywh, probs, conf, max_det, mask=None):
+    """The reference's own candidates before its NMS (geotrax_tpu's
+    postprocess_detections up to its exact_top_k, vmapped): (classes int32,
+    top scores, top indices) as numpy."""
+    from geotrax_tpu.ops.topk import exact_top_k as jax_top_k
+
+    probs = jnp.asarray(probs)
+    if mask is not None:
+        probs = jnp.where(jnp.asarray(mask)[None, None, :], probs, 0.0)
+    scores = probs.max(axis=-1)
+    classes = probs.argmax(axis=-1)
+    scores = jnp.where(scores >= conf, scores, 0.0)
+    k = min(max(2 * max_det, 1024), scores.shape[-1])
+    top_scores, top_idx = jax.vmap(lambda s: jax_top_k(s, k))(scores)
+    return (np.array(classes, np.int32), np.array(top_scores), np.array(top_idx, np.int64))
+
+
+def topk_case(name):
+    """(xywh, probs, conf, max_det, mask) of a post-processing case."""
+    xywh, probs = head(2, 1500, 4, 21)
+    conf, max_det, mask = 0.25, 1000, None
+    if name == "max_det under the kept":
+        conf, max_det = 0.001, 20
+    elif name == "K under max_det":
+        xywh, probs = xywh[:, :300], probs[:, :300]
+    elif name == "class mask":
+        mask = np.array([True, False, True, True])
+    elif name == "tied scores":
+        rng = np.random.default_rng(3)
+        probs = rng.choice(np.float32([0.0, 0.3, 0.5, 0.5, 0.9]), probs.shape).astype(np.float32)
+    elif name == "nan and inf boxes":
+        xywh = xywh.copy()
+        top = np.argsort(-probs.max(-1), axis=-1, kind="stable")
+        xywh[0, top[0, 3], 0] = np.nan  # a kept candidate's centre
+        xywh[0, top[0, 10], 2] = np.inf  # another's width
+        xywh[1, top[1, 5], 1] = -np.inf
+    return xywh, probs, conf, max_det, mask
+
+
+TOPK_CASES = ["default", "max_det under the kept", "K under max_det", "class mask",
+              "tied scores", "nan and inf boxes"]
+
+
+@pytest.mark.parametrize("agnostic", [True, False])
+@pytest.mark.parametrize("name", TOPK_CASES)
+def test_plain_topk_postprocessing_equals_the_reference(name, agnostic):
+    """postprocess_topk_torch (the fused kernel's oracle and its CPU route),
+    fed the reference's own top-K candidates, gives the reference's
+    postprocess_detections exactly: max_det above and under the kept count,
+    fewer candidates than slots, a class mask, tied scores, NaN and infinite
+    box coordinates (the per-class span turns NaN)."""
+    xywh, probs, conf, max_det, mask = topk_case(name)
+    classes, top_scores, top_idx = reference_top_k(xywh, probs, conf, max_det, mask)
+    ours = tnms.postprocess_topk_torch(torch.from_numpy(xywh), torch.from_numpy(classes),
+                                       torch.from_numpy(top_scores), torch.from_numpy(top_idx),
+                                       IOU, max_det, agnostic)
+    ref = jax.vmap(lambda b, p: jnms.postprocess_detections(
+        b, p, conf, IOU, max_det, None if mask is None else jnp.asarray(mask),
+        agnostic=agnostic))(jnp.asarray(xywh), jnp.asarray(probs))
+    kept = np.asarray(ref["valid"]).sum(axis=-1)
+    assert kept.min() > 0
+    if name == "max_det under the kept":
+        assert (kept == max_det).all()
+    if name == "K under max_det":
+        assert top_scores.shape[-1] < max_det
+    for key in ("boxes_xywh", "scores", "classes", "valid"):
+        np.testing.assert_array_equal(ours[key].numpy(), np.asarray(ref[key]), err_msg=key)
+    if name == "nan and inf boxes":
+        assert np.isnan(ours["boxes_xywh"].numpy()).any()
+
+
+@pytest.mark.parametrize("k", [1024, 3000])
+def test_exact_top_k_order_is_the_stable_argsort(k):
+    """The fused kernel skips the reference's stable argsort of the top-K
+    scores: on scores thresholded as postprocess_detections thresholds them
+    (ties, zeros, and NaN in the class probabilities, which the threshold
+    maps to 0), exact_top_k's order is the stable descending argsort's, so
+    that argsort is the identity; and its indices are the reference's."""
+    from geotrax_tpu_torch.ops.topk import exact_top_k
+
+    rng = np.random.default_rng(k)
+    probs = np.zeros((3, 3000, 4), np.float32)
+    best = rng.choice(np.float32([0.0, 0.1, 0.3, 0.3, 0.6, 0.6, 0.9]), (3, 3000))
+    np.put_along_axis(probs, rng.integers(0, 4, (3, 3000, 1)), best[..., None], axis=-1)
+    probs[rng.uniform(size=probs.shape) < 0.05] = np.nan
+    p = torch.from_numpy(probs)
+    scores = p.amax(dim=-1)
+    scores = torch.where(scores >= 0.25, scores, 0.0)
+    assert torch.isnan(p).any() and not torch.isnan(scores).any()
+    top_scores, top_idx = exact_top_k(scores, k)
+    identity = torch.arange(k).expand(3, k)
+    assert torch.equal(torch.argsort(-top_scores, dim=-1, stable=True), identity)
+    assert (top_scores[:, 1:] == top_scores[:, :-1]).any()
+    assert bool((top_scores == 0).any()) == (k == 3000)
+    _, ref_scores, ref_idx = reference_top_k(np.zeros((3, 3000, 4), np.float32), probs, 0.25,
+                                             k // 2)
+    np.testing.assert_array_equal(top_idx.numpy(), ref_idx)
+    np.testing.assert_array_equal(top_scores.numpy(), ref_scores)
+
+
+# clusters of each size an H100 (132 SMs) holds at once, as csrc/nms.cu's
+# nms_max_clusters reports them for 2000 candidates
+H100_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
+H100_SHARED = 227248
+
+
+@pytest.mark.parametrize("b,n,want", [(1, 2000, 16), (4, 2000, 16), (8, 1024, 8),
+                                      (32, 2000, 2), (132, 2000, 1), (200, 2000, 1),
+                                      (1, 131072, 16), (32, 131072, 16), (1, 37, 1),
+                                      (4, 100, 2), (1, 192, 4)])
+def test_cluster_size_choices(b, n, want):
+    """The largest cluster whose b copies the card holds at once (the batch
+    in one wave), among those whose blocks' shared memory holds the image
+    and that have a tile for each block (up to the next power of two):
+    B = 1, 4 and 8 take 16, 16 and 8 blocks an image, 32 takes 2 (the card
+    holds 30 clusters of 4), 132 one; a batch no size fits in one wave
+    takes the smallest that launches; the image's candidates can force a
+    larger cluster, and a one-tile image takes one block."""
+    asked = []
+
+    def clusters(c, shared):
+        asked.append((c, shared))
+        return H100_CLUSTERS[c]
+
+    assert tnms.cluster_size(b, n, H100_SHARED, clusters) == want
+    assert all(shared == tnms.shared_bytes(n, c) <= H100_SHARED for c, shared in asked)
+    assert tnms.shared_bytes(2000, 2) == 16 * tnms.TILE_BYTES
+
+
+def test_cluster_size_refuses_what_no_cluster_holds():
+    with pytest.raises(ValueError, match="no cluster"):
+        tnms.cluster_size(1, 131072, 100_000, lambda c, s: 7)
+    with pytest.raises(ValueError, match="no cluster"):
+        tnms.cluster_size(1, 2000, H100_SHARED, lambda c, s: 0)
+
+
+def test_topk_cpu_route_is_the_plain_version_and_loads_no_library(monkeypatch):
+    """On CPU tensors postprocess_topk and postprocess_detections run
+    postprocess_topk_torch (its count moves, the kernel's does not) and
+    build or load no library; another device type is refused by name."""
+    def refuse(name):
+        raise AssertionError(f"loaded {name}")
+
+    monkeypatch.setattr(_cuda, "load", refuse)
+    monkeypatch.setattr(_cuda, "build", refuse)
+    xywh, probs, conf, max_det, _ = topk_case("default")
+    classes, top_scores, top_idx = reference_top_k(xywh, probs, conf, max_det)
+    calls, launches = tnms.postprocess_topk_torch.calls, tnms.postprocess_topk.launches
+    args = (torch.from_numpy(xywh), torch.from_numpy(classes), torch.from_numpy(top_scores),
+            torch.from_numpy(top_idx), IOU, max_det)
+    out = tnms.postprocess_topk(*args, False)
+    assert tnms.postprocess_topk_torch.calls == calls + 1
+    for key, value in tnms.postprocess_topk_torch(*args, False).items():
+        torch.testing.assert_close(out[key], value, rtol=0, atol=0, equal_nan=True)
+    det = tnms.postprocess_detections(torch.from_numpy(xywh), torch.from_numpy(probs), conf, IOU,
+                                      max_det, agnostic=False)
+    assert tnms.postprocess_topk_torch.calls == calls + 3
+    assert tnms.postprocess_topk.launches == launches
+    torch.testing.assert_close(det["valid"], out["valid"], rtol=0, atol=0)
+    meta = torch.empty((2, 5), device="meta")
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        tnms.postprocess_topk(torch.empty((2, 5, 4), device="meta"), meta.int(), meta,
+                              meta.long(), IOU, max_det)
+
+
 def refinement_system(n, noise, seed, zero_share=0.3):
     """The 9x9 float64 normal-equation matrix fit_homography_normal builds
     for ``n`` noisy correspondences of a near-identity homography with soft
