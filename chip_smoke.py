@@ -15,13 +15,16 @@
     python3 chip_smoke.py --multi-only     # phases 0, 1 and 16 only, no result line
     python3 chip_smoke.py --tools-only     # phases 0, 1 and 17 only, no result line
     python3 chip_smoke.py --host-tools-only  # phases 0, 1 and 18 only, no result line
+    python3 chip_smoke.py --decode-only    # phases 0, 1, 3 (for its detector and frames) and
+                                           # 19 only, no result line
 
 Phases, one ``[smoke] <phase> ok <seconds>s ...`` line each; a failing phase
 ends the run with a non-zero exit and no result line:
 
   0 device     the card's name and power limit (exit 1 without a card)
   1 build      nvcc builds csrc/fast_score.cu, csrc/patch_gather.cu,
-               csrc/auction.cu and csrc/nms.cu for sm_90a and g++ the TIFF reader's
+               csrc/auction.cu, csrc/nms.cu and csrc/nv12_rgb24.cu for sm_90a
+               and g++ the TIFF reader's
                io/native/tiff.cpp and the exact assignment's
                io/native/lapjv.cpp, all at once (-Xptxas -v shown)
   2 kernel     the FAST kernel equals its plain PyTorch version exactly on a
@@ -322,6 +325,28 @@ ends the run with a non-zero exit and no result line:
                other fifteen host tools once each on seeded files: exit 0
                and their files present (figures are skipped, with a log
                line, where matplotlib is missing)
+ 19 decode     (run after the cli phase, on its detector and the main phase's
+               frames) decoding on the card's side: (a) the NVDEC probe
+               (libnvcuvid.so.1 loaded, cuvidGetDecoderCaps for H.264 and
+               HEVC 8-bit 4:2:0 in the primary context; information, the
+               port does not decode there yet); (b) the port's MP4 demuxer
+               on tests/data/video's fixtures, size, frame rate and count
+               equal to libavformat's probe recorded beside them; (c) the
+               NV12 -> RGB24 kernel equal to its plain version on the first
+               frame's planes, on the same planes at a row pitch of 4096, on
+               seeded planes at 4K, 1922x1082 and 38x22; CUDA-event ms of
+               both against the bound; (d) run_extraction -m ckpt.npz -c
+               default on the main phase's frames handed over as NV12 planes
+               in host memory through DeviceVideoReader (open_reader
+               replaced, the native decoder's plane source too): the kernel
+               launched once a frame, its files byte-equal to a run fed the
+               plain conversion's frames from memory, frames/s of both; (e)
+               tests/data/video/h264_4k.mp4 read by extract's own reader
+               (cv2 where there is no FFmpeg; it must exist), every frame
+               equal to the reference's, run_extraction from the file and
+               from those frames in memory in turns, files byte-equal, and
+               ``python -m geotrax_tpu_torch extract`` of it in a
+               subprocess: exit 0
 Then a JSON line describing each kernel, the card's nvidia-smi line, and as
 the last line {"ok": true, "device": {...}}. ``--tracker-only`` runs the
 main, steady and breakdown phases alone: copied into a checkout without the
@@ -348,12 +373,15 @@ other checkout and run it there too. ``--georef-only`` runs phases 0, 1 and
 ``--render-only`` phases 0, 1 and 13, ``--train-only`` phases 0, 1 and 14,
 ``--features-only`` phases 0, 1 and 15 with its own georef assets,
 ``--multi-only`` phases 0, 1 and 16, ``--tools-only`` phases 0, 1 and 17,
-``--host-tools-only`` phases 0, 1 and 18 (no result line).
+``--host-tools-only`` phases 0, 1 and 18, ``--decode-only`` phases 0, 1,
+3 and 19 (no result line).
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
+import importlib.util
 import json
 import logging
 import math
@@ -375,7 +403,7 @@ from geotrax_tpu_torch._device import resolve_device
 from geotrax_tpu_torch.io.synthetic import SyntheticVideoReader
 from geotrax_tpu_torch.models import rtdetr_ul, yolov8
 from geotrax_tpu_torch.models.detector import Detector, OracleDetector
-from geotrax_tpu_torch.ops import assignment, fast, features, patches
+from geotrax_tpu_torch.ops import assignment, fast, features, patches, yuv
 from geotrax_tpu_torch.ops import nms as nms_ops
 from geotrax_tpu_torch.ops.resize import resize_u8_linear
 from geotrax_tpu_torch.pipeline import extract as port_extract
@@ -434,6 +462,24 @@ TOPK_SPAN_FLOPS = 8
 TOPK_OFFSET_FLOPS = 5
 # The cluster sizes the NMS phase times its kernel at
 CLUSTER_SWEEP = (1, 2, 4, 8, 16)
+NV12_SOURCE = "geotrax_tpu_torch/csrc/nv12_rgb24.cu"
+# not a Pallas site: the reference's host swscale (sws_getContext/sws_scale)
+NV12_REPLACES = "geotrax_tpu/io/native/decode.cpp:169"
+# int32 operations per pixel of the YUV -> RGB conversion (the luma's shift,
+# subtract, multiply and shift; a quarter of the chroma's 2 shifts, 2
+# subtracts, 4 multiplies, 4 shifts and an add; three adds and six clamps),
+# and the card's int32 rate: half its float32 rate
+NV12_OPS_PER_PIXEL = 12
+INT32_OP_PER_S = FP32_FLOP_PER_S / 2
+# The kernel's sizes beside 4K: a width of 2 mod 4 (byte stores on odd rows
+# and a half tile at the right edge) and a tiny frame
+NV12_ODD_SIZES = ((1082, 1922), (22, 38))
+# A row pitch of NVDEC-like surfaces (rows padded to 4096 bytes at 4K)
+NV12_PITCH = 4096
+# The committed video fixtures (tests/data/video, libavcodec's planes' SHA-1s
+# and libavformat's probe beside each)
+VIDEO_FIXTURES = ("h264_4k", "hevc_4k")
+DECODE_CLIP = Path(__file__).resolve().parent / "tests" / "data" / "video" / "h264_4k.mp4"
 PATCH_SOURCE = "geotrax_tpu_torch/csrc/patch_gather.cu"
 PATCH_REPLACES = "geotrax_tpu/ops/pallas_patches.py:40"
 # The ReID path's gather per 32-frame 4K chunk: 3 channel planes of each
@@ -527,7 +573,7 @@ def phase_device() -> dict:
 
 
 def phase_build() -> dict:
-    """The four kernels, each by its own nvcc, and the host libraries of the
+    """The five kernels, each by its own nvcc, and the host libraries of the
     TIFF reader and the exact assignment, each by its own g++, all started
     together; their logs (a g++ build's: the library's path)."""
     from geotrax_tpu_torch.io import native, tiff
@@ -535,7 +581,7 @@ def phase_build() -> dict:
 
     modules = {"fast_score": fast, "patch_gather": patches,
                **({"auction": assignment} if HAS_AUCTION else {}),
-               **({"nms": nms_ops} if HAS_NMS else {})}
+               **({"nms": nms_ops} if HAS_NMS else {}), "nv12_rgb24": yuv}
     host = {"tiff.cpp": tiff.SOURCE, "lapjv.cpp": LAPJV_SOURCE}
     with ThreadPoolExecutor(len(modules) + len(host)) as pool:
         futures = {name: pool.submit(mod.build, verbose=True) for name, mod in modules.items()}
@@ -2271,6 +2317,21 @@ def driver_turns(config: dict, detector, frames, info, chunk: int, device: str,
     return {"ms": ms, "rows": int(len(pt))}
 
 
+def cli_checkpoint(detector, tmp: Path) -> tuple:
+    """``detector``'s model saved as ``tmp/ckpt.npz`` and the ``-c`` it runs
+    under: ``default``, or a copy of it at a rehearsal's smaller imgsz."""
+    from geotrax_tpu_torch.models import convert
+
+    names = {0: "car", 1: "bus", 2: "truck", 3: "motorcycle"}
+    convert.save_npz(tmp / "ckpt.npz", detector.model, class_names=names)
+    cfg = "default"
+    if detector.imgsz != port_cfg.DEFAULT["ultralytics"]["imgsz"]:  # a rehearsal's size
+        cfg = str(tmp / "default_copy.yaml")
+        text = (port_cfg.CFG_DIR / "default.yaml").read_text()
+        Path(cfg).write_text(text.replace("  imgsz: 1920\n", f"  imgsz: {detector.imgsz}\n"))
+    return tmp / "ckpt.npz", cfg
+
+
 def phase_cli(detector, frames, reader, device: str = "cuda", chunk: int = 32,
               tol_px: float = 2.0, turn_frames=None, turn_rounds: int = 2) -> dict:
     """``extract`` as a user runs it: the main phase's calibrated detector
@@ -2290,9 +2351,9 @@ def phase_cli(detector, frames, reader, device: str = "cuda", chunk: int = 32,
     res = {"probe": native.probe()}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        names = {0: "car", 1: "bus", 2: "truck", 3: "motorcycle"}
-        convert.save_npz(tmp / "ckpt.npz", detector.model, class_names=names)
-        convert.save_pt(tmp / "ckpt.pt", detector.model, class_names=names)
+        _, cfg = cli_checkpoint(detector, tmp)
+        convert.save_pt(tmp / "ckpt.pt", detector.model,
+                        class_names={0: "car", 1: "bus", 2: "truck", 3: "motorcycle"})
         frame0 = torch.as_tensor(frames[0][1][None]).to(detector.device)
         dets = {suffix: Detector(tmp / f"ckpt.{suffix}", smoke_config(detector.imgsz)["ultralytics"],
                                  device=device).batch_trace(info.height, info.width)(frame0)
@@ -2304,11 +2365,6 @@ def phase_cli(detector, frames, reader, device: str = "cuda", chunk: int = 32,
         if res["npz_vs_memory"] != 0.0 or res["pt_vs_npz"] > 1e-3:
             raise AssertionError(f"checkpoint detections differ: {res}")
 
-        cfg = "default"
-        if detector.imgsz != port_cfg.DEFAULT["ultralytics"]["imgsz"]:  # a rehearsal's size
-            cfg = str(tmp / "default_copy.yaml")
-            text = (port_cfg.CFG_DIR / "default.yaml").read_text()
-            Path(cfg).write_text(text.replace("  imgsz: 1920\n", f"  imgsz: {detector.imgsz}\n"))
         source = tmp / "V_cli.mp4"
         args = cli_args(source, cfg, tmp / "ckpt.npz", device)
         replaced = port_extract.open_reader
@@ -2351,6 +2407,405 @@ def phase_cli(detector, frames, reader, device: str = "cuda", chunk: int = 32,
     res["turns"] = driver_turns(smoke_config(detector.imgsz), detector,
                                 turn_frames or frames, info, chunk, device, turn_rounds)
     return res
+
+
+def nvdec_probe() -> dict:
+    """Whether the driver lets a program decode on the card
+    (NVDEC): the driver's ``libnvcuvid.so.1`` loaded with ctypes, and
+    ``cuvidGetDecoderCaps`` for H.264 and HEVC, 8-bit 4:2:0, in the card's
+    primary context (the one torch uses). The port does not decode there
+    yet; the probe says whether a later one can."""
+    import ctypes
+
+    res = {"capabilities": os.environ.get("NVIDIA_DRIVER_CAPABILITIES", "not set")}
+    try:
+        lib = ctypes.CDLL("libnvcuvid.so.1")
+    except OSError as exc:
+        res["library"] = f"does not load ({exc})"
+        return res
+    res["library"] = "loads"
+
+    class Caps(ctypes.Structure):  # CUVIDDECODECAPS, then room for later fields
+        _fields_ = [("codec", ctypes.c_int), ("chroma", ctypes.c_int),
+                    ("depth_minus8", ctypes.c_uint), ("reserved1", ctypes.c_uint * 3),
+                    ("supported", ctypes.c_ubyte), ("nvdecs", ctypes.c_ubyte),
+                    ("formats", ctypes.c_ushort), ("max_width", ctypes.c_uint),
+                    ("max_height", ctypes.c_uint), ("max_mbs", ctypes.c_uint),
+                    ("min_width", ctypes.c_ushort), ("min_height", ctypes.c_ushort),
+                    ("room", ctypes.c_ubyte * 128)]
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    ctx = ctypes.c_void_p()
+    torch.zeros(1, device="cuda")
+    cu.cuDevicePrimaryCtxRetain(ctypes.byref(ctx), 0)
+    cu.cuCtxPushCurrent_v2(ctx)
+    try:
+        for name, codec in (("h264", 4), ("hevc", 8)):  # cudaVideoCodec_H264, _HEVC
+            caps = Caps(codec=codec, chroma=1)  # cudaVideoChromaFormat_420
+            rc = lib.cuvidGetDecoderCaps(ctypes.byref(caps))
+            res[name] = {"rc": rc, "supported": caps.supported, "nvdecs": caps.nvdecs,
+                         "max": (caps.max_width, caps.max_height),
+                         "4k": bool(rc == 0 and caps.supported and caps.max_width >= 3840
+                                    and caps.max_height >= 2176)}
+    finally:
+        cu.cuCtxPopCurrent_v2(ctypes.byref(ctypes.c_void_p()))
+        cu.cuDevicePrimaryCtxRelease_v2(0)
+    return res
+
+
+def rgb_to_nv12(frame: torch.Tensor) -> tuple:
+    """(Y, UV) NV12 planes of an (H, W, 3) uint8 RGB frame: BT.601 limited
+    range, each chroma sample the mean of its 2x2 pixels (the synthetic
+    scene's stand-in for what a decoder hands over)."""
+    rgb = frame.to(torch.float32)
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    y = 16 + (65.738 * r + 129.057 * g + 25.064 * b) / 256
+    u = 128 + (-37.945 * r - 74.494 * g + 112.439 * b) / 256
+    v = 128 + (112.439 * r - 94.154 * g - 18.285 * b) / 256
+    h, w = y.shape
+
+    def pooled(c):
+        return c.reshape(h // 2, 2, w // 2, 2).mean(dim=(1, 3))
+
+    uv = torch.stack([pooled(u), pooled(v)], dim=-1).reshape(h // 2, w)
+    return (y.round().clamp(0, 255).to(torch.uint8),
+            uv.round().clamp(0, 255).to(torch.uint8))
+
+
+def nv12_bound_ms(h: int, w: int) -> tuple:
+    """Least time of one NV12 -> RGB24 conversion of an h x w frame: the
+    planes read once (1.5 bytes a pixel) and the frame written once (3),
+    against the int32 operations; (ms, "bytes" | "operations", bytes)."""
+    moved = h * w * 3 // 2 + h * w * 3
+    by_bytes = moved / HBM_BYTES_PER_S * 1e3
+    by_ops = NV12_OPS_PER_PIXEL * h * w / INT32_OP_PER_S * 1e3
+    return (by_bytes, "bytes", moved) if by_bytes >= by_ops else (by_ops, "operations", moved)
+
+
+def nv12_check(name: str, y: torch.Tensor, uv: torch.Tensor, reps: int = 50) -> dict:
+    """The kernel against its plain version on (y, uv) (bit for bit); on the
+    card also the kernel's device ms (CUDA-graph replay) and ms as called
+    (CUDA events around eager calls, the wrapper's host cost included), the
+    plain version's CUDA-event ms and the bound. The comparison's launches
+    are not counted: the caller resets the count."""
+    got = yuv.nv12_to_rgb24(y, uv)
+    want = yuv.nv12_to_rgb24_torch(y, uv)
+    diff = (got.to(torch.int16) - want.to(torch.int16)).abs()
+    h, w = y.shape
+    res = {"name": name, "shape": (h, w), "pitch": (y.stride(0), uv.stride(0)),
+           "max_abs_err": float(diff.max()), "differing_bytes": int((diff > 0).sum())}
+    if res["max_abs_err"] != 0.0:
+        raise AssertionError(f"nv12_rgb24 differs from its plain version on {name}: {res}")
+    res["bound_ms"], res["bound_by"], res["bytes"] = nv12_bound_ms(h, w)
+    if y.device.type == "cuda":
+        res["ms"] = graph_ms(lambda: yuv.nv12_to_rgb24(y, uv), reps)
+        res["called_ms"] = called_ms(lambda: yuv.nv12_to_rgb24(y, uv), reps)
+        res["plain_ms"] = cuda_ms(lambda: yuv.nv12_to_rgb24_torch(y, uv), max(2, reps // 10))
+        res["gb_per_s"] = res["bytes"] / res["ms"] / 1e6
+        res["bound_share"] = res["bound_ms"] / res["ms"]
+    return res
+
+
+def nv12_text(c: dict) -> str:
+    h, w = c["shape"]
+    text = f"{c['name']} {w}x{h} pitch {c['pitch'][0]}: equal"
+    if "ms" in c:
+        text += (f", kernel {c['ms']:.4f} ms device ({c['gb_per_s']:.0f} GB/s, "
+                 f"{c['bound_share']:.0%} of the {c['bound_ms']:.4f} ms bound), "
+                 f"{c['called_ms']:.4f} as called, plain {c['plain_ms']:.3f} ms")
+    return text
+
+
+def fixture_demux(root: Path) -> dict:
+    """The port's demuxer on the committed fixtures: each one's size, frame
+    rate and frame count equal to what libavformat's probe reported when
+    the fixture was made, and its Annex-B stream's bytes."""
+    from geotrax_tpu_torch.io import mp4
+
+    out = {}
+    for name in VIDEO_FIXTURES:
+        want = json.loads((root / f"{name}.json").read_text())
+        t0 = time.perf_counter()
+        with mp4.Mp4Video(root / f"{name}.mp4") as video:
+            nbytes = sum(len(s) for s in video.samples())
+            info = video.info
+        got = {"width": info.width, "height": info.height, "fps": info.fps,
+               "frame_count": info.frame_count}
+        if got != {k: want[k] for k in got} or info.frame_count != len(want["planes_sha1"]):
+            raise AssertionError(f"the demuxer reads {name}.mp4 as {got}, libavformat as "
+                                 f"{ {k: want[k] for k in got} }")
+        out[name] = {**got, "codec": video.codec, "annexb_bytes": nbytes,
+                     "ms": (time.perf_counter() - t0) * 1e3}
+    return out
+
+
+@contextlib.contextmanager
+def planes_decoder(videos: dict):
+    """The native decoder's probe and plane source (``io/native``)
+    replaced by NV12 planes held in host memory: ``videos`` maps a file
+    name to its (VideoInfo, [(index, flat uint8 numpy buffer)]).
+    ``DeviceVideoReader`` of a path with that name then reads them as it
+    reads a file's, each copied into the pinned buffer it allocates. The
+    card's machine has no FFmpeg, so no file reaches this route there."""
+    from geotrax_tpu_torch.io import native
+
+    def probe(path):
+        info = videos[Path(path).name][0]
+        return info.width, info.height, info.fps, info.frame_count
+
+    def frames_yuv(path, alloc):
+        for idx, buf in videos[Path(path).name][1]:
+            out = alloc(buf.size)
+            out.copy_(torch.from_numpy(buf))
+            yield idx, out
+
+    replaced = native.native_probe, native.native_frames_yuv
+    native.native_probe, native.native_frames_yuv = probe, frames_yuv
+    try:
+        yield
+    finally:
+        native.native_probe, native.native_frames_yuv = replaced
+
+
+def phase_decode(detector, frames, reader, device: str = "cuda", reps: int = 50,
+                 tol_px: float = 2.0, clip=None, rounds: int = 2) -> dict:
+    """Decoding on the card's side of the port: (a) the NVDEC probe; (b) the
+    demuxer on the committed fixtures; (c) the NV12 -> RGB24 kernel exact
+    against its plain version on the planes of the first frame (the seeded
+    synthetic scene), the same planes with rows at an NVDEC-like pitch,
+    seeded planes at 4K and at NV12_ODD_SIZES, timed at 4K; (d)
+    ``extract`` as users run it (run_extraction, -m ckpt.npz -c default) on
+    the main phase's frames handed over as NV12 planes in host memory,
+    read by ``DeviceVideoReader`` in the native decoder's place
+    (``planes_decoder``; on the CPU, which has no such reader, tensor
+    frames of the wrapper's plain route): the kernel launched once a
+    frame, and the results file byte-equal to a run fed from memory the
+    plain conversion's RGB frames of the same planes; frames/s of both;
+    (e) ``extract`` of ``clip`` from the file (``file_extract``)."""
+    from geotrax_tpu_torch.io.video import DeviceVideoReader
+
+    small = detector.imgsz != port_cfg.DEFAULT["ultralytics"]["imgsz"]  # a rehearsal's size
+    res = {"probe": nvdec_probe() if device == "cuda" else {"library": "not probed on the CPU"}}
+    fixtures = Path(__file__).resolve().parent / "tests" / "data" / "video"
+    res["demux"] = fixture_demux(fixtures)
+    info = reader.info
+    h, w = info.height, info.width
+    planes = [rgb_to_nv12(torch.as_tensor(f).to(device)) for _, f in frames]
+    y0, uv0 = planes[0]
+    gen = torch.Generator().manual_seed(0)
+    checks = [nv12_check("scene", y0, uv0, reps)]
+    pitched = torch.zeros((h * 3 // 2, max(NV12_PITCH, w)), dtype=torch.uint8, device=device)
+    pitched[:h, :w] = y0
+    pitched[h:, :w] = uv0
+    checks.append(nv12_check("scene, pitched", pitched[:h, :w], pitched[h:, :w], reps))
+    for size in ((h, w),) + NV12_ODD_SIZES:
+        ys = torch.randint(0, 256, size, generator=gen, dtype=torch.uint8).to(device)
+        uvs = torch.randint(0, 256, (size[0] // 2, size[1]), generator=gen,
+                            dtype=torch.uint8).to(device)
+        checks.append(nv12_check("seeded", ys, uvs, reps))
+    res["checks"] = checks
+    res["max_abs_err"] = max(c["max_abs_err"] for c in checks)
+
+    # (d) the extract path: planes in host memory, as the native decoder gives them
+    host_planes = [(i, torch.cat([y.reshape(-1), uv.reshape(-1)]).cpu().numpy())
+                   for (i, _), (y, uv) in zip(frames, planes)]
+    plain = [(i, yuv.nv12_to_rgb24_torch(y, uv).cpu().numpy())
+             for (i, _), (y, uv) in zip(frames, planes)]
+    if device == "cuda":
+        def from_planes():
+            return DeviceVideoReader("V_decode.mp4", device=device)
+    else:
+        converted = [(i, yuv.nv12_to_rgb24(y, uv)) for (i, _), (y, uv) in zip(frames, planes)]
+
+        def from_planes():
+            return FrameList(info, converted)
+    del planes
+    with scratch_dir() as tmp:
+        tmp = Path(tmp)
+        ckpt, cfg = cli_checkpoint(detector, tmp)
+        # the YUV round trip moves pixels by a grey level, which moves a random
+        # detector's few boxes at a rehearsal's size: no track may last
+        with planes_decoder({"V_decode.mp4": (info, host_planes)}):
+            runs = extract_in_turns({"memory": lambda: FrameList(info, plain),
+                                     "planes": from_planes},
+                                    tmp / "planes", ckpt, cfg, device, len(frames), reader,
+                                    tol_px, small, rounds=rounds)
+        expected = len(frames) if device == "cuda" else 0
+        if set(runs["planes"]["launches"]) != {expected} or any(runs["memory"]["launches"]):
+            raise AssertionError(f"nv12_rgb24 launched {runs['planes']['launches']} times on "
+                                 f"{len(frames)} frames from planes (expected {expected}), "
+                                 f"{runs['memory']['launches']} times from memory")
+        res["runs"] = runs
+
+        # (e) the file as users hand it over
+        if clip is not None:
+            res["file"] = file_extract(Path(clip), tmp, ckpt, cfg, device, tol_px, rounds)
+    return res
+
+
+def extract_in_turns(sources: dict, tmp: Path, ckpt: Path, cfg: str, device: str,
+                     n_frames: int, camera, tol_px: float, may_lack_tracks: bool,
+                     source_name: str = "V_decode.mp4", rounds: int = 2) -> dict:
+    """run_extraction (-m ckpt -c cfg) of each source in turns (a, b, b, a;
+    a, b with one round):
+    ``sources`` maps a name to a factory of the frame source that
+    open_reader hands over (None: extract's own open_reader, the file
+    ``tmp/<source_name>``). Every run's files must be byte-equal; per name
+    its runs' frames/s, wall seconds and NV12 kernel launches (the count
+    set to 0 before each run, read after), its files' bytes and checks."""
+    names = list(sources)
+    runs = {name: {"fps": [], "wall_s": [], "launches": []} for name in names}
+    written, replaced = [], port_extract.open_reader
+    for k, name in enumerate((names + names[::-1])[:len(names) * rounds]):
+        source = tmp / f"run{k}" / source_name
+        source.parent.mkdir(parents=True)
+        if (tmp / source_name).exists():
+            shutil.copy(tmp / source_name, source)
+        if sources[name] is not None:
+            port_extract.open_reader = lambda *a, _make=sources[name]: _make()
+        yuv.nv12_to_rgb24.launches = 0
+        try:
+            t0 = time.perf_counter()
+            stats = port_extract.run_extraction(cli_args(source, cfg, ckpt, device),
+                                                port_extract._LOG)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            port_extract.open_reader = replaced
+        runs[name]["launches"].append(yuv.nv12_to_rgb24.launches)
+        yuv.nv12_to_rgb24.launches = 0
+        runs[name]["fps"].append(stats["fps"])
+        runs[name]["wall_s"].append(wall)
+        files = [Path(stats[key]) for key in ("tracks_file", "transforms_file")]
+        written.append([f.read_bytes() if f.exists() else b"" for f in files])
+        if "checks" not in runs[name]:
+            runs[name]["checks"] = check_files(*files, stats.get("metadata_file"), n_frames,
+                                               camera, tol_px, may_lack_tracks=may_lack_tracks)
+            runs[name]["bytes"] = sum(len(b) for b in written[-1])
+    if any(w != written[0] for w in written):
+        raise AssertionError(f"the runs of {names} in turns wrote other files")
+    return runs
+
+
+class FixtureCamera:
+    """The camera of a committed fixture (its JSON's ``camera``: px right
+    and down per frame): ``camera_h`` as SyntheticVideoReader's, for
+    check_files."""
+
+    def __init__(self, info, record: dict):
+        self.info = info
+        self.dx, self.dy = record["camera"][:2]
+
+    def camera_h(self, idx: int) -> np.ndarray:
+        return np.array([[1.0, 0.0, self.dx * idx], [0.0, 1.0, self.dy * idx], [0.0, 0.0, 1.0]])
+
+
+def file_extract(clip: Path, tmp: Path, ckpt: Path, cfg: str, device: str,
+                 tol_px: float, rounds: int = 2) -> dict:
+    """``extract`` of a committed fixture file: with a decoder here (FFmpeg's
+    libraries for the native backend, else cv2), its frames (through
+    make_reader on ``device``, as extract opens it) against the SHA-1s of
+    the reference's RGB frames recorded beside it; run_extraction from the
+    file and from those frames held in memory, files byte-equal, frames/s of
+    both; then ``python -m geotrax_tpu_torch extract`` in a subprocess:
+    exit 0, its transforms within ``tol_px`` of the fixture's camera. On
+    the card a decoder is required and every frame must equal the
+    reference's; only on the CPU (a test's host without one) must the
+    subprocess instead exit 1 saying what is missing."""
+    from geotrax_tpu_torch.io import video
+
+    record = json.loads(clip.with_suffix(".json").read_text())
+    backend = video.get_backend()
+    usable = backend == "native" or importlib.util.find_spec("cv2") is not None
+    if device == "cuda" and not usable:
+        raise AssertionError(f"the card's machine cannot read {clip}: no FFmpeg libraries for "
+                             f"the native backend and no cv2")
+    res = {"clip": clip.name, "backend": backend if usable else "none"}
+    local = tmp / clip.name  # the metadata file goes beside the source
+    shutil.copy(clip, local)
+    (tmp / "file").mkdir()
+    shutil.copy(clip, tmp / "file" / clip.name)
+    camera = FixtureCamera(types.SimpleNamespace(width=record["width"],
+                                                 height=record["height"]), record)
+    if usable:
+        t0 = time.perf_counter()
+        reader = video.make_reader(local, device=device)
+        frames = [(i, f.cpu().numpy() if torch.is_tensor(f) else f) for i, f in reader]
+        res["decode_fps"] = len(frames) / (time.perf_counter() - t0)
+        res["reader"] = type(reader).__name__
+        got = [hashlib.sha1(np.ascontiguousarray(f).tobytes()).hexdigest() for _, f in frames]
+        res["frames"] = len(got)
+        res["frames_equal"] = sum(a == b for a, b in zip(got, record["rgb_sha1"]))
+        if not res["frames_equal"] == len(got) == len(record["rgb_sha1"]):
+            raise AssertionError(f"{clip} through {res['reader']}: {res['frames_equal']} of "
+                                 f"{len(got)} frames equal the reference's "
+                                 f"{len(record['rgb_sha1'])}")
+        res["runs"] = extract_in_turns({"file": None,
+                                        "memory": lambda: FrameList(reader.info, frames)},
+                                       tmp / "file", ckpt, cfg, device, record["frame_count"],
+                                       camera, tol_px, True, source_name=clip.name,
+                                       rounds=rounds)
+    cmd = [sys.executable, "-m", "geotrax_tpu_torch", "extract", str(local), "-m", str(ckpt),
+           "-c", cfg, "-of", str(tmp / "subprocess"), "-lp", str(tmp),
+           *([] if device == "cuda" else ["--device", device])]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent, capture_output=True,
+                          text=True, timeout=600)
+    res.update(exit=proc.returncode, s=time.perf_counter() - t0,
+               said=proc.stderr.strip().splitlines()[-1:])
+    if not usable:
+        if proc.returncode == 0 or "cannot read" not in proc.stderr:
+            raise AssertionError(f"extract of {clip} without a decoder: exit "
+                                 f"{proc.returncode}, {proc.stderr[-2000:]}")
+        return res
+    if proc.returncode != 0:
+        raise AssertionError(f"extract of {clip} failed (exit {proc.returncode}):\n"
+                             f"{proc.stderr[-3000:]}")
+    res["checks"] = check_files(tmp / "subprocess" / f"{clip.stem}.txt",
+                                tmp / "subprocess" / f"{clip.stem}_vid_transf.txt",
+                                local.with_suffix(".yaml"), record["frame_count"], camera, tol_px,
+                                may_lack_tracks=True)
+    return res
+
+
+def runs_text(runs: dict) -> str:
+    """Each source's frames/s and NV12 launches over its runs in turns."""
+    return ", ".join(f"{name} {'/'.join(f'{x:.2f}' for x in r['fps'])} frames/s (wall "
+                     f"{'/'.join(f'{x:.1f}' for x in r['wall_s'])} s, "
+                     f"{'/'.join(str(n) for n in r['launches'])} kernel launches)"
+                     for name, r in runs.items())
+
+
+def decode_line(dc: dict, seconds: float, smi: str) -> str:
+    pr = dc["probe"]
+    probe = (f"libnvcuvid.so.1 {pr['library']}, NVIDIA_DRIVER_CAPABILITIES="
+             f"{pr.get('capabilities')}" + "".join(
+                 f", {k} cuvidGetDecoderCaps rc {pr[k]['rc']} supported {pr[k]['supported']} "
+                 f"max {pr[k]['max'][0]}x{pr[k]['max'][1]}" for k in ("h264", "hevc") if k in pr))
+    demux = "; ".join(f"{k}.mp4 {v['codec']} {v['width']}x{v['height']} {v['fps']:.5f} fps "
+                      f"{v['frame_count']} frames ({v['annexb_bytes']} Annex-B bytes, "
+                      f"{v['ms']:.1f} ms)" for k, v in dc["demux"].items())
+    runs = dc["runs"]
+    text = (f"decode ok {seconds:.1f}s NVDEC probe: {probe}; demuxer == libavformat's probe: "
+            f"{demux}; nv12_rgb24 == plain: " + "; ".join(nv12_text(c) for c in dc["checks"])
+            + f"; extract of the main frames in turns, from the plain conversion's RGB frames in "
+              f"memory and from NV12 planes in host memory (DeviceVideoReader): "
+              f"{runs_text(runs)}, {runs['planes']['checks']['rows']} rows, files byte-equal")
+    if "file" in dc:
+        f = dc["file"]
+        text += f"; extract of {f['clip']} through the {f['backend']} backend"
+        if "runs" in f:
+            text += (f" ({f['reader']}, decode alone {f['decode_fps']:.2f} frames/s, "
+                     f"{f['frames_equal']}/{f['frames']} frames equal to the reference's RGB) in "
+                     f"turns: {runs_text(f['runs'])}, files byte-equal")
+        text += f"; as a subprocess: exit {f['exit']} in {f['s']:.1f}s"
+        if "checks" in f:
+            text += (f", {f['checks']['rows']} rows, camera error "
+                     f"{f['checks']['camera_err_px']:.3f} px")
+        elif f["exit"]:
+            text += f" ({' '.join(f['said'])[:200]})"
+    return text + f" [{smi}]"
 
 
 OPTIONS = (
@@ -3150,7 +3605,7 @@ class CountFlops:
 
 def run_extraction_in_memory(args, frames, info, detector=None) -> dict:
     """``run_extraction`` with the frames in memory (``open_reader``
-    replaced, the card's machine cannot decode) and, when given, the
+    replaced, so that the frames are the ones checked) and, when given, the
     detector in memory (``load_detector`` replaced): the reference's own
     patch points."""
     replaced = port_extract.open_reader, port_extract.load_detector
@@ -6150,6 +6605,25 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int, res: dict
             "launches_features": features_launches, **extra}
 
 
+def nv12_entry(dc: dict) -> dict:
+    """The NV12 -> RGB24 kernel's entry of the JSON line (the decode
+    phase): its launches on the extract path from planes, its numbers on
+    the scene's 4K planes, every checked shape, both runs' frames/s."""
+    first = dc["checks"][0]
+    return {"name": "nv12_rgb24", "route": "cuda", "source": NV12_SOURCE,
+            "replaces": NV12_REPLACES, "launches": dc["runs"]["planes"]["launches"][0],
+            "max_abs_err": dc["max_abs_err"], "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"], "library_ms": None,
+            "called_ms": first["called_ms"],
+            "shapes": [{k: c.get(k) for k in ("name", "shape", "pitch", "ms", "called_ms",
+                                               "plain_ms", "bound_ms", "gb_per_s")}
+                       for c in dc["checks"]],
+            "extract_fps": {k: v["fps"] for k, v in dc["runs"].items()},
+            "file": {k: dc["file"].get(k) for k in ("clip", "backend", "decode_fps",
+                                                     "frames_equal", "exit")},
+            "nvdec": dc["probe"]}
+
+
 def multi_entry(mu: dict) -> dict:
     """Phase 16's numbers for the JSON line: no kernel of its own (the
     training step and detection run cuDNN convolutions and torch ops)."""
@@ -6187,6 +6661,7 @@ def main(argv) -> int:
     tracker_only = "--tracker-only" in argv
     auction_only = "--auction-only" in argv
     nms_only = "--nms-only" in argv
+    decode_only = "--decode-only" in argv
     against = Path(argv[argv.index("--against") + 1]).resolve() if "--against" in argv else None
     older = older_auction(against) if against and not nms_only else None
     older_nms = older_module(against, "nms", "nms") if against and nms_only else None
@@ -6328,6 +6803,17 @@ def main(argv) -> int:
             ft = phase_features("cuda")
             log(features_line(ft, time.perf_counter() - t, dev["smi"]))
             log(f"features-only ok {time.perf_counter() - t_all:.1f}s")
+            return 0
+        if decode_only:  # the main path for its detector and frames, then the decode phase
+            t = time.perf_counter()
+            run = phase_main("cuda", width, height, n_main, chunk, seed=seed, horizon=horizon)
+            log(f"main ok {time.perf_counter() - t:.1f}s (for the decode phase's detector and "
+                f"frames) ms/chunk {[round(x * 1e3, 1) for x in run['stats']['chunk_s']]}")
+            t = time.perf_counter()
+            dc = phase_decode(run["fx"].detector, run["frames"], run["reader"], "cuda",
+                              clip=DECODE_CLIP)
+            log(decode_line(dc, time.perf_counter() - t, dev["smi"]))
+            log(f"decode-only ok {time.perf_counter() - t_all:.1f}s")
             return 0
         if lockstep_only:  # its own calibrated detector
             t = time.perf_counter()
@@ -6495,6 +6981,11 @@ def main(argv) -> int:
               f"{[round(x, 1) for x in turns['serial']]} (rows equal) [{dev['smi']}]")
 
         t = time.perf_counter()
+        dc = phase_decode(main_run["fx"].detector, main_run["frames"], main_run["reader"], "cuda",
+                          clip=DECODE_CLIP)
+        log(decode_line(dc, time.perf_counter() - t, dev["smi"]))
+
+        t = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
         reset_nms_launches()
         opts = phase_options(main_run["fx"].detector, main_run["frames"], main_run["reader"],
@@ -6652,6 +7143,9 @@ def main(argv) -> int:
                                                                "nms_kernel_ms", "peak_gib")}
                                            for r in rs] for which, rs in detect.items()},
                      shapes=[{k: c.get(k) for k in NMS_KEYS} for c in nm["cases"]]),
+        # the extract path from NV12 planes launches it once a frame; the
+        # numbers are the main path's first frame's planes at 4K
+        nv12_entry(dc),
     ], "multi": multi_entry(mu)}
     print(json.dumps(kernels), flush=True)
     print(dev["smi"], flush=True)

@@ -147,6 +147,8 @@ def load_library() -> ctypes.CDLL:
     lib.gtx_read_frame_pts.restype = ctypes.c_int
     lib.gtx_read_frame_pts.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                        ctypes.POINTER(ctypes.c_int64)]
+    lib.gtx_read_frame_yuv.restype = ctypes.c_int
+    lib.gtx_read_frame_yuv.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     lib.gtx_scan_pts.restype = ctypes.c_long
     lib.gtx_scan_pts.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64),
                                  ctypes.POINTER(ctypes.c_int), ctypes.c_long]
@@ -207,6 +209,41 @@ def native_frames(path: str) -> Iterator[tuple[int, np.ndarray]]:
             if rc != 0:
                 break
             yield idx, frame
+            idx += 1
+    finally:
+        lib.gtx_close(handle)
+
+
+YUV_ERRORS = {-4: "a frame is not yuv420p (8-bit 4:2:0, limited range)",
+              -5: "a side of the frame is odd"}
+
+
+def native_frames_yuv(path: str, alloc=None) -> Iterator[tuple[int, object]]:
+    """Yield (index, planes) sequentially from the native decoder, each
+    frame's planes before swscale in NV12 layout: a flat uint8 buffer of
+    height * width bytes of Y, then height/2 rows of width bytes of U and V
+    interleaved. ``alloc(nbytes)`` makes each buffer (anything with
+    ``data_ptr()``, such as a pinned torch tensor, or a numpy array);
+    numpy by default. Raises ``OSError`` on a decode error or a frame that
+    is not 8-bit 4:2:0 limited range with even sides."""
+    lib = load_library()
+    handle = lib.gtx_open(str(path).encode())
+    if not handle:
+        raise OSError(f"native decoder failed to open {path}")
+    try:
+        h, w = lib.gtx_height(handle), lib.gtx_width(handle)
+        nbytes = h * w * 3 // 2
+        idx = 0
+        while True:
+            buf = alloc(nbytes) if alloc is not None else np.empty(nbytes, np.uint8)
+            ptr = buf.data_ptr() if hasattr(buf, "data_ptr") else buf.ctypes.data
+            rc = lib.gtx_read_frame_yuv(handle, ptr, ptr + h * w)
+            if rc < 0:
+                raise OSError(f"native decoder error {rc} at frame {idx} of {path}"
+                              + (f": {YUV_ERRORS[rc]}" if rc in YUV_ERRORS else ""))
+            if rc != 0:
+                break
+            yield idx, buf
             idx += 1
     finally:
         lib.gtx_close(handle)

@@ -19,6 +19,7 @@
 //   long   gtx_frame_count(void*)   // container estimate; <=0 if unknown
 //   int    gtx_read_frame(void*, uint8_t* rgb_out)  // 0 ok, 1 EOF, <0 error
 //   int    gtx_read_frame_pts(void*, uint8_t* rgb_out, int64_t* pts_out)
+//   int    gtx_read_frame_yuv(void*, uint8_t* y_out, uint8_t* uv_out)  // NV12, no swscale
 //   void   gtx_close(void*)
 //   long   gtx_keyframe_indices(const char* path, long* out, long max_out)
 //   long   gtx_scan_pts(const char* path, int64_t* pts_out, int* key_out,
@@ -151,10 +152,11 @@ long gtx_frame_count(void* h) {
   return -1;
 }
 
-// Decode the next frame into rgb_out (height*width*3, packed RGB24).
-// pts_out (optional) receives the frame's best-effort display timestamp in
-// the stream time base: the key of ParallelVideoReader's segments.
-static int read_frame_impl(Decoder* d, uint8_t* rgb_out, int64_t* pts_out) {
+// Receive the next decoded frame into d->frame (feeding packets from the
+// demuxer as the decoder asks): 0 ok, 1 EOF, <0 error. pts_out (optional)
+// receives the frame's best-effort display timestamp in the stream time
+// base: the key of ParallelVideoReader's segments.
+static int next_frame(Decoder* d, int64_t* pts_out) {
   while (true) {
     int rc = avcodec_receive_frame(d->codec, d->frame);
     if (rc == 0) {
@@ -163,39 +165,6 @@ static int read_frame_impl(Decoder* d, uint8_t* rgb_out, int64_t* pts_out) {
                        ? d->frame->best_effort_timestamp
                        : d->frame->pts;
       }
-      if (!d->sws) {
-        d->sws = sws_getContext(
-            d->codec->width, d->codec->height,
-            static_cast<AVPixelFormat>(d->frame->format), d->codec->width,
-            d->codec->height, AV_PIX_FMT_RGB24, SWS_BILINEAR, nullptr, nullptr,
-            nullptr);
-        if (!d->sws) return -2;
-      }
-      // swscale stores whole SIMD vectors and can write past the end of a
-      // row whose length (3 * width bytes) is not a multiple of their
-      // size: into the next row, which is rewritten after, or past the end
-      // of the caller's buffer on the last row. Rows of 64-byte multiples
-      // go straight into rgb_out; other widths go through a scratch buffer
-      // of padded rows and are copied out.
-      const int w = d->codec->width, h = d->codec->height, row = 3 * w;
-      const bool direct = row % 64 == 0;
-      if (!direct && !d->rgb) {
-        d->rgb_linesize = (row + 63) / 64 * 64;
-        d->rgb = static_cast<uint8_t*>(av_malloc(
-            static_cast<size_t>(d->rgb_linesize) * h + 64));
-        if (!d->rgb) return -3;
-      }
-      uint8_t* dst_data[4] = {direct ? rgb_out : d->rgb, nullptr, nullptr, nullptr};
-      int dst_linesize[4] = {direct ? row : d->rgb_linesize, 0, 0, 0};
-      sws_scale(d->sws, d->frame->data, d->frame->linesize, 0, h, dst_data,
-                dst_linesize);
-      if (!direct) {
-        for (int y = 0; y < h; ++y) {
-          std::memcpy(rgb_out + static_cast<size_t>(y) * row,
-                      d->rgb + static_cast<size_t>(y) * d->rgb_linesize, row);
-        }
-      }
-      av_frame_unref(d->frame);
       return 0;
     }
     if (rc == AVERROR_EOF) return 1;
@@ -221,12 +190,84 @@ static int read_frame_impl(Decoder* d, uint8_t* rgb_out, int64_t* pts_out) {
   }
 }
 
+// Decode the next frame into rgb_out (height*width*3, packed RGB24).
+static int read_frame_impl(Decoder* d, uint8_t* rgb_out, int64_t* pts_out) {
+  int rc = next_frame(d, pts_out);
+  if (rc != 0) return rc;
+  if (!d->sws) {
+    d->sws = sws_getContext(
+        d->codec->width, d->codec->height,
+        static_cast<AVPixelFormat>(d->frame->format), d->codec->width,
+        d->codec->height, AV_PIX_FMT_RGB24, SWS_BILINEAR, nullptr, nullptr,
+        nullptr);
+    if (!d->sws) return -2;
+  }
+  // swscale stores whole SIMD vectors and can write past the end of a
+  // row whose length (3 * width bytes) is not a multiple of their
+  // size: into the next row, which is rewritten after, or past the end
+  // of the caller's buffer on the last row. Rows of 64-byte multiples
+  // go straight into rgb_out; other widths go through a scratch buffer
+  // of padded rows and are copied out.
+  const int w = d->codec->width, h = d->codec->height, row = 3 * w;
+  const bool direct = row % 64 == 0;
+  if (!direct && !d->rgb) {
+    d->rgb_linesize = (row + 63) / 64 * 64;
+    d->rgb = static_cast<uint8_t*>(av_malloc(
+        static_cast<size_t>(d->rgb_linesize) * h + 64));
+    if (!d->rgb) return -3;
+  }
+  uint8_t* dst_data[4] = {direct ? rgb_out : d->rgb, nullptr, nullptr, nullptr};
+  int dst_linesize[4] = {direct ? row : d->rgb_linesize, 0, 0, 0};
+  sws_scale(d->sws, d->frame->data, d->frame->linesize, 0, h, dst_data,
+            dst_linesize);
+  if (!direct) {
+    for (int y = 0; y < h; ++y) {
+      std::memcpy(rgb_out + static_cast<size_t>(y) * row,
+                  d->rgb + static_cast<size_t>(y) * d->rgb_linesize, row);
+    }
+  }
+  av_frame_unref(d->frame);
+  return 0;
+}
+
 int gtx_read_frame(void* h, uint8_t* rgb_out) {
   return read_frame_impl(static_cast<Decoder*>(h), rgb_out, nullptr);
 }
 
 int gtx_read_frame_pts(void* h, uint8_t* rgb_out, int64_t* pts_out) {
   return read_frame_impl(static_cast<Decoder*>(h), rgb_out, pts_out);
+}
+
+// The next frame's planes as the decoder gives them, before swscale, in
+// NV12 layout: the Y plane (height rows of width bytes) into y_out, then U
+// and V interleaved (height/2 rows of width bytes: U0 V0 U1 V1 ...) into
+// uv_out. 0 ok, 1 EOF, -1 decode error, -4 when the frame is not yuv420p
+// (8-bit 4:2:0, limited range), -5 when a side is odd.
+int gtx_read_frame_yuv(void* h, uint8_t* y_out, uint8_t* uv_out) {
+  Decoder* d = static_cast<Decoder*>(h);
+  int rc = next_frame(d, nullptr);
+  if (rc != 0) return rc;
+  const AVFrame* f = d->frame;
+  const int w = d->codec->width, hh = d->codec->height;
+  if (f->format != AV_PIX_FMT_YUV420P) rc = -4;
+  else if (w % 2 || hh % 2) rc = -5;
+  if (rc == 0) {
+    for (int y = 0; y < hh; ++y) {
+      std::memcpy(y_out + static_cast<size_t>(y) * w,
+                  f->data[0] + static_cast<size_t>(y) * f->linesize[0], w);
+    }
+    for (int y = 0; y < hh / 2; ++y) {
+      const uint8_t* u = f->data[1] + static_cast<size_t>(y) * f->linesize[1];
+      const uint8_t* v = f->data[2] + static_cast<size_t>(y) * f->linesize[2];
+      uint8_t* out = uv_out + static_cast<size_t>(y) * w;
+      for (int x = 0; x < w / 2; ++x) {
+        out[2 * x] = u[x];
+        out[2 * x + 1] = v[x];
+      }
+    }
+  }
+  av_frame_unref(d->frame);
+  return rc;
 }
 
 void gtx_close(void* h) { destroy(static_cast<Decoder*>(h)); }

@@ -12,6 +12,10 @@ The port's copy of ``geotrax_tpu/io/video.py``:
 
 Frames are numpy uint8 HxWx3 in RGB order. ``VideoReader`` decodes in a
 background thread that keeps a few frames ahead of the consumer;
+``DeviceVideoReader`` (``make_reader`` with a CUDA ``device`` and the
+native backend) decodes to the planes before swscale, uploads them and
+converts them on the card (``ops/yuv.py``), its frames uint8 tensors there
+equal to ``VideoReader``'s bit for bit;
 ``ParallelVideoReader`` decodes disjoint GOP-aligned segments of one video
 in several threads (native backend), and ``make_reader`` takes it when
 ``workers`` (or GEOTRAX_DECODE_WORKERS) is above 1. ``VideoWriter`` raises
@@ -38,15 +42,39 @@ class VideoInfo:
     frame_count: int
 
 
-def native_available() -> bool:
-    """Whether the native decoder builds (or is built) and loads here."""
+def native_error() -> Optional[str]:
+    """Why the native decoder does not build (or is not built) and load
+    here; None when it does."""
     from geotrax_tpu_torch.io import native
 
     try:
         native.load_library()
-    except (OSError, RuntimeError):
-        return False
-    return True
+    except (OSError, RuntimeError) as exc:
+        return str(exc)
+    return None
+
+
+def native_available() -> bool:
+    """Whether the native decoder builds (or is built) and loads here."""
+    return native_error() is None
+
+
+DECODER_LIBRARIES = ("g++ and FFmpeg's libavformat, libavcodec, libavutil and libswscale with "
+                     "their headers (the 'native' backend), or OpenCV (the 'cv2' backend)")
+
+
+def _import_cv2(path: str, why: str):
+    """cv2, or a RuntimeError that says what reading ``path`` lacks: the
+    native decoder failed (``why``) and cv2 is not installed."""
+    try:
+        import cv2
+    except ImportError:
+        raise RuntimeError(
+            f"cannot read '{path}': {why}, and cv2 is not installed. Reading a video file "
+            f"needs {DECODER_LIBRARIES}; GEOTRAX_VIDEO_BACKEND chooses between them. The port "
+            f"does not decode on the card (NVDEC) yet; without either decoder, frames held in "
+            f"memory can still go through pipeline.extract.extract") from None
+    return cv2
 
 
 def get_backend(requested: Optional[str] = None) -> str:
@@ -58,13 +86,18 @@ def get_backend(requested: Optional[str] = None) -> str:
 
 def probe_video(path: Path | str, backend: Optional[str] = None) -> VideoInfo:
     path = str(path)
-    if get_backend(backend) == "native":
+    backend = get_backend(backend)
+    if backend == "native":
         from geotrax_tpu_torch.io.native import native_probe
 
         info = native_probe(path)
         if info is not None:
             return VideoInfo(*info)
-    import cv2
+        why = "the native decoder cannot open it"
+    else:
+        err = native_error()
+        why = f"the native decoder is unavailable ({err})" if err else "cv2 was requested"
+    cv2 = _import_cv2(path, why)
 
     cap = cv2.VideoCapture(path)
     try:
@@ -99,7 +132,7 @@ def keyframe_indices(path: Path | str, max_count: int = 1 << 18) -> list[int]:
 
 
 def _cv2_frames(path: str):
-    import cv2
+    cv2 = _import_cv2(path, "the cv2 backend was chosen")
 
     cap = cv2.VideoCapture(path)
     try:
@@ -149,22 +182,32 @@ class VideoReader:
                 continue
         return False
 
+    def _source(self) -> Iterator[tuple[int, object]]:
+        """The decoder's (index, frame) pairs, from the first frame on."""
+        if self.backend == "native":
+            from geotrax_tpu_torch.io.native import native_frames
+
+            return native_frames(self.path)
+        return _cv2_frames(self.path)
+
+    def _prepare(self, idx: int, frame):
+        """The queue's item for a decoded frame in [start, stop)."""
+        return idx, frame
+
+    def _deliver(self, item) -> tuple:
+        """The (index, frame) pair the consumer gets for a queue item."""
+        return item
+
     def _produce(self):
         try:
-            if self.backend == "native":
-                from geotrax_tpu_torch.io.native import native_frames
-
-                frame_iter = native_frames(self.path)
-            else:
-                frame_iter = _cv2_frames(self.path)
-            for idx, frame in frame_iter:
+            for idx, frame in self._source():
                 if self._stop_event.is_set():
                     break
                 if idx < self.start:
                     continue
                 if self.stop is not None and idx >= self.stop:
                     break
-                if not self._put((idx, frame)):
+                if not self._put(self._prepare(idx, frame)):
                     break
         except BaseException as exc:  # noqa: BLE001 — re-raised in the consumer
             self._error = exc
@@ -190,7 +233,7 @@ class VideoReader:
             item = self._queue.get()
             if item is None:
                 break
-            yield item
+            yield self._deliver(item)
         self._finished = True
         if self._error is not None:
             raise self._error
@@ -212,6 +255,67 @@ class VideoReader:
                 pass
             self._thread.join(timeout=2.0)
         self._finished = True
+
+
+class DeviceVideoReader(VideoReader):
+    """``VideoReader`` whose frames are converted on a card: the native
+    decoder gives each frame's NV12 planes before swscale
+    (``gtx_read_frame_yuv``, into pinned host memory), the background thread
+    uploads them on a stream of its own (1.5 bytes a pixel instead of RGB's
+    3) and converts them there with ``ops/yuv.nv12_to_rgb24``, one kernel
+    launch a frame. Frames are (H, W, 3) uint8 tensors on the CUDA
+    ``device``, equal to ``VideoReader``'s bit for bit, ready on the stream
+    that is current when the consumer takes them (it waits for the frame's
+    event, and the frame's memory is kept for it)."""
+
+    def __init__(self, path: Path | str, start: int = 0, stop: Optional[int] = None,
+                 prefetch: int = 4, device="cuda"):
+        import torch
+
+        self.device = torch.device(device)
+        if self.device.type != "cuda":
+            raise ValueError(f"DeviceVideoReader converts on a card, not on {self.device}")
+        self._stream = None
+        super().__init__(path, start=start, stop=stop, prefetch=prefetch, backend="native")
+
+    def _source(self):
+        import torch
+
+        from geotrax_tpu_torch.io.native import native_frames_yuv
+
+        return native_frames_yuv(self.path, lambda n: torch.empty(n, dtype=torch.uint8,
+                                                                  pin_memory=True))
+
+    def _prepare(self, idx: int, planes):
+        import torch
+
+        from geotrax_tpu_torch.ops.yuv import nv12_to_rgb24
+
+        h, w = self.info.height, self.info.width
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(self._stream):
+            dev = planes.to(self.device, non_blocking=True)
+            frame = nv12_to_rgb24(dev[:h * w].view(h, w), dev[h * w:].view(h // 2, w))
+            ready = torch.cuda.Event()
+            ready.record(self._stream)
+        return idx, frame, ready
+
+    def _deliver(self, item) -> tuple:
+        import torch
+
+        idx, frame, ready = item
+        stream = torch.cuda.current_stream(self.device)
+        stream.wait_event(ready)
+        frame.record_stream(stream)
+        return idx, frame
+
+    def read_frame(self, index: int) -> np.ndarray:
+        """One frame by its exact index as numpy (a sequential walk)."""
+        reader = DeviceVideoReader(self.path, start=index, stop=index + 1, device=self.device)
+        for _, frame in reader:
+            return frame.cpu().numpy()
+        raise IndexError(f"Frame {index} not found in {self.path}")
 
 
 class ParallelVideoReader:
@@ -346,20 +450,25 @@ class ParallelVideoReader:
 
 
 def make_reader(path: Path | str, start: int = 0, stop: Optional[int] = None, prefetch: int = 4,
-                backend: Optional[str] = None, workers: Optional[int] = None):
+                backend: Optional[str] = None, workers: Optional[int] = None, device=None):
     """The GOP-parallel reader when ``workers`` (the argument, else
     GEOTRAX_DECODE_WORKERS) is above 1, the backend is the native one and
-    the stream has a pts map; the sequential ``VideoReader`` otherwise. The
-    default stays sequential: on a host with one core the parallel reader's
-    seek warm-up per segment costs more than it wins."""
+    the stream has a pts map; else, for a CUDA ``device`` and the native
+    backend, ``DeviceVideoReader`` (frames converted on the card); the
+    sequential ``VideoReader`` otherwise. The default stays sequential: on
+    a host with one core the parallel reader's seek warm-up per segment
+    costs more than it wins."""
     if workers is None:
         workers = int(os.environ.get("GEOTRAX_DECODE_WORKERS", "1") or 1)
-    if workers > 1 and get_backend(backend) == "native":
+    native = get_backend(backend) == "native"
+    if workers > 1 and native:
         try:
             return ParallelVideoReader(path, start=start, stop=stop, workers=workers,
                                        prefetch=max(prefetch, 2 * workers))
         except (ValueError, OSError):
             pass
+    if native and device is not None and str(device).startswith("cuda"):
+        return DeviceVideoReader(path, start=start, stop=stop, prefetch=prefetch, device=device)
     return VideoReader(path, start=start, stop=stop, prefetch=prefetch, backend=backend)
 
 

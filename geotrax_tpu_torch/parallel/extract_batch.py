@@ -3,7 +3,8 @@ together, one frame of each per step. The port of
 ``geotrax_tpu/parallel/extract_batch.py``, which ``batch --parallel-videos
 N`` runs:
 
-  one upload of the live videos' frames (a pinned staging buffer)
+  one upload of the live videos' frames (a pinned staging buffer; frames
+  a reader gives on the card already are copied there, ``Staging.put``)
     -> one batched detection                     (V frames per call)
     -> one batched single-level stabilization    (one FAST launch over the
        against each video's reference frame       V grays, RANSAC keyed
@@ -216,7 +217,8 @@ def extract_videos_batch(sources: list, args, config: dict, logger, devices=None
                 if not alive[v]:
                     continue
                 try:
-                    idx, frame = next(iters[v])
+                    with staging.streamed():
+                        idx, frame = next(iters[v])
                 except StopIteration:
                     alive[v] = False
                     continue
@@ -229,9 +231,7 @@ def extract_videos_batch(sources: list, args, config: dict, logger, devices=None
             slot = len(step_s) % 2
             with record_function("lock.upload"):
                 staging.wait_uploaded(slot)  # the slot's last upload has left it
-                for p, frame in enumerate(frames):
-                    staging.host[slot][p].copy_(torch.from_numpy(np.ascontiguousarray(frame)))
-                staging.upload(slot, n_live)
+                staging.put(slot, frames)
                 stacked = staging.frames(slot)[:n_live]
             with record_function("lock.detect"):
                 det = detector.detect_batch(stacked)

@@ -41,6 +41,7 @@ both paths write the same rows.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import queue
@@ -187,15 +188,27 @@ def _groups(reader, size: int):
         yield buf
 
 
+def _stack_frames(frames: list):
+    """One chunk's frames stacked: with torch where the reader gives tensors
+    (on the card already, or CPU tensors), else with numpy on the host."""
+    if torch.is_tensor(frames[0]):
+        return torch.stack(frames)
+    return np.stack(frames)
+
+
 def _drive_serial(reader, fx, chunk: int, cut_left: int, rows: _Rows) -> None:
-    """One chunk after another: stack the frames on the host, run the chunk
-    step (which uploads them from pageable memory), fetch, emit."""
+    """One chunk after another: stack the frames (on the host, or on the
+    card where the reader's frames are there), run the chunk step (which
+    uploads host frames from pageable memory), fetch, emit."""
     def run(buf):
         n = len(buf)
         idxs = [i for i, _ in buf]
-        frames = np.stack([f for _, f in buf])
+        frames = _stack_frames([f for _, f in buf])
         if n < chunk:  # pad the tail chunk with its last frame
-            frames = np.concatenate([frames, np.repeat(frames[-1:], chunk - n, axis=0)], axis=0)
+            pad = frames[-1:].repeat(chunk - n, 1, 1, 1) if torch.is_tensor(frames) \
+                else np.repeat(frames[-1:], chunk - n, axis=0)
+            frames = torch.cat([frames, pad]) if torch.is_tensor(frames) \
+                else np.concatenate([frames, pad], axis=0)
             idxs = idxs + [idxs[-1]] * (chunk - n)
         t0 = time.perf_counter()
         out = fx.process_chunk(frames, _fids(idxs, cut_left), n)
@@ -208,7 +221,10 @@ def _drive_serial(reader, fx, chunk: int, cut_left: int, rows: _Rows) -> None:
 class Staging:
     """Two host buffers of one chunk of frames (pinned on the card) and two
     device buffers, reused across chunks and videos, with the copy stream
-    and the events that order the uploads against the chunk steps."""
+    and the events that order the uploads against the chunk steps. A frame
+    that is a tensor already on the device (a ``DeviceVideoReader``'s) is
+    copied into its device buffer on the copy stream (``put_device``), and
+    its slot's upload then only marks it ready."""
 
     def __init__(self, chunk: int, height: int, width: int, device: torch.device):
         self.shape = (chunk, height, width, 3)
@@ -220,6 +236,67 @@ class Staging:
             self.stream = torch.cuda.Stream(device)
             self.uploaded = [torch.cuda.Event() for _ in range(2)]
             self.consumed = [torch.cuda.Event() for _ in range(2)]
+
+    def streamed(self):
+        """The copy stream made current: a reader's device frames taken
+        under it are ready on the stream that copies them
+        (``DeviceVideoReader``)."""
+        return torch.cuda.stream(self.stream) if self.cuda else contextlib.nullcontext()
+
+    def on_device(self, frame) -> bool:
+        """Whether ``frame`` is a tensor on the device buffers' device."""
+        return torch.is_tensor(frame) and frame.device == self.dev[0].device
+
+    def put_host(self, slot: int, i: int, frame) -> None:
+        """Copy a frame (numpy, or a tensor anywhere) into row ``i`` of
+        ``slot``'s host buffer."""
+        self.host[slot][i].copy_(frame if torch.is_tensor(frame) else
+                                 torch.from_numpy(np.ascontiguousarray(frame)))
+
+    def put(self, slot: int, frames: list) -> None:
+        """Fill ``slot``'s first rows with ``frames`` and start their upload:
+        when every frame is on the device already, each is copied there
+        (``put_device``) and the slot marked ready; else through the host
+        buffer (``upload``)."""
+        if all(self.on_device(f) for f in frames):
+            for i, frame in enumerate(frames):
+                self.put_device(slot, i, frame)
+            self.mark_uploaded(slot)
+            return
+        with self.streamed():  # a frame elsewhere on the card is read after it is ready
+            for i, frame in enumerate(frames):
+                self.put_host(slot, i, frame)
+        self.upload(slot, len(frames))
+
+    def put_device(self, slot: int, i: int, frame: torch.Tensor) -> None:
+        """Copy a frame already on the device into row ``i`` of ``slot``'s
+        device buffer: on the card on the copy stream, after the chunk step
+        that last read that buffer (checked at the slot's first row), the
+        frame's memory kept until the copy is done. The calling thread takes
+        the reader's frames under ``streamed``, so the copy also waits for
+        the frame."""
+        if not self.cuda:
+            self.dev[slot][i].copy_(frame)
+            return
+        with torch.cuda.stream(self.stream):
+            if i == 0:
+                self.stream.wait_event(self.consumed[slot])
+            self.dev[slot][i].copy_(frame, non_blocking=True)
+            frame.record_stream(self.stream)
+
+    def pad_device(self, slot: int, n: int) -> None:
+        """Repeat row ``n - 1`` of ``slot``'s device buffer into its later
+        rows (the tail chunk's padding), in stream order after its copies."""
+        if not self.cuda:
+            self.dev[slot][n:] = self.dev[slot][n - 1]
+            return
+        with torch.cuda.stream(self.stream):
+            self.dev[slot][n:] = self.dev[slot][n - 1]
+
+    def mark_uploaded(self, slot: int) -> None:
+        """Mark ``slot``'s device buffer, filled by ``put_device``, ready."""
+        if self.cuda:
+            self.uploaded[slot].record(self.stream)
 
     def upload(self, slot: int, n: int | None = None) -> None:
         """Copy host slot ``slot`` (its first ``n`` frames, all by default)
@@ -264,7 +341,11 @@ def _drive_pipelined(reader, fx, chunk: int, cut_left: int, rows: _Rows) -> None
     """Dispatch/drain double-buffering: a thread fills the next staging
     slot from ``reader`` while the card works; each chunk is uploaded on
     the copy stream before the previous chunk's step runs, and a chunk's
-    rows are emitted after the next chunk is dispatched."""
+    rows are emitted after the next chunk is dispatched. Frames that are
+    tensors on the extractor's device skip the host slot: each is copied
+    into the device slot on the copy stream as it arrives, and a slot so
+    filled is handed back to the thread once the step that reads it has
+    been dispatched."""
     st = _staging(fx, chunk, int(reader.info.height), int(reader.info.width))
     free: queue.Queue = queue.Queue()
     filled: queue.Queue = queue.Queue()
@@ -282,22 +363,30 @@ def _drive_pipelined(reader, fx, chunk: int, cut_left: int, rows: _Rows) -> None
 
     def produce():
         try:
-            slot, idxs = None, []
-            for idx, frame in reader:
-                if slot is None:
-                    slot = take(free)
+            with st.streamed():
+                slot, idxs, direct = None, [], False
+                for idx, frame in reader:
                     if slot is None:
-                        return
-                    st.wait_uploaded(slot)  # the slot's last upload has left it
-                st.host[slot][len(idxs)].copy_(torch.from_numpy(np.ascontiguousarray(frame)))
-                idxs.append(idx)
-                if len(idxs) == chunk:
-                    filled.put((slot, idxs, chunk))
-                    slot, idxs = None, []
-            if idxs:  # pad the tail chunk with its last frame
-                n = len(idxs)
-                st.host[slot][n:] = st.host[slot][n - 1]
-                filled.put((slot, idxs + [idxs[-1]] * (chunk - n), n))
+                        slot = take(free)
+                        if slot is None:
+                            return
+                        st.wait_uploaded(slot)  # the slot's last upload has left it
+                        direct = st.on_device(frame)
+                    if direct:
+                        st.put_device(slot, len(idxs), frame)
+                    else:
+                        st.put_host(slot, len(idxs), frame)
+                    idxs.append(idx)
+                    if len(idxs) == chunk:
+                        filled.put((slot, idxs, chunk, direct))
+                        slot, idxs = None, []
+                if idxs:  # pad the tail chunk with its last frame
+                    n = len(idxs)
+                    if direct:
+                        st.pad_device(slot, n)
+                    else:
+                        st.host[slot][n:] = st.host[slot][n - 1]
+                    filled.put((slot, idxs + [idxs[-1]] * (chunk - n), n, direct))
             filled.put(None)
         except BaseException as exc:  # noqa: BLE001 — re-raised by the consumer
             filled.put(exc)
@@ -310,8 +399,12 @@ def _drive_pipelined(reader, fx, chunk: int, cut_left: int, rows: _Rows) -> None
 
     def upload(item):
         if item is not None:
-            st.upload(item[0])
-            free.put(item[0])  # refilled once its upload is done (wait_uploaded)
+            slot, _, _, direct = item
+            if direct:  # filled on the device: free once its chunk step is dispatched
+                st.mark_uploaded(slot)
+            else:
+                st.upload(slot)
+                free.put(slot)  # refilled once its upload is done (wait_uploaded)
 
     thread = threading.Thread(target=produce, daemon=True)
     thread.start()
@@ -322,10 +415,12 @@ def _drive_pipelined(reader, fx, chunk: int, cut_left: int, rows: _Rows) -> None
         while cur is not None:
             nxt = get()
             upload(nxt)  # overlaps the step of ``cur``
-            slot, idxs, n = cur
+            slot, idxs, n, direct = cur
             t0 = time.perf_counter()
             out = fx.process_chunk(st.frames(slot), _fids(idxs, cut_left), n)
             st.done(slot)
+            if direct:  # its next copies wait for this step (put_device)
+                free.put(slot)
             dispatch_s = time.perf_counter() - t0
             if pending is not None:
                 rows.drain(*pending)
@@ -395,7 +490,7 @@ def track_video_sequential(reader, detector, tracker_parts: tuple, config: dict,
     with torch.no_grad():
         for chunk in _groups(reader, group):
             t0 = time.perf_counter()
-            frames = torch.as_tensor(np.stack([f for _, f in chunk])).to(dev)
+            frames = torch.as_tensor(_stack_frames([f for _, f in chunk])).to(dev)
             if group > 1 and len(chunk) > 1:
                 batch = detector.detect_batch(frames)
                 dets = [{k: v[i] for k, v in batch.items()} for i in range(len(chunk))]
@@ -637,10 +732,12 @@ def load_detector(config: dict, logger):
 
 
 def open_reader(source: Path, start: int, stop, config: dict):
-    """Video reader factory (tests patch this with a synthetic reader)."""
+    """Video reader factory (tests patch this with a synthetic reader). On
+    a card the frames are converted there (``DeviceVideoReader``) and reach
+    the chunk step without a host copy."""
     from geotrax_tpu_torch.io.video import make_reader
 
-    return make_reader(source, start=start, stop=stop)
+    return make_reader(source, start=start, stop=stop, device=_device(config))
 
 
 # Process-level reuse of the loaded detector and the extractors across

@@ -1598,3 +1598,180 @@ def test_steady_chunk_steps_read_nothing_back_on_card():
                                      tol_px=10.0)
     assert run["sync_checked_steps"] == 2 and steady["sync_checked_steps"] == 2
     assert run["nms_launches"] == 3 and chip_smoke.plain_nms_calls() == 0
+
+
+def _seeded_nv12(h, w, seed, device="cuda"):
+    gen = torch.Generator().manual_seed(seed)
+    y = torch.randint(0, 256, (h, w), generator=gen, dtype=torch.uint8)
+    uv = torch.randint(0, 256, (h // 2, w), generator=gen, dtype=torch.uint8)
+    return y.to(device), uv.to(device)
+
+
+@pytest.mark.gpu
+# 4K, a width of 2 mod 4 (byte stores on odd rows, a half tile at the edge), tiny frames
+@pytest.mark.parametrize("size", [(2160, 3840), (1082, 1922), (22, 38), (2, 2), (4, 6),
+                                  (1080, 1920)])
+def test_nv12_kernel_equals_plain_on_card(size):
+    _need_card()
+    from geotrax_tpu_torch.ops import yuv
+
+    y, uv = _seeded_nv12(*size, seed=size[0] * size[1])
+    before = yuv.nv12_to_rgb24.launches
+    got = yuv.nv12_to_rgb24(y, uv)
+    assert yuv.nv12_to_rgb24.launches == before + 1
+    assert got.shape == (*size, 3) and got.is_contiguous()
+    assert torch.equal(got, yuv.nv12_to_rgb24_torch(y, uv))
+    assert torch.equal(got.cpu(), yuv.nv12_to_rgb24_torch(y.cpu(), uv.cpu()))
+
+
+@pytest.mark.gpu
+# NVDEC-like pitches (4096), a pitch that misaligns every other row, an offset base
+@pytest.mark.parametrize("pitch,offset", [(4096, 0), (3843, 0), (3840, 1)])
+def test_nv12_kernel_reads_rows_at_a_pitch(pitch, offset):
+    _need_card()
+    from geotrax_tpu_torch.ops import yuv
+
+    h, w = 2160, 3840
+    y, uv = _seeded_nv12(h, w, seed=pitch + offset)
+    flat = torch.zeros(offset + pitch * (h * 3 // 2), dtype=torch.uint8, device="cuda")
+    buf = flat[offset:].view(h * 3 // 2, pitch)
+    buf[:h, :w], buf[h:, :w] = y, uv
+    got = yuv.nv12_to_rgb24(buf[:h, :w], buf[h:, :w])
+    assert torch.equal(got, yuv.nv12_to_rgb24_torch(y, uv))
+
+
+@pytest.mark.gpu
+def test_nv12_kernel_refusals():
+    _need_card()
+    from geotrax_tpu_torch.ops import yuv
+
+    y, uv = _seeded_nv12(8, 12, seed=1)
+    with pytest.raises(ValueError):
+        yuv.nv12_to_rgb24(y, uv.cpu())                    # planes on two devices
+    with pytest.raises(ValueError):
+        yuv.nv12_to_rgb24(y[:, ::2], uv[:, ::2])          # rows not contiguous
+    with pytest.raises(ValueError):
+        yuv.nv12_to_rgb24(y[:7], uv[:3])                  # odd height
+    with pytest.raises(TypeError):
+        yuv.nv12_to_rgb24(y.to(torch.int16), uv.to(torch.int16))
+
+
+def _nv12_video(reader) -> tuple:
+    """``reader``'s frames as flat NV12 planes in host memory, as the native
+    decoder gives them, and their plain conversion to RGB as numpy."""
+    import chip_smoke
+    from geotrax_tpu_torch.ops import yuv
+
+    h, w = reader.info.height, reader.info.width
+    planes, plain = [], []
+    for i, frame in reader:
+        y, uv = chip_smoke.rgb_to_nv12(torch.as_tensor(frame))
+        planes.append((i, torch.cat([y.reshape(-1), uv.reshape(-1)]).numpy()))
+        plain.append((i, yuv.nv12_to_rgb24_torch(y.view(h, w), uv.view(h // 2, w)).numpy()))
+    return planes, plain
+
+
+@pytest.mark.gpu
+def test_device_reader_and_drivers_on_card():
+    """DeviceVideoReader over NV12 planes in host memory (the native
+    decoder's plane source replaced, chip_smoke.planes_decoder): each frame
+    the plain conversion's, one launch a frame, start/stop as on the CPU,
+    replayable after close; the double-buffered driver and the serial loop
+    given its frames write the rows of the same frames given as numpy."""
+    _need_card()
+    from geotrax_tpu_torch import cfg as tcfg
+    from geotrax_tpu_torch.io.synthetic import SyntheticVideoReader
+    from geotrax_tpu_torch.io.video import DeviceVideoReader
+    from geotrax_tpu_torch.models.detector import OracleDetector
+    from geotrax_tpu_torch.ops import yuv
+    from geotrax_tpu_torch.pipeline import extract as textract
+    import chip_smoke
+
+    scene = SyntheticVideoReader(width=320, height=240, n_frames=21, camera=(0.5, -0.3, 0.2, 1.002))
+    planes, plain = _nv12_video(scene)
+    info = scene.info
+    with chip_smoke.planes_decoder({"clip.mp4": (info, planes)}):
+        for start, stop in ((0, None), (3, 11)):
+            for _ in range(2):  # a second reader replays the same frames
+                reader = DeviceVideoReader("clip.mp4", start=start, stop=stop, device="cuda")
+                before = yuv.nv12_to_rgb24.launches
+                got = [(i, f.cpu().numpy()) for i, f in reader]
+                reader.close()
+                want = plain[start:stop]
+                assert [i for i, _ in got] == [i for i, _ in want]
+                assert yuv.nv12_to_rgb24.launches == before + len(want)
+                assert all(np.array_equal(a, b) for (_, a), (_, b) in zip(got, want))
+        assert np.array_equal(DeviceVideoReader("clip.mp4").read_frame(5), plain[5][1])
+
+        class Frames:
+            def __init__(self, pairs):
+                self.info, self.pairs = info, pairs
+
+            def __iter__(self):
+                return iter(self.pairs)
+
+        runs = {}
+        for name, pipelined in (("pipelined", True), ("serial", False), ("numpy", True)):
+            det = OracleDetector(lambda i: [list(b) + [0.9, i % 2] for b in scene.boxes_at(i)],
+                                 device="cuda")
+            tracker_cfg, state, step, head = textract.make_extract_tracker(tcfg.DEFAULT,
+                                                                           device="cuda")
+            fx = textract.make_fused_extractor(tcfg.DEFAULT, det, tracker_cfg, state, step, 240,
+                                               320, head, chunk=8, device="cuda")
+            source = Frames(plain) if name == "numpy" else DeviceVideoReader("clip.mp4")
+            runs[name] = textract.track_video_fused(source, fx, chunk=8, pipelined=pipelined)
+    assert runs["numpy"][2]["chunks"] == 3 and len(runs["numpy"][0]) > 20
+    for name in ("pipelined", "serial"):
+        assert runs[name][0].tobytes() == runs["numpy"][0].tobytes()
+        assert runs[name][1].tobytes() == runs["numpy"][1].tobytes()
+
+
+@pytest.mark.gpu
+def test_lockstep_on_device_reader_frames_on_card(tmp_path, monkeypatch):
+    """``batch --parallel-videos 3`` (extract_videos_batch) with extract's
+    own open_reader on the card and GEOTRAX_VIDEO_BACKEND=native: each
+    video's DeviceVideoReader frames (planes in host memory in the native
+    decoder's place) are copied into the staging buffer on the card, one
+    launch a frame, and each video's files, stabilization on, equal those
+    of the same frames handed over as numpy."""
+    _need_card()
+    import chip_smoke
+    from geotrax_tpu_torch.io.synthetic import SyntheticVideoReader
+    from geotrax_tpu_torch.ops import yuv
+    from geotrax_tpu_torch.pipeline import extract as textract
+
+    cameras = ((0.5, -0.3, 0.2, 1.002), (-0.4, 0.6, -0.1, 1.0), (0.3, 0.3, 0.0, 0.999))
+    readers = [SyntheticVideoReader(width=320, height=240, n_frames=n, seed=v, camera=cam)
+               for v, (n, cam) in enumerate(zip((10, 10, 7), cameras))]
+    videos = {f"V{v}.mp4": (r.info, *_nv12_video(r)) for v, r in enumerate(readers)}
+    model = tmp_path / "unused.npz"
+    np.savez(model, **{"param:none": np.zeros(1)})
+    cfg = chip_smoke.config_file(tmp_path / "lock.yaml", 320)
+    monkeypatch.setenv("GEOTRAX_VIDEO_BACKEND", "native")
+    monkeypatch.setenv("GEOTRAX_DECODE_WORKERS", "1")
+    direct = []
+    put_device = textract.Staging.put_device
+    monkeypatch.setattr(textract.Staging, "put_device",
+                        lambda self, *a: direct.append(a[:2]) or put_device(self, *a))
+    files = {}
+    for name in ("numpy", "device"):
+        sources = [tmp_path / name / v for v in videos]
+        sources[0].parent.mkdir()
+        for src in sources:
+            src.write_bytes(b"x")
+        oracle = chip_smoke.LockstepOracle(readers, 16, "cuda")
+        yuv.nv12_to_rgb24.launches = 0
+        if name == "numpy":
+            with chip_smoke.InMemory({k: (info, plain) for k, (info, _, plain) in videos.items()},
+                                     oracle):
+                chip_smoke.run_lockstep(sources, cfg, model, "cuda")
+        else:
+            monkeypatch.setattr(textract, "load_detector", lambda config, logger: oracle)
+            with chip_smoke.planes_decoder({k: (info, planes)
+                                            for k, (info, planes, _) in videos.items()}):
+                chip_smoke.run_lockstep(sources, cfg, model, "cuda")
+        assert yuv.nv12_to_rgb24.launches == (27 if name == "device" else 0)
+        files[name] = [(src.parent / "results" / f"{src.stem}{end}").read_bytes()
+                       for src in sources for end in (".txt", "_vid_transf.txt")]
+    assert len(direct) == 27  # every frame of every step copied on the card
+    assert all(files["numpy"]) and files["device"] == files["numpy"]
