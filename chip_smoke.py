@@ -232,8 +232,8 @@ ends the run with a non-zero exit and no result line:
                visualize and plot ran for each video
  14 train      ``python -m geotrax_tpu_torch.train`` as users run it: (a) a
                YOLO-format dataset written through the port's PNG writer,
-               16 train and 8 val 3840x2160 images with 36 vehicles each
-               over classes 0-3; (b) YOLOv8s nc=4 fine-tuned (--model) from
+               8 train and 4 val 3840x2160 images with 36 vehicles each
+               over classes 0-3 (one step an epoch); (b) YOLOv8s nc=4 fine-tuned (--model) from
                a seeded checkpoint with a detector's head priors at the
                default preset's imgsz 1920 and batch 8 for 2 epochs, then a
                1-epoch run resumed to 2: every file checked, finite losses
@@ -272,7 +272,7 @@ ends the run with a non-zero exit and no result line:
  16 multi      several ranks and several devices (parallel/mesh.py,
                tiling.py:make_tiled_detector) at full width: YOLOv8s nc=4
                at the preset's imgsz 1920, global batch 8, on the train
-               phase's recipe (16 train and 8 val 3840x2160 PNGs, 36
+               phase's recipe with 16 train and 8 val 3840x2160 PNGs (36
                vehicles each), MULTI_STEPS steps: (a) in a process of its
                own under PyTorch's deterministic algorithms, the steps
                twice without a process group and once as the one rank of
@@ -346,7 +346,17 @@ ends the run with a non-zero exit and no result line:
                equal to the reference's, run_extraction from the file and
                from those frames in memory in turns, files byte-equal, and
                ``python -m geotrax_tpu_torch extract`` of it in a
-               subprocess: exit 0
+               subprocess: exit 0; (f) GEOTRAX_DECODE_WORKERS through cv2:
+               the host's cores and cv2's version; tests/data/video/
+               h264_gop.mp4 (open GOPs) read by the GOP-parallel reader on
+               cv2 captures with 2, 3 and 4 workers, every frame equal to
+               the reference's; the main scene's first 96 frames written as
+               a 4K mp4v clip by cv2's writer and read with 1, 2, 4 and
+               every core's count of workers, frames equal at every count,
+               frames/s each, one capture's ms a frame in read(), the swap
+               and the upload; ``extract`` of that clip in subprocesses
+               with 1 and the fastest count of workers: exit 0, files
+               byte-equal
 Then a JSON line describing each kernel, the card's nvidia-smi line, and as
 the last line {"ok": true, "device": {...}}. ``--tracker-only`` runs the
 main, steady and breakdown phases alone: copied into a checkout without the
@@ -380,6 +390,7 @@ other checkout and run it there too. ``--georef-only`` runs phases 0, 1 and
 from __future__ import annotations
 
 import contextlib
+import functools
 import hashlib
 import importlib.util
 import json
@@ -478,8 +489,17 @@ NV12_ODD_SIZES = ((1082, 1922), (22, 38))
 NV12_PITCH = 4096
 # The committed video fixtures (tests/data/video, libavcodec's planes' SHA-1s
 # and libavformat's probe beside each)
-VIDEO_FIXTURES = ("h264_4k", "hevc_4k")
+VIDEO_FIXTURES = ("h264_4k", "hevc_4k", "h264_gop")
 DECODE_CLIP = Path(__file__).resolve().parent / "tests" / "data" / "video" / "h264_4k.mp4"
+# The fixture of open GOPs (8 GOPs of 12) that the GOP-parallel reader splits
+GOP_CLIP = DECODE_CLIP.with_name("h264_gop.mp4")
+# Its worker counts, and the frames (cv2's default GOP is 12) and frame rate
+# of the mp4v clip of the main phase's scene for the decode phase's part (f)
+GOP_WORKERS = (2, 3, 4)
+MP4V_FRAMES = 96
+MP4V_FPS = 30
+# Frames of one capture whose old swap (a reversed channel axis) is timed
+NUMPY_SWAP_FRAMES = 8
 PATCH_SOURCE = "geotrax_tpu_torch/csrc/patch_gather.cu"
 PATCH_REPLACES = "geotrax_tpu/ops/pallas_patches.py:40"
 # The ReID path's gather per 32-frame 4K chunk: 3 channel planes of each
@@ -970,10 +990,11 @@ def vehicle_boxes(width: int, height: int, n: int, seed: int) -> list:
     return out
 
 
-def make_frames(reader: SyntheticVideoReader) -> list:
-    """All (index, frame) pairs of ``reader``, made on the host's cores
-    before anything is timed (a 4K frame takes about half a second alone)."""
-    indices = range(reader.start, reader.stop)
+def make_frames(reader: SyntheticVideoReader, indices=None) -> list:
+    """All (index, frame) pairs of ``reader`` (or those of ``indices``),
+    made on the host's cores before anything is timed (a 4K frame takes
+    about half a second alone)."""
+    indices = range(reader.start, reader.stop) if indices is None else indices
     with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
         return list(zip(indices, pool.map(reader.frame, indices)))
 
@@ -2302,19 +2323,60 @@ def driver_turns(config: dict, detector, frames, info, chunk: int, device: str,
     extractor reset between runs; their rows must be equal bit for bit."""
     fxs = {mode: build_fused(config, detector, info.height, info.width, chunk, 0, device)
            for mode in ("pipelined", "serial")}
-    ms = {mode: [] for mode in fxs}
-    rows = {}
+
+    def run(mode):
+        fxs[mode].reset()
+        tracks, transforms, stats = port_extract.track_video_fused(
+            FrameList(info, frames), fxs[mode], chunk=chunk, pipelined=mode == "pipelined")
+        return ([a.shape for a in (tracks, transforms)] + [tracks.tobytes(), transforms.tobytes()],
+                {"ms": stats["wall_s"] * 1e3 / stats["chunks"], "rows": len(tracks)})
+
+    runs = turns_equal({mode: functools.partial(run, mode) for mode in fxs}, rounds,
+                       "the double-buffered driver's rows against the serial loop's")
+    return {"ms": {mode: [r["ms"] for r in rs] for mode, rs in runs.items()},
+            "rows": runs["pipelined"][0]["rows"]}
+
+
+def turns_equal(runs: dict, rounds: int, what: str) -> dict:
+    """Each of ``runs`` (name -> a function that runs it and returns its
+    output, comparable with ==, and a record) in turns (a, b, b, a, ...; a,
+    b with one round); every run's output must equal the first's, else
+    AssertionError naming ``what``. Per name, its runs' records."""
+    names = list(runs)
+    records = {name: [] for name in names}
+    first = None
     for r in range(rounds):
-        for mode in (("pipelined", "serial") if r % 2 == 0 else ("serial", "pipelined")):
-            fxs[mode].reset()
-            tracks, transforms, stats = port_extract.track_video_fused(
-                FrameList(info, frames), fxs[mode], chunk=chunk, pipelined=mode == "pipelined")
-            ms[mode].append(stats["wall_s"] * 1e3 / stats["chunks"])
-            rows.setdefault(mode, (tracks, transforms))
-    (pt, ph), (st, sh) = rows["pipelined"], rows["serial"]
-    if not (np.array_equal(pt, st) and np.array_equal(ph, sh)):
-        raise AssertionError("the double-buffered driver's rows differ from the serial loop's")
-    return {"ms": ms, "rows": int(len(pt))}
+        for name in (names if r % 2 == 0 else names[::-1]):
+            out, record = runs[name]()
+            if first is None:
+                first = (name, out)
+            elif out != first[1]:
+                raise AssertionError(f"{what}: the run of {name} differs from the first run of "
+                                     f"{first[0]}")
+            records[name].append(record)
+    return records
+
+
+def extract_run(source: Path, cfg: str, ckpt: Path, device: str, make=None) -> dict:
+    """run_extraction -m ckpt -c cfg of ``source`` with extract's open_reader
+    replaced by ``make`` (a factory of the frame source it hands over; None
+    keeps extract's own) and restored after: its stats, wall seconds (the
+    card's queue drained) and the bytes of its tracks and transforms files
+    ("" for a file not written)."""
+    replaced = port_extract.open_reader
+    if make is not None:
+        port_extract.open_reader = lambda *a: make()
+    try:
+        t0 = time.perf_counter()
+        stats = port_extract.run_extraction(cli_args(source, cfg, ckpt, device), port_extract._LOG)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        port_extract.open_reader = replaced
+    files = [Path(stats[key]) for key in ("tracks_file", "transforms_file")]
+    return {"stats": stats, "wall_s": wall, "files": files,
+            "bytes": [f.read_bytes() if f.exists() else b"" for f in files]}
 
 
 def cli_checkpoint(detector, tmp: Path) -> tuple:
@@ -2365,17 +2427,10 @@ def phase_cli(detector, frames, reader, device: str = "cuda", chunk: int = 32,
         if res["npz_vs_memory"] != 0.0 or res["pt_vs_npz"] > 1e-3:
             raise AssertionError(f"checkpoint detections differ: {res}")
 
-        source = tmp / "V_cli.mp4"
-        args = cli_args(source, cfg, tmp / "ckpt.npz", device)
-        replaced = port_extract.open_reader
-        port_extract.open_reader = lambda src, start, stop, config: FrameList(info, frames)
         fast.fast_score_map.launches = 0
-        try:
-            t0 = time.perf_counter()
-            stats = port_extract.run_extraction(args, port_extract._LOG)
-            res["run_s"] = time.perf_counter() - t0
-        finally:
-            port_extract.open_reader = replaced
+        run = extract_run(tmp / "V_cli.mp4", cfg, tmp / "ckpt.npz", device,
+                          lambda: FrameList(info, frames))
+        stats, res["run_s"] = run["stats"], run["wall_s"]
         res["launches"] = fast.fast_score_map.launches
         if res["launches"] != (stats["chunks"] + 1) * (device == "cuda"):
             raise AssertionError(f"FAST launched {res['launches']} times in run_extraction")
@@ -2567,8 +2622,204 @@ def planes_decoder(videos: dict):
         native.native_probe, native.native_frames_yuv = replaced
 
 
+def host_info() -> dict:
+    """The host as the decoders see it: its cores, the ones this process
+    may run on, the cgroup's CPU quota where it is readable, and cv2's
+    version and thread count."""
+    from geotrax_tpu_torch.io import video
+
+    try:
+        cpu_max = Path("/sys/fs/cgroup/cpu.max").read_text().strip()
+    except OSError:
+        cpu_max = "not readable"
+    cv2 = video.cv2_probe()
+    return {"cpu_count": os.cpu_count(), "affinity": len(os.sched_getaffinity(0)),
+            "cpu_max": cpu_max, "cv2": cv2["version"], "cv2_threads": cv2["threads"]}
+
+
+def sha1s(frames) -> list:
+    return [hashlib.sha1(np.ascontiguousarray(f).tobytes()).hexdigest() for _, f in frames]
+
+
+def timed_read(path: Path, workers: int) -> dict:
+    """``make_reader`` of ``path`` on the cv2 backend with ``workers``:
+    the reader taken, its segments and codec threads a capture, frames/s
+    over the whole read, and the frames."""
+    from geotrax_tpu_torch.io import video
+
+    t0 = time.perf_counter()
+    reader = video.make_reader(path, workers=workers, backend="cv2")
+    frames = list(reader)
+    dt = time.perf_counter() - t0
+    parallel = isinstance(reader, video.ParallelVideoReader)
+    return {"reader": type(reader).__name__, "workers": reader.workers if parallel else 1,
+            "segments": reader._segments if parallel else None,
+            "codec_threads": reader.codec_threads if parallel else "cv2's own",
+            "fps": len(frames) / dt, "frames": frames}
+
+
+def capture_split(path: Path, device: str) -> dict:
+    """One cv2 capture (cv2's own codec threads, ``io/video._cv2_frames``)
+    over ``path``: ms a frame in ``read()``, in the swap to RGB
+    (``cv2.cvtColor``) and in the upload to ``device`` (the copy finished),
+    and the old swap (a reversed channel axis made contiguous) timed on the
+    first NUMPY_SWAP_FRAMES frames."""
+    from geotrax_tpu_torch.io import video
+
+    spent = {"read": 0.0, "swap": 0.0, "upload": 0.0, "numpy_swap": 0.0}
+    n = 0
+    for _, rgb in video._cv2_frames(str(path), spent):
+        t0 = time.perf_counter()
+        torch.from_numpy(rgb).to(device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        spent["upload"] += t1 - t0
+        if n < NUMPY_SWAP_FRAMES:
+            np.ascontiguousarray(rgb[..., ::-1])
+            spent["numpy_swap"] += time.perf_counter() - t1
+        n += 1
+    out = {k: v * 1e3 / max(1, n) for k, v in spent.items()}
+    out["numpy_swap"] = spent["numpy_swap"] * 1e3 / max(1, min(n, NUMPY_SWAP_FRAMES))
+    out["frames"] = n
+    return out
+
+
+def workers_extract(clip: Path, tmp: Path, ckpt: Path, cfg: str, device: str,
+                    workers: int) -> dict:
+    """``python -m geotrax_tpu_torch extract`` of ``clip`` on the cv2
+    backend in a subprocess with GEOTRAX_DECODE_WORKERS 1, then
+    ``workers``: both exit 0 and write byte-equal files (``turns_equal``);
+    each one's seconds, the fused loop's summary and the reader its log
+    names."""
+    def run(count):
+        out = tmp / f"workers{count}"
+        cmd = [sys.executable, "-m", "geotrax_tpu_torch", "extract", str(clip), "-m", str(ckpt),
+               "-c", cfg, "-of", str(out), "-lp", str(tmp),
+               *([] if device == "cuda" else ["--device", device])]
+        env = {**os.environ, "GEOTRAX_DECODE_WORKERS": str(count), "GEOTRAX_VIDEO_BACKEND": "cv2"}
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent, capture_output=True,
+                              text=True, timeout=600, env=env)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"extract of {clip} with {count} decode workers failed (exit "
+                                 f"{proc.returncode}):\n{proc.stderr[-3000:]}")
+        lines = proc.stderr.splitlines()
+        said = [line for line in lines if line.startswith("INFO: Reading '")]
+        loop = [line for line in lines if "Extraction (fused)" in line]
+        files = [out / f"{clip.stem}{end}" for end in (".txt", "_vid_transf.txt")]
+        return ([f.read_bytes() if f.exists() else b"" for f in files],
+                {"s": wall, "reader": said[-1].split(" through ", 1)[-1] if said else "not logged",
+                 "log": loop[-1].split(": ", 1)[-1] if loop else "not logged"})
+
+    done = turns_equal({1: functools.partial(run, 1), workers: functools.partial(run, workers)},
+                       1, f"extract of {clip} with 1 and {workers} decode workers")
+    return {count: records[0] for count, records in done.items()}
+
+
+def decode_workers(tmp: Path, ckpt: Path, cfg: str, device: str, gop_clip: Path, scene,
+                   n_frames: int = MP4V_FRAMES, made=(), counts=None) -> dict:
+    """Part (f) of the decode phase, the GOP-parallel reader on cv2
+    captures: (1) the host; (2) ``gop_clip`` (open GOPs) through
+    ``make_reader`` on the cv2 backend with GOP_WORKERS workers, every frame
+    equal to the reference's recorded SHA-1s; (3) the first ``n_frames``
+    of the seeded ``scene`` (``made`` holds the first few already) written
+    by the port's ``VideoWriter`` on cv2 (``cv2.VideoWriter``, mp4v, cv2's
+    default GOP); (4) that clip read with 1, 2, 4 and every usable core's
+    count of workers (or ``counts``), frames equal at every count,
+    frames/s and codec threads a capture; one capture's time split
+    (``capture_split``); (5) extract of it in subprocesses with 1 and the
+    fastest count above 1 (``workers_extract``), files byte-equal."""
+    from geotrax_tpu_torch.io import video
+
+    res = {"host": host_info()}
+    record = json.loads(gop_clip.with_suffix(".json").read_text())
+    gop = {}
+    for count in GOP_WORKERS:
+        run = timed_read(gop_clip, count)
+        if run["reader"] != "ParallelVideoReader" or run["workers"] != count:
+            raise AssertionError(f"{gop_clip.name} with {count} workers on cv2: "
+                                 f"{run['reader']} of {run['workers']} workers")
+        got = run.pop("frames")
+        equal = sum(a == b for a, b in zip(sha1s(got), record["rgb_sha1"]))
+        if not equal == len(got) == len(record["rgb_sha1"]):
+            raise AssertionError(f"{gop_clip.name} with {count} cv2 workers: {equal} of "
+                                 f"{len(got)} frames equal the reference's "
+                                 f"{len(record['rgb_sha1'])}")
+        gop[count] = {**run, "frames": len(got), "frames_equal": equal}
+    res["gop"] = gop
+
+    clip = tmp / "W_mp4v.mp4"
+    t0 = time.perf_counter()
+    with env_set(GEOTRAX_VIDEO_BACKEND="cv2"):
+        writer = video.VideoWriter(clip, MP4V_FPS, scene.info.width, scene.info.height)
+    if writer.backend != "cv2":
+        raise AssertionError(f"the writer took the {writer.backend} backend, not cv2")
+    for _, frame in list(made) + make_frames(scene, range(len(made), n_frames)):
+        writer.write(frame)
+    writer.close()
+    res["clip"] = {"size": (scene.info.width, scene.info.height), "frames": n_frames,
+                   "bytes": clip.stat().st_size, "write_s": time.perf_counter() - t0}
+    counts = counts or sorted({1, 2, 4, res["host"]["affinity"]})
+    reads, first = {}, None
+    for count in counts:
+        run = reads[count] = timed_read(clip, count)
+        got = run.pop("frames")
+        first = got if first is None else first
+        if len(got) != n_frames or not all(i == j and np.array_equal(a, b)
+                                           for (i, a), (j, b) in zip(got, first)):
+            raise AssertionError(f"{clip.name} with {count} workers gave other frames than with "
+                                 f"{counts[0]} ({len(got)} of {n_frames})")
+        run["frames"] = len(got)
+    del first, got
+    res["reads"] = reads
+    res["split"] = capture_split(clip, device)
+    res["best"] = best = max((c for c in counts if c > 1), key=lambda c: reads[c]["fps"])
+    res["extract"] = workers_extract(clip, tmp, ckpt, cfg, device, best)
+    return res
+
+
+@contextlib.contextmanager
+def env_set(**values):
+    """Environment variables set for the block, restored after."""
+    before = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def workers_text(wk: dict) -> str:
+    """Part (f) of the decode phase in words."""
+    h = wk["host"]
+    gop = "; ".join(f"{c} workers: {r['reader']} segments {r['segments']}, {r['codec_threads']} "
+                    f"codec threads each, {r['frames_equal']}/{r['frames']} frames equal, "
+                    f"{r['fps']:.2f} frames/s" for c, r in wk["gop"].items())
+    reads = "; ".join(f"{c}: {r['reader']} ({r['workers']} workers, codec threads "
+                      f"{r['codec_threads']}) {r['fps']:.2f} frames/s"
+                      for c, r in wk["reads"].items())
+    sp, cl = wk["split"], wk["clip"]
+    ex = "; ".join(f"GEOTRAX_DECODE_WORKERS={c}: exit 0 in {r['s']:.1f}s, {r['log']}, reader "
+                   f"{r['reader']}" for c, r in wk["extract"].items())
+    return (f"(f) host: os.cpu_count() {h['cpu_count']}, sched_getaffinity {h['affinity']}, "
+            f"cgroup cpu.max {h['cpu_max']}, cv2 {h['cv2']} getNumThreads {h['cv2_threads']}; "
+            f"h264_gop.mp4 (open GOPs of 12) through make_reader on cv2: {gop}; a "
+            f"{cl['size'][0]}x{cl['size'][1]} mp4v clip of {cl['frames']} frames written by "
+            f"cv2.VideoWriter ({cl['bytes']} bytes, {cl['write_s']:.1f}s), read by workers: "
+            f"{reads} (frames equal at every count); one capture's ms a frame: read() "
+            f"{sp['read']:.2f}, cvtColor swap {sp['swap']:.2f}, upload {sp['upload']:.2f} (the "
+            f"old numpy swap {sp['numpy_swap']:.2f}) over {sp['frames']} frames; extract of it "
+            f"in subprocesses: {ex}; files byte-equal")
+
+
 def phase_decode(detector, frames, reader, device: str = "cuda", reps: int = 50,
-                 tol_px: float = 2.0, clip=None, rounds: int = 2) -> dict:
+                 tol_px: float = 2.0, clip=None, rounds: int = 2, gop_clip=None) -> dict:
     """Decoding on the card's side of the port: (a) the NVDEC probe; (b) the
     demuxer on the committed fixtures; (c) the NV12 -> RGB24 kernel exact
     against its plain version on the planes of the first frame (the seeded
@@ -2581,7 +2832,10 @@ def phase_decode(detector, frames, reader, device: str = "cuda", reps: int = 50,
     frames of the wrapper's plain route): the kernel launched once a
     frame, and the results file byte-equal to a run fed from memory the
     plain conversion's RGB frames of the same planes; frames/s of both;
-    (e) ``extract`` of ``clip`` from the file (``file_extract``)."""
+    (e) ``extract`` of ``clip`` from the file (``file_extract``); (f) with
+    ``gop_clip``, the GOP-parallel reader on cv2 captures
+    (``decode_workers``, on a clip of MP4V_FRAMES frames of ``reader``'s
+    scene that begins with ``frames``)."""
     from geotrax_tpu_torch.io.video import DeviceVideoReader
 
     small = detector.imgsz != port_cfg.DEFAULT["ultralytics"]["imgsz"]  # a rehearsal's size
@@ -2640,51 +2894,49 @@ def phase_decode(detector, frames, reader, device: str = "cuda", reps: int = 50,
         # (e) the file as users hand it over
         if clip is not None:
             res["file"] = file_extract(Path(clip), tmp, ckpt, cfg, device, tol_px, rounds)
+        # (f) GEOTRAX_DECODE_WORKERS through cv2
+        if gop_clip is not None:
+            (tmp / "workers").mkdir()
+            res["workers"] = decode_workers(tmp / "workers", ckpt, cfg, device, Path(gop_clip),
+                                            reader, MP4V_FRAMES, made=frames)
     return res
 
 
 def extract_in_turns(sources: dict, tmp: Path, ckpt: Path, cfg: str, device: str,
                      n_frames: int, camera, tol_px: float, may_lack_tracks: bool,
                      source_name: str = "V_decode.mp4", rounds: int = 2) -> dict:
-    """run_extraction (-m ckpt -c cfg) of each source in turns (a, b, b, a;
-    a, b with one round):
-    ``sources`` maps a name to a factory of the frame source that
-    open_reader hands over (None: extract's own open_reader, the file
-    ``tmp/<source_name>``). Every run's files must be byte-equal; per name
-    its runs' frames/s, wall seconds and NV12 kernel launches (the count
-    set to 0 before each run, read after), its files' bytes and checks."""
-    names = list(sources)
-    runs = {name: {"fps": [], "wall_s": [], "launches": []} for name in names}
-    written, replaced = [], port_extract.open_reader
-    for k, name in enumerate((names + names[::-1])[:len(names) * rounds]):
-        source = tmp / f"run{k}" / source_name
+    """run_extraction (-m ckpt -c cfg, ``extract_run``) of each source in
+    turns (``turns_equal``): ``sources`` maps a name to a factory of the
+    frame source that open_reader hands over (None: extract's own
+    open_reader, the file ``tmp/<source_name>``). Every run's files must be
+    byte-equal; per name its runs' frames/s, wall seconds and NV12 kernel
+    launches (the count set to 0 before each run, read after), its files'
+    bytes and checks."""
+    made = []
+
+    def run(name):
+        source = tmp / f"run{len(made)}" / source_name
+        made.append(source)
         source.parent.mkdir(parents=True)
         if (tmp / source_name).exists():
             shutil.copy(tmp / source_name, source)
-        if sources[name] is not None:
-            port_extract.open_reader = lambda *a, _make=sources[name]: _make()
         yuv.nv12_to_rgb24.launches = 0
-        try:
-            t0 = time.perf_counter()
-            stats = port_extract.run_extraction(cli_args(source, cfg, ckpt, device),
-                                                port_extract._LOG)
-            if device == "cuda":
-                torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        finally:
-            port_extract.open_reader = replaced
-        runs[name]["launches"].append(yuv.nv12_to_rgb24.launches)
-        yuv.nv12_to_rgb24.launches = 0
-        runs[name]["fps"].append(stats["fps"])
-        runs[name]["wall_s"].append(wall)
-        files = [Path(stats[key]) for key in ("tracks_file", "transforms_file")]
-        written.append([f.read_bytes() if f.exists() else b"" for f in files])
-        if "checks" not in runs[name]:
-            runs[name]["checks"] = check_files(*files, stats.get("metadata_file"), n_frames,
-                                               camera, tol_px, may_lack_tracks=may_lack_tracks)
-            runs[name]["bytes"] = sum(len(b) for b in written[-1])
-    if any(w != written[0] for w in written):
-        raise AssertionError(f"the runs of {names} in turns wrote other files")
+        out = extract_run(source, cfg, ckpt, device, sources[name])
+        launches, yuv.nv12_to_rgb24.launches = yuv.nv12_to_rgb24.launches, 0
+        return out["bytes"], {**out, "launches": launches}
+
+    done = turns_equal({name: functools.partial(run, name) for name in sources}, rounds,
+                       f"the runs of {list(sources)} in turns wrote other files")
+    runs = {}
+    for name, records in done.items():
+        first = records[0]
+        runs[name] = {"fps": [r["stats"]["fps"] for r in records],
+                      "wall_s": [r["wall_s"] for r in records],
+                      "launches": [r["launches"] for r in records],
+                      "checks": check_files(*first["files"], first["stats"].get("metadata_file"),
+                                            n_frames, camera, tol_px,
+                                            may_lack_tracks=may_lack_tracks),
+                      "bytes": sum(len(b) for b in first["bytes"])}
     return runs
 
 
@@ -2734,7 +2986,7 @@ def file_extract(clip: Path, tmp: Path, ckpt: Path, cfg: str, device: str,
         frames = [(i, f.cpu().numpy() if torch.is_tensor(f) else f) for i, f in reader]
         res["decode_fps"] = len(frames) / (time.perf_counter() - t0)
         res["reader"] = type(reader).__name__
-        got = [hashlib.sha1(np.ascontiguousarray(f).tobytes()).hexdigest() for _, f in frames]
+        got = sha1s(frames)
         res["frames"] = len(got)
         res["frames_equal"] = sum(a == b for a, b in zip(got, record["rgb_sha1"]))
         if not res["frames_equal"] == len(got) == len(record["rgb_sha1"]):
@@ -2805,6 +3057,8 @@ def decode_line(dc: dict, seconds: float, smi: str) -> str:
                      f"{f['checks']['camera_err_px']:.3f} px")
         elif f["exit"]:
             text += f" ({' '.join(f['said'])[:200]})"
+    if "workers" in dc:
+        text += "; " + workers_text(dc["workers"])
     return text + f" [{smi}]"
 
 
@@ -4646,7 +4900,13 @@ def render_batch(tmp: Path, device: str, width: int, height: int, lengths, seed:
 # phase 14: train
 # ---------------------------------------------------------------------------
 
-TRAIN_IMAGES = (16, 8)      # train, val images of the smoke's dataset
+# train, val images of the train phase's dataset (one step an epoch at the
+# preset's batch of 8: its 2 epochs, the resumed run and the timed loop load
+# half of the 16 + 8 PNGs they once did, which kept the whole smoke inside its
+# time once the decode phase read files through several cv2 captures) and of
+# the multi phase's (two steps of a global batch of 8)
+TRAIN_IMAGES = (8, 4)
+MULTI_IMAGES = (16, 8)
 TRAIN_EPOCHS = 2
 TRAIN_CHECK_IMGSZ, TRAIN_CHECK_BATCH = 640, 2
 TRAIN_TIMED_STEPS = 4
@@ -5299,7 +5559,7 @@ def multi_lockstep(detector: Detector, width: int, height: int, cards: int, imgs
 
 
 def phase_multi(device: str = "cuda", width: int = 3840, height: int = 2160,
-                counts=TRAIN_IMAGES, imgsz=None, batch=None, steps: int = MULTI_STEPS,
+                counts=MULTI_IMAGES, imgsz=None, batch=None, steps: int = MULTI_STEPS,
                 n_frames: int = MULTI_FRAMES, seed: int = 0,
                 vehicles: int = VEHICLES_PER_4K_FRAME, cards=None, lock_frames=MULTI_LOCK_FRAMES,
                 variant: str = "s") -> dict:
@@ -6605,6 +6865,16 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int, res: dict
             "launches_features": features_launches, **extra}
 
 
+def workers_entry(wk: dict) -> dict:
+    """Part (f)'s numbers for the JSON line: the host, frames/s by worker
+    count, one capture's split, the two extract runs' seconds."""
+    return {"host": wk["host"], "gop_fps": {c: r["fps"] for c, r in wk["gop"].items()},
+            "mp4v_fps": {c: r["fps"] for c, r in wk["reads"].items()},
+            "codec_threads": {c: r["codec_threads"] for c, r in wk["reads"].items()},
+            "split_ms": wk["split"], "best": wk["best"],
+            "extract_s": {c: r["s"] for c, r in wk["extract"].items()}}
+
+
 def nv12_entry(dc: dict) -> dict:
     """The NV12 -> RGB24 kernel's entry of the JSON line (the decode
     phase): its launches on the extract path from planes, its numbers on
@@ -6621,6 +6891,7 @@ def nv12_entry(dc: dict) -> dict:
             "extract_fps": {k: v["fps"] for k, v in dc["runs"].items()},
             "file": {k: dc["file"].get(k) for k in ("clip", "backend", "decode_fps",
                                                      "frames_equal", "exit")},
+            "workers": workers_entry(dc["workers"]) if "workers" in dc else None,
             "nvdec": dc["probe"]}
 
 
@@ -6811,7 +7082,7 @@ def main(argv) -> int:
                 f"frames) ms/chunk {[round(x * 1e3, 1) for x in run['stats']['chunk_s']]}")
             t = time.perf_counter()
             dc = phase_decode(run["fx"].detector, run["frames"], run["reader"], "cuda",
-                              clip=DECODE_CLIP)
+                              clip=DECODE_CLIP, gop_clip=GOP_CLIP)
             log(decode_line(dc, time.perf_counter() - t, dev["smi"]))
             log(f"decode-only ok {time.perf_counter() - t_all:.1f}s")
             return 0
@@ -6982,7 +7253,7 @@ def main(argv) -> int:
 
         t = time.perf_counter()
         dc = phase_decode(main_run["fx"].detector, main_run["frames"], main_run["reader"], "cuda",
-                          clip=DECODE_CLIP)
+                          clip=DECODE_CLIP, gop_clip=GOP_CLIP)
         log(decode_line(dc, time.perf_counter() - t, dev["smi"]))
 
         t = time.perf_counter()

@@ -22,6 +22,14 @@ naming the file and the property: a fragmented file (``moof``/``mvex``),
 another codec (MPEG-4 Part 2, ``mp4v``, among them), a bit depth above 8,
 a chroma format other than 4:2:0, full range, an edit list that hides
 frames, or no video track. The command line prints it and exits 1.
+
+``frame_table(path)`` needs no decoder and none of the port's codecs: from
+the sample tables alone (``Mp4Tables``: ``mdhd``, ``stts``, ``ctts``,
+``stss``, ``elst``; any video sample entry, ``mp4v`` too) it gives the
+display-order pts in libavformat's time base and the key flags that the
+native decoder's packet scan (``io/native.scan_frame_pts``) gives, or None
+for a file it cannot map exactly. The GOP-parallel reader splits a video
+on it where only cv2 decodes.
 """
 
 from __future__ import annotations
@@ -51,6 +59,8 @@ INT_MAX = 2**31 - 1
 # The H.264 profiles whose SPS carries chroma_format_idc and bit depths
 H264_HIGH_PROFILES = {100, 110, 122, 244, 44, 83, 86, 118, 128, 138, 139, 134, 135}
 CHROMA_NAMES = {0: "4:0:0 (monochrome)", 1: "4:2:0", 2: "4:2:2", 3: "4:4:4"}
+# What parsing a file that is not a well-formed MP4 raises
+PARSE_ERRORS = (ValueError, OSError, struct.error, IndexError)
 
 
 class UnsupportedVideo(ValueError):
@@ -329,9 +339,15 @@ def _full_box(data: bytes) -> tuple[int, bytes]:
     return data[0], data[4:]
 
 
-class Mp4Video:
-    """The first video track of an MP4 file: its ``info``, ``codec``,
-    ``sps``, parameter sets and samples (see the module's docstring)."""
+class Mp4Tables:
+    """The sample tables of an MP4 file's first video track, whatever its
+    codec: ``timescale``, ``fourcc`` (of its sample entry), ``sizes``,
+    ``offsets``, ``durations``, ``pts`` and ``keyframes`` in decode order,
+    ``edits`` (the edit list's (duration, media time, rate integer, rate
+    fraction) entries, empty without one), ``video_tracks`` and ``boxes``
+    (the track's leaf boxes by type). A fragmented file, one without a
+    video track and an edit list that hides frames raise
+    ``UnsupportedVideo``."""
 
     def __init__(self, path):
         self.path = str(path)
@@ -350,8 +366,7 @@ class Mp4Video:
         return data
 
     def _refuse(self, what: str):
-        raise UnsupportedVideo(f"{self.path}: {what}; the port decodes H.264 and HEVC, 8-bit "
-                               f"4:2:0 limited range, in a plain (unfragmented) MP4")
+        raise UnsupportedVideo(f"{self.path}: {what}")
 
     def _parse(self) -> None:
         size = os.fstat(self._fd).st_size
@@ -382,6 +397,7 @@ class Mp4Video:
         video = [t for t in tracks if t.get(b"hdlr", b"")[8:12] == b"vide"]
         if not video:
             self._refuse("no video track")
+        self.video_tracks = len(video)
         self._table(video[0])
 
     def _track(self, read, start: int, end: int) -> dict:
@@ -402,62 +418,18 @@ class Mp4Video:
         for need in (b"mdhd", b"stsd", b"stts", b"stsc", b"stsz"):
             if need not in t:
                 raise ValueError(f"{self.path}: the video track has no '{need.decode()}' box")
+        self.boxes = t
         version, mdhd = _full_box(t[b"mdhd"])
         self.timescale = struct.unpack(">I", mdhd[16:20] if version == 1 else mdhd[8:12])[0]
         self._sample_entry(t[b"stsd"])
         self._samples(t)
         self._edits(t.get(b"elst"), self.movie_timescale)
-        fps = Fraction(0)
-        total = int(self.durations.sum())
-        if self.timescale and total and len(self.sizes):
-            fps = Fraction(self.timescale * len(self.sizes), total)
-            if fps.numerator > INT_MAX or fps.denominator > INT_MAX:
-                raise ValueError(f"{self.path}: frame rate {fps} needs av_reduce's approximation")
-        self.fps = fps
-        self.info = VideoInfo(self.sps.width, self.sps.height, float(fps), len(self.sizes))
 
     def _sample_entry(self, stsd: bytes) -> None:
         _, body = _full_box(stsd)
-        entries = struct.unpack(">I", body[:4])[0]
-        if entries < 1:
+        if struct.unpack(">I", body[:4])[0] < 1:
             raise ValueError(f"{self.path}: the video track has no sample entry")
-        size, kind = struct.unpack(">I4s", body[4:12])
-        codec = SAMPLE_ENTRIES.get(kind)
-        if codec is None:
-            name = {b"mp4v": "MPEG-4 Part 2 (mp4v)"}.get(kind, repr(kind.decode("latin-1")))
-            self._refuse(f"codec {name}")
-        self.codec = codec
-        entry = body[4:4 + size]
-        config = None
-        for ckind, cs, ce in _boxes(lambda p, n: entry[p:p + n], 8 + VISUAL_ENTRY_BYTES, size):
-            if ckind in (b"avcC", b"hvcC"):
-                config = entry[cs:ce]
-        if config is None:
-            raise ValueError(f"{self.path}: the {codec} sample entry has no configuration box")
-        if codec == "h264":
-            self.length_size = (config[4] & 3) + 1
-            sps_nals, pos = _nal_list(config, 6, config[5] & 0x1F)
-            pps_nals, _ = _nal_list(config, pos + 1, config[pos])
-            sets = sps_nals + pps_nals
-            parse = parse_h264_sps
-        else:
-            self.length_size = (config[21] & 3) + 1
-            pos, sets = 23, []
-            for _ in range(config[22]):  # arrays of one NAL unit type each
-                nals, pos = _nal_list(config, pos + 3, struct.unpack(">H", config[pos + 1:pos + 3])[0])
-                sets += nals
-            sps_nals = [s for s in sets if s and (s[0] >> 1) & 0x3F == 33]
-            parse = parse_hevc_sps
-        if not sps_nals:
-            raise ValueError(f"{self.path}: the {codec} configuration holds no SPS")
-        self.parameter_sets = sets
-        self.sps = sps = parse(sps_nals[0])
-        if sps.bit_depth != 8:
-            self._refuse(f"{sps.bit_depth}-bit {codec}")
-        if sps.chroma_format != 1:
-            self._refuse(f"chroma format {CHROMA_NAMES.get(sps.chroma_format, sps.chroma_format)}")
-        if sps.full_range:
-            self._refuse("full range (video_full_range_flag 1)")
+        self.fourcc = body[8:12]
 
     def _samples(self, t: dict) -> None:
         _, stsz = _full_box(t[b"stsz"])
@@ -516,12 +488,14 @@ class Mp4Video:
         them: more than one media edit, or one that starts after the first
         frame's presentation time or ends before the last frame starts. An
         empty edit (a start delay) hides none."""
+        self.edits = []
         if elst is None or len(self.pts) == 0:
             return
         version, body = _full_box(elst)
         n = struct.unpack(">I", body[:4])[0]
         fmt, step = (">QqHH", 20) if version == 1 else (">IiHH", 12)
-        edits = [struct.unpack(fmt, body[4 + i * step:4 + (i + 1) * step]) for i in range(n)]
+        self.edits = edits = [struct.unpack(fmt, body[4 + i * step:4 + (i + 1) * step])
+                              for i in range(n)]
         media = [e for e in edits if e[1] != -1]
         if not media:
             return
@@ -537,6 +511,105 @@ class Mp4Video:
                 last >= media_time + duration * self.timescale / movie_timescale:
             self._refuse(f"an edit list that hides frames (it ends before the last frame's "
                          f"presentation time {last})")
+
+    def frame_table(self) -> tuple | None:
+        """Display-order (pts, key flags) of every frame, equal to what
+        libavformat's packet scan gives (``io/native.scan_frame_pts``; pts
+        in the track's timescale, libavformat's time base for it): each
+        sample's pts is its decode time plus its ``ctts`` offset; a media
+        edit moves them so that the first shows at 0 (libavformat's edit
+        list index, whatever the edit's media time up to the first frame's);
+        samples sort by pts, ties in decode order; the ``stss`` samples
+        (every sample without one) are the keys. Any sample entry will do
+        (``mp4v``, ``avc1``, ``hvc1``, ...). None where that mapping is not
+        known to be exact: more than one video track, an empty edit,
+        several edits or a rate other than 1, partial sync samples
+        (``stps``) or sample groups (``sbgp``) that libavformat may read as
+        keys."""
+        if self.video_tracks != 1 or b"stps" in self.boxes or b"sbgp" in self.boxes:
+            return None
+        pts, count = self.pts, len(self.sizes)
+        if self.edits:
+            if len(self.edits) != 1 or self.edits[0][1] < 0 or self.edits[0][2:] != (1, 0):
+                return None
+            pts = pts - pts.min()
+        keys = np.zeros(count, np.int32)
+        keys[self.keyframes[(self.keyframes >= 0) & (self.keyframes < count)]] = 1
+        order = np.argsort(pts, kind="stable")
+        return pts[order], keys[order]
+
+    def close(self) -> None:
+        if self._fd >= 0:
+            os.close(self._fd)
+            self._fd = -1
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class Mp4Video(Mp4Tables):
+    """The first video track of an MP4 file that the port decodes: its
+    ``info``, ``codec``, ``sps``, parameter sets and samples (see the
+    module's docstring)."""
+
+    def _refuse(self, what: str):
+        super()._refuse(f"{what}; the port decodes H.264 and HEVC, 8-bit 4:2:0 limited range, "
+                        f"in a plain (unfragmented) MP4")
+
+    def _table(self, t: dict) -> None:
+        super()._table(t)
+        fps = Fraction(0)
+        total = int(self.durations.sum())
+        if self.timescale and total and len(self.sizes):
+            fps = Fraction(self.timescale * len(self.sizes), total)
+            if fps.numerator > INT_MAX or fps.denominator > INT_MAX:
+                raise ValueError(f"{self.path}: frame rate {fps} needs av_reduce's approximation")
+        self.fps = fps
+        self.info = VideoInfo(self.sps.width, self.sps.height, float(fps), len(self.sizes))
+
+    def _sample_entry(self, stsd: bytes) -> None:
+        super()._sample_entry(stsd)
+        _, body = _full_box(stsd)
+        size, kind = struct.unpack(">I4s", body[4:12])
+        codec = SAMPLE_ENTRIES.get(kind)
+        if codec is None:
+            name = {b"mp4v": "MPEG-4 Part 2 (mp4v)"}.get(kind, repr(kind.decode("latin-1")))
+            self._refuse(f"codec {name}")
+        self.codec = codec
+        entry = body[4:4 + size]
+        config = None
+        for ckind, cs, ce in _boxes(lambda p, n: entry[p:p + n], 8 + VISUAL_ENTRY_BYTES, size):
+            if ckind in (b"avcC", b"hvcC"):
+                config = entry[cs:ce]
+        if config is None:
+            raise ValueError(f"{self.path}: the {codec} sample entry has no configuration box")
+        if codec == "h264":
+            self.length_size = (config[4] & 3) + 1
+            sps_nals, pos = _nal_list(config, 6, config[5] & 0x1F)
+            pps_nals, _ = _nal_list(config, pos + 1, config[pos])
+            sets = sps_nals + pps_nals
+            parse = parse_h264_sps
+        else:
+            self.length_size = (config[21] & 3) + 1
+            pos, sets = 23, []
+            for _ in range(config[22]):  # arrays of one NAL unit type each
+                nals, pos = _nal_list(config, pos + 3, struct.unpack(">H", config[pos + 1:pos + 3])[0])
+                sets += nals
+            sps_nals = [s for s in sets if s and (s[0] >> 1) & 0x3F == 33]
+            parse = parse_hevc_sps
+        if not sps_nals:
+            raise ValueError(f"{self.path}: the {codec} configuration holds no SPS")
+        self.parameter_sets = sets
+        self.sps = sps = parse(sps_nals[0])
+        if sps.bit_depth != 8:
+            self._refuse(f"{sps.bit_depth}-bit {codec}")
+        if sps.chroma_format != 1:
+            self._refuse(f"chroma format {CHROMA_NAMES.get(sps.chroma_format, sps.chroma_format)}")
+        if sps.full_range:
+            self._refuse("full range (video_full_range_flag 1)")
 
     # -- samples ------------------------------------------------------------
     def annexb(self, sample: bytes, first: bool = False) -> bytes:
@@ -569,16 +642,16 @@ class Mp4Video:
                 f.write(sample)
         return Path(path)
 
-    def close(self) -> None:
-        if self._fd >= 0:
-            os.close(self._fd)
-            self._fd = -1
 
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        self.close()
+def frame_table(path) -> tuple | None:
+    """Display-order (pts, key flags) of every frame of ``path``'s video
+    track from its sample tables alone (``Mp4Tables.frame_table``), or None
+    where they cannot give what libavformat's packet scan gives."""
+    try:
+        with Mp4Tables(path) as tables:
+            return tables.frame_table()
+    except PARSE_ERRORS:
+        return None
 
 
 def main(argv=None) -> int:

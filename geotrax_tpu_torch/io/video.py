@@ -5,10 +5,13 @@ The port's copy of ``geotrax_tpu/io/video.py``:
 - 'native': the port's libavformat/libavcodec decoder and encoder
   (``io/native``), built with g++ at first use; deterministic frame
   indexing, RGB in and out.
-- 'cv2': OpenCV, imported only inside this backend's functions (the card's
-  machine has no cv2), for reading, for writing when the native encoder
-  cannot be built, for the live preview of ``visualize --show``, and for a
-  frame saved as JPEG (``write_jpeg``, the frame tools' ``-of jpg``).
+- 'cv2': OpenCV, imported only inside this backend's functions, for
+  reading (the card's machine reads files this way: it has cv2 and no
+  FFmpeg libraries), for writing when the native encoder cannot be built,
+  for the live preview of ``visualize --show``, and for a frame saved as
+  JPEG (``write_jpeg``, the frame tools' ``-of jpg``). Its BGR frames
+  become RGB, and RGB frames BGR, through ``cv2.cvtColor``: byte-equal to
+  the reference's reversed channel axis, at a fraction of its cost.
 
 Frames are numpy uint8 HxWx3 in RGB order. ``VideoReader`` decodes in a
 background thread that keeps a few frames ahead of the consumer;
@@ -17,8 +20,12 @@ native backend) decodes to the planes before swscale, uploads them and
 converts them on the card (``ops/yuv.py``), its frames uint8 tensors there
 equal to ``VideoReader``'s bit for bit;
 ``ParallelVideoReader`` decodes disjoint GOP-aligned segments of one video
-in several threads (native backend), and ``make_reader`` takes it when
-``workers`` (or GEOTRAX_DECODE_WORKERS) is above 1. ``VideoWriter`` raises
+in several threads, on either backend: each segment through a native
+decoder of its own, its frames located by the packet scan's pts map, or
+through a cv2 capture of its own, located by the port's MP4 frame table
+(``io/mp4.frame_table``) and sharing the cores' codec threads with the
+others. ``make_reader`` takes it when ``workers`` (or
+GEOTRAX_DECODE_WORKERS) is above 1. ``VideoWriter`` raises
 ``RuntimeError`` naming the missing libraries where neither backend exists.
 """
 
@@ -27,6 +34,7 @@ from __future__ import annotations
 import os
 import queue
 import threading
+import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Iterator, Optional
@@ -71,9 +79,10 @@ def _import_cv2(path: str, why: str):
     except ImportError:
         raise RuntimeError(
             f"cannot read '{path}': {why}, and cv2 is not installed. Reading a video file "
-            f"needs {DECODER_LIBRARIES}; GEOTRAX_VIDEO_BACKEND chooses between them. The port "
-            f"does not decode on the card (NVDEC) yet; without either decoder, frames held in "
-            f"memory can still go through pipeline.extract.extract") from None
+            f"needs {DECODER_LIBRARIES}; GEOTRAX_VIDEO_BACKEND chooses between them (a card's "
+            f"machine without FFmpeg reads through cv2: the port does not decode through NVDEC "
+            f"yet). Without either decoder, frames held in memory can still go through "
+            f"pipeline.extract.extract") from None
     return cv2
 
 
@@ -131,17 +140,86 @@ def keyframe_indices(path: Path | str, max_count: int = 1 << 18) -> list[int]:
     return [int(buf[i]) for i in range(n)] if n > 0 else []
 
 
-def _cv2_frames(path: str):
+def cv2_probe() -> dict:
+    """cv2's version and thread count, None for both without cv2."""
+    try:
+        import cv2
+    except ImportError:
+        return {"version": None, "threads": None}
+    return {"version": cv2.__version__, "threads": cv2.getNumThreads()}
+
+
+def _cv2_frames(path: str, spent: Optional[dict] = None):
+    """(index, RGB frame) of every frame through one cv2 capture; with
+    ``spent``, the seconds in ``read()`` and in the channel swap are added
+    to its "read" and "swap"."""
     cv2 = _import_cv2(path, "the cv2 backend was chosen")
 
     cap = cv2.VideoCapture(path)
     try:
         idx = 0
         while True:
+            t0 = time.perf_counter()
             ok, bgr = cap.read()
             if not ok:
                 break
-            yield idx, np.ascontiguousarray(bgr[..., ::-1])
+            t1 = time.perf_counter()
+            rgb = cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
+            if spent is not None:
+                spent["read"] += t1 - t0
+                spent["swap"] += time.perf_counter() - t1
+            yield idx, rgb
+            idx += 1
+    finally:
+        cap.release()
+
+
+def codec_threads(workers: int) -> int:
+    """Codec threads for each of ``workers`` cv2 captures: the cores this
+    process may run on, shared among them (one capture alone takes them
+    all)."""
+    try:
+        cores = len(os.sched_getaffinity(0))
+    except AttributeError:  # no affinity call on this platform
+        cores = os.cpu_count() or 1
+    return max(1, cores // max(1, int(workers)))
+
+
+def cv2_frames_segment(path: str, ms: np.ndarray, seg: tuple, seek_index: int,
+                       threads: int) -> Iterator[tuple[int, np.ndarray]]:
+    """Yield (display index, RGB frame) for exactly the display indices
+    ``seg`` = [first, stop) through a cv2 capture of its own with
+    ``threads`` codec threads: it seeks to the keyframe at display index
+    ``seek_index`` (at or before the segment, with an open-GOP margin) and
+    drops the warm-up frames before the segment. ``ms`` holds each display
+    index's presentation time in ms from the first frame's (the frame
+    table's); every frame read must be the next display index by its own
+    time (``CAP_PROP_POS_MSEC``), else ``OSError`` names the file and the
+    frame: the frames are located, never counted."""
+    cv2 = _import_cv2(path, "the cv2 backend was chosen")
+
+    gaps = np.diff(ms)
+    tol = float(gaps[gaps > 0].min()) / 4 if (gaps > 0).any() else 0.5
+    cap = cv2.VideoCapture(path, cv2.CAP_FFMPEG, [cv2.CAP_PROP_N_THREADS, int(threads)])
+    try:
+        if not cap.isOpened():
+            raise OSError(f"cv2 cannot open {path}")
+        if seek_index > 0 and not cap.set(cv2.CAP_PROP_POS_FRAMES, int(seek_index)):
+            raise OSError(f"cv2 cannot seek {path} to frame {seek_index}")
+        idx = int(seek_index)
+        while idx < seg[1]:
+            ok, bgr = cap.read()
+            if not ok:
+                raise OSError(f"cv2 read no frame {idx} of {path} (a segment of frames "
+                              f"{seg[0]}-{seg[1] - 1}, sought from frame {seek_index})")
+            at = cap.get(cv2.CAP_PROP_POS_MSEC)
+            if abs(at - ms[idx]) > tol:
+                near = int(np.abs(ms - at).argmin())
+                raise OSError(f"cv2 gave the frame at {at:.3f} ms of {path} where frame {idx} "
+                              f"({ms[idx]:.3f} ms in its frame table) was due; the table's "
+                              f"nearest is frame {near} (sought from frame {seek_index})")
+            if idx >= seg[0]:
+                yield idx, cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
             idx += 1
     finally:
         cap.release()
@@ -322,31 +400,50 @@ class ParallelVideoReader:
     """GOP-parallel frame reader: worker threads decode disjoint index
     ranges of one video at once, merged in display order.
 
-    The display-order pts map is scanned from the packets (no decoding),
-    the index range is split into ``workers`` equal segments, and every
-    worker opens its own decoder, seeks backward to the keyframe before its
-    segment (one more GOP back for open-GOP streams), drops the warm-up
-    frames and serves exactly its slice of pts. ctypes releases the GIL in
-    the decoder's calls, so the threads run on as many cores.
+    The display-order pts map comes from the file without decoding: the
+    native decoder's packet scan (``backend`` 'native') or the port's MP4
+    frame table (``io/mp4.frame_table``, 'cv2'). The index range is split
+    into ``workers`` equal segments, and every worker opens its own decoder,
+    seeks backward to the keyframe before its segment (one more GOP back
+    for open-GOP streams), drops the warm-up frames and serves exactly its
+    slice of the map. A native worker decodes on one codec thread and
+    selects its frames by pts; a cv2 worker's capture takes its share of
+    the cores' codec threads (``codec_threads``) and checks every frame's
+    time against the table (``cv2_frames_segment``). ctypes and cv2 release
+    the GIL in their decoding calls, so the threads run on as many cores.
 
     The merged stream equals ``VideoReader``'s bit for bit, because segment
-    membership is decided by the scanned display pts, never by counting
-    frames after a seek. Raises ``ValueError`` when the stream has no
-    usable pts map; ``make_reader`` then takes the sequential reader."""
+    membership is decided by the display pts, never by counting frames
+    after a seek. Raises ``ValueError`` when the file has no usable map (no
+    pts, or for cv2 not an MP4 whose tables map it exactly); ``make_reader``
+    then takes the sequential reader."""
 
     def __init__(self, path: Path | str, start: int = 0, stop: Optional[int] = None,
-                 workers: int = 2, prefetch: int = 8):
-        from geotrax_tpu_torch.io.native import scan_frame_pts
-
+                 workers: int = 2, prefetch: int = 8, backend: Optional[str] = None):
         self.path = str(path)
-        self.backend = "native"
-        scan = scan_frame_pts(self.path)
+        self.backend = get_backend(backend)
+        if self.backend == "native":
+            from geotrax_tpu_torch.io.native import scan_frame_pts
+
+            scan = scan_frame_pts(self.path)
+            timescale = None
+        else:
+            from geotrax_tpu_torch.io import mp4
+
+            try:
+                with mp4.Mp4Tables(self.path) as tables:
+                    scan, timescale = tables.frame_table(), tables.timescale
+            except mp4.PARSE_ERRORS as exc:
+                raise ValueError(f"no display-pts map for {path} ({exc}): use the sequential "
+                                 "VideoReader") from None
         if scan is None:
-            raise ValueError(f"no display-pts map for {path} (the stream lacks pts): use "
-                             "the sequential VideoReader")
+            raise ValueError(f"no display-pts map for {path} (the stream lacks pts, or its "
+                             "tables do not map it exactly): use the sequential VideoReader")
         self._pts, keys = scan
         n = len(self._pts)
-        info = probe_video(self.path, "native")
+        # each frame's time from the first's, which cv2 reports (CAP_PROP_POS_MSEC)
+        self._ms = None if timescale is None else (self._pts - self._pts[0]) * (1e3 / timescale)
+        info = probe_video(self.path, self.backend)
         # the packet scan counts the actual frames: trust it over the
         # container's estimate, so that no segment runs past the end
         self.info = VideoInfo(info.width, info.height, info.fps, n)
@@ -364,6 +461,8 @@ class ParallelVideoReader:
         bounds = [self.start + (total * j) // self._workers for j in range(self._workers + 1)]
         self._segments = [(bounds[j], bounds[j + 1]) for j in range(self._workers)
                           if bounds[j] < bounds[j + 1]]
+        self.workers = len(self._segments)
+        self.codec_threads = 1 if self.backend == "native" else codec_threads(self.workers)
         self._queues = [queue.Queue(maxsize=max(1, int(prefetch))) for _ in self._segments]
         self._stop_event = threading.Event()
         self._threads: list[threading.Thread] = []
@@ -371,26 +470,33 @@ class ParallelVideoReader:
         self._started = False
         self._finished = False
 
-    def _seek_pts(self, seg_start: int) -> int:
-        """The keyframe at or before the segment's start, then one more
-        keyframe back: in an open-GOP stream the frames just after an
-        I-frame may reference the GOP before it. Warm-up frames are dropped
-        by pts, so the margin costs decoding time only."""
+    def _seek_index(self, seg_start: int) -> int:
+        """The display index of the keyframe at or before the segment's
+        start, then of one more keyframe back: in an open-GOP stream the
+        frames just after an I-frame may reference the GOP before it.
+        Warm-up frames are dropped by pts, so the margin costs decoding
+        time only."""
         k = int(self._kf[self._kf <= seg_start][-1])
         before = self._kf[self._kf < k]
-        if len(before):
-            k = int(before[-1])
-        return int(self._pts[k])
+        return int(before[-1]) if len(before) else k
 
-    def _produce(self, slot: int, seg: tuple) -> None:
+    def _frames(self, seg: tuple):
+        """The segment's (display index, frame) pairs from a decoder of its
+        own."""
+        seek = self._seek_index(seg[0])
+        if self.backend == "cv2":
+            return cv2_frames_segment(self.path, self._ms, seg, seek, self.codec_threads)
         from geotrax_tpu_torch.io.native import native_frames_segment
 
+        # one codec thread per worker: GOP parallelism replaces frame
+        # threading, and workers x cores codec threads would thrash
+        return native_frames_segment(self.path, self._pts[seg[0]:seg[1]], seg[0],
+                                     seek_pts=int(self._pts[seek]), threads=1)
+
+    def _produce(self, slot: int, seg: tuple) -> None:
         q = self._queues[slot]
         try:
-            # one codec thread per worker: GOP parallelism replaces frame
-            # threading, and workers x cores codec threads would thrash
-            for item in native_frames_segment(self.path, self._pts[seg[0]:seg[1]], seg[0],
-                                              seek_pts=self._seek_pts(seg[0]), threads=1):
+            for item in self._frames(seg):
                 if not self._put(q, item):
                     return
         except BaseException as exc:  # noqa: BLE001 — re-raised in the consumer
@@ -432,7 +538,7 @@ class ParallelVideoReader:
         self._finished = True
 
     def read_frame(self, index: int) -> np.ndarray:
-        for _, frame in VideoReader(self.path, start=index, stop=index + 1, backend="native"):
+        for _, frame in VideoReader(self.path, start=index, stop=index + 1, backend=self.backend):
             return frame
         raise IndexError(f"Frame {index} not found in {self.path}")
 
@@ -452,24 +558,41 @@ class ParallelVideoReader:
 def make_reader(path: Path | str, start: int = 0, stop: Optional[int] = None, prefetch: int = 4,
                 backend: Optional[str] = None, workers: Optional[int] = None, device=None):
     """The GOP-parallel reader when ``workers`` (the argument, else
-    GEOTRAX_DECODE_WORKERS) is above 1, the backend is the native one and
-    the stream has a pts map; else, for a CUDA ``device`` and the native
-    backend, ``DeviceVideoReader`` (frames converted on the card); the
-    sequential ``VideoReader`` otherwise. The default stays sequential: on
-    a host with one core the parallel reader's seek warm-up per segment
-    costs more than it wins."""
+    GEOTRAX_DECODE_WORKERS) is above 1 and the file has a pts map, on
+    either backend: the native decoder's packet scan, or for cv2 (the card's
+    machine, which has no FFmpeg libraries) the port's MP4 frame table;
+    else, for a CUDA ``device`` and the native backend,
+    ``DeviceVideoReader`` (frames converted on the card); the sequential
+    ``VideoReader`` otherwise (cv2's frames reach the card from the host).
+    The default stays sequential, as the reference's: on a host with one
+    core the parallel reader's seek warm-up per segment costs more than it
+    wins, and one cv2 capture already decodes on every core."""
     if workers is None:
         workers = int(os.environ.get("GEOTRAX_DECODE_WORKERS", "1") or 1)
-    native = get_backend(backend) == "native"
-    if workers > 1 and native:
+    backend = get_backend(backend)
+    native = backend == "native"
+    if workers > 1:
         try:
             return ParallelVideoReader(path, start=start, stop=stop, workers=workers,
-                                       prefetch=max(prefetch, 2 * workers))
+                                       prefetch=max(prefetch, 2 * workers), backend=backend)
         except (ValueError, OSError):
             pass
     if native and device is not None and str(device).startswith("cuda"):
         return DeviceVideoReader(path, start=start, stop=stop, prefetch=prefetch, device=device)
     return VideoReader(path, start=start, stop=stop, prefetch=prefetch, backend=backend)
+
+
+def describe_reader(reader) -> str:
+    """The reader extract was handed, its backend, workers and codec
+    threads, in words (``track_video`` logs it)."""
+    backend = getattr(reader, "backend", None)
+    if isinstance(reader, ParallelVideoReader):
+        return (f"ParallelVideoReader ({backend} backend, {reader.workers} workers on segments "
+                f"{reader._segments}, {reader.codec_threads} codec threads each)")
+    if backend is None:
+        return type(reader).__name__
+    threads = "cv2's own codec threads" if backend == "cv2" else "libavcodec's own codec threads"
+    return f"{type(reader).__name__} ({backend} backend, 1 worker, {threads})"
 
 
 ENCODER_LIBRARIES = ("g++ and FFmpeg's libavformat, libavcodec, libavutil and libswscale "
@@ -539,7 +662,9 @@ class VideoWriter:
             if rc < 0:
                 raise OSError(f"Native encoder write failed ({rc}): {self.path}")
             return
-        self._writer.write(np.ascontiguousarray(frame[..., ::-1]))
+        import cv2
+
+        self._writer.write(cv2.cvtColor(frame, cv2.COLOR_RGB2BGR))
 
     def close(self) -> None:
         if self._native is not None:
@@ -562,8 +687,8 @@ def write_jpeg(path: Path | str, frame_rgb: np.ndarray, quality: int = 75) -> No
     except ImportError:
         raise RuntimeError(f"cannot write '{path}': JPEG output needs cv2 (OpenCV), which is "
                            "not installed; write PNG frames instead") from None
-    if not cv2.imwrite(str(path), np.ascontiguousarray(frame_rgb[..., ::-1]),
-                       [cv2.IMWRITE_JPEG_QUALITY, int(quality)]):
+    bgr = cv2.cvtColor(np.ascontiguousarray(frame_rgb, dtype=np.uint8), cv2.COLOR_RGB2BGR)
+    if not cv2.imwrite(str(path), bgr, [cv2.IMWRITE_JPEG_QUALITY, int(quality)]):
         raise OSError(f"cv2 could not write '{path}'")
 
 
@@ -575,7 +700,8 @@ def preview(frame_rgb: np.ndarray, title: str = "geotrax-tpu") -> int:
     except ImportError:
         raise RuntimeError("--show needs cv2 (OpenCV) for its preview window, and cv2 is "
                            "not installed; run without --show") from None
-    cv2.imshow(title, np.ascontiguousarray(frame_rgb[..., ::-1]))
+    cv2.imshow(title, cv2.cvtColor(np.ascontiguousarray(frame_rgb, dtype=np.uint8),
+                                   cv2.COLOR_RGB2BGR))
     return cv2.waitKey(1)
 
 

@@ -733,8 +733,10 @@ def load_detector(config: dict, logger):
 
 def open_reader(source: Path, start: int, stop, config: dict):
     """Video reader factory (tests patch this with a synthetic reader). On
-    a card the frames are converted there (``DeviceVideoReader``) and reach
-    the chunk step without a host copy."""
+    a card with the native decoder the frames are converted there
+    (``DeviceVideoReader``) and reach the chunk step without a host copy;
+    GEOTRAX_DECODE_WORKERS above 1 takes the GOP-parallel reader on either
+    backend (``track_video`` logs the reader taken)."""
     from geotrax_tpu_torch.io.video import make_reader
 
     return make_reader(source, start=start, stop=stop, device=_device(config))
@@ -771,6 +773,7 @@ def track_video(args, config: dict, logger, pipelined: bool = True) -> tuple:
     rows, transforms rows, stats). The fused chunk step runs where the
     detector has ``batch_trace`` and is not RT-DETR and the stabilizer is
     single-level; the sequential per-frame loop everywhere else."""
+    from geotrax_tpu_torch.io.video import describe_reader
     from geotrax_tpu_torch.models.detector import Detector
 
     main = config["main"]
@@ -792,6 +795,7 @@ def track_video(args, config: dict, logger, pipelined: bool = True) -> tuple:
 
     cut_left = int(args.cut_frame_left or 0)
     reader = open_reader(args.source, cut_left, args.cut_frame_right, config)
+    logger.info(f"Reading '{args.source}' through {describe_reader(reader)}")
     fused_ok = (hasattr(detector, "batch_trace") and not getattr(detector, "is_rtdetr", False)
                 and (not stabilize_on
                      or StabilizerConfig(**config.get("stabilo", {})).n_levels == 1))

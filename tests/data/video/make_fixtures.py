@@ -1,21 +1,27 @@
 """Make the video fixtures of tests/data/video, or encode other test clips.
 
-    python tests/data/video/make_fixtures.py             # rewrites h264_4k.* and hevc_4k.*
+    python tests/data/video/make_fixtures.py             # rewrites every fixture
     python tests/data/video/make_fixtures.py --records   # rewrites only their .json
 
-The two fixtures show the port's seeded synthetic scene
+The fixtures show the port's seeded synthetic scene
 (``geotrax_tpu_torch/io/synthetic.py``: a structured background, 36 vehicles
-moving on straight lines) at 3840x2160, seen by a camera drifting 2 px right
-and 1 px up a frame, encoded through libavcodec into MP4 by
-``fixture_encoder.cpp`` (built with g++ at first use):
+moving on straight lines), seen by a camera drifting 2 px right and 1 px up
+a frame, encoded through libavcodec into MP4 by ``fixture_encoder.cpp``
+(built with g++ at first use):
 
-  h264_4k.mp4   libx264, High profile, CABAC, 3 B-frames, 40 frames (one
-                32-frame chunk and a tail of 8) at 30000/1001 frames/s
-  hevc_4k.mp4   libx265, Main profile, 8 frames at 30 frames/s
+  h264_4k.mp4   3840x2160, libx264, High profile, CABAC, 3 B-frames, 40
+                frames (one 32-frame chunk and a tail of 8) at 30000/1001
+                frames/s
+  hevc_4k.mp4   3840x2160, libx265, Main profile, 8 frames at 30 frames/s
+  h264_gop.mp4  640x360, libx264, High profile, 3 B-frames, open GOPs of 12
+                frames (keyint 12, no scene cuts), 96 frames (8 GOPs: 4
+                segments of 2 GOPs for the GOP-parallel reader) at
+                30000/1001 frames/s, with an edit list (the B-frames' delay)
 
 Beside each, ``<name>.json`` holds what libavformat's probe reports (width,
-height, fps, frame_count), the scene's camera drift, and, per frame in
-display order, the SHA-1s of the Y, U and V planes that libavcodec decodes
+height, fps, frame_count), the display-order pts and key flags of its
+packet scan (``scan_frame_pts``), the scene's camera drift, and, per frame
+in display order, the SHA-1s of the Y, U and V planes that libavcodec decodes
 (the port's decoder's ``gtx_read_frame_yuv``, before swscale) and of the
 RGB frame that the reference's decoder gives (the same planes through its
 swscale call). The tests recompute them, so they cannot go stale. ``encode`` also makes the small clips of the tests that
@@ -48,6 +54,10 @@ FIXTURES = {
     "hevc_4k": dict(codec="libx265", frames=8, fps=(30, 1),
                     opts={"profile": "main", "preset": "fast", "crf": "32",
                           "x265-params": "bframes=3:keyint=8:log-level=error"}),
+    "h264_gop": dict(codec="libx264", frames=96, fps=(30000, 1001), size=(640, 360),
+                     opts={"profile": "high", "preset": "faster", "crf": "30",
+                           "x264-params": "bframes=3:b-adapt=0:keyint=12:open-gop=1:"
+                                          "scenecut=0:cabac=1"}),
 }
 
 _lib = None
@@ -138,13 +148,16 @@ def plane_hashes(path) -> list:
 
 
 def describe(path) -> dict:
-    """What libavformat's probe reports, the scene's camera and the
-    per-frame SHA-1s of the planes and of the reference's RGB frames."""
+    """What libavformat's probe and packet scan report, the scene's camera
+    and the per-frame SHA-1s of the planes and of the reference's RGB
+    frames."""
     from geotrax_tpu_torch.io import native
 
     w, h, fps, count = native.native_probe(str(path))
+    pts, keys = native.scan_frame_pts(str(path))
     rgb = [hashlib.sha1(f.tobytes()).hexdigest() for _, f in native.native_frames(str(path))]
-    return {"width": w, "height": h, "fps": fps, "frame_count": count, "camera": list(CAMERA),
+    return {"width": w, "height": h, "fps": fps, "frame_count": count,
+            "pts": [int(p) for p in pts], "keys": [int(k) for k in keys], "camera": list(CAMERA),
             "planes_sha1": plane_hashes(path), "rgb_sha1": rgb}
 
 
@@ -153,8 +166,9 @@ def main(argv=None) -> int:
     for name, spec in FIXTURES.items():
         path = HERE / f"{name}.mp4"
         if not records_only:
-            reader = scene(spec["frames"])
-            encode(path, (f for _, f in reader), WIDTH, HEIGHT, spec["codec"], spec["fps"],
+            width, height = spec.get("size", (WIDTH, HEIGHT))
+            reader = scene(spec["frames"], width, height)
+            encode(path, (f for _, f in reader), width, height, spec["codec"], spec["fps"],
                    opts=spec["opts"])
         info = describe(path)
         (HERE / f"{name}.json").write_text(json.dumps(info, indent=1) + "\n")

@@ -8,7 +8,7 @@ tensor frames (CPU tensors stand in for the card's) write the same rows,
 byte for byte, as given numpy frames, and so does the lockstep driver
 (batch --parallel-videos); and chip_smoke.phase_decode on the
 CPU at a small size in a subprocess under the import guard of
-tests/test_torch_imports.py."""
+tests/test_torch_imports.py (its part (f): tests/test_torch_imports_workers.py)."""
 
 import subprocess
 import sys

@@ -1,10 +1,16 @@
 """The port's MP4 demuxer (geotrax_tpu_torch/io/mp4.py) held against the JAX
 package's libav reader (geotrax_tpu/io/video.py) on the committed fixtures
-(tests/data/video: 4K H.264 with B-frames and 4K HEVC, made by
-make_fixtures.py): the size, frame rate and count its probe gives, the
-frames its Annex-B stream decodes to, the fixtures' recorded plane SHA-1s;
-small clips encoded here with odd sizes (the SPS's cropping) and the files
-it must refuse (each exits 1 naming the file and the property)."""
+(tests/data/video: 4K H.264 with B-frames, 4K HEVC and a 640x360 H.264 of
+open GOPs, made by make_fixtures.py): the size, frame rate and count its
+probe gives, the frames its Annex-B stream decodes to, the fixtures'
+recorded plane SHA-1s; small clips encoded here with odd sizes (the SPS's
+cropping) and the files it must refuse (each exits 1 naming the file and
+the property). Its frame table (``frame_table``, from the sample tables
+alone) equal to the packet scan of both packages' native decoders
+(``scan_frame_pts``) on an mp4v clip of the port's encoder, an H.264 clip of
+open GOPs with B-frames and an edit list, and the fixtures; None for a
+fragmented MP4 and an MPEG-1 program stream, where the reference has no
+map either or the tables cannot give it."""
 
 import hashlib
 import importlib.util
@@ -20,7 +26,7 @@ from geotrax_tpu.io.video import probe_video as jax_probe_video
 from geotrax_tpu_torch.io import mp4
 
 VIDEO_DIR = Path(__file__).resolve().parent / "data" / "video"
-FIXTURES = ("h264_4k", "hevc_4k")
+FIXTURES = ("h264_4k", "hevc_4k", "h264_gop")
 FIXTURE_BYTES_MAX = 4 * 2**20
 
 
@@ -166,6 +172,89 @@ def test_cli_prints_the_info_and_writes_the_stream(tmp_path, capsys):
     assert printed == {"codec": "hevc", "width": 3840, "height": 2160, "fps": 30.0,
                        "frame_count": 8, "keyframes": 1}
     assert out.stat().st_size > 0
+
+
+def _table_clip(kind, make_fixtures, tmp_path) -> Path:
+    """A clip of ``kind``: a committed fixture, or one encoded here."""
+    if kind in FIXTURES:
+        return VIDEO_DIR / f"{kind}.mp4"
+    rng = np.random.default_rng(5)
+    base = np.kron(rng.integers(0, 255, (12, 20, 3)), np.ones((8, 8, 1))).astype(np.uint8)
+    frames = []
+    for i in range(40):
+        frame = base.copy()
+        frame[30:50, (i * 4) % 120:(i * 4) % 120 + 30] = (255, 0, 0)
+        frames.append(frame)
+    path = tmp_path / f"{kind.replace(' ', '_')}.mp4"
+    if kind == "mp4v":  # the port's encoder, the codec the reference writes
+        from geotrax_tpu_torch.io.video import VideoWriter
+
+        writer = VideoWriter(path, 30.0, 160, 96)
+        for frame in frames:
+            writer.write(frame)
+        writer.close()
+        return path
+    if kind == "mpeg1 program stream":
+        cv2 = pytest.importorskip("cv2")
+        path = path.with_suffix(".mpg")
+        writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mpg1"), 30, (160, 96))
+        for frame in frames:
+            writer.write(frame)
+        writer.release()
+        return path
+    x264 = "bframes=3:b-adapt=0:keyint=12:open-gop=1:scenecut=0"
+    mux = {"movflags": "frag_keyframe+empty_moov"} if kind == "fragmented" else None
+    return make_fixtures.encode(path, frames, 160, 96, fps=(30000, 1001), mux=mux,
+                                opts={"preset": "faster", "x264-params": x264})
+
+
+@pytest.mark.parametrize("kind", ["mp4v", "h264 open gop"] + list(FIXTURES))
+def test_frame_table_equals_the_packet_scans(kind, make_fixtures, tmp_path):
+    """pts and key flags of every display index from the sample tables,
+    equal to libavformat's packet scan through the port's and the JAX
+    package's native decoders (and to the fixture's record)."""
+    from geotrax_tpu.io.native import scan_frame_pts as jax_scan
+    from geotrax_tpu_torch.io import native
+
+    path = _table_clip(kind, make_fixtures, tmp_path)
+    pts, keys = mp4.frame_table(path)
+    for want_pts, want_keys in (native.scan_frame_pts(str(path)), jax_scan(str(path))):
+        np.testing.assert_array_equal(pts, want_pts)
+        np.testing.assert_array_equal(keys, want_keys)
+    assert keys.dtype == np.int32 and pts.dtype == np.int64 and keys[0] == 1
+    if kind in FIXTURES:
+        record = json.loads((VIDEO_DIR / f"{kind}.json").read_text())
+        assert pts.tolist() == record["pts"] and keys.tolist() == record["keys"]
+    if kind in ("h264 open gop", "h264_gop"):
+        # the edit list's shift (the B-frames' delay) and keys mapped to display order
+        with mp4.Mp4Tables(path) as tables:
+            assert tables.pts.min() == 2002 and tables.edits[0][1] == 2002
+            assert list(tables.keyframes[:3]) == [0, 9, 21]
+        assert pts[0] == 0 and list(np.flatnonzero(keys)[:3]) == [0, 12, 24]
+    if kind == "mp4v":
+        with mp4.Mp4Tables(path) as tables:
+            assert tables.fourcc == b"mp4v"
+        with pytest.raises(mp4.UnsupportedVideo, match="mp4v"):
+            mp4.Mp4Video(path)
+
+
+@pytest.mark.parametrize("kind", ["fragmented", "mpeg1 program stream"])
+def test_frame_table_is_none_without_a_sample_table_map(kind, make_fixtures, tmp_path):
+    from geotrax_tpu.io.native import scan_frame_pts as jax_scan
+
+    path = _table_clip(kind, make_fixtures, tmp_path)
+    assert mp4.frame_table(path) is None
+    if kind == "mpeg1 program stream":  # no pts: the reference has no map either
+        assert jax_scan(str(path)) is None
+
+
+def test_frame_table_is_none_where_an_edit_hides_frames(tmp_path):
+    data = bytearray((VIDEO_DIR / "h264_gop.mp4").read_bytes())
+    media_at = data.index(b"elst") + 8 + 4 + 4
+    data[media_at:media_at + 4] = (2002 + 1001).to_bytes(4, "big")
+    path = tmp_path / "late_edit.mp4"
+    path.write_bytes(bytes(data))
+    assert mp4.frame_table(path) is None
 
 
 def test_exp_golomb_and_emulation_prevention():

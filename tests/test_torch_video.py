@@ -17,7 +17,18 @@ reader's and to the JAX package's ``ParallelVideoReader``, with 2 and 3
 workers, whole and windowed; the pts scan equal to the reference's; a
 stream without pts (MPEG-1 in a program stream) falls back to the
 sequential reader in both packages; a reader closed mid-stream stops its
-threads."""
+threads. The same reader on the cv2 backend (``backend="cv2"``: cv2
+captures on segments that the port's MP4 frame table locates), on that clip
+and on an H.264 clip with open GOPs of 12, 3 B-frames and an edit list:
+frames and indices bit-equal to the port's native and cv2 sequential
+readers and to the JAX package's ``ParallelVideoReader``; ``make_reader``
+takes it where the native decoder is missing; a frame that is not the one
+its time in the table says raises naming the file and the frame. The cv2
+route's channel swap (``cv2.cvtColor``) equals a reversed channel axis at
+its four sites: reading, the cv2 writer, ``write_jpeg`` and ``preview``."""
+
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -189,8 +200,15 @@ def test_make_reader_takes_decode_workers(gop_video, monkeypatch):
     monkeypatch.setenv("GEOTRAX_DECODE_WORKERS", "1")
     assert type(tvideo.make_reader(gop_video)) is tvideo.VideoReader
     assert isinstance(tvideo.make_reader(gop_video, workers=2), tvideo.ParallelVideoReader)
-    # the cv2 backend has no GOP-parallel reader
-    assert type(tvideo.make_reader(gop_video, workers=2, backend="cv2")) is tvideo.VideoReader
+    # without the native decoder (the card's machine: cv2 and no FFmpeg libraries) the
+    # GOP-parallel reader runs on cv2 captures
+    monkeypatch.setattr(tvideo, "native_error", lambda: "no FFmpeg libraries")
+    monkeypatch.delenv("GEOTRAX_VIDEO_BACKEND", raising=False)
+    reader = tvideo.make_reader(gop_video, workers=2)
+    assert isinstance(reader, tvideo.ParallelVideoReader) and reader.backend == "cv2"
+    assert len(reader._segments) == 2 and reader.codec_threads == tvideo.codec_threads(2)
+    assert [i for i, _ in reader] == list(range(GOP_FRAMES))
+    assert type(tvideo.make_reader(gop_video)) is tvideo.VideoReader
 
 
 def test_stream_without_pts_falls_back(tmp_path):
@@ -211,6 +229,104 @@ def test_stream_without_pts_falls_back(tmp_path):
     want = frames(jvideo.make_reader(path, workers=2))
     assert_same_frames(frames(reader), want)
     assert len(want) == 30
+
+
+@pytest.fixture(scope="module")
+def h264_video(gop_video, tmp_path_factory):
+    """gop_video's 150 frames through libx264 (make_fixtures.encode): open
+    GOPs of 12, 3 B-frames, so an edit list shifts the pts."""
+    spec = importlib.util.spec_from_file_location(
+        "make_fixtures", Path(__file__).resolve().parent / "data" / "video" / "make_fixtures.py")
+    make_fixtures = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(make_fixtures)
+    frames = [f for _, f in tvideo.VideoReader(gop_video)]
+    path = tmp_path_factory.mktemp("h264") / "gop_h264.mp4"
+    return make_fixtures.encode(path, frames, 320, 192, fps=(30000, 1001), opts={
+        "preset": "faster", "x264-params": "bframes=3:b-adapt=0:keyint=12:open-gop=1:scenecut=0"})
+
+
+@pytest.mark.parametrize("window", [(0, None), (10, 110), (17, GOP_FRAMES)])
+@pytest.mark.parametrize("workers", [2, 3])
+@pytest.mark.parametrize("clip", ["gop_video", "h264_video"])
+def test_cv2_parallel_reader_equals_the_sequential_readers_and_the_reference(
+        clip, workers, window, request):
+    path = request.getfixturevalue(clip)
+    start, stop = window
+    reader = tvideo.ParallelVideoReader(path, start=start, stop=stop, workers=workers,
+                                        backend="cv2")
+    got = frames(reader)
+    assert reader.backend == "cv2" and len(reader._segments) == workers
+    assert reader.codec_threads == tvideo.codec_threads(workers)
+    assert [i for i, _ in got] == list(range(start, stop or GOP_FRAMES))
+    for backend in ("native", "cv2"):
+        assert_same_frames(got, frames(tvideo.VideoReader(path, start=start, stop=stop,
+                                                          backend=backend)))
+    assert_same_frames(got, frames(jvideo.ParallelVideoReader(path, start=start, stop=stop,
+                                                              workers=workers)))
+    # each capture starts at the keyframe one GOP before its segment's (keys every 12)
+    assert [reader._seek_index(a) for a, _ in reader._segments] == [
+        max(0, (a // 12 - 1) * 12) for a, _ in reader._segments]
+
+
+@pytest.mark.parametrize("shift", [1, -1])
+def test_cv2_segment_names_a_frame_its_table_does_not_place(gop_video, shift):
+    """A frame table one frame off (a capture that lands elsewhere than its
+    table says): the segment raises naming the file and the frame, never
+    counts on."""
+    reader = tvideo.ParallelVideoReader(gop_video, workers=2, backend="cv2")
+    ms = np.roll(reader._ms, shift)
+    seg = reader._segments[1]
+    with pytest.raises(OSError, match=rf"gop\.mp4 where frame {reader._seek_index(seg[0])} "):
+        list(tvideo.cv2_frames_segment(str(gop_video), ms, seg, reader._seek_index(seg[0]), 1))
+
+
+def _swap_sites(monkeypatch, tmp_path, frame):
+    """What each cv2 site of the port hands cv2 (or gives back) for ``frame``."""
+    import cv2
+
+    seen = {}
+    monkeypatch.setattr(cv2, "imwrite", lambda path, img, params: seen.setdefault("jpeg", img)
+                        is not None)
+    monkeypatch.setattr(cv2, "imshow", lambda title, img: seen.setdefault("preview", img))
+    monkeypatch.setattr(cv2, "waitKey", lambda ms: -1)
+    tvideo.write_jpeg(tmp_path / "f.jpg", frame)
+    tvideo.preview(frame)
+    monkeypatch.setenv("GEOTRAX_VIDEO_BACKEND", "cv2")
+    writer = tvideo.VideoWriter(tmp_path / "w.mp4", 30.0, frame.shape[1], frame.shape[0])
+    assert writer.backend == "cv2"
+    writer._writer.release()
+    writer._writer = type("Sink", (), {"write": lambda self, img: seen.setdefault("writer", img),
+                                       "release": lambda self: None})()
+    writer.write(frame)
+    writer.close()
+    return seen
+
+
+@pytest.mark.parametrize("site", ["reader", "writer", "jpeg", "preview"])
+def test_cvtcolor_swap_equals_the_reversed_channel_axis(site, clips, monkeypatch, tmp_path):
+    """cv2.cvtColor's BGR <-> RGB swap, byte for byte the numpy swap
+    (``frame[..., ::-1]``) that the reference's cv2 route uses, on seeded
+    frames (an odd width among them) and on the frames cv2 decodes."""
+    import cv2
+
+    if site == "reader":
+        for path in clips.values():
+            cap = cv2.VideoCapture(str(path))
+            want = []
+            while True:
+                ok, bgr = cap.read()
+                if not ok:
+                    break
+                want.append((len(want), np.ascontiguousarray(bgr[..., ::-1])))
+            cap.release()
+            assert_same_frames(frames(tvideo.VideoReader(path, backend="cv2")), want)
+        return
+    rng = np.random.default_rng(7)
+    for h, w in ((48, 64), (37, 91)):
+        frame = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        got = _swap_sites(monkeypatch, tmp_path, frame)[site]
+        assert got.dtype == np.uint8 and got.flags["C_CONTIGUOUS"]
+        np.testing.assert_array_equal(got, frame[..., ::-1])
 
 
 def test_parallel_reader_close_midstream(gop_video):
