@@ -23,7 +23,8 @@ ends the run with a non-zero exit and no result line:
 
   0 device     the card's name and power limit (exit 1 without a card)
   1 build      nvcc builds csrc/fast_score.cu, csrc/patch_gather.cu,
-               csrc/auction.cu, csrc/nms.cu and csrc/nv12_rgb24.cu for sm_90a
+               csrc/auction.cu, csrc/nms.cu, csrc/nv12_rgb24.cu,
+               csrc/yuv_rgb24.cu and csrc/yuv_scaled_rgb24.cu for sm_90a
                and g++ the TIFF reader's
                io/native/tiff.cpp and the exact assignment's
                io/native/lapjv.cpp, all at once (-Xptxas -v shown)
@@ -335,7 +336,18 @@ ends the run with a non-zero exit and no result line:
                NV12 -> RGB24 kernel equal to its plain version on the first
                frame's planes, on the same planes at a row pitch of 4096, on
                seeded planes at 4K, 1922x1082 and 38x22; CUDA-event ms of
-               both against the bound; (d) run_extraction -m ckpt.npz -c
+               both against the bound; (c') csrc/yuv_rgb24.cu and
+               csrc/yuv_scaled_rgb24.cu equal to their plain versions for
+               each of the nine planar formats the card converts (8-bit and
+               10-bit, 4:2:0, 4:2:2, 4:4:4, both ranges) on seeded planes at
+               4K and 1919x1081, and at a row pitch of 4096 for yuvj420p and
+               yuv444p10le: device ms (CUDA-graph replay), ms as called,
+               plain ms, the bound and its share; then DeviceVideoReader of
+               the main phase's first 16 frames as yuvj420p and as
+               yuv420p10le planes in host memory: every frame equal to the
+               plain conversion's, each format's kernel launched once a
+               frame (the counts set to 0 before the read); (d)
+               run_extraction -m ckpt.npz -c
                default on the main phase's frames handed over as NV12 planes
                in host memory through DeviceVideoReader (open_reader
                replaced, the native decoder's plane source too): the kernel
@@ -487,6 +499,31 @@ INT32_OP_PER_S = FP32_FLOP_PER_S / 2
 NV12_ODD_SIZES = ((1082, 1922), (22, 38))
 # A row pitch of NVDEC-like surfaces (rows padded to 4096 bytes at 4K)
 NV12_PITCH = 4096
+# The planar formats' kernels (ops/yuv.py: yuv_to_rgb24's two routes), their
+# sources, and what they replace: the same host swscale call
+# (a parent checkout that predates them has neither)
+HAS_YUV = hasattr(yuv, "yuv_to_rgb24")
+YUV_KERNELS = ("yuv_rgb24", "yuv_scaled_rgb24")
+YUV_SOURCES = {k: f"geotrax_tpu_torch/csrc/{k}.cu" for k in YUV_KERNELS}
+YUV_LAUNCHERS = ({"yuv_rgb24": yuv.yuv_unscaled_to_rgb24,
+                  "yuv_scaled_rgb24": yuv.yuv_scaled_to_rgb24} if HAS_YUV else {})
+# int32 operations per pixel: the special converter's as NV12's with a chroma
+# sample per 2 pixels (luma 4, half of 11 for chroma, 3 adds, 6 clamps); the
+# scaler's full-chroma output (luma 7, 2 x 2 rows of chroma through the
+# identity or a 2-tap filter, 4 multiplies and 4 adds, 3 clips and shifts),
+# which does more than its table output
+YUV_OPS_PER_PIXEL = {"yuv_rgb24": 15, "yuv_scaled_rgb24": 34}
+# Each format's kernels are held to their plain versions at the main phase's
+# size and at an odd size: odd sides take the scaler for 4:2:0 and 4:2:2 and
+# its chroma filter across for an odd width
+YUV_ODD_SIZE = (1081, 1919)
+# A row pitch of pitched planes (samples), and the formats checked so
+YUV_PITCH = 4096
+YUV_PITCHED = ("yuvj420p", "yuv444p10le")
+# The formats DeviceVideoReader reads from planes in memory (one a kernel),
+# and the main phase's frames it reads of each
+YUV_READER_FORMATS = ("yuvj420p", "yuv420p10le")
+YUV_READER_FRAMES = 16
 # The committed video fixtures (tests/data/video, libavcodec's planes' SHA-1s
 # and libavformat's probe beside each)
 VIDEO_FIXTURES = ("h264_4k", "hevc_4k", "h264_gop")
@@ -593,18 +630,20 @@ def phase_device() -> dict:
 
 
 def phase_build() -> dict:
-    """The five kernels, each by its own nvcc, and the host libraries of the
+    """The seven kernels, each by its own nvcc, and the host libraries of the
     TIFF reader and the exact assignment, each by its own g++, all started
     together; their logs (a g++ build's: the library's path)."""
     from geotrax_tpu_torch.io import native, tiff
     from geotrax_tpu_torch.ops.assignment import LAPJV_SOURCE
 
-    modules = {"fast_score": fast, "patch_gather": patches,
-               **({"auction": assignment} if HAS_AUCTION else {}),
-               **({"nms": nms_ops} if HAS_NMS else {}), "nv12_rgb24": yuv}
+    kernels = {"fast_score": fast.build, "patch_gather": patches.build,
+               **({"auction": assignment.build} if HAS_AUCTION else {}),
+               **({"nms": nms_ops.build} if HAS_NMS else {}), "nv12_rgb24": yuv.build,
+               **({"yuv_rgb24": yuv.build_unscaled,
+                   "yuv_scaled_rgb24": yuv.build_scaled} if HAS_YUV else {})}
     host = {"tiff.cpp": tiff.SOURCE, "lapjv.cpp": LAPJV_SOURCE}
-    with ThreadPoolExecutor(len(modules) + len(host)) as pool:
-        futures = {name: pool.submit(mod.build, verbose=True) for name, mod in modules.items()}
+    with ThreadPoolExecutor(len(kernels) + len(host)) as pool:
+        futures = {name: pool.submit(build, verbose=True) for name, build in kernels.items()}
         built = {name: pool.submit(native.build_plain, src) for name, src in host.items()}
         return {**{name: fut.result()[1] for name, fut in futures.items()},
                 **{name: f"g++ built {fut.result().name}" for name, fut in built.items()}}
@@ -2571,6 +2610,164 @@ def nv12_text(c: dict) -> str:
     return text
 
 
+def rgb_to_planes(frame: torch.Tensor, fmt) -> tuple:
+    """(Y, U, V) planes of an (H, W, 3) uint8 RGB frame in ``fmt`` (a name
+    of ops/yuv.FORMATS): BT.601 in its range (full for a yuvj name), each
+    chroma sample the mean of the pixels it covers (edge pixels repeated
+    for odd sides), 10-bit samples at 4 times the 8-bit scale (the scene's
+    stand-in for what a decoder hands over)."""
+    fmt = yuv.FORMATS[fmt]
+    rgb = frame.to(torch.float32)
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    if fmt.full_range:
+        y = 0.299 * r + 0.587 * g + 0.114 * b
+        u = 128 - 0.168736 * r - 0.331264 * g + 0.5 * b
+        v = 128 + 0.5 * r - 0.418688 * g - 0.081312 * b
+    else:
+        y = 16 + (65.738 * r + 129.057 * g + 25.064 * b) / 256
+        u = 128 + (-37.945 * r - 74.494 * g + 112.439 * b) / 256
+        v = 128 + (112.439 * r - 94.154 * g - 18.285 * b) / 256
+    h, w = y.shape
+    ch, cw = fmt.chroma_shape(h, w)
+    sy, sx = 1 << fmt.sy, 1 << fmt.sx
+
+    def pooled(c):
+        c = torch.nn.functional.pad(c[None, None], (0, cw * sx - w, 0, ch * sy - h),
+                                    mode="replicate")[0, 0]
+        return c.reshape(ch, sy, cw, sx).mean(dim=(1, 3))
+
+    top = (1 << fmt.depth) - 1
+    scale = 1 << (fmt.depth - 8)
+    return tuple((c * scale).round().clamp(0, top).to(fmt.dtype)
+                 for c in (y, pooled(u), pooled(v)))
+
+
+def yuv_kernel(fmt, h: int, w: int) -> str:
+    """The kernel yuv_to_rgb24 launches for an h x w frame of ``fmt``."""
+    return "yuv_scaled_rgb24" if yuv.route(fmt, h, w) == "scaled" else "yuv_rgb24"
+
+
+def yuv_bound_ms(fmt, h: int, w: int) -> tuple:
+    """Least time of one conversion of an h x w frame of ``fmt`` (a name):
+    its planes read once (and the scaler's plan tables), the frame written
+    once, against the kernel's int32 operations; (ms, "bytes" |
+    "operations", bytes)."""
+    kernel = yuv_kernel(fmt, h, w)
+    moved = yuv.FORMATS[fmt].nbytes(h, w) + 3 * h * w
+    if kernel == "yuv_scaled_rgb24":
+        plan = yuv.scaled_plan(fmt, h, w)
+        moved += 8 * h + (8 * plan.columns if plan.hpos is not None else 0)
+    by_bytes = moved / HBM_BYTES_PER_S * 1e3
+    by_ops = YUV_OPS_PER_PIXEL[kernel] * h * w / INT32_OP_PER_S * 1e3
+    return (by_bytes, "bytes", moved) if by_bytes >= by_ops else (by_ops, "operations", moved)
+
+
+def yuv_check(name: str, fmt: str, planes: tuple, reps: int = 50) -> dict:
+    """yuv_to_rgb24 (on the card: the format's kernel) against its plain
+    version on ``planes`` (bit for bit); on the card also the kernel's
+    device ms (CUDA-graph replay), ms as called, the plain version's
+    CUDA-event ms and the bound. The comparison's launches are not counted:
+    the caller resets the counts."""
+    y = planes[0]
+    h, w = y.shape
+    got = yuv.yuv_to_rgb24(planes, fmt)
+    want = yuv.yuv_to_rgb24_torch(planes, fmt)
+    diff = (got.to(torch.int16) - want.to(torch.int16)).abs()
+    res = {"name": name, "fmt": fmt, "kernel": yuv_kernel(fmt, h, w), "shape": (h, w),
+           "pitch": y.stride(0), "max_abs_err": float(diff.max()),
+           "differing_bytes": int((diff > 0).sum())}
+    if res["max_abs_err"] != 0.0:
+        raise AssertionError(f"{res['kernel']} differs from its plain version on {name}: {res}")
+    res["bound_ms"], res["bound_by"], res["bytes"] = yuv_bound_ms(fmt, h, w)
+    if y.device.type == "cuda":
+        res["ms"] = graph_ms(lambda: yuv.yuv_to_rgb24(planes, fmt), reps)
+        res["called_ms"] = called_ms(lambda: yuv.yuv_to_rgb24(planes, fmt), reps)
+        res["plain_ms"] = cuda_ms(lambda: yuv.yuv_to_rgb24_torch(planes, fmt),
+                                  max(2, reps // 10))
+        res["gb_per_s"] = res["bytes"] / res["ms"] / 1e6
+        res["bound_share"] = res["bound_ms"] / res["ms"]
+    return res
+
+
+def yuv_text(c: dict) -> str:
+    h, w = c["shape"]
+    text = f"{c['fmt']} {w}x{h} ({c['name']}, {c['kernel']}): equal"
+    if "ms" in c:
+        text += (f", {c['ms']:.4f} ms device ({c['bound_share']:.0%} of {c['bound_ms']:.4f}), "
+                 f"{c['called_ms']:.4f} as called, plain {c['plain_ms']:.3f}")
+    return text
+
+
+def yuv_format_checks(h: int, w: int, device: str, reps: int, gen) -> list:
+    """Each planar format's kernel against its plain version on seeded
+    planes at h x w and at YUV_ODD_SIZE, and on the formats of YUV_PITCHED
+    with rows at a pitch of YUV_PITCH samples."""
+    checks = []
+    for fmt in yuv.FORMATS:
+        f = yuv.FORMATS[fmt]
+        for size in ((h, w), YUV_ODD_SIZE):
+            ch, cw = f.chroma_shape(*size)
+            planes = tuple(torch.randint(0, 1 << f.depth, shape, generator=gen).to(f.dtype)
+                           .to(device) for shape in (size, (ch, cw), (ch, cw)))
+            checks.append(yuv_check("seeded", fmt, planes, reps))
+            if size == (h, w) and fmt in YUV_PITCHED:
+                pitched = []
+                for p in planes:
+                    buf = torch.zeros((p.shape[0], max(YUV_PITCH, p.shape[1])), dtype=p.dtype,
+                                      device=device)
+                    buf[:, :p.shape[1]] = p
+                    pitched.append(buf[:, :p.shape[1]])
+                checks.append(yuv_check("pitched", fmt, tuple(pitched), reps))
+    return checks
+
+
+def yuv_reader_runs(frames, info, device: str) -> dict:
+    """DeviceVideoReader of planes in host memory (``planes_decoder``) in
+    each format of YUV_READER_FORMATS: the main phase's first
+    YUV_READER_FRAMES frames as that format's planes, each read frame equal
+    to the plain conversion of its planes, every kernel's launches counted
+    from 0 over the read (the format's kernel once a frame, no other), the
+    read's frames/s and its reader as extract logs it. On the CPU, which
+    has no such reader, the wrapper's plain route stands in (no launch)."""
+    from geotrax_tpu_torch.io.video import DeviceVideoReader, describe_reader
+
+    runs = {}
+    for fmt in YUV_READER_FORMATS:
+        held = frames[:YUV_READER_FRAMES]
+        planes = [rgb_to_planes(torch.as_tensor(f).to(device), fmt) for _, f in held]
+        plain = [yuv.yuv_to_rgb24_torch(p, fmt) for p in planes]
+        for launcher in (*YUV_LAUNCHERS.values(), yuv.nv12_to_rgb24):
+            launcher.launches = 0
+        t0 = time.perf_counter()
+        if device == "cuda":
+            host = [(i, torch.cat([c.reshape(-1) for c in p]).view(torch.uint8).cpu().numpy())
+                    for (i, _), p in zip(held, planes)]
+            t0 = time.perf_counter()
+            with planes_decoder({f"V_{fmt}.mp4": (info, host, fmt)}):
+                reader = DeviceVideoReader(f"V_{fmt}.mp4", stop=len(held), device=device)
+                got = [(i, f) for i, f in reader]
+            torch.cuda.synchronize()
+            said = describe_reader(reader)
+        else:
+            got = [(i, yuv.yuv_to_rgb24(p, fmt)) for (i, _), p in zip(held, planes)]
+            said = "the wrapper's plain route (no DeviceVideoReader on the CPU)"
+        seconds = time.perf_counter() - t0
+        launches = {name: launcher.launches for name, launcher in YUV_LAUNCHERS.items()}
+        launches["nv12_rgb24"] = yuv.nv12_to_rgb24.launches
+        kernel = yuv_kernel(fmt, info.height, info.width)
+        equal = sum(i == j and torch.equal(a, b)
+                    for (i, a), (j, _), b in zip(got, held, plain))
+        want = {name: (len(held) if name == kernel and device == "cuda" else 0)
+                for name in launches}
+        if equal != len(got) or len(got) != len(held) or launches != want:
+            raise AssertionError(f"DeviceVideoReader of {fmt} planes: {equal} of {len(got)} "
+                                 f"frames equal the plain conversion's ({len(held)} held), "
+                                 f"launches {launches}, expected {want}")
+        runs[fmt] = {"kernel": kernel, "frames": len(got), "frames_equal": equal,
+                     "launches": launches[kernel], "fps": len(got) / seconds, "reader": said}
+    return runs
+
+
 def fixture_demux(root: Path) -> dict:
     """The port's demuxer on the committed fixtures: each one's size, frame
     rate and frame count equal to what libavformat's probe reported when
@@ -2596,9 +2793,11 @@ def fixture_demux(root: Path) -> dict:
 
 @contextlib.contextmanager
 def planes_decoder(videos: dict):
-    """The native decoder's probe and plane source (``io/native``)
-    replaced by NV12 planes held in host memory: ``videos`` maps a file
-    name to its (VideoInfo, [(index, flat uint8 numpy buffer)]).
+    """The native decoder's probes and plane sources (``io/native``)
+    replaced by planes held in host memory: ``videos`` maps a file name to
+    its (VideoInfo, [(index, flat uint8 numpy buffer)]) of NV12 planes, or
+    (VideoInfo, [...], format) of planar Y, U, V of a format of
+    ops/yuv.FORMATS (its 10-bit samples' bytes as libav lays them).
     ``DeviceVideoReader`` of a path with that name then reads them as it
     reads a file's, each copied into the pinned buffer it allocates. The
     card's machine has no FFmpeg, so no file reaches this route there."""
@@ -2608,18 +2807,30 @@ def planes_decoder(videos: dict):
         info = videos[Path(path).name][0]
         return info.width, info.height, info.fps, info.frame_count
 
+    def pixel_format(path):
+        entry = videos[Path(path).name]
+        name = entry[2] if len(entry) > 2 else "yuv420p"
+        f = yuv.FORMATS[name]
+        return native.PixelFormat(name, f.depth, f.sx, f.sy, f.full_range, 3, -1)
+
     def frames_yuv(path, alloc):
         for idx, buf in videos[Path(path).name][1]:
             out = alloc(buf.size)
             out.copy_(torch.from_numpy(buf))
             yield idx, out
 
-    replaced = native.native_probe, native.native_frames_yuv
-    native.native_probe, native.native_frames_yuv = probe, frames_yuv
+    def frames_planes(path, fmt, alloc):
+        return frames_yuv(path, alloc)
+
+    names = ("native_probe", "native_frames_yuv", "native_pixel_format", "native_frames_planes")
+    replaced = [getattr(native, name) for name in names]
+    for name, stand_in in zip(names, (probe, frames_yuv, pixel_format, frames_planes)):
+        setattr(native, name, stand_in)
     try:
         yield
     finally:
-        native.native_probe, native.native_frames_yuv = replaced
+        for name, original in zip(names, replaced):
+            setattr(native, name, original)
 
 
 def host_info() -> dict:
@@ -2824,9 +3035,14 @@ def phase_decode(detector, frames, reader, device: str = "cuda", reps: int = 50,
     demuxer on the committed fixtures; (c) the NV12 -> RGB24 kernel exact
     against its plain version on the planes of the first frame (the seeded
     synthetic scene), the same planes with rows at an NVDEC-like pitch,
-    seeded planes at 4K and at NV12_ODD_SIZES, timed at 4K; (d)
-    ``extract`` as users run it (run_extraction, -m ckpt.npz -c default) on
-    the main phase's frames handed over as NV12 planes in host memory,
+    seeded planes at 4K and at NV12_ODD_SIZES, timed at 4K; (c') the planar
+    formats' kernels exact against their plain versions for every format
+    of ops/yuv.FORMATS on seeded planes at the frames' size (timed) and at
+    YUV_ODD_SIZE, and pitched (``yuv_format_checks``), then
+    DeviceVideoReader of the main phase's frames as full-range and 10-bit
+    planes in host memory, each kernel launched once a frame
+    (``yuv_reader_runs``); (d) ``extract`` as users run it (run_extraction,
+    -m ckpt.npz -c default) on the main phase's frames handed over as NV12 planes in host memory,
     read by ``DeviceVideoReader`` in the native decoder's place
     (``planes_decoder``; on the CPU, which has no such reader, tensor
     frames of the wrapper's plain route): the kernel launched once a
@@ -2859,6 +3075,9 @@ def phase_decode(detector, frames, reader, device: str = "cuda", reps: int = 50,
         checks.append(nv12_check("seeded", ys, uvs, reps))
     res["checks"] = checks
     res["max_abs_err"] = max(c["max_abs_err"] for c in checks)
+    # (c') every planar format's kernel, then DeviceVideoReader of its planes
+    res["yuv_checks"] = yuv_format_checks(h, w, device, reps, gen)
+    res["yuv_reads"] = yuv_reader_runs(frames, info, device)
 
     # (d) the extract path: planes in host memory, as the native decoder gives them
     host_planes = [(i, torch.cat([y.reshape(-1), uv.reshape(-1)]).cpu().numpy())
@@ -3041,6 +3260,12 @@ def decode_line(dc: dict, seconds: float, smi: str) -> str:
     runs = dc["runs"]
     text = (f"decode ok {seconds:.1f}s NVDEC probe: {probe}; demuxer == libavformat's probe: "
             f"{demux}; nv12_rgb24 == plain: " + "; ".join(nv12_text(c) for c in dc["checks"])
+            + "; planar formats, kernel == plain: " + "; ".join(yuv_text(c)
+                                                                for c in dc["yuv_checks"])
+            + "; DeviceVideoReader of planes in memory: " + "; ".join(
+                f"{fmt} {r['frames_equal']}/{r['frames']} frames equal to the plain "
+                f"conversion's, {r['launches']} {r['kernel']} launches, {r['fps']:.1f} "
+                f"frames/s ({r['reader']})" for fmt, r in dc["yuv_reads"].items())
             + f"; extract of the main frames in turns, from the plain conversion's RGB frames in "
               f"memory and from NV12 planes in host memory (DeviceVideoReader): "
               f"{runs_text(runs)}, {runs['planes']['checks']['rows']} rows, files byte-equal")
@@ -6895,6 +7120,29 @@ def nv12_entry(dc: dict) -> dict:
             "nvdec": dc["probe"]}
 
 
+def yuv_entries(dc: dict) -> list:
+    """The planar formats' kernels' entries of the JSON line (the decode
+    phase): each one's launches in DeviceVideoReader's read of the format
+    it converts, its numbers on that format's seeded planes at the main
+    phase's size, and every format and shape it was checked on."""
+    entries = []
+    for fmt, run in dc["yuv_reads"].items():
+        kernel = run["kernel"]
+        mine = [c for c in dc["yuv_checks"] if c["kernel"] == kernel]
+        lead = next(c for c in mine if c["fmt"] == fmt and c["name"] == "seeded")
+        entries.append({
+            "name": kernel, "route": "cuda", "source": YUV_SOURCES[kernel],
+            "replaces": NV12_REPLACES, "launches": run["launches"],
+            "max_abs_err": max(c["max_abs_err"] for c in mine), "ms": lead["ms"],
+            "plain_ms": lead["plain_ms"], "bound_ms": lead["bound_ms"],
+            "bound_by": lead["bound_by"], "library_ms": None, "called_ms": lead["called_ms"],
+            "format": fmt, "reader_fps": run["fps"],
+            "shapes": [{k: c.get(k) for k in ("fmt", "name", "shape", "pitch", "ms",
+                                               "called_ms", "plain_ms", "bound_ms",
+                                               "bound_share")} for c in mine]})
+    return entries
+
+
 def multi_entry(mu: dict) -> dict:
     """Phase 16's numbers for the JSON line: no kernel of its own (the
     training step and detection run cuDNN convolutions and torch ops)."""
@@ -7417,6 +7665,8 @@ def main(argv) -> int:
         # the extract path from NV12 planes launches it once a frame; the
         # numbers are the main path's first frame's planes at 4K
         nv12_entry(dc),
+        # DeviceVideoReader of full-range and 10-bit planes launches one each
+        *yuv_entries(dc),
     ], "multi": multi_entry(mu)}
     print(json.dumps(kernels), flush=True)
     print(dev["smi"], flush=True)

@@ -23,7 +23,7 @@ import shutil
 import subprocess
 import sysconfig
 from pathlib import Path
-from typing import Iterator
+from typing import Iterator, NamedTuple
 
 import numpy as np
 
@@ -149,6 +149,12 @@ def load_library() -> ctypes.CDLL:
                                        ctypes.POINTER(ctypes.c_int64)]
     lib.gtx_read_frame_yuv.restype = ctypes.c_int
     lib.gtx_read_frame_yuv.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    lib.gtx_pixel_format.restype = ctypes.c_int
+    lib.gtx_pixel_format.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int,
+                                     ctypes.POINTER(ctypes.c_int)]
+    lib.gtx_read_frame_planes.restype = ctypes.c_int
+    lib.gtx_read_frame_planes.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                                          ctypes.POINTER(ctypes.c_int)]
     lib.gtx_scan_pts.restype = ctypes.c_long
     lib.gtx_scan_pts.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64),
                                  ctypes.POINTER(ctypes.c_int), ctypes.c_long]
@@ -214,6 +220,44 @@ def native_frames(path: str) -> Iterator[tuple[int, np.ndarray]]:
         lib.gtx_close(handle)
 
 
+class PixelFormat(NamedTuple):
+    """A stream's pixel format as libavcodec reports it: libav's name, bits
+    a sample, log2 of the chroma subsampling across and down, whether it is
+    a yuvj format (full range by its name), its planes and its
+    AVPixelFormat value."""
+
+    name: str
+    depth: int
+    log2_chroma_w: int
+    log2_chroma_h: int
+    yuvj: bool
+    planes: int
+    value: int
+
+
+def _pixel_format(lib, handle) -> PixelFormat | None:
+    name = ctypes.create_string_buffer(64)
+    info = (ctypes.c_int * 6)()
+    if lib.gtx_pixel_format(handle, name, len(name), info) != 0:
+        return None
+    return PixelFormat(name.value.decode(), info[0], info[1], info[2], bool(info[3]), info[4],
+                       info[5])
+
+
+def native_pixel_format(path: str) -> PixelFormat | None:
+    """The pixel format of a video's stream once libavformat has probed it
+    (the format its first frame decodes to), or None when the decoder
+    cannot open the file or the format is not known."""
+    lib = load_library()
+    handle = lib.gtx_open(str(path).encode())
+    if not handle:
+        return None
+    try:
+        return _pixel_format(lib, handle)
+    finally:
+        lib.gtx_close(handle)
+
+
 YUV_ERRORS = {-4: "a frame is not yuv420p (8-bit 4:2:0, limited range)",
               -5: "a side of the frame is odd"}
 
@@ -225,7 +269,8 @@ def native_frames_yuv(path: str, alloc=None) -> Iterator[tuple[int, object]]:
     interleaved. ``alloc(nbytes)`` makes each buffer (anything with
     ``data_ptr()``, such as a pinned torch tensor, or a numpy array);
     numpy by default. Raises ``OSError`` on a decode error or a frame that
-    is not 8-bit 4:2:0 limited range with even sides."""
+    is not 8-bit 4:2:0 limited range with even sides (naming the stream's
+    format)."""
     lib = load_library()
     handle = lib.gtx_open(str(path).encode())
     if not handle:
@@ -239,8 +284,58 @@ def native_frames_yuv(path: str, alloc=None) -> Iterator[tuple[int, object]]:
             ptr = buf.data_ptr() if hasattr(buf, "data_ptr") else buf.ctypes.data
             rc = lib.gtx_read_frame_yuv(handle, ptr, ptr + h * w)
             if rc < 0:
-                raise OSError(f"native decoder error {rc} at frame {idx} of {path}"
-                              + (f": {YUV_ERRORS[rc]}" if rc in YUV_ERRORS else ""))
+                said = ""
+                if rc in YUV_ERRORS:
+                    fmt = _pixel_format(lib, handle)
+                    said = (f": {YUV_ERRORS[rc]}; the stream is "
+                            f"{fmt.name if fmt else 'of an unknown format'} at {w}x{h}")
+                raise OSError(f"native decoder error {rc} at frame {idx} of {path}{said}")
+            if rc != 0:
+                break
+            yield idx, buf
+            idx += 1
+    finally:
+        lib.gtx_close(handle)
+
+
+def planes_nbytes(fmt: PixelFormat, height: int, width: int) -> int:
+    """Bytes of one frame of ``native_frames_planes``: Y, then U and V at
+    their subsampled sizes (rounded up), 1 or 2 bytes a sample."""
+    cw, ch = -(-width >> fmt.log2_chroma_w), -(-height >> fmt.log2_chroma_h)
+    return (height * width + 2 * ch * cw) * (1 if fmt.depth <= 8 else 2)
+
+
+def native_frames_planes(path: str, fmt: PixelFormat,
+                         alloc=None) -> Iterator[tuple[int, object]]:
+    """Yield (index, planes) sequentially from the native decoder, each
+    frame's Y, U and V planes before swscale in one flat uint8 buffer of
+    ``planes_nbytes`` bytes (``alloc`` as for ``native_frames_yuv``).
+    ``fmt`` is the stream's probed format (``native_pixel_format``), the
+    one the reference's swscale context is built from: a frame of another
+    format raises ``OSError`` naming both, as does a decode error."""
+    lib = load_library()
+    handle = lib.gtx_open(str(path).encode())
+    if not handle:
+        raise OSError(f"native decoder failed to open {path}")
+    try:
+        h, w = lib.gtx_height(handle), lib.gtx_width(handle)
+        nbytes = planes_nbytes(fmt, h, w)
+        got = ctypes.c_int()
+        idx = 0
+        while True:
+            buf = alloc(nbytes) if alloc is not None else np.empty(nbytes, np.uint8)
+            ptr = buf.data_ptr() if hasattr(buf, "data_ptr") else buf.ctypes.data
+            rc = lib.gtx_read_frame_planes(handle, fmt.value, ptr, ctypes.byref(got))
+            if rc in (-6, -7):
+                now = _pixel_format(lib, handle)
+                now = now.name if now else f"AVPixelFormat {got.value}"
+                raise OSError(f"frame {idx} of {path} is {now}, not planar YUV of 3 planes"
+                              if rc == -7 else
+                              f"frame {idx} of {path} is {now}, not the stream's {fmt.name}: "
+                              "the reference converts every frame with the swscale context "
+                              "of its first frame's format")
+            if rc < 0:
+                raise OSError(f"native decoder error {rc} at frame {idx} of {path}")
             if rc != 0:
                 break
             yield idx, buf

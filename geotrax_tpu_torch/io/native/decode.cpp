@@ -20,6 +20,8 @@
 //   int    gtx_read_frame(void*, uint8_t* rgb_out)  // 0 ok, 1 EOF, <0 error
 //   int    gtx_read_frame_pts(void*, uint8_t* rgb_out, int64_t* pts_out)
 //   int    gtx_read_frame_yuv(void*, uint8_t* y_out, uint8_t* uv_out)  // NV12, no swscale
+//   int    gtx_pixel_format(void*, char* name, int len, int* info)  // the stream's format
+//   int    gtx_read_frame_planes(void*, int format, uint8_t* out, int* got)  // Y, U, V
 //   void   gtx_close(void*)
 //   long   gtx_keyframe_indices(const char* path, long* out, long max_out)
 //   long   gtx_scan_pts(const char* path, int64_t* pts_out, int* key_out,
@@ -29,6 +31,7 @@ extern "C" {
 #include <libavcodec/avcodec.h>
 #include <libavformat/avformat.h>
 #include <libavutil/imgutils.h>
+#include <libavutil/pixdesc.h>
 #include <libswscale/swscale.h>
 }
 
@@ -263,6 +266,70 @@ int gtx_read_frame_yuv(void* h, uint8_t* y_out, uint8_t* uv_out) {
       for (int x = 0; x < w / 2; ++x) {
         out[2 * x] = u[x];
         out[2 * x + 1] = v[x];
+      }
+    }
+  }
+  av_frame_unref(d->frame);
+  return rc;
+}
+
+// The stream's pixel format as libavcodec reports it once the stream is
+// probed (or, after frames, the last frame's): libav's name into name (at
+// most len bytes with its terminator), and into info[0..5] the bits a
+// sample, log2 of the chroma subsampling across and down, 1 for a yuvj
+// format (full range by its name: swscale reads the range from the name
+// alone), the number of planes and the AVPixelFormat value. 0 ok, -1 when
+// the format is not known.
+int gtx_pixel_format(void* h, char* name, int len, int* info) {
+  const AVPixelFormat fmt = static_cast<Decoder*>(h)->codec->pix_fmt;
+  const AVPixFmtDescriptor* desc = av_pix_fmt_desc_get(fmt);
+  if (fmt == AV_PIX_FMT_NONE || !desc || len <= 0) return -1;
+  std::strncpy(name, desc->name, len - 1);
+  name[len - 1] = 0;
+  info[0] = desc->comp[0].depth;
+  info[1] = desc->log2_chroma_w;
+  info[2] = desc->log2_chroma_h;
+  info[3] = fmt == AV_PIX_FMT_YUVJ420P || fmt == AV_PIX_FMT_YUVJ422P ||
+            fmt == AV_PIX_FMT_YUVJ444P || fmt == AV_PIX_FMT_YUVJ440P ||
+            fmt == AV_PIX_FMT_YUVJ411P;
+  info[4] = av_pix_fmt_count_planes(fmt);
+  info[5] = static_cast<int>(fmt);
+  return 0;
+}
+
+// The next frame's Y, U and V planes as the decoder gives them, before
+// swscale, one after the other into out: Y (height rows of width samples),
+// then U, then V (each height >> log2_chroma_h rows of width >>
+// log2_chroma_w samples, both rounded up), samples of 1 byte (8-bit) or 2
+// (9 to 16 bits, libav's words as they lie in memory), rows without
+// padding. format is the AVPixelFormat the caller sized out for (the
+// stream's first frame's, from which the reference builds its swscale
+// context); *got receives the frame's. 0 ok, 1 EOF, -1 decode error, -6
+// when the frame's format is not format, -7 when it is not planar YUV of 3
+// planes.
+int gtx_read_frame_planes(void* h, int format, uint8_t* out, int* got) {
+  Decoder* d = static_cast<Decoder*>(h);
+  int rc = next_frame(d, nullptr);
+  if (rc != 0) return rc;
+  const AVFrame* f = d->frame;
+  *got = f->format;
+  const AVPixFmtDescriptor* desc = av_pix_fmt_desc_get(static_cast<AVPixelFormat>(f->format));
+  if (f->format != format) {
+    rc = -6;
+  } else if (!desc || av_pix_fmt_count_planes(static_cast<AVPixelFormat>(f->format)) != 3 ||
+             (desc->flags & (AV_PIX_FMT_FLAG_RGB | AV_PIX_FMT_FLAG_PAL | AV_PIX_FMT_FLAG_BE))) {
+    rc = -7;
+  } else {
+    const int w = d->codec->width, hh = d->codec->height;
+    const int bytes = desc->comp[0].depth > 8 ? 2 : 1;
+    const int cw = -((-w) >> desc->log2_chroma_w), ch = -((-hh) >> desc->log2_chroma_h);
+    uint8_t* dst = out;
+    for (int p = 0; p < 3; ++p) {
+      const int rows = p ? ch : hh;
+      const size_t row = static_cast<size_t>(p ? cw : w) * bytes;
+      for (int y = 0; y < rows; ++y) {
+        std::memcpy(dst, f->data[p] + static_cast<size_t>(y) * f->linesize[p], row);
+        dst += row;
       }
     }
   }

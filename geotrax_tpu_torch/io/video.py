@@ -15,10 +15,11 @@ The port's copy of ``geotrax_tpu/io/video.py``:
 
 Frames are numpy uint8 HxWx3 in RGB order. ``VideoReader`` decodes in a
 background thread that keeps a few frames ahead of the consumer;
-``DeviceVideoReader`` (``make_reader`` with a CUDA ``device`` and the
-native backend) decodes to the planes before swscale, uploads them and
-converts them on the card (``ops/yuv.py``), its frames uint8 tensors there
-equal to ``VideoReader``'s bit for bit;
+``DeviceVideoReader`` (``make_reader`` with a CUDA ``device``, the
+native backend and a pixel format of ``ops/yuv.FORMATS``) decodes to the
+planes before swscale, uploads them and converts them on the card
+(``ops/yuv.py``), its frames uint8 tensors there equal to
+``VideoReader``'s bit for bit;
 ``ParallelVideoReader`` decodes disjoint GOP-aligned segments of one video
 in several threads, on either backend: each segment through a native
 decoder of its own, its frames located by the packet scan's pts map, or
@@ -335,46 +336,90 @@ class VideoReader:
         self._finished = True
 
 
+def card_format(path: Path | str):
+    """(the stream's pixel format as the native decoder probes it, or None;
+    its ``ops/yuv.FORMATS`` entry where the card converts it, else None)."""
+    from geotrax_tpu_torch.io import native
+    from geotrax_tpu_torch.ops import yuv
+
+    probed = native.native_pixel_format(str(path))
+    return probed, (yuv.FORMATS.get(probed.name) if probed is not None else None)
+
+
 class DeviceVideoReader(VideoReader):
     """``VideoReader`` whose frames are converted on a card: the native
-    decoder gives each frame's NV12 planes before swscale
-    (``gtx_read_frame_yuv``, into pinned host memory), the background thread
-    uploads them on a stream of its own (1.5 bytes a pixel instead of RGB's
-    3) and converts them there with ``ops/yuv.nv12_to_rgb24``, one kernel
-    launch a frame. Frames are (H, W, 3) uint8 tensors on the CUDA
-    ``device``, equal to ``VideoReader``'s bit for bit, ready on the stream
-    that is current when the consumer takes them (it waits for the frame's
-    event, and the frame's memory is kept for it)."""
+    decoder gives each frame's planes before swscale (into pinned host
+    memory), the background thread uploads them on a stream of its own
+    and converts them there, one kernel launch a frame, by the kernel
+    whose arithmetic is the reference's swscale call for the stream's
+    format (``ops/yuv.py``): 8-bit 4:2:0 limited range with even sides as
+    NV12 planes (``gtx_read_frame_yuv``, 1.5 bytes a pixel) through
+    ``nv12_to_rgb24``; the other formats of ``ops/yuv.FORMATS`` as planar
+    Y, U, V (``gtx_read_frame_planes``) through ``yuv_to_rgb24``. The
+    format is probed when the file is opened (``pixel_format``,
+    ``converter`` names the kernel); a format outside the set raises
+    ``ValueError`` (``make_reader`` hands such a file to ``VideoReader``),
+    and a frame of another format than the probed one ``OSError``. Frames are
+    (H, W, 3) uint8 tensors on the CUDA ``device``, equal to
+    ``VideoReader``'s bit for bit, ready on the stream that is current when
+    the consumer takes them (it waits for the frame's event, and the
+    frame's memory is kept for it)."""
 
     def __init__(self, path: Path | str, start: int = 0, stop: Optional[int] = None,
                  prefetch: int = 4, device="cuda"):
         import torch
+
+        from geotrax_tpu_torch.ops import yuv
 
         self.device = torch.device(device)
         if self.device.type != "cuda":
             raise ValueError(f"DeviceVideoReader converts on a card, not on {self.device}")
         self._stream = None
         super().__init__(path, start=start, stop=stop, prefetch=prefetch, backend="native")
+        self.pixel_format, self.format = card_format(self.path)
+        if self.format is None:
+            name = self.pixel_format.name if self.pixel_format else "an unknown pixel format"
+            raise ValueError(f"DeviceVideoReader converts {', '.join(yuv.FORMATS)} on the card; "
+                             f"{self.path} is {name}: read it through VideoReader (swscale on "
+                             "the host, as the reference)")
+        h, w = self.info.height, self.info.width
+        self.nv12 = self.format.name == "yuv420p" and h % 2 == 0 and w % 2 == 0
+        self.converter = ("nv12_rgb24" if self.nv12 else yuv.UNSCALED_KERNEL
+                          if yuv.route(self.format, h, w) == "unscaled" else yuv.SCALED_KERNEL)
 
     def _source(self):
         import torch
 
-        from geotrax_tpu_torch.io.native import native_frames_yuv
+        from geotrax_tpu_torch.io import native
 
-        return native_frames_yuv(self.path, lambda n: torch.empty(n, dtype=torch.uint8,
-                                                                  pin_memory=True))
+        def pinned(n):
+            return torch.empty(n, dtype=torch.uint8, pin_memory=True)
+
+        if self.nv12:
+            return native.native_frames_yuv(self.path, pinned)
+        return native.native_frames_planes(self.path, self.pixel_format, pinned)
 
     def _prepare(self, idx: int, planes):
         import torch
 
-        from geotrax_tpu_torch.ops.yuv import nv12_to_rgb24
+        from geotrax_tpu_torch.ops.yuv import nv12_to_rgb24, yuv_to_rgb24
 
         h, w = self.info.height, self.info.width
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
         with torch.cuda.stream(self._stream):
             dev = planes.to(self.device, non_blocking=True)
-            frame = nv12_to_rgb24(dev[:h * w].view(h, w), dev[h * w:].view(h // 2, w))
+            if self.nv12:
+                frame = nv12_to_rgb24(dev[:h * w].view(h, w), dev[h * w:].view(h // 2, w))
+            else:
+                fmt = self.format
+                if fmt.dtype != torch.uint8:
+                    dev = dev.view(fmt.dtype)
+                ch, cw = fmt.chroma_shape(h, w)
+                y = dev[:h * w].view(h, w)
+                u = dev[h * w:h * w + ch * cw].view(ch, cw)
+                v = dev[h * w + ch * cw:].view(ch, cw)
+                frame = yuv_to_rgb24((y, u, v), fmt)
             ready = torch.cuda.Event()
             ready.record(self._stream)
         return idx, frame, ready
@@ -562,8 +607,13 @@ def make_reader(path: Path | str, start: int = 0, stop: Optional[int] = None, pr
     either backend: the native decoder's packet scan, or for cv2 (the card's
     machine, which has no FFmpeg libraries) the port's MP4 frame table;
     else, for a CUDA ``device`` and the native backend,
-    ``DeviceVideoReader`` (frames converted on the card); the sequential
-    ``VideoReader`` otherwise (cv2's frames reach the card from the host).
+    ``DeviceVideoReader`` (frames converted on the card) where the stream's
+    probed pixel format is one the card converts (``ops/yuv.FORMATS``), and
+    for any other format (gray, 12-bit, alpha, packed RGB...) ``VideoReader``,
+    whose swscale on the host converts it as the reference's does, with the
+    probed format in its ``pixel_format``; the sequential ``VideoReader``
+    otherwise (cv2's frames reach the card from the host). The choice is
+    made once, here, from the probe: never on a failure.
     The default stays sequential, as the reference's: on a host with one
     core the parallel reader's seek warm-up per segment costs more than it
     wins, and one cv2 capture already decodes on every core."""
@@ -578,7 +628,13 @@ def make_reader(path: Path | str, start: int = 0, stop: Optional[int] = None, pr
         except (ValueError, OSError):
             pass
     if native and device is not None and str(device).startswith("cuda"):
-        return DeviceVideoReader(path, start=start, stop=stop, prefetch=prefetch, device=device)
+        probed, fmt = card_format(path)
+        if fmt is not None:
+            return DeviceVideoReader(path, start=start, stop=stop, prefetch=prefetch,
+                                     device=device)
+        reader = VideoReader(path, start=start, stop=stop, prefetch=prefetch, backend=backend)
+        reader.pixel_format = probed
+        return reader
     return VideoReader(path, start=start, stop=stop, prefetch=prefetch, backend=backend)
 
 
@@ -592,7 +648,14 @@ def describe_reader(reader) -> str:
     if backend is None:
         return type(reader).__name__
     threads = "cv2's own codec threads" if backend == "cv2" else "libavcodec's own codec threads"
-    return f"{type(reader).__name__} ({backend} backend, 1 worker, {threads})"
+    text = f"{type(reader).__name__} ({backend} backend, 1 worker, {threads}"
+    fmt = getattr(reader, "pixel_format", None)
+    if isinstance(reader, DeviceVideoReader):
+        text += (f"; {fmt.name} {reader.info.width}x{reader.info.height} converted on the card "
+                 f"by {reader.converter}")
+    elif fmt is not None:
+        text += f"; {fmt.name}, a format the card does not convert: swscale on the host"
+    return text + ")"
 
 
 ENCODER_LIBRARIES = ("g++ and FFmpeg's libavformat, libavcodec, libavutil and libswscale "

@@ -1656,6 +1656,145 @@ def test_nv12_kernel_refusals():
         yuv.nv12_to_rgb24(y.to(torch.int16), uv.to(torch.int16))
 
 
+YUV_FORMATS = ("yuv420p", "yuvj420p", "yuv422p", "yuvj422p", "yuv444p", "yuvj444p",
+               "yuv420p10le", "yuv422p10le", "yuv444p10le")
+
+
+def _seeded_yuv(fmt, h, w, seed, device="cuda"):
+    from geotrax_tpu_torch.ops import yuv
+
+    f = yuv.FORMATS[fmt]
+    gen = torch.Generator().manual_seed(seed)
+    ch, cw = f.chroma_shape(h, w)
+    return tuple(torch.randint(0, 1 << f.depth, shape, generator=gen).to(f.dtype).to(device)
+                 for shape in ((h, w), (ch, cw), (ch, cw)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", YUV_FORMATS)
+# 4K, odd sides (the scaler for 4:2:x, its chroma filter across), a width of 2 mod 4,
+# 4:2:x's unwritten-tail widths (w % 16 in 1..7), tiny frames
+@pytest.mark.parametrize("size", [(2160, 3840), (1081, 1919), (1082, 1922), (36, 50),
+                                  (47, 63), (2, 2), (1, 1)])
+def test_yuv_kernels_equal_plain_on_card(fmt, size):
+    _need_card()
+    from geotrax_tpu_torch.ops import yuv
+
+    planes = _seeded_yuv(fmt, *size, seed=size[0] * size[1] + len(fmt))
+    launcher = (yuv.yuv_unscaled_to_rgb24 if yuv.route(fmt, *size) == "unscaled"
+                else yuv.yuv_scaled_to_rgb24)
+    before = launcher.launches
+    got = yuv.yuv_to_rgb24(planes, fmt)
+    assert launcher.launches == before + 1
+    assert got.shape == (*size, 3) and got.is_contiguous()
+    assert torch.equal(got, yuv.yuv_to_rgb24_torch(planes, fmt))
+    assert torch.equal(got.cpu(), yuv.yuv_to_rgb24_torch(tuple(p.cpu() for p in planes), fmt))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", YUV_FORMATS)
+# a pitch of 4096 samples, one that misaligns every other row, an offset base
+@pytest.mark.parametrize("pitch,offset", [(4096, 0), (1923, 0), (1920, 1)])
+def test_yuv_kernels_read_rows_at_a_pitch(fmt, pitch, offset):
+    _need_card()
+    from geotrax_tpu_torch.ops import yuv
+
+    h, w = 1080, 1920
+    planes = _seeded_yuv(fmt, h, w, seed=pitch + offset)
+    pitched = []
+    for plane in planes:
+        rows, cols = plane.shape
+        flat = torch.zeros(offset + pitch * rows, dtype=plane.dtype, device="cuda")
+        buf = flat[offset:].view(rows, pitch)
+        buf[:, :cols] = plane
+        pitched.append(buf[:, :cols])
+    got = yuv.yuv_to_rgb24(tuple(pitched), fmt)
+    assert torch.equal(got, yuv.yuv_to_rgb24_torch(planes, fmt))
+
+
+@pytest.mark.gpu
+def test_yuv_kernel_refusals():
+    _need_card()
+    from geotrax_tpu_torch.ops import yuv
+
+    y, u, v = _seeded_yuv("yuv420p10le", 8, 12, seed=1)
+    with pytest.raises(ValueError):
+        yuv.yuv_to_rgb24((y, u.cpu(), v), "yuv420p10le")          # planes on two devices
+    with pytest.raises(ValueError):
+        yuv.yuv_to_rgb24((y[:, ::2], u[:, ::2], v[:, ::2]), "yuv420p10le")  # rows not contiguous
+    with pytest.raises(TypeError):
+        yuv.yuv_to_rgb24((y, u, v), "yuv420p")                     # 16-bit samples as 8-bit
+    wide = torch.zeros((4, 16), dtype=torch.int16, device="cuda")
+    with pytest.raises(ValueError):
+        yuv.yuv_scaled_to_rgb24(y, u, wide[:, :6], "yuv420p10le")  # U and V at two pitches
+    y8, u8, v8 = _seeded_yuv("yuv422p", 8, 12, seed=2)
+    with pytest.raises(ValueError):
+        yuv.yuv_unscaled_to_rgb24(y8[:7], u8[:7], v8[:7], "yuv422p")  # odd height: the scaler
+
+
+@pytest.mark.gpu
+def test_yuv_kernels_in_a_cuda_graph():
+    """One call of each kernel captured in a CUDA graph (the plan's tables
+    uploaded before) and replayed on new planes copied into its inputs."""
+    _need_card()
+    from geotrax_tpu_torch.ops import yuv
+
+    for fmt in ("yuvj422p", "yuv420p10le", "yuv444p"):
+        planes = _seeded_yuv(fmt, 1081 if fmt == "yuv444p" else 1080, 1920, seed=3)
+        yuv.yuv_to_rgb24(planes, fmt)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = yuv.yuv_to_rgb24(planes, fmt)
+        fresh = _seeded_yuv(fmt, *planes[0].shape, seed=4)
+        for dst, src in zip(planes, fresh):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, yuv.yuv_to_rgb24_torch(fresh, fmt))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", YUV_FORMATS)
+@pytest.mark.parametrize("size", [(240, 320), (239, 319)])
+def test_device_reader_reads_each_format_on_card(fmt, size):
+    """DeviceVideoReader over planar planes of ``fmt`` in host memory
+    (chip_smoke.planes_decoder with the format): each frame the plain
+    conversion's, one launch a frame of the format's kernel (NV12's for
+    8-bit 4:2:0 limited range with even sides, from NV12 planes)."""
+    _need_card()
+    import chip_smoke
+    from geotrax_tpu_torch.io.synthetic import SyntheticVideoReader
+    from geotrax_tpu_torch.io.video import DeviceVideoReader, describe_reader
+    from geotrax_tpu_torch.ops import yuv
+
+    h, w = size
+    scene = SyntheticVideoReader(width=w, height=h, n_frames=6, camera=(0.5, -0.3, 0.2, 1.002))
+    held, plain = [], []
+    nv12 = fmt == "yuv420p" and h % 2 == 0 and w % 2 == 0
+    for i, frame in scene:
+        if nv12:
+            y, uv = chip_smoke.rgb_to_nv12(torch.as_tensor(frame))
+            held.append((i, torch.cat([y.reshape(-1), uv.reshape(-1)]).numpy()))
+            plain.append(yuv.nv12_to_rgb24_torch(y, uv))
+        else:
+            planes = chip_smoke.rgb_to_planes(torch.as_tensor(frame), fmt)
+            held.append((i, torch.cat([p.reshape(-1) for p in planes]).view(torch.uint8).numpy()))
+            plain.append(yuv.yuv_to_rgb24_torch(planes, fmt))
+    kernel = "nv12_rgb24" if nv12 else chip_smoke.yuv_kernel(fmt, h, w)
+    launchers = {"nv12_rgb24": yuv.nv12_to_rgb24, **chip_smoke.YUV_LAUNCHERS}
+    for launcher in launchers.values():
+        launcher.launches = 0
+    with chip_smoke.planes_decoder({"clip.mp4": (scene.info, held, fmt)}):
+        reader = DeviceVideoReader("clip.mp4", device="cuda")
+        got = [(i, f.cpu()) for i, f in reader]
+    assert reader.converter == kernel and kernel in describe_reader(reader)
+    assert [i for i, _ in got] == list(range(6))
+    assert all(torch.equal(a, b) for (_, a), b in zip(got, plain))
+    assert {k: f.launches for k, f in launchers.items()} == {
+        k: (6 if k == kernel else 0) for k in launchers}
+
+
 def _nv12_video(reader) -> tuple:
     """``reader``'s frames as flat NV12 planes in host memory, as the native
     decoder gives them, and their plain conversion to RGB as numpy."""

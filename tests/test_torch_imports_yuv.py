@@ -8,7 +8,8 @@ tensor frames (CPU tensors stand in for the card's) write the same rows,
 byte for byte, as given numpy frames, and so does the lockstep driver
 (batch --parallel-videos); and chip_smoke.phase_decode on the
 CPU at a small size in a subprocess under the import guard of
-tests/test_torch_imports.py (its part (f): tests/test_torch_imports_workers.py)."""
+tests/test_torch_imports.py, its planar formats' checks and reads among
+them (its part (f): tests/test_torch_imports_workers.py)."""
 
 import subprocess
 import sys
@@ -52,6 +53,15 @@ assert dc["checks"][1]["pitch"] == (4096, 4096) and "ms" not in dc["checks"][0]
 assert dc["checks"][0]["bound_by"] == "bytes", dc["checks"][0]
 demux = dc["demux"]
 assert demux["h264_4k"]["frame_count"] == 40 and demux["hevc_4k"]["codec"] == "hevc", demux
+checks = dc["yuv_checks"]  # every planar format at the frames' size and the odd one, 2 pitched
+assert len(checks) == 2 * len(chip_smoke.yuv.FORMATS) + 2, [c["name"] for c in checks]
+assert all(c["max_abs_err"] == 0.0 and "ms" not in c for c in checks), checks
+assert {c["kernel"] for c in checks} == {"yuv_rgb24", "yuv_scaled_rgb24"}, checks
+assert [c["fmt"] for c in checks if c["name"] == "pitched"] == list(chip_smoke.YUV_PITCHED)
+assert {c["shape"] for c in checks} == {(288, 512), chip_smoke.YUV_ODD_SIZE}, checks
+reads = dc["yuv_reads"]
+assert [(f, r["kernel"], r["frames_equal"], r["launches"]) for f, r in reads.items()] == [
+    ("yuvj420p", "yuv_rgb24", 6, 0), ("yuv420p10le", "yuv_scaled_rgb24", 6, 0)], reads
 runs = dc["runs"]
 assert runs["planes"]["launches"] == runs["memory"]["launches"] == [0], runs
 assert runs["planes"]["bytes"] == runs["memory"]["bytes"] > 0 and len(runs["planes"]["fps"]) == 1
@@ -61,6 +71,7 @@ assert f["frames_equal"] == f["frames"] == 6 and f["checks"]["camera_err_px"] < 
 assert f["runs"]["file"]["bytes"] == f["runs"]["memory"]["bytes"] and f["decode_fps"] > 0, f
 line = chip_smoke.decode_line(dc, 1.0, "cpu")
 assert line.startswith("decode ok") and "files byte-equal" in line, line
+assert "yuv444p10le 1919x1081 (seeded, yuv_scaled_rgb24): equal" in line, line
 ''' + EPILOGUE
 
 
